@@ -21,6 +21,15 @@ def pow2_bucket(n: int, floor: int = 8) -> int:
     return max(floor, 1 << max(n - 1, 1).bit_length())
 
 
+def half_pow2_bucket(n: int, floor: int = 8) -> int:
+    """Smallest value >= n of the form 2^k or 1.5 * 2^k (min ``floor``):
+    the signature path's row and slot buckets.  The JAX package pads with
+    exactly these buckets, so the slot layouts of the two packages are
+    identical and comparable."""
+    p = pow2_bucket(n, floor)
+    return p - p // 4 if n <= p - p // 4 and p - p // 4 >= floor else p
+
+
 def pad_cols(a: np.ndarray, width: int) -> np.ndarray:
     """Zero-pad the second axis out to `width` (conditions are [n_cond, B];
     regex matrices are [W, E])."""
@@ -60,6 +69,15 @@ def tables_from_numpy(arrays: dict, device, keys=None
     the ones the consumer reads (all of them when None)."""
     names = arrays if keys is None else keys
     return {k: _tensor(np.asarray(arrays[k]), device) for k in names}
+
+
+def stacked_from_numpy(arrays: list[dict], device, keys
+                       ) -> dict[str, torch.Tensor]:
+    """Per-signature subtrees (numpy dicts, already padded to one shape)
+    -> ``[G, ...]`` device tensors of the arrays named in ``keys``: the
+    signature path's stacked varying tables."""
+    return {k: _tensor(np.stack([np.asarray(a[k]) for a in arrays]), device)
+            for k in keys}
 
 
 def batch_from_numpy(batch, device, keys=None

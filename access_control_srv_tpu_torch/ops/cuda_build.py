@@ -2,8 +2,9 @@
 
 Each source compiles with ``nvcc`` into a shared library with a plain C
 interface under ``access_control_srv_tpu_torch/_build/`` and is loaded with
-``ctypes``.  The library name carries a hash of its source, so an edited
-source builds anew and a stale library is never loaded.  A failed build
+``ctypes``.  The library name carries a hash of its source and of every
+header in ``csrc/`` (``*.cuh``, which the sources share), so an edited
+source or header builds anew and a stale library is never loaded.  A failed build
 raises with nvcc's stderr; nothing falls back to another path.
 
 ``build(names)`` starts one nvcc per stale source, all at once, and waits
@@ -47,10 +48,12 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+def _library_path(name: str, csrc: Path = CSRC) -> Path:
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names) -> None:

@@ -1,4 +1,4 @@
-"""The dense batched decision kernel of the port.
+"""The port's decision kernels and their launch wrappers.
 
 ``DecisionKernel`` keeps the JAX package's API (``evaluate``,
 ``evaluate_async`` returning a materialize thunk, the pow2 batch bucket and
@@ -7,6 +7,13 @@ call of ``decide_dense``: on CUDA tensors that launches the hand-written
 kernel ``ops/csrc/decide_dense.cu``; on CPU tensors it runs the plain
 PyTorch version ``ops/kernel_ref.decide_dense_ref``.  A build or launch
 failure on the card raises; nothing gives way to the plain version there.
+
+The signature path's three kernels (``ops/prefilter.PrefilteredKernel``)
+are wrapped here the same way: ``sig_planes`` (``csrc/sig_planes.cu``),
+``sig_decide`` (``csrc/sig_decide.cu``) and ``decide_grouped``
+(``csrc/decide_grouped.cu``), with plain versions in
+``ops/prefilter_ref.py``.  Every wrapper checks its library's argument
+layout string when it loads and counts its launches in ``LAUNCHES``.
 
 Not ported yet, and refused with ``NotImplementedError``: trees whose
 targets carry relation paths (the ReBAC relation planes) and the explain
@@ -31,15 +38,23 @@ from .carry import (
 from .compile import CompiledPolicies
 from .encode import RequestBatch
 from .kernel_ref import BIG, decide_dense_ref
+from .prefilter_ref import (
+    decide_grouped_ref,
+    plane_names,
+    sig_decide_ref,
+    sig_planes_ref,
+)
 
 __all__ = [
-    "BIG", "DecisionKernel", "LAUNCHES", "decide_dense", "lead_padding",
-    "pack_rule_key", "pad_cols", "pow2_bucket", "resolve_device",
-    "tree_needs_hr", "tree_needs_rel", "unpack_rule_key",
+    "BIG", "DecisionKernel", "LAUNCHES", "decide_dense", "decide_grouped",
+    "lead_padding", "pack_rule_key", "pad_cols", "pow2_bucket",
+    "resolve_device", "sig_decide", "sig_planes", "tree_needs_hr",
+    "tree_needs_rel", "unpack_rule_key",
 ]
 
 # kernel launches per wrapper, counted where the wrapper launches
-LAUNCHES = {"decide_dense": 0}
+LAUNCHES = {"decide_dense": 0, "sig_planes": 0, "sig_decide": 0,
+            "decide_grouped": 0}
 
 # the argument order of csrc/decide_dense.cu (checked against the
 # library's own layout string when it loads)
@@ -116,48 +131,121 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-_lib = None
+# the argument order of csrc/sig_planes.cu: the stacked varying tables it
+# reads, the shared policy arrays, the pseudo-requests, the planes (HR
+# planes last, null without HR) and three scratch arrays
+SIG_PLANES_INPUTS = (
+    "t_n_subjects", "t_role", "t_has_role", "t_has_scoping", "t_hr_check",
+    "t_skip_acl", "t_sub_ids", "t_sub_vals", "t_act_ids", "t_act_vals",
+    "t_ent_vals", "t_ent_w", "t_ent_tails", "t_op_vals", "t_prop_vals",
+    "t_prop_sfx", "t_has_props", "t_n_res", "t_rs_idx",
+    "rule_effect", "rule_target", "pol_target", "set_target",
+    "pol_valid", "pol_effect", "pol_has_props", "pol_ent_vals",
+)
+SIG_PSEUDO = (
+    "r_act_ids", "r_act_vals", "r_ent_vals", "r_ent_e", "r_ent_valid",
+    "r_prop_vals", "r_prop_sfx", "r_prop_run", "r_prop_tail", "r_op_vals",
+    "r_has_props", "rgx_set", "pfx_neq",
+)
+SIG_SCRATCH = ("comp_bits", "comp_collect", "comp_op")
+SIG_PLANES_PTRS = SIG_PLANES_INPUTS + SIG_PSEUDO + plane_names(True) \
+    + SIG_SCRATCH
+SIG_PLANES_DIMS = ("G", "T", "S", "KP", "KR", "KS", "KA", "KE", "KO", "KPR",
+                   "NACT", "NR", "NP", "NOP", "W", "E")
+
+# the argument order of csrc/sig_decide.cu
+SIG_DECIDE_INV = (
+    "acl_consts", "set_valid", "set_ca", "set_has_target", "pol_valid",
+    "pol_ca", "pol_effect", "pol_cacheable", "pol_has_target",
+    "pol_has_subjects", "pol_n_rules", "pol_eff_ctx",
+)
+SIG_DECIDE_CS = (
+    "rule_valid", "rule_effect", "rule_cacheable_raw", "rule_cacheable_eff",
+    "rule_has_target", "rule_cond",
+)
+SIG_DECIDE_MAPS = ("slot_g", "mega_rows", "grid2row", "gp_orig")
+SIG_DECIDE_PTRS = SIG_DECIDE_INV + SIG_DECIDE_CS + plane_names(True) \
+    + SIG_DECIDE_MAPS + OUTPUTS
+# the packed row's columns the kernel reads, by the offset dim naming them
+SIG_ROW_OFFSETS = (
+    ("O_SUB_IDS", "r_sub_ids"), ("O_SUB_VALS", "r_sub_vals"),
+    ("O_ROLES", "r_roles"), ("O_ACT_IDS", "r_act_ids"),
+    ("O_ACT_VALS", "r_act_vals"), ("O_N_ENT_ATTRS", "r_n_entity_attrs"),
+    ("O_N_RA", "r_n_ra"), ("O_ACL_SHORT", "r_acl_short"),
+    ("O_CTX_PRESENT", "r_ctx_present"), ("O_OWN_RUNS", "r_own_runs"),
+    ("O_OWN_BITS", "r_own_bits"), ("O_COND_TRUE", "cond_true"),
+    ("O_COND_ABORT", "cond_abort"), ("O_COND_CODE", "cond_code"),
+)
+SIG_DECIDE_DIMS = (
+    "NSLOT", "R", "S", "KP", "KR", "KS", "NR", "NOP", "WROW", "NSUB",
+    "NROLE", "NACT", "NRU", "NWORDS", "C",
+) + tuple(o for o, _ in SIG_ROW_OFFSETS) + ("NEEDS_PAIRS",)
+
+_libs: dict = {}
 
 
-def _library():
-    global _lib
-    if _lib is None:
+def _library(name: str, ptr_names: tuple, dim_names: tuple, flags: int):
+    """The loaded library of ``csrc/<name>.cu`` (built first if needed),
+    its entry point typed as (ptrs, n_ptrs, dims, n_dims, ``flags`` ints,
+    threads, stream) and its argument layout checked against the host's
+    (``ptr,...,|dim,...,``)."""
+    lib = _libs.get(name)
+    if lib is None:
         from . import cuda_build
 
-        lib = cuda_build.load("decide_dense")
-        lib.acs_decide_dense_layout.restype = ctypes.c_char_p
-        lib.acs_decide_dense_smem.restype = ctypes.c_longlong
-        lib.acs_decide_dense_smem.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ]
-        lib.acs_decide_dense.restype = ctypes.c_int
-        lib.acs_decide_dense.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.acs_max_smem_optin.restype = ctypes.c_int
+        lib = cuda_build.load(name)
+        layout = getattr(lib, f"acs_{name}_layout")
+        layout.restype = ctypes.c_char_p
+        entry = getattr(lib, f"acs_{name}")
+        entry.restype = ctypes.c_int
+        entry.argtypes = (
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+            + [ctypes.c_int] * (flags + 1) + [ctypes.c_void_p]
+        )
         lib.acs_cuda_error_string.restype = ctypes.c_char_p
         lib.acs_cuda_error_string.argtypes = [ctypes.c_int]
-        names = TABLE_ARRAYS + ROW_ARRAYS + BATCH_ARRAYS + OUTPUTS
-        want = ",".join(names) + ",|" + ",".join(DIMS) + ","
-        have = lib.acs_decide_dense_layout().decode()
+        want = ",".join(ptr_names) + ",|" + ",".join(dim_names) + ","
+        have = layout().decode()
         if have != want:
             raise RuntimeError(
-                "decide_dense.cu argument layout differs from the host's:\n"
+                f"{name}.cu argument layout differs from the host's:\n"
                 f"  library: {have}\n  host:    {want}"
             )
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return lib
+
+
+def _dense_library(name: str):
+    """``decide_dense`` or ``decide_grouped``: the dense program's
+    layout, plus its shared-memory sizing entry point."""
+    extra = ("g_idx",) if name == "decide_grouped" else ()
+    lib = _library(name, TABLE_ARRAYS + ROW_ARRAYS + BATCH_ARRAYS + OUTPUTS
+                   + extra, DIMS, 2)
+    smem = getattr(lib, f"acs_{name}_smem")
+    smem.restype = ctypes.c_longlong
+    smem.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    lib.acs_max_smem_optin.restype = ctypes.c_int
+    return lib
+
+
+def _check_launch(name: str, lib, code: int) -> None:
+    if code != 0:
+        msg = ("argument count mismatch" if code < 0
+               else lib.acs_cuda_error_string(code).decode())
+        raise RuntimeError(f"{name} launch failed ({code}): {msg}")
+    LAUNCHES[name] += 1
 
 
 def _dims(c: dict, r: dict) -> dict[str, int]:
-    S, KP, KR = c["rule_valid"].shape
+    """The dense program's shape ints; the tables may carry a leading
+    group axis (``decide_grouped``'s stacked subtrees)."""
+    S, KP, KR = c["rule_valid"].shape[-3:]
     return {
-        "B": r["r_n_ra"].shape[0], "T": c["t_role"].shape[0],
+        "B": r["r_n_ra"].shape[0], "T": c["t_role"].shape[-1],
         "S": S, "KP": KP, "KR": KR,
-        "KS": c["t_sub_ids"].shape[1], "KA": c["t_act_ids"].shape[1],
-        "KE": c["t_ent_vals"].shape[1], "KO": c["t_op_vals"].shape[1],
-        "KPR": c["t_prop_vals"].shape[1],
+        "KS": c["t_sub_ids"].shape[-1], "KA": c["t_act_ids"].shape[-1],
+        "KE": c["t_ent_vals"].shape[-1], "KO": c["t_op_vals"].shape[-1],
+        "KPR": c["t_prop_vals"].shape[-1],
         "NSUB": r["r_sub_ids"].shape[1], "NROLE": r["r_roles"].shape[1],
         "NACT": r["r_act_ids"].shape[1], "NR": r["r_ent_vals"].shape[1],
         "NP": r["r_prop_vals"].shape[1], "NOP": r["r_op_vals"].shape[1],
@@ -187,61 +275,70 @@ class LaunchArgs(NamedTuple):
     threads: int
 
 
-def pack_args(c: dict, r: dict) -> LaunchArgs:
+def _c_ptrs(name: str, named: list, dev) -> list[int]:
+    """Device pointers of (name, tensor or None) pairs after checking each
+    tensor: on ``dev``, contiguous, int32 or bool (None passes a null)."""
+    ptrs = []
+    for arg, t in named:
+        if t is None:
+            ptrs.append(0)
+            continue
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous on {dev}")
+        if t.dtype not in (torch.int32, torch.bool, torch.uint8):
+            raise ValueError(f"{name}: {arg} has dtype {t.dtype}")
+        ptrs.append(t.data_ptr())
+    return ptrs
+
+
+def _c_arrays(ptrs: list[int], dims: list[int]):
+    return ((ctypes.c_int64 * len(ptrs))(*ptrs),
+            (ctypes.c_int32 * len(dims))(*dims))
+
+
+def pack_args(c: dict, r: dict, extra: tuple = (),
+              name: str = "decide_dense") -> LaunchArgs:
     """Check the tensors (one device, contiguous, int32 or bool, shapes
     within the kernel's limits), allocate the outputs and pack the C
-    arguments of one launch."""
+    arguments of one launch of the dense program; ``extra`` (name,
+    tensor) pairs follow the outputs (``decide_grouped``'s ``g_idx``)."""
     dev = r["r_n_ra"].device
     dims = _dims(c, r)
     for k, limit in _LIMITS.items():
         if dims[k] > limit:
-            raise ValueError(f"decide_dense: {k}={dims[k]} exceeds the "
+            raise ValueError(f"{name}: {k}={dims[k]} exceeds the "
                              f"kernel's limit {limit}")
-    names = TABLE_ARRAYS + ROW_ARRAYS + BATCH_ARRAYS
-    tensors = [c[k] for k in TABLE_ARRAYS]
-    tensors += [r[k] for k in ROW_ARRAYS + BATCH_ARRAYS]
-    for name, t in zip(names, tensors):
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"decide_dense: {name} must be contiguous on "
-                             f"{dev}")
-        if t.dtype not in (torch.int32, torch.bool):
-            raise ValueError(f"decide_dense: {name} has dtype {t.dtype}")
+    named = [(k, c[k]) for k in TABLE_ARRAYS]
+    named += [(k, r[k]) for k in ROW_ARRAYS + BATCH_ARRAYS]
     out = torch.empty((3, dims["B"]), dtype=torch.int32, device=dev)
-    ptrs = [t.data_ptr() for t in tensors]
-    ptrs += [out[i].data_ptr() for i in range(3)]
-    return LaunchArgs(
-        out=out,
-        ptrs=(ctypes.c_int64 * len(ptrs))(*ptrs),
-        dims=(ctypes.c_int32 * len(DIMS))(*(dims[k] for k in DIMS)),
-        shape=dims,
-        threads=threads_for(dims["T"]),
-    )
+    named += [(k, out[i]) for i, k in enumerate(OUTPUTS)]
+    ptrs, cdims = _c_arrays(_c_ptrs(name, named + list(extra), dev),
+                            [dims[k] for k in DIMS])
+    return LaunchArgs(out=out, ptrs=ptrs, dims=cdims, shape=dims,
+                      threads=threads_for(dims["T"]))
 
 
-def _launch(c: dict, r: dict, with_acl: bool, with_hr: bool) -> torch.Tensor:
-    args = pack_args(c, r)
+def _launch_dense(name: str, args: LaunchArgs, with_acl: bool,
+                  with_hr: bool) -> torch.Tensor:
+    """One launch of ``decide_dense`` or ``decide_grouped``."""
     dev = args.out.device
-    lib = _library()
-    smem = lib.acs_decide_dense_smem(ctypes.addressof(args.dims),
-                                     len(args.dims), int(with_acl))
+    lib = _dense_library(name)
+    smem = getattr(lib, f"acs_{name}_smem")(
+        ctypes.addressof(args.dims), len(args.dims), int(with_acl))
     with torch.cuda.device(dev):
         limit = lib.acs_max_smem_optin()
         if smem > limit:
             raise ValueError(
-                f"decide_dense: the tree needs {smem} bytes of shared memory "
+                f"{name}: the tree needs {smem} bytes of shared memory "
                 f"per block, the device allows {limit}"
             )
-        code = lib.acs_decide_dense(
+        code = getattr(lib, f"acs_{name}")(
             ctypes.addressof(args.ptrs), len(args.ptrs),
             ctypes.addressof(args.dims), len(args.dims), int(with_acl),
             int(with_hr), args.threads,
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    if code != 0:
-        msg = ("argument count mismatch" if code < 0
-               else lib.acs_cuda_error_string(code).decode())
-        raise RuntimeError(f"decide_dense launch failed ({code}): {msg}")
-    LAUNCHES["decide_dense"] += 1
+    _check_launch(name, lib, code)
     return args.out
 
 
@@ -251,8 +348,177 @@ def decide_dense(c: dict, r: dict, with_acl: bool, with_hr: bool
     cacheable, status).  CUDA tensors launch the kernel; CPU tensors run
     the plain version."""
     if r["r_n_ra"].device.type == "cuda":
-        return _launch(c, r, with_acl, with_hr)
+        return _launch_dense("decide_dense", pack_args(c, r), with_acl,
+                             with_hr)
     return torch.stack(decide_dense_ref(c, r, with_acl, with_hr))
+
+
+def decide_grouped(inv: dict, cs: dict, g_idx: torch.Tensor, r: dict,
+                   with_acl: bool, with_hr: bool) -> torch.Tensor:
+    """The dense program per row against its own compacted subtree:
+    ``inv`` the group-invariant tables, ``cs`` the varying tables stacked
+    ``[G, ...]``, ``g_idx`` int32 [B] each row's group -> int32 [3, B].
+    CUDA tensors launch ``csrc/decide_grouped.cu``; CPU tensors run the
+    plain version."""
+    if g_idx.device.type != "cuda":
+        return decide_grouped_ref(inv, cs, g_idx, r, with_acl, with_hr)
+    if g_idx.dtype != torch.int32 or g_idx.shape[0] != r["r_n_ra"].shape[0]:
+        raise ValueError("decide_grouped: g_idx must be int32 [B]")
+    args = pack_args({**inv, **cs}, r, extra=(("g_idx", g_idx),),
+                     name="decide_grouped")
+    return _launch_dense("decide_grouped", args, with_acl, with_hr)
+
+
+def pack_sig_planes(tabs: dict, inv: dict, pseudo: dict, with_hr: bool):
+    """Check and pack one ``sig_planes`` launch: allocates the planes and
+    the scratch arrays -> (planes dict, scratch dict, pointer array,
+    shape-int array, threads per block).  The caller keeps the scratch
+    alive until the launch is enqueued."""
+    dev = pseudo["r_ent_vals"].device
+    G, S, KP, KR = tabs["rule_effect"].shape
+    T = tabs["t_role"].shape[1]
+    d = {
+        "G": G, "T": T, "S": S, "KP": KP, "KR": KR,
+        "KS": tabs["t_sub_ids"].shape[2], "KA": tabs["t_act_ids"].shape[2],
+        "KE": tabs["t_ent_vals"].shape[2], "KO": tabs["t_op_vals"].shape[2],
+        "KPR": tabs["t_prop_vals"].shape[2],
+        "NACT": pseudo["r_act_ids"].shape[1],
+        "NR": pseudo["r_ent_vals"].shape[1],
+        "NP": pseudo["r_prop_vals"].shape[1],
+        "NOP": pseudo["r_op_vals"].shape[1],
+        "W": pseudo["rgx_set"].shape[1], "E": pseudo["rgx_set"].shape[2],
+    }
+    for k in ("NR", "NOP", "KE"):
+        if d[k] > _LIMITS[k]:
+            raise ValueError(f"sig_planes: {k}={d[k]} exceeds the kernel's "
+                             f"limit {_LIMITS[k]}")
+    KS, NR, NOP = d["KS"], d["NR"], d["NOP"]
+    b, i32 = torch.bool, torch.int32
+    shapes = {
+        "rl": ((G, S, KP, KR), b), "pl": ((G, S, KP), b), "sl": ((G, S), b),
+    }
+    out = {}
+    for k in plane_names(with_hr):
+        pre = {"rl": "rl", "pl": "pl", "pp": "pl", "sl": "sl",
+               "ss": "sl", "mu": "sl"}[k[:2]]
+        shape, dtype = shapes[pre]
+        field = k.split("_", 1)[1]
+        if field in ("role", "n_sub", "rs"):
+            dtype = i32
+        elif field in ("sub_ids", "sub_vals"):
+            dtype, shape = i32, shape + (KS,)
+        elif field == "collect":
+            shape = shape + (NR,)
+        elif field == "op_hit":
+            shape = shape + (NOP,)
+        out[k] = torch.empty(shape, dtype=dtype, device=dev)
+    scratch = {
+        "comp_bits": torch.empty((G, T), dtype=torch.uint8, device=dev),
+        "comp_collect": torch.empty((G, T), dtype=i32, device=dev),
+        "comp_op": torch.empty((G, T), dtype=i32, device=dev),
+    }
+    src = {**tabs, **inv, **pseudo, **scratch}
+    named = [(k, src.get(k, out.get(k))) for k in SIG_PLANES_PTRS]
+    ptrs, cdims = _c_arrays(_c_ptrs("sig_planes", named, dev),
+                            [d[k] for k in SIG_PLANES_DIMS])
+    return out, scratch, ptrs, cdims, threads_for(T)
+
+
+def sig_planes(tabs: dict, inv: dict, pseudo: dict, with_hr: bool) -> dict:
+    """Stage A per signature group, gathered to rule / policy / set
+    planes: ``tabs`` the stacked varying tables ``[G, ...]``, ``inv`` the
+    group-invariant tables, ``pseudo`` one pseudo-request per group
+    (``rgx_set`` / ``pfx_neq`` ``[G, W, E]``) -> the planes ``[G, ...]``
+    under ``prefilter_ref.plane_names(with_hr)``.  CUDA tensors launch
+    ``csrc/sig_planes.cu``; CPU tensors run the plain version."""
+    dev = pseudo["r_ent_vals"].device
+    if dev.type != "cuda":
+        return sig_planes_ref(tabs, inv, pseudo, with_hr)
+    out, scratch, ptrs, cdims, threads = pack_sig_planes(tabs, inv, pseudo,
+                                                         with_hr)
+    lib = _library("sig_planes", SIG_PLANES_PTRS, SIG_PLANES_DIMS, 1)
+    with torch.cuda.device(dev):
+        code = lib.acs_sig_planes(
+            ctypes.addressof(ptrs), len(ptrs), ctypes.addressof(cdims),
+            len(cdims), int(with_hr), threads,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _check_launch("sig_planes", lib, code)
+    return out
+
+
+def pack_sig_decide(inv: dict, cs: dict, planes: dict, slot_g, mega_rows,
+                    grid2row, gp_orig, schedule: tuple, needs_pairs: bool,
+                    with_hr: bool):
+    """Check and pack one ``sig_decide`` launch: allocates the zeroed
+    output -> (output, pointer array, shape-int array)."""
+    dev = mega_rows.device
+    S, KP, KR = cs["rule_effect"].shape[1:]
+    NSLOT, R = grid2row.shape
+    widths = {}
+    offsets = {}
+    off = 0
+    for name, w, _ in schedule:
+        offsets[name] = off
+        widths[name] = w
+        off += w
+    if off != mega_rows.shape[1]:
+        raise ValueError("sig_decide: the schedule does not cover the rows")
+    d = {
+        "NSLOT": NSLOT, "R": R, "S": S, "KP": KP, "KR": KR,
+        "KS": planes["rl_sub_ids"].shape[-1],
+        "NR": planes["rl_collect"].shape[-1] if with_hr else 0,
+        "NOP": planes["rl_op_hit"].shape[-1] if with_hr else 0,
+        "WROW": off, "NSUB": widths["r_sub_ids"],
+        "NROLE": widths["r_roles"], "NACT": widths["r_act_ids"],
+        "NRU": widths.get("r_own_runs", 0),
+        "NWORDS": widths.get("r_own_bits", 0),
+        "C": widths["cond_true"], "NEEDS_PAIRS": int(needs_pairs),
+    }
+    for dim, col in SIG_ROW_OFFSETS:
+        d[dim] = offsets.get(col, -1)
+    out = torch.zeros((3, gp_orig.shape[0]), dtype=torch.int32, device=dev)
+    src = {**inv, **cs, **planes, "slot_g": slot_g, "mega_rows": mega_rows,
+           "grid2row": grid2row, "gp_orig": gp_orig,
+           **dict(zip(OUTPUTS, out))}
+    named = [(k, src.get(k)) for k in SIG_DECIDE_PTRS]
+    ptrs, cdims = _c_arrays(_c_ptrs("sig_decide", named, dev),
+                            [d[k] for k in SIG_DECIDE_DIMS])
+    return out, ptrs, cdims
+
+
+def sig_decide(inv: dict, cs: dict, planes: dict, slot_g, mega_rows,
+               grid2row, gp_orig, n_rows: int, schedule: tuple,
+               needs_pairs: bool, with_hr: bool) -> torch.Tensor:
+    """Decisions of a packed, slot-laid-out batch on the signature path:
+    ``slot_g`` int32 [NSLOT] each slot's group, ``mega_rows`` int32
+    [b_pad, W] the packed rows (columns per ``schedule``: (name, width,
+    tail) in packing order), ``grid2row`` int32 [NSLOT, R] each grid
+    position's source row, ``gp_orig`` int32 [b_pad] each row's grid
+    position -> int32 [3, b_pad] in request order, rows past ``n_rows``
+    0.  CUDA tensors launch ``csrc/sig_decide.cu``; CPU tensors run the
+    plain version."""
+    dev = mega_rows.device
+    if dev.type != "cuda":
+        return sig_decide_ref(inv, cs, planes, slot_g, mega_rows, grid2row,
+                              gp_orig, n_rows, schedule, needs_pairs,
+                              with_hr)
+    out, ptrs, cdims = pack_sig_decide(inv, cs, planes, slot_g, mega_rows,
+                                       grid2row, gp_orig, schedule,
+                                       needs_pairs, with_hr)
+    lib = _library("sig_decide", SIG_DECIDE_PTRS, SIG_DECIDE_DIMS, 1)
+    with torch.cuda.device(dev):
+        code = lib.acs_sig_decide(
+            ctypes.addressof(ptrs), len(ptrs), ctypes.addressof(cdims),
+            len(cdims), int(with_hr), SIG_DECIDE_THREADS,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _check_launch("sig_decide", lib, code)
+    return out
+
+
+# threads per sig_decide block: one warp per row of the slot
+SIG_DECIDE_THREADS = 128
 
 
 class DecisionKernel:
@@ -296,18 +562,25 @@ class DecisionKernel:
         everything else."""
         with_acl = bool((np.asarray(batch.arrays["r_acl_ent"]) >= 0).any())
         b, r = batch_from_numpy(batch, self.device, keys=ROW_ARRAYS)
-        out = decide_dense(self._c, r, with_acl, self.with_hr)
-        if self.device.type == "cpu":
-            host = out.numpy()
-            return lambda: tuple(host[i, :b] for i in range(3))
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.device))
+        return readback(decide_dense(self._c, r, with_acl, self.with_hr), b)
 
-        def materialize():
-            done.synchronize()
-            arr = host.numpy()
-            return tuple(arr[i, :b] for i in range(3))
 
-        return materialize
+def readback(out: torch.Tensor, b: int):
+    """Start the copy of a kernel's int32 [3, B] output to the host and
+    return the thunk that waits for it: (decision, cacheable, status)
+    numpy [b] each.  On the card the copy goes to pinned memory behind a
+    CUDA event."""
+    if out.device.type == "cpu":
+        host = out.numpy()
+        return lambda: tuple(host[i, :b] for i in range(3))
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(out.device))
+
+    def materialize():
+        done.synchronize()
+        arr = host.numpy()
+        return tuple(arr[i, :b] for i in range(3))
+
+    return materialize

@@ -119,22 +119,51 @@ def _hr_pass_from_bits(r, v, collect, op_hit, hr_check, trivial):
     return trivial[None] | (ctx_ok[:, None] & ~bad)
 
 
-def _match_targets(c, r, with_hr: bool):
-    """Stages A (target matching) and B (HR scopes): per-target-row match
-    planes [B, T]."""
-    sub_ok = _subject_ok(c, r)
-    act_ok = _pairs_subset(
-        c["t_act_ids"], c["t_act_vals"], r["r_act_ids"], r["r_act_vals"]
-    )
-
-    ent_valid = r["r_ent_valid"]  # [B, NR]
+def _hr_collect_state(c, r, rgx_hit, pfx_neq, ent_valid):
+    """Stage B's signature-determined pieces, shared by the dense matcher
+    and the components mode: the per-(target row, entity run) sticky
+    collection state (exact OR regex sets, prefix-mismatch resets, any
+    over the entity slots) and the per-(target row, op slot) operation
+    hit -> ([B, T, NR], [B, T, NOP])."""
     tev = c["t_ent_vals"]  # [T, K]
     em_ex_k = (
         (tev[None, :, :, None] == r["r_ent_vals"][:, None, None, :])
         & (tev >= 0)[None, :, :, None]
         & ent_valid[:, None, None, :]
     )  # [B, T, K, NR]
-    em_ex = em_ex_k.any(dim=2)  # [B, T, NR]
+    set_k = em_ex_k | rgx_hit  # regex set wins over reset
+    reset_k = pfx_neq & ~set_k
+    collect = _sticky(set_k, reset_k).any(dim=2)
+    top = c["t_op_vals"]
+    rop = r["r_op_vals"]
+    op_hit = (
+        (top[None, :, :, None] == rop[:, None, None, :])
+        & (top >= 0)[None, :, :, None]
+        & (rop >= 0)[:, None, None, :]
+    ).any(dim=2)
+    return collect, op_hit
+
+
+def _match_targets(c, r, with_hr: bool, components: bool = False):
+    """Stages A (target matching) and B (HR scopes): per-target-row match
+    planes [B, T].
+
+    ``components=True`` returns the resource/action stage-A planes
+    (``sig_res_ex_p/d``, ``sig_res_rg_p/d``, ``sig_act_ok``) without the
+    subject fold, plus stage B's ``sig_collect`` / ``sig_op_hit`` when
+    ``with_hr``: what the signature path precomputes per resource
+    signature from a property-free pseudo-request."""
+    act_ok = _pairs_subset(
+        c["t_act_ids"], c["t_act_vals"], r["r_act_ids"], r["r_act_vals"]
+    )
+
+    ent_valid = r["r_ent_valid"]  # [B, NR]
+    tev = c["t_ent_vals"]  # [T, K]
+    em_ex = (
+        (tev[None, :, :, None] == r["r_ent_vals"][:, None, None, :])
+        & (tev >= 0)[None, :, :, None]
+        & ent_valid[:, None, None, :]
+    ).any(dim=2)  # [B, T, NR]
     tw = c["t_ent_w"]
     w_idx = tw.clamp(min=0)
     e_idx = r["r_ent_e"].clamp(min=0)
@@ -148,12 +177,11 @@ def _match_targets(c, r, with_hr: bool):
     ent_any_ex = em_ex.any(dim=2)  # [B, T]
     top = c["t_op_vals"]
     rop = r["r_op_vals"]
-    op_k = (
+    opm = (
         (top[None, :, :, None] == rop[:, None, None, :])
         & (top >= 0)[None, :, :, None]
         & (rop >= 0)[:, None, None, :]
-    )  # [B, T, K_OP, NOP]
-    opm = op_k.any(dim=3).any(dim=2)
+    ).any(dim=3).any(dim=2)
 
     state_ex = torch.cumsum(em_ex.to(torch.int32), dim=2) > 0
     reset_rg = pfx_neq.any(dim=2) & ~em_rg
@@ -200,22 +228,35 @@ def _match_targets(c, r, with_hr: bool):
         relevant_rg & sfx_in_rule).any(dim=2)
 
     no_res = (c["t_n_res"] == 0)[None]
-    base = sub_ok & act_ok
+    res_ex_p = no_res | ((ent_any_ex | opm) & ~permit_fail_ex)
+    res_ex_d = no_res | ((ent_any_ex | opm) & ~deny_skip_ex)
+    res_rg_p = no_res | (state_final_rg & ~permit_fail_rg)
+    res_rg_d = no_res | (state_final_rg & ~deny_skip_rg)
+    if components:
+        out = {
+            "sig_res_ex_p": res_ex_p,
+            "sig_res_ex_d": res_ex_d,
+            "sig_res_rg_p": res_rg_p,
+            "sig_res_rg_d": res_rg_d,
+            "sig_act_ok": act_ok,
+        }
+        if with_hr:
+            out["sig_collect"], out["sig_op_hit"] = _hr_collect_state(
+                c, r, rgx_hit, pfx_neq, ent_valid
+            )
+        return out
+
+    base = _subject_ok(c, r) & act_ok
     out = {
-        "tm_ex_p": base & (no_res | ((ent_any_ex | opm) & ~permit_fail_ex)),
-        "tm_ex_d": base & (no_res | ((ent_any_ex | opm) & ~deny_skip_ex)),
-        "tm_rg_p": base & (no_res | (state_final_rg & ~permit_fail_rg)),
-        "tm_rg_d": base & (no_res | (state_final_rg & ~deny_skip_rg)),
+        "tm_ex_p": base & res_ex_p,
+        "tm_ex_d": base & res_ex_d,
+        "tm_rg_p": base & res_rg_p,
+        "tm_rg_d": base & res_rg_d,
     }
     if not with_hr:
         out["hr_pass"] = torch.ones_like(base)
         return out
-    # per (target, entity slot) sticky collection over the runs (exact OR
-    # regex sets, prefix-mismatch resets), then any over the slots
-    set_k = em_ex_k | rgx_hit
-    reset_k = pfx_neq & ~set_k
-    collect = _sticky(set_k, reset_k).any(dim=2)  # [B, T, NR]
-    op_hit = op_k.any(dim=2)  # [B, T, NOP]
+    collect, op_hit = _hr_collect_state(c, r, rgx_hit, pfx_neq, ent_valid)
     hr_trivial = (c["t_n_subjects"] == 0) | ~c["t_has_scoping"]
     out["hr_pass"] = _hr_pass_from_bits(
         r, c["t_rs_idx"].long(), collect, op_hit, c["t_hr_check"], hr_trivial
@@ -223,17 +264,24 @@ def _match_targets(c, r, with_hr: bool):
     return out
 
 
-def _acl_pass(c, r, with_acl: bool):
-    """Stage B2: verifyACL per target row -> [B, T]."""
+def _action_kind(c, r):
+    """0 other, 1 create, 2 read/modify/delete, judged on the first
+    action attribute of each row -> [B]."""
     k = c["acl_consts"]
-    skip = c["t_skip_acl"][None]  # [1, T]
-    short = r["r_acl_short"][:, None]
     id0 = r["r_act_ids"][:, 0]
     val0 = r["r_act_vals"][:, 0]
     is_action = id0 == k[2]
     create = is_action & (val0 == k[3])
     rmd = is_action & ((val0 == k[4]) | (val0 == k[5]) | (val0 == k[6]))
-    kind = torch.where(create, 1, torch.where(rmd, 2, 0))[:, None]
+    return torch.where(create, 1, torch.where(rmd, 2, 0))
+
+
+def _acl_pass(c, r, with_acl: bool):
+    """Stage B2: verifyACL per target row -> [B, T]."""
+    k = c["acl_consts"]
+    skip = c["t_skip_acl"][None]  # [1, T]
+    short = r["r_acl_short"][:, None]
+    kind = _action_kind(c, r)[:, None]
     n_ra_ok = (r["r_n_ra"] > 0)[:, None]
 
     if not with_acl:
@@ -380,41 +428,37 @@ def _rule_predicates(c, r, m, with_acl: bool):
     return reached, acl_rule, has_cond, cond_t, cond_a, cond_c
 
 
-def _multi_entity_ok(c, r):
-    """Multi-entity recheck -> [B, S]."""
+def _multi_entity_ok(c, r_ent_vals, r_ent_valid):
+    """Multi-entity recheck -> [B, S]: every requested entity must exactly
+    match some policy's resources.  Shared by the dense matcher (request
+    entities) and the signature planes (the signature is the entity
+    list)."""
     pev = c["pol_ent_vals"]  # [S, KP, K]
-    ent_valid = r["r_ent_valid"]  # [B, NR]
     pol_ent_hit = (
-        (pev[None, :, :, :, None] == r["r_ent_vals"][:, None, None, None, :])
+        (pev[None, :, :, :, None] == r_ent_vals[:, None, None, None, :])
         & (pev >= 0)[None, :, :, :, None]
-        & ent_valid[:, None, None, None, :]
+        & r_ent_valid[:, None, None, None, :]
     ).any(dim=3)  # [B, S, KP, NR]
     pol_multi_ok = pol_ent_hit & (
         ~((c["pol_effect"] == 1) & c["pol_has_props"]) & c["pol_valid"]
     )[None, :, :, None]
     return (
-        ~ent_valid[:, None, :] | pol_multi_ok.any(dim=2)
+        ~r_ent_valid[:, None, :] | pol_multi_ok.any(dim=2)
     ).all(dim=2)
 
 
-def _policy_gates(c, r, m):
-    """Stage D: carried policyEffect, exact-match break, multi-entity
-    recheck, policy/set gates and the policy-subject HR gate."""
-    pt = c["pol_target"]
-    pp_ex_p = _gather_t(m["tm_ex_p"], pt)  # [B, S, KP]
-    pp_ex_d = _gather_t(m["tm_ex_d"], pt)
-    pp_rg_p = _gather_t(m["tm_rg_p"], pt)
-    pp_rg_d = _gather_t(m["tm_rg_d"], pt)
-    multi_gate = torch.where(
-        (r["r_n_entity_attrs"] > 1)[:, None], _multi_entity_ok(c, r), True
-    )  # [B, S]
-
+def _policy_gates_core(c, pp_ex_p, pp_ex_d, pp_rg_p, pp_rg_d, multi_gate):
+    """First/second policy loop on policy-row match planes [B, S, KP]:
+    carried policyEffect, exact-match break and the policy gate.  Shared
+    by the dense matcher (planes gathered from the [B, T] match vectors)
+    and the signature path (planes precomputed per signature, subject
+    side folded by the caller)."""
     pol_valid = c["pol_valid"][None]
     ctx_deny = (c["pol_eff_ctx"] == 2)[None]
     pol_tm_first = torch.where(ctx_deny, pp_ex_d, pp_ex_p)
     pol_tm_first = pol_tm_first & pol_valid & c["pol_has_target"][None]
     KP = pol_tm_first.shape[2]
-    kp_pos = torch.arange(KP, device=pt.device)[None, None, :]
+    kp_pos = torch.arange(KP, device=pol_valid.device)[None, None, :]
     first_kp = torch.where(pol_tm_first, kp_pos, BIG).amin(dim=2)  # [B, S]
     exact0 = pol_tm_first.any(dim=2)
     last_valid_kp = torch.where(pol_valid, kp_pos, -1).amax(dim=2)
@@ -433,8 +477,21 @@ def _policy_gates(c, r, m):
     pol_gate = ~c["pol_has_target"][None] | torch.where(
         exact[:, :, None], pol_tm_ex, pol_tm_rg
     )
-    pol_gate = pol_gate & pol_valid
+    return pol_gate & pol_valid
 
+
+def _policy_gates(c, r, m):
+    """Stage D: carried policyEffect, exact-match break, multi-entity
+    recheck, policy/set gates and the policy-subject HR gate."""
+    pt = c["pol_target"]
+    multi_gate = torch.where(
+        (r["r_n_entity_attrs"] > 1)[:, None],
+        _multi_entity_ok(c, r["r_ent_vals"], r["r_ent_valid"]), True
+    )  # [B, S]
+    pol_gate = _policy_gates_core(
+        c, _gather_t(m["tm_ex_p"], pt), _gather_t(m["tm_ex_d"], pt),
+        _gather_t(m["tm_rg_p"], pt), _gather_t(m["tm_rg_d"], pt), multi_gate,
+    )
     set_gate = ~c["set_has_target"][None] | _gather_t(
         m["tm_ex_p"], c["set_target"]
     )
@@ -453,6 +510,78 @@ def _select(ca, deny_first, permit_first, first, last):
         torch.where(ca == 1, sel_po,
                     torch.where(ca == 2, first, torch.zeros_like(first))),
     )
+
+
+def _no_rules_contrib(c, pol_gate, set_gate):
+    """Policies without rules contribute their own effect -> [B, S, KP]."""
+    return (
+        c["pol_valid"][None]
+        & set_gate[:, :, None]
+        & pol_gate
+        & (c["pol_n_rules"] == 0)[None]
+        & (c["pol_effect"] > 0)[None]
+    )
+
+
+def _per_set_effects(c, contrib_present, contrib_eff, contrib_cach):
+    """Stage F: each set's policy contributions [B, S, KP] combined under
+    its combining algorithm -> per-set (effect, cacheable, any) [B, S]."""
+    KP = contrib_present.shape[2]
+    kp_pos = torch.arange(KP, device=contrib_present.device)[None, None, :]
+    p_first_deny = torch.where(contrib_present & (contrib_eff == 2), kp_pos,
+                               BIG).amin(dim=2)
+    p_first_permit = torch.where(contrib_present & (contrib_eff == 1), kp_pos,
+                                 BIG).amin(dim=2)
+    p_first = torch.where(contrib_present, kp_pos, BIG).amin(dim=2)
+    p_last = torch.where(contrib_present, kp_pos, -1).amax(dim=2)
+    set_any = contrib_present.any(dim=2)  # [B, S]
+    s_sel = _select(c["set_ca"][None], p_first_deny, p_first_permit, p_first,
+                    p_last)
+    s_sel_c = s_sel.clamp(0, KP - 1).long()[:, :, None]
+    set_eff = torch.gather(contrib_eff, 2, s_sel_c)[:, :, 0]
+    set_cach = torch.gather(contrib_cach, 2, s_sel_c)[:, :, 0]
+    return set_eff, set_cach, set_any
+
+
+def _combine_sets(c, contrib_present, contrib_eff, contrib_cach):
+    """Stages F-G before aborts: per-set combination, then last-set-wins
+    -> (decision, cacheable) [B]."""
+    set_eff, set_cach, set_any = _per_set_effects(
+        c, contrib_present, contrib_eff, contrib_cach
+    )
+    S = set_eff.shape[1]
+    s_pos = torch.arange(S, device=set_eff.device)[None, :]
+    winner = torch.where(set_any, s_pos, -1).amax(dim=1)  # [B]
+    have = winner >= 0
+    winner_c = winner.clamp(0, S - 1).long()[:, None]
+    decision = torch.where(
+        have, torch.gather(set_eff, 1, winner_c)[:, 0].to(torch.int32), 0
+    )
+    cacheable = torch.where(
+        have, torch.gather(set_cach, 1, winner_c)[:, 0].to(torch.int32), -1
+    )
+    return decision, cacheable
+
+
+def _apply_aborts(decision, cacheable, abort_rule, cond_c, cach_raw):
+    """Condition aborts preempt everything, first in flat rule order:
+    ``abort_rule`` / ``cond_c`` [B, ...] in flat order, ``cach_raw`` the
+    rules' raw cacheable flags in the same order."""
+    B = abort_rule.shape[0]
+    n = abort_rule[0].numel()
+    flat_order = torch.arange(n, device=abort_rule.device)
+    abort_pos = torch.where(abort_rule.reshape(B, -1), flat_order[None],
+                            BIG).amin(dim=1)
+    has_abort = abort_pos < BIG
+    abort_flat = abort_pos.clamp(0, n - 1).long()[:, None]
+    abort_code = torch.gather(cond_c.reshape(B, -1), 1, abort_flat)[:, 0]
+    abort_cach = cach_raw.reshape(-1)[abort_flat[:, 0]]
+    decision = torch.where(has_abort, 2, decision).to(torch.int32)
+    cacheable = torch.where(has_abort, abort_cach.to(torch.int32),
+                            cacheable).to(torch.int32)
+    status = torch.where(has_abort, abort_code.to(torch.int32),
+                         200).to(torch.int32)
+    return decision, cacheable, status
 
 
 def _combine_and_decide(c, reached, acl_rule, has_cond, cond_t, cond_a,
@@ -482,59 +611,69 @@ def _combine_and_decide(c, reached, acl_rule, has_cond, cond_t, cond_a,
         c["rule_cacheable_eff"][None].expand(B, -1, -1, -1), 3, sel_c
     )[..., 0]
 
-    no_rules_contrib = (
-        c["pol_valid"][None]
-        & set_gate[:, :, None]
-        & pol_gate
-        & (c["pol_n_rules"] == 0)[None]
-        & (c["pol_effect"] > 0)[None]
-    )
-    contrib_present = no_rules_contrib | any_coll  # [B, S, KP]
-    contrib_eff = torch.where(no_rules_contrib, c["pol_effect"][None],
-                              rule_eff_sel)
-    contrib_cach = torch.where(no_rules_contrib, c["pol_cacheable"][None],
+    no_rules = _no_rules_contrib(c, pol_gate, set_gate)
+    contrib_present = no_rules | any_coll  # [B, S, KP]
+    contrib_eff = torch.where(no_rules, c["pol_effect"][None], rule_eff_sel)
+    contrib_cach = torch.where(no_rules, c["pol_cacheable"][None],
                                rule_cach_sel)
+    decision, cacheable = _combine_sets(c, contrib_present, contrib_eff,
+                                        contrib_cach)
+    return _apply_aborts(decision, cacheable, abort_rule, cond_c,
+                         c["rule_cacheable_raw"])
 
-    kp_pos = torch.arange(KP, device=dev)[None, None, :]
-    p_first_deny = torch.where(contrib_present & (contrib_eff == 2), kp_pos,
-                               BIG).amin(dim=2)
-    p_first_permit = torch.where(contrib_present & (contrib_eff == 1), kp_pos,
-                                 BIG).amin(dim=2)
-    p_first = torch.where(contrib_present, kp_pos, BIG).amin(dim=2)
-    p_last = torch.where(contrib_present, kp_pos, -1).amax(dim=2)
-    set_any = contrib_present.any(dim=2)  # [B, S]
-    s_sel = _select(c["set_ca"][None], p_first_deny, p_first_permit, p_first,
-                    p_last)
-    s_sel_c = s_sel.clamp(0, KP - 1).long()[:, :, None]
-    set_eff = torch.gather(contrib_eff, 2, s_sel_c)[:, :, 0]
-    set_cach = torch.gather(contrib_cach, 2, s_sel_c)[:, :, 0]
 
-    # last-set-wins
-    s_pos = torch.arange(S, device=dev)[None, :]
-    winner = torch.where(set_any, s_pos, -1).amax(dim=1)  # [B]
-    have = winner >= 0
-    winner_c = winner.clamp(0, S - 1).long()[:, None]
-    decision = torch.where(
-        have, torch.gather(set_eff, 1, winner_c)[:, 0].to(torch.int32), 0
-    )
-    cacheable = torch.where(
-        have, torch.gather(set_cach, 1, winner_c)[:, 0].to(torch.int32), -1
-    )
+def _combine_and_decide_flat(c, reached, acl_rule, has_cond, cond_t, cond_a,
+                             cond_c, pol_gate, set_gate, pol_subject=None):
+    """The flat-rule-axis variant for the signature path: rule inputs
+    arrive as [B, S, M] planes (M = KP * KR, flat positions in the
+    original (set, policy, rule) order) and each policy's KR window is
+    reduced over packed rule keys (``pack_rule_key``), so the winner's
+    effect and cacheable bits travel with its position.  Differs from the
+    3-D variant only where the JAX package's does: a policy whose
+    combining algorithm is unknown selects key 0, i.e. effect 0."""
+    S, KP, KR = c["rule_effect"].shape
+    M = KP * KR
+    B = reached.shape[0]
+    re_f = c["rule_effect"].reshape(S, M)
+    cach_eff_f = c["rule_cacheable_eff"].reshape(S, M)
 
-    # condition aborts preempt everything, first in flat rule order
-    flat_order = torch.arange(S * KP * KR, device=dev).reshape(S, KP, KR)
-    abort_pos = torch.where(abort_rule, flat_order[None], BIG).reshape(
-        B, -1).amin(dim=1)
-    has_abort = abort_pos < BIG
-    abort_flat = abort_pos.clamp(0, S * KP * KR - 1).long()[:, None]
-    abort_code = torch.gather(cond_c.reshape(B, -1), 1, abort_flat)[:, 0]
-    abort_cach = c["rule_cacheable_raw"].reshape(-1)[abort_flat[:, 0]]
-    decision = torch.where(has_abort, 2, decision).to(torch.int32)
-    cacheable = torch.where(has_abort, abort_cach.to(torch.int32),
-                            cacheable).to(torch.int32)
-    status = torch.where(has_abort, abort_code.to(torch.int32),
-                         200).to(torch.int32)
-    return decision, cacheable, status
+    scope = set_gate[:, :, None] & pol_gate  # [B, S, KP]
+    scope_f = scope.repeat_interleave(KR, dim=2)  # [B, S, M]
+    abort_rule = reached & has_cond & cond_a & scope_f
+    matches = reached & (~has_cond | cond_t) & ~(has_cond & cond_a) & acl_rule
+    coll = matches & scope_f
+    if pol_subject is not None:
+        coll = coll & pol_subject.repeat_interleave(KR, dim=2)
+
+    m_pos = torch.arange(M, dtype=torch.int32, device=coll.device)
+    code_f = ((m_pos[None, :] << 3) | (re_f << 1)
+              | cach_eff_f.to(torch.int32))[None]  # [1, S, M]
+
+    def win_min(x):
+        return x.reshape(B, S, KP, KR).amin(dim=3)
+
+    def win_max(x):
+        return x.reshape(B, S, KP, KR).amax(dim=3)
+
+    first_deny = win_min(torch.where(coll & (re_f == 2)[None], code_f, BIG))
+    first_permit = win_min(torch.where(coll & (re_f == 1)[None], code_f, BIG))
+    first_coll = win_min(torch.where(coll, code_f, BIG))
+    last_coll = win_max(torch.where(coll, code_f, -1))
+    any_coll = coll.reshape(B, S, KP, KR).any(dim=3)
+    sel = _select(c["pol_ca"][None], first_deny, first_permit, first_coll,
+                  last_coll)
+    rule_eff_sel = (sel >> 1) & 3
+    rule_cach_sel = sel & 1
+
+    no_rules = _no_rules_contrib(c, pol_gate, set_gate)
+    contrib_present = no_rules | any_coll
+    contrib_eff = torch.where(no_rules, c["pol_effect"][None], rule_eff_sel)
+    contrib_cach = torch.where(no_rules, c["pol_cacheable"][None].to(
+        torch.int32), rule_cach_sel)
+    decision, cacheable = _combine_sets(c, contrib_present, contrib_eff,
+                                        contrib_cach)
+    return _apply_aborts(decision, cacheable, abort_rule, cond_c,
+                         c["rule_cacheable_raw"])
 
 
 def _evaluate(c, r, with_acl: bool, with_hr: bool):

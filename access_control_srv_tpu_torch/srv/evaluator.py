@@ -2,7 +2,9 @@
 
 The port's counterpart of the JAX package's ``srv/evaluator.py``, in its
 uncached form: batched ``isAllowed`` requests are encoded (numpy), carried
-to the device and decided by one ``DecisionKernel`` call; requests outside
+to the device and decided by the ``PrefilteredKernel`` (the signature
+path's kernels on trees of ``MIN_RULES`` rules or more, the dense
+``DecisionKernel`` below); requests outside
 the kernel's representable subset, whole trees the compiler rejects, and
 condition-abort rows whose error message is ambiguous go to the oracle, so
 decisions are bit-identical either way.
@@ -11,9 +13,7 @@ A refresh recompiles the whole tree (``compile_policies``), the JAX
 evaluator's ``delta_enabled=False`` path.  Not ported yet: the decision
 cache, token / HR-scope preparation (token rows are served by the oracle,
 which resolves them itself), delta patching, async compiles, the watchdog,
-telemetry and tracing, explain, relations and tenancy.  Trees of
-``MIN_RULES`` rules or more, which the JAX evaluator serves through the
-signature prefilter, are refused with ``NotImplementedError``.
+telemetry and tracing, explain, relations and tenancy.
 """
 
 from __future__ import annotations
@@ -26,8 +26,8 @@ from ..core.engine import AccessController
 from ..models.model import Decision, OperationStatus, Response
 from ..ops.compile import DECISION_NAMES, compile_policies
 from ..ops.encode import _CAPS_FLOOR, encode_requests, fits_floor, request_needs
-from ..ops.kernel import DecisionKernel, resolve_device
-from ..ops.prefilter import MIN_RULES
+from ..ops.kernel import resolve_device
+from ..ops.prefilter import PrefilteredKernel
 
 
 class HybridEvaluator:
@@ -41,7 +41,7 @@ class HybridEvaluator:
         self.device = resolve_device(device)
         self._version = 0
         self._compiled = None
-        self._kernel: Optional[DecisionKernel] = None
+        self._kernel: Optional[PrefilteredKernel] = None
         self._lock = threading.Lock()
         self.refresh(wait=True)
 
@@ -65,13 +65,9 @@ class HybridEvaluator:
         )
         kernel = None
         if compiled.supported and compiled.n_rules > 0:
-            if compiled.n_rules >= MIN_RULES:
-                raise NotImplementedError(
-                    f"trees of {MIN_RULES} rules or more take the signature "
-                    f"prefilter path: not ported yet (signature slice); this "
-                    f"tree has {compiled.n_rules}"
-                )
-            kernel = DecisionKernel(compiled, device=self.device)
+            # keeps per-request work O(matching rules) on large trees and
+            # delegates to the dense kernel below MIN_RULES
+            kernel = PrefilteredKernel(compiled, device=self.device)
         with self._lock:
             if version >= self._version:  # drop stale compiles
                 self._compiled = compiled

@@ -2,22 +2,37 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Drives ``access_control_srv_tpu_torch`` (never JAX, never the JAX package)
-through its main path and checks every kernel on it against its plain
+through its main paths and checks every kernel on them against its plain
 PyTorch version:
 
 1. device: the card's name and power limit;
-2. build: every CUDA source of the path, compiled with nvcc at first use;
-3. kernel vs plain: the dense decision kernel against ``kernel_ref`` on
-   the card, exactly equal, on every supported fixture tree, the seed data
-   and the 511-rule scoped tree, in all four with_acl x with_hr variants;
-4. kernel vs the port's scalar oracle on a 1024-row sample per tree;
-5. end to end (the main path): ``HybridEvaluator(engine).is_allowed_batch``
-   on 4096 mixed requests against the 511-rule tree, every response equal
-   to ``engine.is_allowed`` on the same request (ineligible rows are served
-   by the oracle inside the evaluator);
-6. throughput: the seed tree at 2^18 rows and the scoped tree at 2^16 rows
-   (kernel and plain version timed with CUDA events), and the evaluator at
-   4096 rows.
+2. build: the four CUDA sources (``decide_dense``, ``sig_planes``,
+   ``sig_decide``, ``decide_grouped``), one nvcc each, all started
+   together; ptxas registers, shared memory and spills per kernel;
+3. dense kernel vs plain: ``decide_dense`` against ``kernel_ref`` on the
+   card, exactly equal, on every supported fixture tree, the seed data and
+   the 511-rule scoped tree, in all four with_acl x with_hr variants;
+4. dense kernel vs the port's scalar oracle on a sample per tree;
+5. the dense main path: ``HybridEvaluator(engine).is_allowed_batch`` on
+   4096 mixed requests against the 511-rule tree (below ``MIN_RULES``, so
+   the ``PrefilteredKernel`` delegates to ``decide_dense``), every response
+   equal to ``engine.is_allowed``;
+6. signature kernels vs plain: ``PrefilteredKernel`` on the card, every
+   ``sig_planes`` / ``sig_decide`` / ``decide_grouped`` call held exactly
+   against its plain version on the same device tensors: fixture trees
+   forced onto the signature machinery, the 720-rule stress tree with and
+   without HR scoping, conditions and aborts, ACL and property batches;
+7. the signature main paths at full width, each with the launch counts
+   set to 0 just before it and read just after: (a) the 100k-rule stress
+   tree with ``bench_stress`` traffic, 16,384 rows (``sig_planes`` on the
+   first batch, ``sig_decide`` on every batch); (b) the 100k-rule scoped
+   tree with ``bench_stress_hr`` traffic, 8,192 rows (``sig_decide`` with
+   HR); (c) tree (a) with a few ACL rows in 16,384 (``decide_grouped``).
+   Every kernel call of the first batch is held against its plain
+   version, and a 32-row sample of responses against ``engine.is_allowed``;
+8. times: each kernel at its main path's shapes (CUDA events) beside its
+   plain version and its bound; the evaluators' steady-state decisions/s
+   and stage split; the dense kernel's throughput at 2^18 / 2^16 rows.
 
 Any mismatch or error exits non-zero.  The line before the last is the
 kernel table as one JSON object; the last line is
@@ -51,6 +66,8 @@ from access_control_srv_tpu_torch.models import Attribute, Request, Target, Urns
 from access_control_srv_tpu_torch.ops import compile_policies, encode_requests
 from access_control_srv_tpu_torch.ops import cuda_build
 from access_control_srv_tpu_torch.ops import kernel as kmod
+from access_control_srv_tpu_torch.ops import prefilter as pfmod
+from access_control_srv_tpu_torch.ops import prefilter_ref
 from access_control_srv_tpu_torch.ops.carry import batch_from_numpy, tables_from_numpy
 from access_control_srv_tpu_torch.ops.encode import (
     _CAPS_FLOOR,
@@ -88,8 +105,15 @@ STRESS_ENTITIES = [
 STRESS_ROLES = [f"role-{k}" for k in range(97)]
 DEC_CODE = {"INDETERMINATE": 0, "PERMIT": 1, "DENY": 2}
 
-KERNEL_SOURCE = "access_control_srv_tpu_torch/ops/csrc/decide_dense.cu"
-KERNEL_REPLACES = "access_control_srv_tpu/ops/kernel.py:1015"
+CSRC = "access_control_srv_tpu_torch/ops/csrc/"
+KERNELS = ("decide_dense", "sig_planes", "sig_decide", "decide_grouped")
+# the JAX program each kernel replaces (file:line)
+REPLACES = {
+    "decide_dense": "access_control_srv_tpu/ops/kernel.py:1015",
+    "sig_planes": "access_control_srv_tpu/ops/prefilter.py:700",
+    "sig_decide": "access_control_srv_tpu/ops/prefilter.py:475",
+    "decide_grouped": "access_control_srv_tpu/ops/prefilter.py:341",
+}
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, and the scalar (non-tensor
 # core) float32 rate used for the kernel's int32 compare/logic operations
 PEAK_BYTES_PER_S = 3.35e12
@@ -284,11 +308,11 @@ def build_request(subject_id=None, subject_role=None,
 
 
 def grid_requests(rng: random.Random, n: int, stress: bool = False,
-                  acl: bool = True) -> list[Request]:
+                  acl: bool = True, props: bool = True) -> list[Request]:
     """A randomized sweep over the request option space: single and multi
-    entity rows, properties, owners in and out of scope, ACL pairs (when
-    ``acl``) and execute operations.  ``stress`` draws entities and roles
-    from the stress tree's vocabulary."""
+    entity rows, properties (when ``props``), owners in and out of scope,
+    ACL pairs (when ``acl``) and execute operations.  ``stress`` draws
+    entities and roles from the stress tree's vocabulary."""
     entities = STRESS_ENTITIES if stress else ENTITIES
     roles = STRESS_ROLES if stress else ROLES
     actions = ACTIONS[:4] if stress else ACTIONS
@@ -308,6 +332,8 @@ def grid_requests(rng: random.Random, n: int, stress: bool = False,
         prop = None
         if not stress and rng.random() < 0.5 and action != URNS["execute"]:
             prop = rng.sample(PROPS, rng.randint(1, 2))
+            if not props:
+                prop = None
         owner = owner_ent = None
         if rng.random() < 0.7:
             owner_ent = ORG
@@ -594,7 +620,7 @@ def phase_end_to_end(device, n_rows: int, stats: dict):
     reqs = grid_requests(rng, n_rows - 5, stress=True) + odd_requests(rng, True)
     oracle_reqs = copy.deepcopy(reqs)
     evaluator = HybridEvaluator(engine, device=device)
-    kmod.LAUNCHES["decide_dense"] = 0
+    reset_launches()
     responses = evaluator.is_allowed_batch(reqs)
     launches = kmod.LAUNCHES["decide_dense"]
     if launches < 1:
@@ -682,6 +708,447 @@ def phase_throughput(device, name: str, total: int, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------- signature path: trees
+
+
+def small_stress_doc(scoped: bool = False, conditions: bool = False):
+    """The 720-rule stress tree of the JAX package's prefilter tests
+    (6 permit-overrides policies of 120 rules over 16 entities, role %
+    23), copied here.  ``scoped=True`` adds a roleScopingEntity to every
+    rule (HR on every target row); ``conditions=True`` puts a condition on
+    every seventh rule, one that raises for requests without a subject id
+    (an abort) and holds otherwise."""
+    actions = [URNS["read"], URNS["modify"], URNS["create"], URNS["delete"]]
+    policies = []
+    rid = 0
+    for p in range(6):
+        rules = []
+        for q in range(120):
+            subjects = [{"id": URNS["role"], "value": f"role-{rid % 23}"}]
+            if scoped:
+                subjects.append({"id": URNS["roleScopingEntity"],
+                                 "value": ORG})
+            rule = {
+                "id": f"r{rid}",
+                "target": {
+                    "subjects": subjects,
+                    "resources": [{"id": URNS["entity"],
+                                   "value": STRESS_ENTITIES[(p * 31 + q) % 16]}],
+                    "actions": [{"id": URNS["actionID"],
+                                 "value": actions[rid % len(actions)]}],
+                },
+                "effect": "PERMIT" if rid % 3 else "DENY",
+            }
+            if conditions and rid % 7 == 0:
+                rule["condition"] = "context.subject.id.startswith('u')"
+            rules.append(rule)
+            rid += 1
+        policies.append({"id": f"p{p}", "combining_algorithm": PO,
+                         "rules": rules})
+    return {"policy_sets": [{"id": "stress", "combining_algorithm": DO,
+                             "policies": policies}]}
+
+
+def engine_from_doc(doc) -> AccessController:
+    engine = AccessController()
+    for ps in load_policy_sets(doc):
+        engine.update_policy_set(ps)
+    return engine
+
+
+# ----------------------------------------------- signature path: traffic
+
+
+def stress_traffic(n: int, seed: int = 7, n_acl: int = 0) -> list[Request]:
+    """The JAX package's ``bench_stress`` traffic (copied): roles drawn
+    from 108 (97 exist), entities from 72 (64 exist), actions in turn, no
+    HR context.  ``n_acl`` spreads that many rows with an ACL pair (a
+    create on an organization instance) over the batch."""
+    rng = np.random.default_rng(seed)
+    actions = [URNS["read"], URNS["modify"], URNS["create"], URNS["delete"]]
+    acl_rows = set(range(0, n, max(1, n // n_acl))) if n_acl else set()
+    out = []
+    for i in range(n):
+        role = f"role-{int(rng.integers(108))}"
+        k = int(rng.integers(72))
+        resources = []
+        if i in acl_rows:
+            resources = [{"id": f"res-{i}", "meta": {"owners": [], "acls": [{
+                "id": URNS["aclIndicatoryEntity"], "value": ORG,
+                "attributes": [{"id": URNS["aclInstance"],
+                                "value": OWNERS[i % 4]}]}]}}]
+        out.append(Request(
+            target=Target(
+                subjects=[Attribute(id=URNS["role"], value=role),
+                          Attribute(id=URNS["subjectID"], value=f"u{i}")],
+                resources=[
+                    Attribute(id=URNS["entity"],
+                              value=f"urn:restorecommerce:acs:model:"
+                                    f"stress{k}.Stress{k}"),
+                    Attribute(id=URNS["resourceID"], value=f"res-{i}"),
+                ],
+                actions=[Attribute(id=URNS["actionID"],
+                                   value=actions[i % 4])],
+            ),
+            context={"resources": resources, "subject": {
+                "id": f"u{i}",
+                "role_associations": [{"role": role, "attributes": []}],
+                "hierarchical_scopes": [],
+            }},
+        ))
+    return out
+
+
+def stress_hr_traffic(n: int, seed: int = 13) -> list[Request]:
+    """The JAX package's ``bench_stress_hr`` traffic (copied): every row
+    role-scoped to org-0 with a 7-child HR tree and an owner drawn from 12
+    organizations (about 2/3 inside the tree)."""
+    rng = np.random.default_rng(seed)
+    orgs = [f"org-{j}" for j in range(12)]
+    actions = [URNS["read"], URNS["modify"], URNS["create"], URNS["delete"]]
+    out = []
+    for i in range(n):
+        role = f"role-{int(rng.integers(108))}"
+        k = int(rng.integers(72))
+        tree = [{"id": orgs[0], "role": role,
+                 "children": [{"id": o} for o in orgs[1:8]]}]
+        out.append(build_request(
+            subject_id=f"u{i}", subject_role=role,
+            role_scoping_entity=ORG, role_scoping_instance=orgs[0],
+            resource_type=f"urn:restorecommerce:acs:model:stress{k}.Stress{k}",
+            resource_id=f"res-{i}", action_type=actions[i % 4],
+            owner_indicatory_entity=ORG,
+            owner_instance=orgs[int(rng.integers(len(orgs)))],
+            hierarchical_scopes=tree,
+        ))
+    return out
+
+
+# --------------------------------------- signature path: kernel vs plain
+
+
+def _max_err(got, want) -> int:
+    if isinstance(got, dict):
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"plane names differ: {sorted(got)}")
+        return max((_max_err(got[k], want[k]) for k in got), default=0)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{tuple(got.shape)} {got.dtype} != "
+                             f"{tuple(want.shape)} {want.dtype}")
+    if got.numel() == 0:
+        return 0
+    return int((got.long() - want.long()).abs().max())
+
+
+PLAIN = {
+    "sig_planes": prefilter_ref.sig_planes_ref,
+    "sig_decide": prefilter_ref.sig_decide_ref,
+    "decide_grouped": prefilter_ref.decide_grouped_ref,
+}
+
+
+class KernelCheck:
+    """While active, every ``sig_planes`` / ``sig_decide`` /
+    ``decide_grouped`` call the prefilter makes launches the kernel, then
+    runs the plain version on the same device tensors; any difference
+    raises.  Records per kernel the calls and the largest error, and keeps
+    the arguments of each kernel's last call (device tensors, untouched)
+    for the timing phase."""
+
+    def __init__(self, stats: dict):
+        self.stats = stats
+        self.args: dict[str, tuple] = {}
+        self._saved = {}
+
+    def __enter__(self):
+        for name in PLAIN:
+            orig = getattr(pfmod, name)
+            self._saved[name] = orig
+
+            def checked(*args, _name=name, _orig=orig):
+                self.args[_name] = args
+                got = _orig(*args)
+                want = PLAIN[_name](*args)
+                torch.cuda.synchronize()
+                err = _max_err(got, want)
+                st = self.stats.setdefault(_name, {"calls": 0, "max_abs_err": 0})
+                st["calls"] += 1
+                st["max_abs_err"] = max(st["max_abs_err"], err)
+                if err != 0:
+                    raise AssertionError(f"{_name}: kernel != plain "
+                                         f"(max abs err {err})")
+                return got
+
+            setattr(pfmod, name, checked)
+        return self
+
+    def __exit__(self, *exc):
+        for name, orig in self._saved.items():
+            setattr(pfmod, name, orig)
+        return False
+
+
+def reset_launches() -> None:
+    for k in kmod.LAUNCHES:
+        kmod.LAUNCHES[k] = 0
+
+
+def phase_sig_vs_plain(device, stats: dict) -> None:
+    """Phase 6: every signature-path kernel call on a spread of trees and
+    batches, held against its plain version."""
+    cases = []
+    for name in ("basic_policies.yml", "policy_set_targets.yml",
+                 "role_scopes.yml", "conditions.yml", "acl_policies.yml",
+                 "props_multi_rules_entities.yml", "ops_multi.yml"):
+        engine = engine_for(name)
+        rng = random.Random(zlib.crc32(name.encode()))
+        cases.append((name, engine, True, grid_requests(rng, 128)))
+        cases.append((name + " (signature rows)", engine, True,
+                      grid_requests(rng, 128, acl=False, props=False)))
+    for label, kw in (("stress-720", {}), ("stress-720 HR", {"scoped": True}),
+                      ("stress-720 conditions", {"conditions": True})):
+        engine = engine_from_doc(small_stress_doc(**kw))
+        rng = random.Random(zlib.crc32(label.encode()))
+        reqs = grid_requests(rng, 512, stress=True, acl=False)
+        for r in reqs[::5]:  # no subject id: the conditions abort
+            r.context["subject"].pop("id", None)
+        cases.append((label, engine, False, reqs))
+        cases.append((label + " ACL", engine, False,
+                      grid_requests(rng, 256, stress=True)))
+    with KernelCheck(stats):
+        for label, engine, force, reqs in cases:
+            compiled = compile_policies(engine.policy_sets, engine.urns)
+            kern = pfmod.PrefilteredKernel(compiled, device=device)
+            if force:
+                kern.active = True
+                kern._dense = None
+            before = {k: v["calls"] for k, v in stats.items()}
+            dec = kern.evaluate(encode_requests(copy.deepcopy(reqs), compiled))
+            ran = sorted(k for k, v in stats.items()
+                         if v["calls"] > before.get(k, 0))
+            aborts = int((dec[2] != 200).sum())
+            log(f"  {label}: {len(reqs)} rows, kernels {ran} equal to their "
+                f"plain versions; {aborts} abort rows; needs_hr={kern.needs_hr}")
+    missing = [k for k in PLAIN if stats.get(k, {}).get("calls", 0) == 0]
+    if missing:
+        raise AssertionError(f"phase 6 never ran {missing}")
+
+
+# --------------------------------------- signature path: the main paths
+
+
+def sample_oracle(engine, requests, responses, n: int = 32) -> int:
+    idx = sorted(random.Random(3).sample(range(len(requests)),
+                                         min(n, len(requests))))
+    for i in idx:
+        want = engine.is_allowed(copy.deepcopy(requests[i]))
+        if response_key(responses[i]) != response_key(want):
+            raise AssertionError(f"row {i}: {response_key(responses[i])} != "
+                                 f"oracle {response_key(want)}")
+    return len(idx)
+
+
+def run_main_path(label: str, evaluator, engine, requests, expect, stats):
+    """One main path: counts to 0, one ``is_allowed_batch`` with every
+    kernel call held against its plain version, counts read; then a
+    sample against the oracle.  Returns (launches, the arguments of each
+    kernel's last call)."""
+    check: dict = {}
+    reset_launches()
+    with KernelCheck(check) as chk:
+        responses = evaluator.is_allowed_batch(requests)
+    launches = dict(kmod.LAUNCHES)
+    for k, v in check.items():
+        st = stats.setdefault(k, {"calls": 0, "max_abs_err": 0})
+        st["max_abs_err"] = max(st["max_abs_err"], v["max_abs_err"])
+    for k in expect:
+        if launches[k] < 1:
+            raise AssertionError(f"{label}: the main path launched no {k}")
+    n = sample_oracle(engine, requests, responses)
+    decisions: dict = {}
+    for resp in responses:
+        decisions[resp.decision] = decisions.get(resp.decision, 0) + 1
+    log(f"  {label}: {len(requests)} rows; launches {launches}; every "
+        f"kernel call equal to its plain version; {n} sampled responses "
+        f"equal to the oracle; decisions {decisions}")
+    return launches, chk.args
+
+
+def steady_state(evaluator, requests, iters: int = 3) -> dict:
+    """Evaluator decisions/s with warm caches (host clock, each batch
+    ends in a device sync inside materialize) and the stage split of one
+    batch: encode, host grouping/packing/launch, device wait + readback,
+    decode."""
+    evaluator.is_allowed_batch(requests)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        evaluator.is_allowed_batch(requests)
+    dt = (time.perf_counter() - t0) / iters
+    kernel, compiled = evaluator._kernel, evaluator._compiled
+    t0 = time.perf_counter()
+    batch = encode_requests(requests, compiled,
+                            evaluator.engine.resource_adapter)
+    t1 = time.perf_counter()
+    thunk = kernel.evaluate_async(batch)
+    t2 = time.perf_counter()
+    out = thunk()
+    t3 = time.perf_counter()
+    evaluator._decode_batch(requests, batch, out)
+    t4 = time.perf_counter()
+    return {
+        "rows": len(requests), "batch_ms": dt * 1e3,
+        "decisions_per_s": len(requests) / dt,
+        "stages_ms": {"encode": (t1 - t0) * 1e3,
+                      "group_pack_launch": (t2 - t1) * 1e3,
+                      "device_wait_readback": (t3 - t2) * 1e3,
+                      "decode": (t4 - t3) * 1e3},
+    }
+
+
+def h2d_ms(t: torch.Tensor) -> float:
+    """A pinned host copy of ``t``'s shape to the card, CUDA events."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return time_ms(lambda: host.to(t.device, non_blocking=True))
+
+
+# ------------------------------------------------------ bounds (per call)
+
+
+def _finish_bound(nbytes: int, ops: int) -> tuple[float, str, int, int]:
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_SCALAR_OPS_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", nbytes, ops
+    return t_ops, "operations", nbytes, ops
+
+
+def bound_sig_planes(tabs, inv, pseudo, with_hr, out):
+    """Bytes: the stacked tables, policy arrays and pseudo-requests read
+    once, the planes written once.  Operations: stage A's compares per
+    target row of every group, one per plane element written."""
+    nbytes = sum(int(t.nbytes) for t in tabs.values())
+    nbytes += sum(int(inv[k].nbytes) for k in kmod.SIG_PLANES_INPUTS
+                  if k in inv)
+    nbytes += sum(int(t.nbytes) for t in pseudo.values())
+    nbytes += sum(int(t.nbytes) for t in out.values())
+    G, T = tabs["t_role"].shape
+    KA, KE, KO = (tabs[k].shape[2] for k in ("t_act_ids", "t_ent_vals",
+                                             "t_op_vals"))
+    NACT, NR, NOP = (pseudo[k].shape[1] for k in ("r_act_ids", "r_ent_vals",
+                                                  "r_op_vals"))
+    per_target = KA * NACT + 3 * KE * NR + KO * NOP + 4 * NR + 16
+    ops = G * T * per_target + sum(int(t.numel()) for t in out.values())
+    return _finish_bound(nbytes, ops)
+
+
+def bound_sig_decide(args) -> tuple[float, str, int, int]:
+    """Bytes: the packed rows, slot maps and outputs, the group planes and
+    rule arrays read once.  Operations: per real row, the subject fold,
+    owner checks and combine compares of every rule position of its group
+    and the policy and set folds."""
+    (inv, cs, planes, slot_g, rows, g2r, gp, n_rows, schedule,
+     needs_pairs, with_hr) = args
+    nbytes = sum(int(t.nbytes) for t in (slot_g, rows, g2r, gp))
+    nbytes += 3 * 4 * int(gp.shape[0])
+    nbytes += sum(int(t.nbytes) for t in planes.values())
+    nbytes += sum(int(t.nbytes) for t in cs.values())
+    nbytes += sum(int(inv[k].nbytes) for k in kmod.SIG_DECIDE_INV)
+    widths = {k: w for k, w, _ in schedule}
+    _, S, KP, KR = cs["rule_effect"].shape
+    nrole, nsub = widths["r_roles"], widths["r_sub_ids"]
+    ks = planes["rl_sub_ids"].shape[-1]
+    sub = nrole + (ks * nsub if needs_pairs else 0)
+    hr = (widths.get("r_own_runs", 0) + planes["rl_op_hit"].shape[-1]
+          if with_hr else 0)
+    per_row = S * KP * KR * (sub + hr + 12) + S * KP * (2 * sub + hr + 20) \
+        + S * (sub + 12)
+    return _finish_bound(nbytes, n_rows * per_row)
+
+
+def time_kernel(name: str, args: tuple, plain_iters: int = 1) -> dict:
+    """The kernel and its plain version on one call's arguments, CUDA
+    events (the kernel: mean of ITERS launches after a warm-up)."""
+    launch = {"sig_planes": kmod.sig_planes, "sig_decide": kmod.sig_decide,
+              "decide_grouped": kmod.decide_grouped}[name]
+    ms = time_ms(lambda: launch(*args))
+    plain_ms = time_ms(lambda: PLAIN[name](*args), plain_iters)
+    if name == "sig_planes":
+        bms, by, nbytes, ops = bound_sig_planes(*args, launch(*args))
+    elif name == "sig_decide":
+        bms, by, nbytes, ops = bound_sig_decide(args)
+    else:
+        inv, cs, _, r, _, _ = args
+        bms, by, nbytes, ops = bound_ms({**inv, **cs}, r)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                bytes=nbytes, ops=ops)
+
+
+def phase_sig_main(device, stats: dict, card: str) -> dict:
+    """Phase 7 and 8 for the signature paths (a), (b), (c)."""
+    out = {}
+    t0 = time.perf_counter()
+    engine = engine_from_doc(stress_doc(100_000))
+    evaluator = HybridEvaluator(engine, device=device)
+    compiled = evaluator._compiled
+    log(f"  100k stress tree: {compiled.n_rules} rules, S={compiled.S} "
+        f"KP={compiled.KP} KR={compiled.KR} T={compiled.T}, loaded and "
+        f"compiled in {time.perf_counter() - t0:.1f} s")
+    if not evaluator._kernel.active:
+        raise AssertionError("the 100k tree did not take the signature path")
+
+    # (a) bench_stress traffic, 16,384 rows
+    reqs = stress_traffic(16384)
+    launches, a_args = run_main_path("(a) stress 16384", evaluator, engine,
+                                     reqs, ("sig_planes", "sig_decide"),
+                                     stats)
+    kern = evaluator._kernel
+    stack = next(reversed(kern._stacks.values()))
+    tabs = stack.tables
+    sig_args = a_args["sig_decide"]
+    log(f"  (a) shapes: G={tabs['t_role'].shape[0]} Tp={tabs['t_role'].shape[1]}"
+        f" KRp={tabs['rule_valid'].shape[3]} NSLOT={sig_args[5].shape[0]} "
+        f"R={sig_args[5].shape[1]} row width={sig_args[4].shape[1]}")
+    out["a"] = {"launches": launches,
+                "sig_planes": time_kernel("sig_planes", a_args["sig_planes"]),
+                "sig_decide": time_kernel("sig_decide", sig_args),
+                "h2d_rows_ms": h2d_ms(sig_args[4])}
+    out["a"]["steady"] = steady_state(evaluator, reqs)
+
+    # (c) the same tree, a few ACL rows in 16,384: all through decide_grouped
+    reqs_c = stress_traffic(16384, seed=8, n_acl=16)
+    launches, c_args = run_main_path("(c) stress + ACL 16384", evaluator,
+                                     engine, reqs_c, ("decide_grouped",),
+                                     stats)
+    if launches["sig_decide"]:
+        raise AssertionError("(c): an ACL batch went through sig_decide")
+    out["c"] = {"launches": launches,
+                "decide_grouped": time_kernel("decide_grouped",
+                                              c_args["decide_grouped"])}
+    del evaluator, engine, kern, stack, tabs, a_args, sig_args, c_args
+
+    # (b) the scoped tree with bench_stress_hr traffic, 8,192 rows
+    t0 = time.perf_counter()
+    engine = engine_from_doc(stress_doc(100_000, scoped=True))
+    evaluator = HybridEvaluator(engine, device=device)
+    if not evaluator._kernel.needs_hr:
+        raise AssertionError("the scoped tree carries no HR targets")
+    log(f"  100k scoped tree loaded and compiled in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reqs_b = stress_hr_traffic(8192)
+    launches, b_args = run_main_path("(b) stress HR 8192", evaluator, engine,
+                                     reqs_b, ("sig_planes", "sig_decide"),
+                                     stats)
+    if not b_args["sig_decide"][-1]:
+        raise AssertionError("(b): sig_decide ran without HR")
+    out["b"] = {"launches": launches,
+                "sig_planes": time_kernel("sig_planes", b_args["sig_planes"]),
+                "sig_decide": time_kernel("sig_decide", b_args["sig_decide"]),
+                "steady": steady_state(evaluator, reqs_b)}
+    for key in ("a", "b", "c"):
+        log(f"  ({key}) on {card}: " + json.dumps(out[key]))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -689,6 +1156,8 @@ def main() -> int:
         return 2
     device = torch.device("cuda")
     stats = {"max_abs_err": 0}
+    sig_stats: dict = {}
+    t_start = time.perf_counter()
 
     log("phase 1: device")
     kind = torch.cuda.get_device_name(0)
@@ -699,50 +1168,73 @@ def main() -> int:
 
     log("phase 2: build")
     t0 = time.perf_counter()
-    cuda_build.build(["decide_dense"])
-    kmod._library()
-    log(f"  decide_dense built in {time.perf_counter() - t0:.1f} s")
-    for line in cuda_build.BUILD_LOG.get("decide_dense", "").splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    cuda_build.build(list(KERNELS))
+    log(f"  {', '.join(KERNELS)} built in {time.perf_counter() - t0:.1f} s "
+        f"(one nvcc each, in parallel)")
+    for name in KERNELS:
+        for line in cuda_build.BUILD_LOG.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  ptxas {name}: {line.strip()}")
 
-    log("phase 3-4: kernel vs plain version, kernel vs oracle")
+    log("phase 3-4: dense kernel vs plain version, kernel vs oracle")
     variants = phase_kernel_vs_plain(device, 1024, stats)
     for (acl, hr), n in sorted(variants.items()):
         log(f"  variant with_acl={acl} with_hr={hr}: {n} rows checked")
 
-    log("phase 5: end to end (HybridEvaluator.is_allowed_batch)")
+    log("phase 5: dense main path (HybridEvaluator.is_allowed_batch, "
+        "511 rules)")
     phase_end_to_end(device, 4096, stats)
 
-    log("phase 6: throughput")
+    log("phase 6: signature kernels vs plain versions")
+    phase_sig_vs_plain(device, sig_stats)
+
+    log("phase 7: signature main paths (100k rules)")
+    sig = phase_sig_main(device, sig_stats, card)
+
+    log("phase 8: throughput")
     seed = phase_throughput(device, "seed_data", 1 << 18, card)
     scoped = phase_throughput(device, "scoped_511", 1 << 16, card)
     e2e = stats["e2e"]
-    log(f"  evaluator end to end: {e2e['decisions_per_s']:.0f} decisions/s "
-        f"at {e2e['rows']} rows ({e2e['seconds'] * 1e3:.3f} ms per batch) "
-        f"on {card}")
-    log(f"  evaluator batch stages (ms): {json.dumps(e2e['stages_ms'])}")
-    log(f"  kernel: {seed['kernel_decisions_per_s']:.0f} decisions/s "
+    log(f"  dense evaluator end to end: {e2e['decisions_per_s']:.0f} "
+        f"decisions/s at {e2e['rows']} rows ({e2e['seconds'] * 1e3:.3f} ms "
+        f"per batch) on {card}")
+    log(f"  dense evaluator batch stages (ms): {json.dumps(e2e['stages_ms'])}")
+    log(f"  decide_dense: {seed['kernel_decisions_per_s']:.0f} decisions/s "
         f"(seed, 2^18 rows), {scoped['kernel_decisions_per_s']:.0f} "
         f"decisions/s (scoped_511, 2^16 rows) on {card}")
+    for key, label in (("a", "stress 100k, 16384 rows"),
+                       ("b", "stress HR 100k, 8192 rows")):
+        st = sig[key]["steady"]
+        log(f"  signature evaluator ({label}): {st['decisions_per_s']:.0f} "
+            f"decisions/s ({st['batch_ms']:.3f} ms per batch), stages (ms) "
+            f"{json.dumps(st['stages_ms'])} on {card}")
     log(f"  max_memory_allocated {torch.cuda.max_memory_allocated()} bytes "
         f"on {card}")
-    log("  kernels: [\"decide_dense\"]")
+    log(f"  kernels: {json.dumps(list(KERNELS))}; "
+        f"{time.perf_counter() - t_start:.1f} s in all")
 
     main_stats = stats["main"]
+    rows = [{
+        "name": "decide_dense", "launches": main_stats["launches"],
+        "max_abs_err": stats["max_abs_err"], **{
+            k: main_stats[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by")},
+    }]
+    for name, key in (("sig_planes", "a"), ("sig_decide", "a"),
+                      ("decide_grouped", "c")):
+        t = sig[key][name]
+        rows.append({
+            "name": name, "launches": sig[key]["launches"][name],
+            "max_abs_err": sig_stats[name]["max_abs_err"],
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        })
     print(json.dumps({"kernels": [{
-        "name": "decide_dense",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": main_stats["launches"],
-        "max_abs_err": stats["max_abs_err"],
-        "ms": main_stats["ms"],
-        "plain_ms": main_stats["plain_ms"],
-        "bound_ms": main_stats["bound_ms"],
-        "bound_by": main_stats["bound_by"],
-        "library_ms": None,
-    }]}))
+        "name": r["name"], "route": "cuda", "source": CSRC + r["name"] + ".cu",
+        "replaces": REPLACES[r["name"]], "launches": r["launches"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None,
+    } for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

@@ -13,6 +13,7 @@ the card by ``chip_smoke.py``.
 
 import ctypes
 import random
+import re
 import shutil
 import subprocess
 
@@ -99,6 +100,7 @@ inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = 232448; retur
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 template <class K, class A>
 void emulate_launch(K kernel, int grid, int threads, size_t smem, const A& a) {
+  if (grid <= 0) return;
   std::vector<unsigned char> buf(smem + 16);
   blockDim = {(unsigned)threads, 1, 1};
   for (int b = 0; b < grid; ++b) {
@@ -121,31 +123,41 @@ void emulate_launch(K kernel, int grid, int threads, size_t smem, const A& a) {
 }
 """
 
-LAUNCH = "kernel<<<a.B, threads, smem, stream>>>(a);"
+LAUNCH = re.compile(r"kernel<<<(.+?), (.+?), (.+?), stream>>>\((\w+)\);")
 SHARED = "extern __shared__ __align__(16) unsigned char smem[];"
+
+
+def build_emulated(name: str, out_dir) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` (with every ``csrc/*.cuh`` it may include) built
+    with g++ against the threaded stand-in: the one launch line becomes an
+    ``emulate_launch`` call, the dynamic shared memory a pointer into the
+    emulator's per-block buffer."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the CUDA source as C++")
+    src = (CSRC / f"{name}.cu").read_text()
+    assert len(LAUNCH.findall(src)) == 1 and src.count(SHARED) <= 1
+    src = LAUNCH.sub(
+        r"(void)stream; emulate_launch(kernel, \1, \2, \3, \4);", src
+    ).replace(SHARED, "unsigned char* smem = g_smem;")
+    (out_dir / "cuda_runtime.h").write_text(SHIM)
+    for header in CSRC.glob("*.cuh"):
+        (out_dir / header.name).write_text(header.read_text())
+    (out_dir / f"{name}.cpp").write_text(src)
+    lib_path = out_dir / f"lib{name}_emu.so"
+    proc = subprocess.run(
+        ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-I", str(out_dir),
+         str(out_dir / f"{name}.cpp"), "-o", str(lib_path), "-lpthread"],
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    return ctypes.CDLL(str(lib_path))
 
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """The kernel source built with g++ against the threaded stand-in."""
-    if shutil.which("g++") is None:
-        pytest.skip("needs g++ to build the CUDA source as C++")
-    src = (CSRC / "decide_dense.cu").read_text()
-    assert src.count(LAUNCH) == 1 and src.count(SHARED) == 1
-    src = src.replace(
-        LAUNCH, "(void)stream; emulate_launch(kernel, a.B, threads, smem, a);"
-    ).replace(SHARED, "unsigned char* smem = g_smem;")
-    d = tmp_path_factory.mktemp("decide_dense_emu")
-    (d / "cuda_runtime.h").write_text(SHIM)
-    (d / "decide_dense.cpp").write_text(src)
-    lib_path = d / "libdecide_dense_emu.so"
-    proc = subprocess.run(
-        ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-I", str(d),
-         str(d / "decide_dense.cpp"), "-o", str(lib_path), "-lpthread"],
-        capture_output=True, text=True, timeout=300,
-    )
-    assert proc.returncode == 0, proc.stderr
-    lib = ctypes.CDLL(str(lib_path))
+    lib = build_emulated("decide_dense",
+                         tmp_path_factory.mktemp("decide_dense_emu"))
     lib.acs_decide_dense_layout.restype = ctypes.c_char_p
     lib.acs_decide_dense.restype = ctypes.c_int
     lib.acs_decide_dense.argtypes = [

@@ -15,6 +15,7 @@ import torch
 import access_control_srv_tpu_torch.models as tmodels
 from access_control_srv_tpu import models as jmodels
 from access_control_srv_tpu.srv.evaluator import HybridEvaluator as JaxEvaluator
+from access_control_srv_tpu_torch.ops import PrefilteredKernel
 from access_control_srv_tpu_torch.ops import kernel as tkernel
 from access_control_srv_tpu_torch.srv.evaluator import HybridEvaluator
 
@@ -167,20 +168,31 @@ def test_refresh_after_mutation():
     assert [response_key(g) for g in got] == [response_key(w) for w in want]
 
 
+def engines_512():
+    """The 511-rule scoped tree plus one rule: the smallest tree on the
+    signature path, in both packages."""
+    engines = make_engines("scoped_511")
+    for eng in engines:
+        ps = next(iter(eng.policy_sets.values()))
+        pol = next(iter(ps.combinables.values()))
+        pol.combinables["extra-rule"] = next(iter(pol.combinables.values()))
+    return engines
+
+
 def test_refusals():
     _, teng = make_engines("relation_policies.yml")
     with pytest.raises(NotImplementedError, match="relation"):
         HybridEvaluator(teng, device="cpu")
-    _, teng = make_engines("scoped_511")
-    ps = next(iter(teng.policy_sets.values()))
-    pol = next(iter(ps.combinables.values()))
-    extra = next(iter(pol.combinables.values()))
-    pol.combinables["extra-rule"] = extra  # 512 rules
-    with pytest.raises(NotImplementedError, match="signature"):
-        HybridEvaluator(teng, device="cpu")
+    # the 512-rule tree is served now, through the signature path, and
+    # equals the JAX evaluator
+    specs = spec_grid(n=16, seed=4)
+    tev, _ = compare("scoped_512", specs, engines_512())
+    assert isinstance(tev._kernel, PrefilteredKernel) and tev._kernel.active
     _, teng = make_engines("basic_policies.yml")
     with pytest.raises(NotImplementedError, match="explain"):
         HybridEvaluator(teng, device="cpu", explain=True)
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        PrefilteredKernel(tev._compiled, device="cpu", mesh=object())
 
 
 def test_device_none_raises_without_cuda(monkeypatch):
@@ -199,3 +211,27 @@ def test_scoped_tree_main_path_exact():
     tev, _ = compare("scoped_511", specs)
     assert tev._compiled.n_rules == 511
     assert tkernel.tree_needs_hr(tev._compiled.arrays)
+
+
+def test_large_tree_mixed_traffic_matches_jax():
+    """A tree above MIN_RULES with mixed traffic: signature batches (no
+    ACL pairs, no properties), batches with ACL rows (the per-row
+    kernel), oracle-served and wide rows, and a second pass over warm
+    caches.  Every response equals the JAX evaluator's."""
+    import chip_smoke
+
+    jeng, teng = engines_512()
+    jev = JaxEvaluator(jeng, delta_enabled=False)
+    tev = HybridEvaluator(teng, device="cpu")
+    rng = random.Random(31)
+    sig = [request_spec(r) for r in chip_smoke.grid_requests(
+        rng, 24, stress=True, acl=False)]
+    mixed = [request_spec(r) for r in chip_smoke.grid_requests(
+        rng, 24, stress=True)] + oracle_specs() + wide_specs()
+    for specs in (sig, mixed, sig):
+        want = jev.is_allowed_batch([build_request(s, jmodels) for s in specs])
+        got = tev.is_allowed_batch([build_request(s, tmodels) for s in specs])
+        assert [response_key(g) for g in got] == [response_key(w)
+                                                  for w in want]
+    kern = tev._kernel
+    assert kern.active and len(kern._bits) >= 1 and kern._stacks
