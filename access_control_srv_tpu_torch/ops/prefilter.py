@@ -222,7 +222,8 @@ class PrefilteredKernel:
     device)."""
 
     def __init__(self, compiled: CompiledPolicies, device=None,
-                 cache_size: int = 1024, mesh=None, axis: str = "data",
+                 cache_size: int = 1024, mesh=None,
+                 axis: Optional[str] = None,
                  max_groups: int = 512, telemetry=None,
                  dynamic_policies: bool = False,
                  shared_jits: Optional[dict] = None,
@@ -246,7 +247,7 @@ class PrefilteredKernel:
             raise NotImplementedError(
                 "explain output: not ported yet (serving-shell slice)"
             )
-        if mesh is not None:
+        if mesh is not None or axis is not None:
             raise NotImplementedError(
                 "mesh / axis (requests sharded over devices): not ported "
                 "yet (multi-device slice)"

@@ -937,9 +937,13 @@ def phase_sig_vs_plain(device, stats: dict) -> None:
 # --------------------------------------- signature path: the main paths
 
 
-def sample_oracle(engine, requests, responses, n: int = 32) -> int:
-    idx = sorted(random.Random(3).sample(range(len(requests)),
-                                         min(n, len(requests))))
+def sample_oracle(engine, requests, responses, n: int = 32,
+                  always=()) -> int:
+    """``n`` random rows, and every row of ``always``, against the
+    oracle."""
+    idx = sorted(set(random.Random(3).sample(range(len(requests)),
+                                             min(n, len(requests))))
+                 | set(always))
     for i in idx:
         want = engine.is_allowed(copy.deepcopy(requests[i]))
         if response_key(responses[i]) != response_key(want):
@@ -948,11 +952,12 @@ def sample_oracle(engine, requests, responses, n: int = 32) -> int:
     return len(idx)
 
 
-def run_main_path(label: str, evaluator, engine, requests, expect, stats):
+def run_main_path(label: str, evaluator, engine, requests, expect, stats,
+                  always=()):
     """One main path: counts to 0, one ``is_allowed_batch`` with every
     kernel call held against its plain version, counts read; then a
-    sample against the oracle.  Returns (launches, the arguments of each
-    kernel's last call)."""
+    sample, with the rows of ``always``, against the oracle.  Returns
+    (launches, the arguments of each kernel's last call)."""
     check: dict = {}
     reset_launches()
     with KernelCheck(check) as chk:
@@ -964,7 +969,7 @@ def run_main_path(label: str, evaluator, engine, requests, expect, stats):
     for k in expect:
         if launches[k] < 1:
             raise AssertionError(f"{label}: the main path launched no {k}")
-    n = sample_oracle(engine, requests, responses)
+    n = sample_oracle(engine, requests, responses, always=always)
     decisions: dict = {}
     for resp in responses:
         decisions[resp.decision] = decisions.get(resp.decision, 0) + 1
@@ -1116,9 +1121,10 @@ def phase_sig_main(device, stats: dict, card: str) -> dict:
 
     # (c) the same tree, a few ACL rows in 16,384: all through decide_grouped
     reqs_c = stress_traffic(16384, seed=8, n_acl=16)
+    acl_rows = [i for i, r in enumerate(reqs_c) if r.context["resources"]]
     launches, c_args = run_main_path("(c) stress + ACL 16384", evaluator,
                                      engine, reqs_c, ("decide_grouped",),
-                                     stats)
+                                     stats, always=acl_rows)
     if launches["sig_decide"]:
         raise AssertionError("(c): an ACL batch went through sig_decide")
     out["c"] = {"launches": launches,

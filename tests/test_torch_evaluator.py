@@ -193,6 +193,8 @@ def test_refusals():
         HybridEvaluator(teng, device="cpu", explain=True)
     with pytest.raises(NotImplementedError, match="multi-device"):
         PrefilteredKernel(tev._compiled, device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        PrefilteredKernel(tev._compiled, device="cpu", axis="data")
 
 
 def test_device_none_raises_without_cuda(monkeypatch):

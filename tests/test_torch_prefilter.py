@@ -496,6 +496,7 @@ def test_refusals(stress):
     compiled = stress[3]
     for kw, match in ((dict(explain=True), "explain"),
                       (dict(mesh=object()), "multi-device"),
+                      (dict(axis="data"), "multi-device"),
                       (dict(dynamic_policies=True), "delta"),
                       (dict(shared_jits={}), "delta")):
         with pytest.raises(NotImplementedError, match=match):
