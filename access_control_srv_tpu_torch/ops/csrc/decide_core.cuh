@@ -1,8 +1,9 @@
 // Device code shared by the port's decision kernels (sm_90a).
 //
 // decide_dense.cu (the dense kernel), decide_grouped.cu (the same per-row
-// program over per-row compacted subtrees) and sig_planes.cu (stage A per
-// resource signature) include this header.  It holds the argument list of
+// program over per-row compacted subtrees), sig_planes.cu (stage A per
+// resource signature) and wia_planes.cu (the whatIsAllowed planes per
+// representative row) include this header.  It holds the argument list of
 // the dense program, its per-target stages A-C, and the per-row stages D-G
 // (`decide_row`), written once.  The plain PyTorch versions they are held
 // against: ops/kernel_ref.py and ops/prefilter_ref.py.
@@ -114,6 +115,12 @@ enum : uint8_t {
 // stage-A components without the subject fold (signature planes)
 enum : uint8_t {
   TC_EX_P = 1, TC_EX_D = 2, TC_RG_P = 4, TC_RG_D = 8, TC_ACT = 16
+};
+// the raw entity/operation bits under them (whatIsAllowed planes): an
+// exact entity hit in any run, an operation hit, the sticky regex state
+// after the last run and at any run
+enum : uint8_t {
+  TR_ENT_EX = 1, TR_OPM = 2, TR_FINAL_RG = 4, TR_ANY_RG = 8
 };
 
 struct SmemLayout {
@@ -300,11 +307,14 @@ __device__ bool acl_create(const Args& a, int b, int t,
 // stage A without the subject fold for target row t against request row b:
 // the resource/action match bits (TC_*), and when `want_hr` stage B's
 // signature-determined pieces, the sticky per-run collection state and the
-// per-op-slot operation hits.  `A` is any argument struct carrying the
-// target-table, request-row and regex fields by these names (the dense
-// program's Args, or sig_planes.cu's per-group view of a pseudo-request).
+// per-op-slot operation hits; `raw` carries the TR_* bits.  `A` is any
+// argument struct carrying the target-table, request-row and regex fields
+// by these names (the dense program's Args, sig_planes.cu's per-group view
+// of a pseudo-request, or wia_planes.cu's view of one packed row, whose
+// validity and has-props columns are int32).
 struct TargetComp {
   uint8_t bits;
+  uint8_t raw;
   uint32_t collect;
   uint32_t op_hit;
 };
@@ -315,7 +325,7 @@ __device__ TargetComp target_components(const A& a, int b, int t,
   const int NR = a.NR;
   const int32_t* rev = a.r_ent_vals + (size_t)b * NR;
   const int32_t* ree = a.r_ent_e + (size_t)b * NR;
-  const uint8_t* rvalid = a.r_ent_valid + (size_t)b * NR;
+  const auto* rvalid = a.r_ent_valid + (size_t)b * NR;
 
   const bool act_ok = pairs_subset(
       a.t_act_ids + t * a.KA, a.t_act_vals + t * a.KA, a.KA,
@@ -428,6 +438,9 @@ __device__ TargetComp target_components(const A& a, int b, int t,
   if (no_res || (state_final_rg && !permit_fail_rg)) out.bits |= TC_RG_P;
   if (no_res || (state_final_rg && !deny_skip_rg)) out.bits |= TC_RG_D;
   if (act_ok) out.bits |= TC_ACT;
+  out.raw = (ent_any_ex ? TR_ENT_EX : 0) | (opm ? TR_OPM : 0) |
+            (state_final_rg ? TR_FINAL_RG : 0) |
+            (state_any_rg ? TR_ANY_RG : 0);
   out.op_hit = op_hit;
   out.collect = 0;
   if (want_hr) {

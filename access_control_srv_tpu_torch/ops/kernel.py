@@ -12,8 +12,11 @@ The signature path's three kernels (``ops/prefilter.PrefilteredKernel``)
 are wrapped here the same way: ``sig_planes`` (``csrc/sig_planes.cu``),
 ``sig_decide`` (``csrc/sig_decide.cu``) and ``decide_grouped``
 (``csrc/decide_grouped.cu``), with plain versions in
-``ops/prefilter_ref.py``.  Every wrapper checks its library's argument
-layout string when it loads and counts its launches in ``LAUNCHES``.
+``ops/prefilter_ref.py``.  The reverse query's kernel
+(``ops/reverse.ReverseQueryKernel``) is ``wia_planes``
+(``csrc/wia_planes.cu``, plain version ``ops/reverse_ref.py``).  Every
+wrapper checks its library's argument layout string when it loads and
+counts its launches in ``LAUNCHES``.
 
 Not ported yet, and refused with ``NotImplementedError``: trees whose
 targets carry relation paths (the ReBAC relation planes) and the explain
@@ -44,17 +47,18 @@ from .prefilter_ref import (
     sig_decide_ref,
     sig_planes_ref,
 )
+from .reverse_ref import PLANE_KEYS, WIA_ROWS, WIA_TABLES, wia_planes_ref
 
 __all__ = [
     "BIG", "DecisionKernel", "LAUNCHES", "decide_dense", "decide_grouped",
     "lead_padding", "pack_rule_key", "pad_cols", "pow2_bucket",
     "resolve_device", "sig_decide", "sig_planes", "tree_needs_hr",
-    "tree_needs_rel", "unpack_rule_key",
+    "tree_needs_rel", "unpack_rule_key", "wia_planes",
 ]
 
 # kernel launches per wrapper, counted where the wrapper launches
 LAUNCHES = {"decide_dense": 0, "sig_planes": 0, "sig_decide": 0,
-            "decide_grouped": 0}
+            "decide_grouped": 0, "wia_planes": 0}
 
 # the argument order of csrc/decide_dense.cu (checked against the
 # library's own layout string when it loads)
@@ -519,6 +523,75 @@ def sig_decide(inv: dict, cs: dict, planes: dict, slot_g, mega_rows,
 
 # threads per sig_decide block: one warp per row of the slot
 SIG_DECIDE_THREADS = 128
+
+# the argument order of csrc/wia_planes.cu
+WIA_PLANES_PTRS = WIA_TABLES + ("rows", "rgx_set", "pfx_neq", "planes")
+# the packed row's columns the kernel reads, by the offset dim naming them
+WIA_ROW_OFFSETS = tuple(("O_" + k[2:].upper(), k) for k in WIA_ROWS)
+WIA_PLANES_DIMS = ("N", "T", "KA", "KE", "KO", "KPR", "NACT", "NR", "NP",
+                   "NOP", "W", "E", "WROW") + tuple(
+                       o for o, _ in WIA_ROW_OFFSETS)
+
+
+def pack_wia_planes(tables: dict, rows, schedule: tuple, rgx_set, pfx_neq):
+    """Check and pack one ``wia_planes`` launch: allocates the planes ->
+    (planes, pointer array, shape-int array, threads per block)."""
+    dev = rows.device
+    offsets, widths = {}, {}
+    off = 0
+    for name, w, _ in schedule:
+        offsets[name], widths[name] = off, w
+        off += w
+    if off != rows.shape[1] or set(widths) != set(WIA_ROWS):
+        raise ValueError("wia_planes: the schedule does not cover the rows")
+    T = tables["t_n_res"].shape[0]
+    d = {
+        "N": rows.shape[0], "T": T,
+        "KA": tables["t_act_ids"].shape[1],
+        "KE": tables["t_ent_vals"].shape[1],
+        "KO": tables["t_op_vals"].shape[1],
+        "KPR": tables["t_prop_vals"].shape[1],
+        "NACT": widths["r_act_ids"], "NR": widths["r_ent_vals"],
+        "NP": widths["r_prop_vals"], "NOP": widths["r_op_vals"],
+        "W": rgx_set.shape[0], "E": rgx_set.shape[1], "WROW": off,
+    }
+    for dim, col in WIA_ROW_OFFSETS:
+        d[dim] = offsets[col]
+    for k in ("NR", "NOP", "KE"):
+        if d[k] > _LIMITS[k]:
+            raise ValueError(f"wia_planes: {k}={d[k]} exceeds the kernel's "
+                             f"limit {_LIMITS[k]}")
+    out = torch.empty((d["N"], len(PLANE_KEYS), T), dtype=torch.bool,
+                      device=dev)
+    src = {**tables, "rows": rows, "rgx_set": rgx_set, "pfx_neq": pfx_neq,
+           "planes": out}
+    named = [(k, src[k]) for k in WIA_PLANES_PTRS]
+    ptrs, cdims = _c_arrays(_c_ptrs("wia_planes", named, dev),
+                            [d[k] for k in WIA_PLANES_DIMS])
+    return out, ptrs, cdims, threads_for(T)
+
+
+def wia_planes(tables: dict, rows, schedule: tuple, rgx_set, pfx_neq
+               ) -> torch.Tensor:
+    """The whatIsAllowed planes of packed representative rows:
+    ``tables`` the ``reverse_ref.WIA_TABLES`` tensors, ``rows`` int32
+    [N, WROW] packed per ``schedule`` ((name, width, tail), the columns
+    of ``reverse_ref.WIA_ROWS``), ``rgx_set`` / ``pfx_neq`` bool [W, E]
+    -> bool [N, 7, T] in ``reverse_ref.PLANE_KEYS`` order.  CUDA tensors
+    launch ``csrc/wia_planes.cu``; CPU tensors run the plain version."""
+    dev = rows.device
+    if dev.type != "cuda":
+        return wia_planes_ref(tables, rows, schedule, rgx_set, pfx_neq)
+    out, ptrs, cdims, threads = pack_wia_planes(tables, rows, schedule,
+                                                rgx_set, pfx_neq)
+    lib = _library("wia_planes", WIA_PLANES_PTRS, WIA_PLANES_DIMS, 0)
+    with torch.cuda.device(dev):
+        code = lib.acs_wia_planes(
+            ctypes.addressof(ptrs), len(ptrs), ctypes.addressof(cdims),
+            len(cdims), threads, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _check_launch("wia_planes", lib, code)
+    return out
 
 
 class DecisionKernel:

@@ -144,7 +144,8 @@ def _hr_collect_state(c, r, rgx_hit, pfx_neq, ent_valid):
     return collect, op_hit
 
 
-def _match_targets(c, r, with_hr: bool, components: bool = False):
+def _match_targets(c, r, with_hr: bool, components: bool = False,
+                   wia: bool = False):
     """Stages A (target matching) and B (HR scopes): per-target-row match
     planes [B, T].
 
@@ -152,7 +153,13 @@ def _match_targets(c, r, with_hr: bool, components: bool = False):
     (``sig_res_ex_p/d``, ``sig_res_rg_p/d``, ``sig_act_ok``) without the
     subject fold, plus stage B's ``sig_collect`` / ``sig_op_hit`` when
     ``with_hr``: what the signature path precomputes per resource
-    signature from a property-free pseudo-request."""
+    signature from a property-free pseudo-request.
+
+    ``wia=True`` (components mode only, the one the reverse query uses)
+    adds the whatIsAllowed-mode planes: PERMIT fails only when the target
+    has properties, the request has none and the entity matched; DENY
+    never property-fails; ``sig_maybe_*`` mark rows that could append
+    masking obligations (target properties and an entity hit)."""
     act_ok = _pairs_subset(
         c["t_act_ids"], c["t_act_vals"], r["r_act_ids"], r["r_act_vals"]
     )
@@ -228,6 +235,23 @@ def _match_targets(c, r, with_hr: bool, components: bool = False):
         relevant_rg & sfx_in_rule).any(dim=2)
 
     no_res = (c["t_n_res"] == 0)[None]
+
+    def _wia_planes(prefix: str, maybe: str, base):
+        """whatIsAllowed-mode planes, ANDed with ``base`` when given."""
+        wia_fail_ex = has_props & ~r_has_props & ent_any_ex
+        wia_fail_rg = has_props & ~r_has_props & state_any_rg
+        planes = {
+            prefix + "ex_p": no_res | ((ent_any_ex | opm) & ~wia_fail_ex),
+            prefix + "ex_d": no_res | ent_any_ex | opm,
+            prefix + "rg_p": no_res | (state_final_rg & ~wia_fail_rg),
+            prefix + "rg_d": no_res | state_final_rg,
+        }
+        if base is not None:
+            planes = {k: base & v for k, v in planes.items()}
+        planes[maybe + "ex"] = has_props & ent_any_ex
+        planes[maybe + "rg"] = has_props & state_any_rg
+        return planes
+
     res_ex_p = no_res | ((ent_any_ex | opm) & ~permit_fail_ex)
     res_ex_d = no_res | ((ent_any_ex | opm) & ~deny_skip_ex)
     res_rg_p = no_res | (state_final_rg & ~permit_fail_rg)
@@ -240,6 +264,8 @@ def _match_targets(c, r, with_hr: bool, components: bool = False):
             "sig_res_rg_d": res_rg_d,
             "sig_act_ok": act_ok,
         }
+        if wia:
+            out.update(_wia_planes("sig_wia_", "sig_maybe_", None))
         if with_hr:
             out["sig_collect"], out["sig_op_hit"] = _hr_collect_state(
                 c, r, rgx_hit, pfx_neq, ent_valid
@@ -253,6 +279,8 @@ def _match_targets(c, r, with_hr: bool, components: bool = False):
         "tm_rg_p": base & res_rg_p,
         "tm_rg_d": base & res_rg_d,
     }
+    if wia:
+        out.update(_wia_planes("tm_wia_", "maybe_mask_", base))
     if not with_hr:
         out["hr_pass"] = torch.ones_like(base)
         return out

@@ -1,4 +1,5 @@
-"""Serving layer of the port: the hybrid kernel/oracle evaluator."""
+"""Serving layer of the port: the hybrid kernel/oracle evaluator and the
+direct-mode permission-lattice audit sweep."""
 
 from .evaluator import HybridEvaluator
 

@@ -1,4 +1,4 @@
-"""Hybrid evaluator: the dense decision kernel fused with the scalar oracle.
+"""Hybrid evaluator: the device kernels fused with the scalar oracle.
 
 The port's counterpart of the JAX package's ``srv/evaluator.py``, in its
 uncached form: batched ``isAllowed`` requests are encoded (numpy), carried
@@ -7,7 +7,13 @@ path's kernels on trees of ``MIN_RULES`` rules or more, the dense
 ``DecisionKernel`` below); requests outside
 the kernel's representable subset, whole trees the compiler rejects, and
 condition-abort rows whose error message is ambiguous go to the oracle, so
-decisions are bit-identical either way.
+decisions are bit-identical either way.  On trees of 256 rules or more the
+oracle walk is candidate-filtered (``core/candidate_index.py``).
+
+Batched ``whatIsAllowed`` runs the ``ReverseQueryKernel``
+(``ops/reverse.py``) on trees of ``REVERSE_MIN_RULES`` rules or more,
+built lazily on the first reverse batch and rebuilt after a version
+change; smaller trees take the scalar walk.
 
 A refresh recompiles the whole tree (``compile_policies``), the JAX
 evaluator's ``delta_enabled=False`` path.  Not ported yet: the decision
@@ -22,12 +28,18 @@ import copy
 import threading
 from typing import Optional
 
+from ..core.candidate_index import CandidateIndex
 from ..core.engine import AccessController
 from ..models.model import Decision, OperationStatus, Response
+from ..ops import reverse
 from ..ops.compile import DECISION_NAMES, compile_policies
 from ..ops.encode import _CAPS_FLOOR, encode_requests, fits_floor, request_needs
 from ..ops.kernel import resolve_device
 from ..ops.prefilter import PrefilteredKernel
+
+# trees with fewer rules skip the candidate index (its build and lookups
+# cost more than the walk it saves)
+CANDIDATE_MIN_RULES = 256
 
 
 class HybridEvaluator:
@@ -42,6 +54,14 @@ class HybridEvaluator:
         self._version = 0
         self._compiled = None
         self._kernel: Optional[PrefilteredKernel] = None
+        self._rq_kernel: Optional[reverse.ReverseQueryKernel] = None
+        self._tree_snapshot = None
+        # candidate index over the LIVE engine tree: oracle rows skip rules
+        # that provably cannot target-match (bit-identical).  Published as
+        # ONE (tree, index) tuple so readers see a consistent pair; a hot
+        # replace_policy_sets swap fails the identity check at once and
+        # the refresh that follows rebuilds it.
+        self._cand: Optional[tuple] = None
         self._lock = threading.Lock()
         self.refresh(wait=True)
 
@@ -68,10 +88,27 @@ class HybridEvaluator:
             # keeps per-request work O(matching rules) on large trees and
             # delegates to the dense kernel below MIN_RULES
             kernel = PrefilteredKernel(compiled, device=self.device)
+        cand = self._build_candidate_index()
         with self._lock:
             if version >= self._version:  # drop stale compiles
                 self._compiled = compiled
                 self._kernel = kernel
+                self._rq_kernel = None  # lazy: built on first wia batch
+                self._tree_snapshot = tree_snapshot
+                self._cand = cand
+
+    def _build_candidate_index(self) -> Optional[tuple]:
+        """(live tree, CandidateIndex) for trees worth indexing, else
+        None; the pair is published atomically (see __init__)."""
+        live_tree = self.engine.policy_sets
+        n_rules = sum(
+            len(p.combinables)
+            for ps in live_tree.values() if ps is not None
+            for p in ps.combinables.values() if p is not None
+        )
+        if n_rules < CANDIDATE_MIN_RULES:
+            return None
+        return (live_tree, CandidateIndex(live_tree, self.engine.urns))
 
     @property
     def kernel_active(self) -> bool:
@@ -81,7 +118,63 @@ class HybridEvaluator:
 
     def is_allowed(self, request) -> Response:
         """Single-request path: the oracle."""
+        return self._oracle_is_allowed(request)
+
+    def _oracle_is_allowed(self, request) -> Response:
+        """Oracle walk, candidate-filtered on large trees (skipped rules
+        provably cannot target-match; decisions bit-identical).  One read
+        of the (tree, index) pair keeps the identity guard and the index
+        consistent under concurrent swaps."""
+        cand = self._cand
+        if cand is not None and cand[0] is self.engine.policy_sets:
+            return self.engine.is_allowed(
+                request,
+                candidate_rules=cand[1].candidates(request, self.engine.urns),
+            )
         return self.engine.is_allowed(request)
+
+    def what_is_allowed(self, request):
+        return self.engine.what_is_allowed(request)
+
+    def what_is_allowed_batch(self, requests: list):
+        """Batched reverse query: per-signature planes on the device
+        (``ReverseQueryKernel``, built lazily on first use and rebuilt on
+        a version change), tree and obligation assembly on the host.
+        Dispatch is adaptive like the decision path's ``MIN_RULES``: below
+        ``REVERSE_MIN_RULES`` rules, and when no kernel is active, the
+        scalar walk serves every request."""
+        with self._lock:
+            # one consistent snapshot: kernel, compiled and tree are always
+            # published together, so kernel != None implies supported
+            compiled = self._compiled
+            kernel = self._kernel
+            rq_kernel = self._rq_kernel
+            tree_snapshot = self._tree_snapshot
+        if (
+            compiled is None
+            or kernel is None
+            or compiled.n_rules < reverse.REVERSE_MIN_RULES
+        ):
+            return [self.engine.what_is_allowed(r) for r in requests]
+        if rq_kernel is None or rq_kernel.compiled.version != compiled.version:
+            # tree_snapshot was published with `compiled` and is the exact
+            # tree the arrays were compiled from
+            rq_kernel = reverse.ReverseQueryKernel(
+                compiled, tree_snapshot, copy_tree=False, device=self.device
+            )
+            with self._lock:
+                if self._compiled is compiled:
+                    self._rq_kernel = rq_kernel
+        # reverse queries never reach stage B: skip the owner-bit packer,
+        # the relation-plane packer (wia ignores relation requirements,
+        # like the HR gate) and the condition pre-pass on this encode
+        batch = encode_requests(
+            requests, compiled, skip_conditions=True, skip_owner_bits=True,
+            skip_relation_bits=True,
+        )
+        return reverse.what_is_allowed_batch(
+            self.engine, compiled, rq_kernel, requests, batch
+        )
 
     def is_allowed_batch(self, requests: list) -> list[Response]:
         """Batched decision path: kernel rows and oracle rows together."""
@@ -95,7 +188,7 @@ class HybridEvaluator:
             kernel = self._kernel
             compiled = self._compiled
         if kernel is None:
-            return lambda: [self.engine.is_allowed(r) for r in requests]
+            return lambda: [self._oracle_is_allowed(r) for r in requests]
 
         # mixed-traffic split: a handful of deep/wide rows must not
         # inflate the adaptive padding caps (and device cost) of the whole
@@ -181,5 +274,6 @@ class HybridEvaluator:
                 operation_status=OperationStatus(),
             ))
         for slot in oracle_rows:
-            responses[slot] = self.engine.is_allowed(requests[slot])
+            # candidate-filtered on large trees
+            responses[slot] = self._oracle_is_allowed(requests[slot])
         return responses

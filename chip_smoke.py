@@ -6,9 +6,9 @@ through its main paths and checks every kernel on them against its plain
 PyTorch version:
 
 1. device: the card's name and power limit;
-2. build: the four CUDA sources (``decide_dense``, ``sig_planes``,
-   ``sig_decide``, ``decide_grouped``), one nvcc each, all started
-   together; ptxas registers, shared memory and spills per kernel;
+2. build: the five CUDA sources (``decide_dense``, ``sig_planes``,
+   ``sig_decide``, ``decide_grouped``, ``wia_planes``), one nvcc each, all
+   started together; ptxas registers, shared memory and spills per kernel;
 3. dense kernel vs plain: ``decide_dense`` against ``kernel_ref`` on the
    card, exactly equal, on every supported fixture tree, the seed data and
    the 511-rule scoped tree, in all four with_acl x with_hr variants;
@@ -32,7 +32,22 @@ PyTorch version:
    version, and a 32-row sample of responses against ``engine.is_allowed``;
 8. times: each kernel at its main path's shapes (CUDA events) beside its
    plain version and its bound; the evaluators' steady-state decisions/s
-   and stage split; the dense kernel's throughput at 2^18 / 2^16 rows.
+   and stage split; the dense kernel's throughput at 2^18 / 2^16 rows;
+9. whatIsAllowed planes vs plain: every ``wia_planes`` call of
+   ``ReverseQueryKernel.evaluate`` held exactly against its plain version
+   on the fixture trees with grid traffic, the 1,000- and 10,000-rule
+   stress trees, and the 100k-rule stress tree with 256 representative
+   rows of ``bench_stress`` traffic;
+10. the whatIsAllowed main path: ``HybridEvaluator.what_is_allowed_batch``
+   on ``wia-large`` (1,000 rules, 2,048 ``bench_wia_large`` queries), one
+   ``wia_planes`` launch on the first batch and none on warm ones, every
+   response equal to ``engine.what_is_allowed``; warm queries/s and the
+   stage split;
+11. the lattice sweep: ``AuditSweepManager`` in direct mode over the
+   128 x 128 x 1 lattice on the 10,000-rule tree in 4,096-cell chunks, a
+   warm then a timed sweep (zero ``wia_planes`` launches), the bitmap held
+   against ``engine.is_allowed`` on a 256-cell strided sample; then
+   ``wia_planes`` times at the three shapes.
 
 Any mismatch or error exits non-zero.  The line before the last is the
 kernel table as one JSON object; the last line is
@@ -68,6 +83,8 @@ from access_control_srv_tpu_torch.ops import cuda_build
 from access_control_srv_tpu_torch.ops import kernel as kmod
 from access_control_srv_tpu_torch.ops import prefilter as pfmod
 from access_control_srv_tpu_torch.ops import prefilter_ref
+from access_control_srv_tpu_torch.ops import reverse as rmod
+from access_control_srv_tpu_torch.ops import reverse_ref
 from access_control_srv_tpu_torch.ops.carry import batch_from_numpy, tables_from_numpy
 from access_control_srv_tpu_torch.ops.encode import (
     _CAPS_FLOOR,
@@ -76,6 +93,8 @@ from access_control_srv_tpu_torch.ops.encode import (
     request_needs,
 )
 from access_control_srv_tpu_torch.ops.kernel_ref import decide_dense_ref
+from access_control_srv_tpu_torch.ops.lattice import LatticeSpec, load_bitmap
+from access_control_srv_tpu_torch.srv.audit_sweep import AuditSweepManager
 from access_control_srv_tpu_torch.srv.evaluator import HybridEvaluator
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -106,13 +125,15 @@ STRESS_ROLES = [f"role-{k}" for k in range(97)]
 DEC_CODE = {"INDETERMINATE": 0, "PERMIT": 1, "DENY": 2}
 
 CSRC = "access_control_srv_tpu_torch/ops/csrc/"
-KERNELS = ("decide_dense", "sig_planes", "sig_decide", "decide_grouped")
+KERNELS = ("decide_dense", "sig_planes", "sig_decide", "decide_grouped",
+           "wia_planes")
 # the JAX program each kernel replaces (file:line)
 REPLACES = {
     "decide_dense": "access_control_srv_tpu/ops/kernel.py:1015",
     "sig_planes": "access_control_srv_tpu/ops/prefilter.py:700",
     "sig_decide": "access_control_srv_tpu/ops/prefilter.py:475",
     "decide_grouped": "access_control_srv_tpu/ops/prefilter.py:341",
+    "wia_planes": "access_control_srv_tpu/ops/reverse.py:97",
 }
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, and the scalar (non-tensor
 # core) float32 rate used for the kernel's int32 compare/logic operations
@@ -824,6 +845,34 @@ def stress_hr_traffic(n: int, seed: int = 13) -> list[Request]:
     return out
 
 
+def wia_large_requests(n: int) -> list[Request]:
+    """The JAX package's ``bench_wia_large`` traffic (copied): roles
+    ``i % 97``, subjects ``u{i}``, one of the 64 stress entities drawn
+    from ``random.Random(3)``, actions in turn."""
+    rng = random.Random(3)
+    actions = [URNS["read"], URNS["modify"], URNS["create"], URNS["delete"]]
+    out = []
+    for i in range(n):
+        k = rng.randint(0, 63)
+        role = f"role-{i % 97}"
+        out.append(Request(
+            target=Target(
+                subjects=[Attribute(id=URNS["role"], value=role),
+                          Attribute(id=URNS["subjectID"], value=f"u{i}")],
+                resources=[Attribute(id=URNS["entity"],
+                                     value=STRESS_ENTITIES[k])],
+                actions=[Attribute(id=URNS["actionID"],
+                                   value=actions[i % 4])],
+            ),
+            context={"resources": [], "subject": {
+                "id": f"u{i}",
+                "role_associations": [{"role": role, "attributes": []}],
+                "hierarchical_scopes": [],
+            }},
+        ))
+    return out
+
+
 # --------------------------------------- signature path: kernel vs plain
 
 
@@ -1130,6 +1179,9 @@ def phase_sig_main(device, stats: dict, card: str) -> dict:
     out["c"] = {"launches": launches,
                 "decide_grouped": time_kernel("decide_grouped",
                                               c_args["decide_grouped"])}
+    # the tree (host objects only) stays for phase 9's K5 check
+    out["tree_100k"] = (engine, evaluator._compiled,
+                        evaluator._tree_snapshot)
     del evaluator, engine, kern, stack, tabs, a_args, sig_args, c_args
 
     # (b) the scoped tree with bench_stress_hr traffic, 8,192 rows
@@ -1152,6 +1204,321 @@ def phase_sig_main(device, stats: dict, card: str) -> dict:
                 "steady": steady_state(evaluator, reqs_b)}
     for key in ("a", "b", "c"):
         log(f"  ({key}) on {card}: " + json.dumps(out[key]))
+    return out
+
+
+# ------------------------------------------------- whatIsAllowed (K5)
+
+
+def rq_key(rq):
+    """Comparable projection of a ReverseQuery: ids, structure, rules,
+    obligations element by element, status (the JAX package's
+    tests/test_reverse.rq_shape)."""
+    return (
+        [(ps.id, ps.combining_algorithm,
+          [(p.id, p.effect, p.evaluation_cacheable, p.has_rules,
+            [(r.id, r.effect, r.condition, r.evaluation_cacheable)
+             for r in p.rules])
+           for p in ps.policies])
+         for ps in rq.policy_sets],
+        [(o.id, o.value, [(n.id, n.value) for n in (o.attributes or [])])
+         for o in rq.obligations],
+        (rq.operation_status.code, rq.operation_status.message),
+    )
+
+
+class WiaCheck:
+    """While active, every ``wia_planes`` call of ``ReverseQueryKernel``
+    launches the kernel, then runs the plain version on the same device
+    tensors; any difference raises.  Counts the calls and the largest
+    error in ``stats``, and keeps each call's arguments, last first."""
+
+    def __init__(self, stats: dict):
+        self.stats = stats
+        self.args: list[tuple] = []
+        self._orig = None
+
+    def __enter__(self):
+        self._orig = rmod.wia_planes
+
+        def checked(*args):
+            got = self._orig(*args)
+            want = reverse_ref.wia_planes_ref(*args)
+            torch.cuda.synchronize()
+            err = _max_err(got, want)
+            st = self.stats.setdefault("wia_planes",
+                                       {"calls": 0, "max_abs_err": 0})
+            st["calls"] += 1
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            if err != 0:
+                raise AssertionError(f"wia_planes: kernel != plain (max abs "
+                                     f"err {err})")
+            self.args.insert(0, args)
+            return got
+
+        rmod.wia_planes = checked
+        return self
+
+    def __exit__(self, *exc):
+        rmod.wia_planes = self._orig
+        return False
+
+
+def wia_encode(requests, compiled):
+    """The reverse query's encode (the evaluator's flags)."""
+    return encode_requests(requests, compiled, skip_conditions=True,
+                           skip_owner_bits=True, skip_relation_bits=True)
+
+
+def bound_wia_planes(args) -> tuple[float, str, int, int]:
+    """Bytes: the target-table columns, the packed rows and the regex
+    matrices read once, the [N, 7, T] planes written once.  Operations:
+    stage A's compares per (row, target row), counted for this call's
+    data: the target rows' valid action ids against the row's action
+    slots, and per row its valid entity runs, operations and properties
+    (the kernel skips the empty slots)."""
+    tables, rows, schedule, rgx, pfx = args
+    N, T = rows.shape[0], tables["t_n_res"].shape[0]
+    nbytes = sum(int(t.nbytes) for t in tables.values())
+    nbytes += int(rows.nbytes) + int(rgx.nbytes) + int(pfx.nbytes)
+    nbytes += N * len(reverse_ref.PLANE_KEYS) * T
+    cols = prefilter_ref.unpack_rows(rows.cpu(), schedule)
+    KE, KO, KPR = (tables[k].shape[1] for k in (
+        "t_ent_vals", "t_op_vals", "t_prop_vals"))
+    NACT = cols["r_act_ids"].shape[1]
+    NR = cols["r_ent_vals"].shape[1]
+    runs = int((cols["r_ent_valid"] != 0).sum())
+    ops_v = int((cols["r_op_vals"] >= 0).sum())
+    props = int(((cols["r_prop_vals"] >= 0)
+                 & (cols["r_prop_run"] >= 0)).sum())
+    act_ids = int((tables["t_act_ids"] >= 0).sum())
+    ops = (N * act_ids * NACT
+           + T * (3 * KE * runs + KO * ops_v + props * (KE + 2 * KPR))
+           + N * T * (4 * NR + 16))
+    return _finish_bound(nbytes, ops)
+
+
+def time_wia(args, plain_iters: int = 1) -> dict:
+    """K5 and its plain version on one call's arguments (CUDA events)."""
+    ms = time_ms(lambda: kmod.wia_planes(*args))
+    plain_ms = time_ms(lambda: reverse_ref.wia_planes_ref(*args),
+                       plain_iters)
+    bms, by, nbytes, ops = bound_wia_planes(args)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                bytes=nbytes, ops=ops, N=int(args[1].shape[0]),
+                T=int(args[0]["t_n_res"].shape[0]))
+
+
+def phase_wia_vs_plain(device, stats: dict, tree_100k) -> dict:
+    """Phase 9: every ``wia_planes`` call of ``ReverseQueryKernel.evaluate``
+    held against its plain version on the card: the fixture trees of the
+    JAX package's reverse differential with grid traffic, the 1,000- and
+    10,000-rule stress trees, and the 100k-rule stress tree with 256
+    representative rows of ``bench_stress`` traffic (planes only).
+    Returns the arguments of the 100k call for the timing phase."""
+    fixtures = ["basic_policies.yml", "policy_targets.yml",
+                "policy_set_targets.yml", "role_scopes.yml",
+                "conditions.yml", "acl_policies.yml", "props_single.yml",
+                "props_rules_noprop.yml", "props_multi_rules.yml",
+                "props_multi_rules_entities.yml", "ops_multi.yml"]
+    with WiaCheck(stats) as chk:
+        for name in fixtures:
+            engine = engine_for(name)
+            compiled = compile_policies(engine.policy_sets, engine.urns)
+            kern = rmod.ReverseQueryKernel(compiled, engine.policy_sets,
+                                           device=device)
+            reqs = grid_requests(random.Random(211), 100)
+            kern.evaluate(wia_encode(reqs, compiled))
+            log(f"  {name}: {len(kern._plane_cache)} signatures, planes "
+                f"equal to the plain version")
+        for n_rules, reqs in ((1000, wia_large_requests(2048)),
+                              (10_000, lattice_requests(4096))):
+            engine = engine_from_doc(stress_doc(n_rules))
+            compiled = compile_policies(engine.policy_sets, engine.urns)
+            kern = rmod.ReverseQueryKernel(compiled, engine.policy_sets,
+                                           device=device)
+            kern.evaluate(wia_encode(reqs, compiled))
+            log(f"  stress {n_rules}: T={compiled.T}, "
+                f"{len(kern._plane_cache)} signatures, planes equal")
+        engine, compiled, tree = tree_100k
+        reqs = [r for r in stress_traffic(4096)
+                if r.target.resources[0].value in STRESS_ENTITIES]
+        kern = rmod.ReverseQueryKernel(compiled, tree, copy_tree=False,
+                                       device=device)
+        batch = wia_encode(reqs, compiled)
+        uniq, first_idx, _ = kern.signatures(batch)
+        if len(first_idx) != 256:
+            raise AssertionError(f"100k: {len(first_idx)} signatures, "
+                                 f"want 256")
+        t0 = time.perf_counter()
+        kern._signature_planes(batch, uniq, first_idx)
+        log(f"  stress 100k: T={compiled.T}, 256 representative rows, "
+            f"planes equal ({time.perf_counter() - t0:.1f} s with the "
+            f"plain version)")
+        args_100k = chk.args[0]
+    return {"100k": args_100k}
+
+
+def lattice_requests(n: int) -> list:
+    """The first ``n`` cells of the 128 x 128 x 1 lattice."""
+    spec = LatticeSpec.stress(128, 128, ("read",))
+    return [spec.request(i) for i in range(n)]
+
+
+def phase_wia_main(device, stats: dict, card: str) -> dict:
+    """Phase 10: ``HybridEvaluator.what_is_allowed_batch`` on
+    ``wia-large`` (the 1,000-rule stress tree, 2,048 ``bench_wia_large``
+    queries): one ``wia_planes`` launch on the first batch, none on warm
+    ones; every response equal to ``engine.what_is_allowed``."""
+    engine = engine_from_doc(stress_doc(1000))
+    evaluator = HybridEvaluator(engine, device=device)
+    compiled = evaluator._compiled
+    if compiled.n_rules < rmod.REVERSE_MIN_RULES:
+        raise AssertionError("wia-large is below REVERSE_MIN_RULES")
+    reqs = wia_large_requests(2048)
+    log(f"  wia-large: {compiled.n_rules} rules, S={compiled.S} "
+        f"KP={compiled.KP} KR={compiled.KR} T={compiled.T}")
+    reset_launches()
+    with WiaCheck(stats) as chk:
+        t0 = time.perf_counter()
+        responses = evaluator.what_is_allowed_batch(copy.deepcopy(reqs))
+        cold_s = time.perf_counter() - t0
+    launches = dict(kmod.LAUNCHES)
+    if launches["wia_planes"] != 1:
+        raise AssertionError(f"wia-large first batch: launches {launches}")
+    args = chk.args[0]
+    t0 = time.perf_counter()
+    for i, req in enumerate(reqs):
+        want = engine.what_is_allowed(copy.deepcopy(req))
+        if rq_key(responses[i]) != rq_key(want):
+            raise AssertionError(f"wia-large row {i} differs from the "
+                                 f"oracle")
+    oracle_all_s = time.perf_counter() - t0
+    n_rules_matched = sum(len(p.rules) for r in responses
+                          for ps in r.policy_sets for p in ps.policies)
+    log(f"  wia-large first batch: 2048 responses equal to the oracle "
+        f"({n_rules_matched} matched rules in all); launches {launches}; "
+        f"K5 equal to its plain version; cold batch {cold_s * 1e3:.1f} ms")
+
+    # warm batches: no kernel launch, mean of 3
+    reset_launches()
+    batches = [copy.deepcopy(reqs) for _ in range(3)]
+    t0 = time.perf_counter()
+    for b in batches:
+        evaluator.what_is_allowed_batch(b)
+    warm_s = (time.perf_counter() - t0) / 3
+    if kmod.LAUNCHES["wia_planes"] != 0:
+        raise AssertionError("wia-large warm batches launched wia_planes")
+
+    # the stage split of one warm batch, each stage timed alone
+    kern = evaluator._rq_kernel
+    b = copy.deepcopy(reqs)
+    t = [time.perf_counter()]
+    batch = wia_encode(b, compiled)
+    t.append(time.perf_counter())
+    uniq, first_idx, inv = kern.signatures(batch)
+    t.append(time.perf_counter())
+    planes = kern._signature_planes(batch, uniq, first_idx)
+    t.append(time.perf_counter())
+    masks = kern.fold(batch, planes[inv])
+    t.append(time.perf_counter())
+    cubes = rmod._rule_match_cubes(compiled, masks)
+    t.append(time.perf_counter())
+    rmod.assemble_batch(engine, compiled, kern, b, batch, masks, cubes)
+    t.append(time.perf_counter())
+    names = ("encode", "signature_unique", "plane_lookup", "subject_fold",
+             "rule_match_cubes", "assembly")
+    stages = {k: (t[i + 1] - t[i]) * 1e3 for i, k in enumerate(names)}
+    # a cold miss set: pack + copy + K5 + readback, CUDA events
+    fresh = rmod.ReverseQueryKernel(compiled, kern.sets, copy_tree=False,
+                                    device=device)
+    miss_ms = time_ms(lambda: fresh._launch_missing(batch, first_idx))
+
+    t0 = time.perf_counter()
+    for req in reqs[:128]:
+        engine.what_is_allowed(copy.deepcopy(req))
+    oracle_qps = 128 / (time.perf_counter() - t0)
+    out = {
+        "launches": launches, "args": args,
+        "queries_per_s": len(reqs) / warm_s, "batch_ms": warm_s * 1e3,
+        "cold_batch_ms": cold_s * 1e3, "stages_ms": stages,
+        "miss_set_ms": miss_ms, "signatures": int(len(first_idx)),
+        "oracle_qps": oracle_qps, "oracle_all_s": oracle_all_s,
+    }
+    log(f"  wia-large on {card}: {out['queries_per_s']:.1f} queries/s "
+        f"warm ({out['batch_ms']:.3f} ms per 2048), stages (ms) "
+        f"{json.dumps(stages)}; cold miss set of {len(first_idx)} "
+        f"signatures (pack, copy, K5, readback) {miss_ms:.3f} ms; scalar "
+        f"oracle {oracle_qps:.1f} queries/s")
+    return out
+
+
+def phase_lattice(device, stats: dict, card: str) -> dict:
+    """Phase 11: the direct-mode audit sweep of the 128 x 128 x 1 lattice
+    over the 10,000-rule stress tree in 4,096-cell chunks: a warm sweep,
+    then a timed sweep with zero ``wia_planes`` launches; the bitmap held
+    against ``engine.is_allowed`` on a 256-cell strided sample."""
+    import tempfile
+
+    engine = engine_from_doc(stress_doc(10_000))
+    evaluator = HybridEvaluator(engine, device=device)
+    compiled = evaluator._compiled
+    spec = LatticeSpec.stress(128, 128, ("read",))
+    log(f"  lattice: {spec.n_cells} cells, {compiled.n_rules} rules, "
+        f"S={compiled.S} KP={compiled.KP} KR={compiled.KR} T={compiled.T}")
+    with tempfile.TemporaryDirectory(prefix="acs-lattice-") as out_dir:
+        manager = AuditSweepManager(evaluator, out_dir=out_dir,
+                                    chunk_size=4096)
+        try:
+            reset_launches()
+            with WiaCheck(stats) as chk:
+                t0 = time.perf_counter()
+                warm = manager.start_sweep(spec=spec, wait=True,
+                                           wait_timeout=900)
+                warm_s = time.perf_counter() - t0
+            warm_launches = kmod.LAUNCHES["wia_planes"]
+            if warm.state != "done" or warm_launches < 1:
+                raise AssertionError(f"warm sweep: {warm.status()}, "
+                                     f"{warm_launches} wia_planes launches")
+            args = chk.args[-1]
+            reset_launches()
+            t0 = time.perf_counter()
+            job = manager.start_sweep(spec=spec, wait=True, wait_timeout=900)
+            sweep_s = time.perf_counter() - t0
+            timed_launches = kmod.LAUNCHES["wia_planes"]
+            if job.state != "done":
+                raise AssertionError(f"timed sweep: {job.status()}")
+            if timed_launches != 0:
+                raise AssertionError(f"the timed sweep launched wia_planes "
+                                     f"{timed_launches} times")
+            codes = load_bitmap(job.bitmap_path, spec.n_cells)
+            stride = max(1, spec.n_cells // 256)
+            sampled = list(range(0, spec.n_cells, stride))[:256]
+            code_of = {"PERMIT": 1, "DENY": 2}
+            t0 = time.perf_counter()
+            for index in sampled:
+                resp = engine.is_allowed(copy.deepcopy(spec.request(index)))
+                if codes[index] != code_of.get(resp.decision, 0):
+                    raise AssertionError(
+                        f"cell {index}: bitmap {codes[index]} vs oracle "
+                        f"{resp.decision}")
+            oracle_s = time.perf_counter() - t0
+            summary = job.status()["summary"]
+        finally:
+            manager.stop()
+    out = {
+        "cells": spec.n_cells, "sweep_s": sweep_s, "warm_sweep_s": warm_s,
+        "cells_per_s": spec.n_cells / sweep_s,
+        "oracle_cells_per_s": len(sampled) / oracle_s,
+        "warm_launches": warm_launches, "timed_launches": timed_launches,
+        "summary": summary, "args": args,
+    }
+    log(f"  lattice on {card}: {out['cells_per_s']:.1f} cells/s timed "
+        f"({sweep_s:.2f} s; warm sweep {warm_s:.2f} s with {warm_launches} "
+        f"wia_planes launches, K5 equal to its plain version); timed sweep "
+        f"wia_planes launches {timed_launches}; {len(sampled)} sampled "
+        f"cells equal to the oracle ({out['oracle_cells_per_s']:.1f} "
+        f"cells/s); summary {json.dumps(summary)}")
     return out
 
 
@@ -1214,6 +1581,26 @@ def main() -> int:
         log(f"  signature evaluator ({label}): {st['decisions_per_s']:.0f} "
             f"decisions/s ({st['batch_ms']:.3f} ms per batch), stages (ms) "
             f"{json.dumps(st['stages_ms'])} on {card}")
+
+    log("phase 9: wia_planes vs plain version (fixtures, 1k, 10k, 100k)")
+    wia = phase_wia_vs_plain(device, sig_stats, sig.pop("tree_100k"))
+
+    log("phase 10: whatIsAllowed main path (wia-large, 1,000 rules, "
+        "2,048 queries)")
+    wl = phase_wia_main(device, sig_stats, card)
+
+    log("phase 11: lattice sweep (128 x 128 x 1 on 10,000 rules)")
+    lat = phase_lattice(device, sig_stats, card)
+
+    log("  wia_planes times (CUDA events, 5 launches after a warm-up):")
+    k5 = {}
+    for key, args in (("wia-large", wl["args"]), ("lattice", lat["args"]),
+                      ("100k", wia["100k"])):
+        k5[key] = time_wia(args)
+        log(f"  wia_planes {key} on {card}: " + json.dumps(k5[key]))
+    log(f"  launches: wia-large first batch {wl['launches']['wia_planes']}, "
+        f"warm 0; lattice warm sweep {lat['warm_launches']}, timed sweep "
+        f"{lat['timed_launches']}")
     log(f"  max_memory_allocated {torch.cuda.max_memory_allocated()} bytes "
         f"on {card}")
     log(f"  kernels: {json.dumps(list(KERNELS))}; "
@@ -1234,6 +1621,12 @@ def main() -> int:
             "max_abs_err": sig_stats[name]["max_abs_err"],
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         })
+    rows.append({
+        "name": "wia_planes", "launches": wl["launches"]["wia_planes"],
+        "max_abs_err": sig_stats["wia_planes"]["max_abs_err"],
+        **{k: k5["wia-large"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by")},
+    })
     print(json.dumps({"kernels": [{
         "name": r["name"], "route": "cuda", "source": CSRC + r["name"] + ".cu",
         "replaces": REPLACES[r["name"]], "launches": r["launches"],

@@ -144,6 +144,11 @@ import access_control_srv_tpu_torch.ops
 import access_control_srv_tpu_torch.ops.kernel
 import access_control_srv_tpu_torch.ops.cuda_build
 import access_control_srv_tpu_torch.srv.evaluator
+import access_control_srv_tpu_torch.ops.reverse
+import access_control_srv_tpu_torch.ops.reverse_ref
+import access_control_srv_tpu_torch.ops.lattice
+import access_control_srv_tpu_torch.core.candidate_index
+import access_control_srv_tpu_torch.srv.audit_sweep
 import chip_smoke
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "access_control_srv_tpu")]

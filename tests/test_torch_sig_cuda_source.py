@@ -239,7 +239,8 @@ def test_library_path_covers_headers(tmp_path):
     csrc.mkdir()
     for f in cuda_build.CSRC.iterdir():
         (csrc / f.name).write_bytes(f.read_bytes())
-    names = ("decide_dense", "decide_grouped", "sig_planes", "sig_decide")
+    names = ("decide_dense", "decide_grouped", "sig_planes", "sig_decide",
+             "wia_planes")
     before = {n: cuda_build._library_path(n, csrc) for n in names}
     assert before == {n: cuda_build._library_path(n) for n in names}
     header = csrc / "decide_core.cuh"
