@@ -35,7 +35,8 @@
   X(const int32_t*, t_ent_tails) X(const int32_t*, t_op_vals)                \
   X(const int32_t*, t_prop_vals) X(const int32_t*, t_prop_sfx)               \
   X(const uint8_t*, t_has_props) X(const int32_t*, t_n_res)                  \
-  X(const int32_t*, t_rs_idx)                                                \
+  X(const int32_t*, t_rs_idx) X(const int32_t*, t_rel_idx)                   \
+  X(const uint8_t*, t_rel_direct)                                            \
   X(const uint8_t*, set_valid) X(const int32_t*, set_ca)                     \
   X(const uint8_t*, set_has_target) X(const int32_t*, set_target)            \
   X(const uint8_t*, pol_valid) X(const int32_t*, pol_ca)                     \
@@ -61,7 +62,8 @@
   X(const int32_t*, r_acl_ent) X(const int32_t*, r_acl_inst)                 \
   X(const int32_t*, r_acl_hr) X(const int32_t*, r_hr_roles)                  \
   X(const int32_t*, r_subject_id) X(const int32_t*, r_own_runs)              \
-  X(const int32_t*, r_own_bits)                                              \
+  X(const int32_t*, r_own_bits) X(const int32_t*, r_rel_runs)               \
+  X(const int32_t*, r_rel_bits)                                              \
   X(const uint8_t*, rgx_set) X(const uint8_t*, pfx_neq)                      \
   X(const uint8_t*, cond_true) X(const uint8_t*, cond_abort)                 \
   X(const int32_t*, cond_code)                                               \
@@ -71,7 +73,8 @@
 #define ACS_DIMS(X)                                                          \
   X(B) X(T) X(S) X(KP) X(KR) X(KS) X(KA) X(KE) X(KO) X(KPR)                  \
   X(NSUB) X(NROLE) X(NACT) X(NR) X(NP) X(NOP) X(NRA) X(NHR)                  \
-  X(NACLE) X(NACLI) X(NHRR) X(NRU) X(NWORDS) X(W) X(E) X(C) X(CSTRIDE)
+  X(NACLE) X(NACLI) X(NHRR) X(NRU) X(NWORDS) X(NRU_REL) X(NWORDS_REL)       \
+  X(W) X(E) X(C) X(CSTRIDE)
 
 #define ACS_FIELD(type, name) type name;
 #define ACS_DIM_FIELD(name) int name;
@@ -305,9 +308,9 @@ __device__ bool acl_create(const Args& a, int b, int t,
 }
 
 // stage A without the subject fold for target row t against request row b:
-// the resource/action match bits (TC_*), and when `want_hr` stage B's
-// signature-determined pieces, the sticky per-run collection state and the
-// per-op-slot operation hits; `raw` carries the TR_* bits.  `A` is any
+// the resource/action match bits (TC_*), the per-op-slot operation hits,
+// and when `want_collect` the sticky per-run collection state that stage B
+// and the relation-path fold read; `raw` carries the TR_* bits.  `A` is any
 // argument struct carrying the target-table, request-row and regex fields
 // by these names (the dense program's Args, sig_planes.cu's per-group view
 // of a pseudo-request, or wia_planes.cu's view of one packed row, whose
@@ -321,7 +324,7 @@ struct TargetComp {
 
 template <class A>
 __device__ TargetComp target_components(const A& a, int b, int t,
-                                        bool want_hr) {
+                                        bool want_collect) {
   const int NR = a.NR;
   const int32_t* rev = a.r_ent_vals + (size_t)b * NR;
   const int32_t* ree = a.r_ent_e + (size_t)b * NR;
@@ -443,7 +446,7 @@ __device__ TargetComp target_components(const A& a, int b, int t,
             (state_any_rg ? TR_ANY_RG : 0);
   out.op_hit = op_hit;
   out.collect = 0;
-  if (want_hr) {
+  if (want_collect) {
     // sticky collection per entity slot over the runs, any over slots
     for (int k = 0; k < a.KE; ++k) {
       bool s = false;
@@ -460,7 +463,10 @@ __device__ TargetComp target_components(const A& a, int b, int t,
 }
 
 // stage B from the host-packed owner bitplanes: `collect` / `op_hit` are
-// the target's run and op-slot bits, v its (role, scoping) vocab index
+// the target's run and op-slot bits, v its (role, scoping) vocab index.
+// The relation-path fold reads the closure bitplanes through the same
+// function: no operation slots (nop 0), and plane A (bit g) unless the
+// path is `!direct` (bit nru + g), i.e. hr_check = !direct.
 __device__ __forceinline__ bool hr_bad(const int32_t* words,
                                        const int32_t* runs, int nru, int nop,
                                        int NR, int v, bool hr_check,
@@ -480,8 +486,10 @@ __device__ __forceinline__ bool hr_bad(const int32_t* words,
   return false;
 }
 
-// stages A-C for target row t: the six match bits
-template <bool WITH_ACL, bool WITH_HR>
+// stages A-C for target row t: the six match bits; TB_HR carries the HR
+// check ANDed with the relation-path fold, as hr_pass does in the JAX
+// program
+template <bool WITH_ACL, bool WITH_HR, bool WITH_REL>
 __device__ uint8_t target_bits(const Args& a, int b, int t,
                                const uint64_t* elig, const uint64_t* same) {
   // ---- subject matching
@@ -501,7 +509,10 @@ __device__ uint8_t target_bits(const Args& a, int b, int t,
     }
   }
   const bool need_hr = WITH_HR && n_subjects != 0 && a.t_has_scoping[t];
-  const TargetComp comp = target_components(a, b, t, need_hr);
+  // the relation fold has no subject or scoping term: every row with a
+  // relation-path requirement needs the collection state
+  const int rel_idx = WITH_REL ? a.t_rel_idx[t] : -1;
+  const TargetComp comp = target_components(a, b, t, need_hr || rel_idx >= 0);
   const bool base = sub_ok && (comp.bits & TC_ACT);
 
   uint8_t bits = 0;
@@ -515,6 +526,11 @@ __device__ uint8_t target_bits(const Args& a, int b, int t,
                            a.r_own_runs + (size_t)b * a.NRU, a.NRU, a.NOP,
                            a.NR, a.t_rs_idx[t], a.t_hr_check[t],
                            comp.collect, comp.op_hit);
+  }
+  if (hr && rel_idx >= 0) {
+    hr = !hr_bad(a.r_rel_bits + (size_t)b * a.NWORDS_REL,
+                 a.r_rel_runs + (size_t)b * a.NRU_REL, a.NRU_REL, 0, a.NR,
+                 rel_idx, !a.t_rel_direct[t], comp.collect, 0);
   }
   if (hr) bits |= TB_HR;
 
@@ -560,7 +576,7 @@ __device__ __forceinline__ int select_pos(int ca, int first_deny,
 // the whole dense program for request row b, run by one thread block over
 // the tables in `a`; `smem` is the block's dynamic shared memory, laid out
 // by smem_layout
-template <bool WITH_ACL, bool WITH_HR>
+template <bool WITH_ACL, bool WITH_HR, bool WITH_REL>
 __device__ void decide_row(const Args& a, int b, unsigned char* smem) {
   const SmemLayout L = smem_layout(a, WITH_ACL);
   uint64_t* elig = reinterpret_cast<uint64_t*>(smem + L.elig);
@@ -616,7 +632,7 @@ __device__ void decide_row(const Args& a, int b, unsigned char* smem) {
 
   // ---- stages A-C: one thread per target row
   for (int t = tid; t < a.T; t += blockDim.x)
-    tbits[t] = target_bits<WITH_ACL, WITH_HR>(a, b, t, elig, same);
+    tbits[t] = target_bits<WITH_ACL, WITH_HR, WITH_REL>(a, b, t, elig, same);
   __syncthreads();
 
   // ---- stage D: policy gates per set (one warp per set)

@@ -2,8 +2,9 @@
 //
 // Replaces the JAX package's dense decision program: the vmapped
 // ops/kernel.py _evaluate_one under DecisionKernel.make_run.run (stages A-G:
-// target matching, HR owner bitplanes, verifyACL, rule predicates, policy
-// gates, combining algorithms, last-set-wins and flat-order condition aborts).
+// target matching, HR owner bitplanes, the relation-path fold (with_rel,
+// ops/kernel.py:680-690), verifyACL, rule predicates, policy gates,
+// combining algorithms, last-set-wins and flat-order condition aborts).
 // Host side: access_control_srv_tpu_torch/ops/kernel.py (decide_dense); the
 // plain PyTorch version it is held against: ops/kernel_ref.py.
 //
@@ -16,9 +17,11 @@
 // decide_row in decide_core.cuh, shared with decide_grouped.cu).
 //   Stage A-C: threads stride over the T target rows; each thread runs the
 //     whole per-target computation (subject/action/entity/property matching,
-//     the sticky entity-run scans, the owner-bitplane HR check and the
-//     verifyACL create-path scan, each kept sequential inside its thread) and
-//     writes six match bits per target row into shared memory.
+//     the sticky entity-run scans, the owner-bitplane HR check, the
+//     relation-path check on the closure bitplanes (the same packed layout,
+//     read through the same function) and the verifyACL create-path scan,
+//     each kept sequential inside its thread) and writes six match bits per
+//     target row into shared memory.
 //   Stage D: one warp per policy set: carried policyEffect, exact-match break,
 //     multi-entity recheck, set gate (warp-shuffle min/max/or).
 //   Stage E: one warp per policy: lanes stride over the rules, positional
@@ -31,20 +34,22 @@
 // into shared memory before stage A.
 //
 // The policy tables and request arrays are kernel arguments (one struct of
-// device pointers plus the shape ints); with_acl / with_hr are template
-// parameters.  Bools arrive as uint8.  The kernel allocates nothing.
+// device pointers plus the shape ints); with_acl / with_hr / with_rel are
+// template parameters (8 variants).  Bools arrive as uint8.  The relation
+// planes' width (NRU_REL) comes from their shapes, so the 1-wide dummy
+// planes of a batch encoded without relation bits are read as they are.  The kernel allocates nothing.
 
 #include "decide_core.cuh"
 
-template <bool WITH_ACL, bool WITH_HR>
+template <bool WITH_ACL, bool WITH_HR, bool WITH_REL>
 __global__ void decide_dense_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  decide_row<WITH_ACL, WITH_HR>(a, blockIdx.x, smem);
+  decide_row<WITH_ACL, WITH_HR, WITH_REL>(a, blockIdx.x, smem);
 }
 
-template <bool WITH_ACL, bool WITH_HR>
+template <bool WITH_ACL, bool WITH_HR, bool WITH_REL>
 static int launch(const Args& a, size_t smem, int threads, cudaStream_t stream) {
-  auto kernel = decide_dense_kernel<WITH_ACL, WITH_HR>;
+  auto kernel = decide_dense_kernel<WITH_ACL, WITH_HR, WITH_REL>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -52,6 +57,21 @@ static int launch(const Args& a, size_t smem, int threads, cudaStream_t stream) 
   }
   kernel<<<a.B, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// the variant of the flags: with_acl x with_hr x with_rel
+static int dispatch(const Args& a, size_t smem, int threads, cudaStream_t s,
+                    bool acl, bool hr, bool rel) {
+  if (acl) {
+    if (hr) return rel ? launch<true, true, true>(a, smem, threads, s)
+                       : launch<true, true, false>(a, smem, threads, s);
+    return rel ? launch<true, false, true>(a, smem, threads, s)
+               : launch<true, false, false>(a, smem, threads, s);
+  }
+  if (hr) return rel ? launch<false, true, true>(a, smem, threads, s)
+                     : launch<false, true, false>(a, smem, threads, s);
+  return rel ? launch<false, false, true>(a, smem, threads, s)
+             : launch<false, false, false>(a, smem, threads, s);
 }
 
 extern "C" {
@@ -71,19 +91,15 @@ long long acs_decide_dense_smem(const int32_t* dims, int n_dims, int with_acl) {
 // launches the kernel on `stream`; returns cudaGetLastError() after the
 // launch, or -1 when the argument counts do not match this build
 int acs_decide_dense(const int64_t* ptrs, int n_ptrs, const int32_t* dims,
-                     int n_dims, int with_acl, int with_hr, int threads,
-                     void* stream) {
+                     int n_dims, int with_acl, int with_hr, int with_rel,
+                     int threads, void* stream) {
   Args a;
   if (!fill_args(&a, ptrs, n_ptrs, dims, n_dims)) return -1;
   if (a.B == 0) return 0;
   const size_t smem = smem_layout(a, with_acl != 0).total;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (with_acl) {
-    return with_hr ? launch<true, true>(a, smem, threads, s)
-                   : launch<true, false>(a, smem, threads, s);
-  }
-  return with_hr ? launch<false, true>(a, smem, threads, s)
-                 : launch<false, false>(a, smem, threads, s);
+  return dispatch(a, smem, threads, s, with_acl != 0, with_hr != 0,
+                  with_rel != 0);
 }
 
 }  // extern "C"

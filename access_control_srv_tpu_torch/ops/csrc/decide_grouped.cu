@@ -18,7 +18,9 @@
 // group-varying table pointer (the target table t_*, the rule arrays, the
 // policy and set target indices) by g strides of the stacked [G, ...]
 // arrays; the group-invariant policy/set metadata and the batch arrays are
-// as in the dense kernel.
+// as in the dense kernel.  The host chooses the with_rel variant from the
+// stacked subtrees (as the JAX runner keys on tree_needs_rel(stacked)), so a
+// batch whose groups carry no relation rows runs the plain variant.
 
 #include "decide_core.cuh"
 
@@ -41,6 +43,7 @@ __device__ __forceinline__ Args group_view(const Args& a, int g) {
   v.t_op_vals += T * a.KO;
   v.t_prop_vals += T * a.KPR; v.t_prop_sfx += T * a.KPR;
   v.t_has_props += T; v.t_n_res += T; v.t_rs_idx += T;
+  v.t_rel_idx += T; v.t_rel_direct += T;
   v.set_target += (size_t)g * a.S;
   v.pol_target += sp;
   v.rule_valid += rules; v.rule_effect += rules;
@@ -49,17 +52,17 @@ __device__ __forceinline__ Args group_view(const Args& a, int g) {
   return v;
 }
 
-template <bool WITH_ACL, bool WITH_HR>
+template <bool WITH_ACL, bool WITH_HR, bool WITH_REL>
 __global__ void decide_grouped_kernel(const GroupedArgs ga) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x;
-  decide_row<WITH_ACL, WITH_HR>(group_view(ga.a, ga.g_idx[b]), b, smem);
+  decide_row<WITH_ACL, WITH_HR, WITH_REL>(group_view(ga.a, ga.g_idx[b]), b, smem);
 }
 
-template <bool WITH_ACL, bool WITH_HR>
+template <bool WITH_ACL, bool WITH_HR, bool WITH_REL>
 static int launch(const GroupedArgs& ga, size_t smem, int threads,
                   cudaStream_t stream) {
-  auto kernel = decide_grouped_kernel<WITH_ACL, WITH_HR>;
+  auto kernel = decide_grouped_kernel<WITH_ACL, WITH_HR, WITH_REL>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -67,6 +70,21 @@ static int launch(const GroupedArgs& ga, size_t smem, int threads,
   }
   kernel<<<ga.a.B, threads, smem, stream>>>(ga);
   return (int)cudaGetLastError();
+}
+
+// the variant of the flags: with_acl x with_hr x with_rel
+static int dispatch(const GroupedArgs& ga, size_t smem, int threads,
+                    cudaStream_t s, bool acl, bool hr, bool rel) {
+  if (acl) {
+    if (hr) return rel ? launch<true, true, true>(ga, smem, threads, s)
+                       : launch<true, true, false>(ga, smem, threads, s);
+    return rel ? launch<true, false, true>(ga, smem, threads, s)
+               : launch<true, false, false>(ga, smem, threads, s);
+  }
+  if (hr) return rel ? launch<false, true, true>(ga, smem, threads, s)
+                     : launch<false, true, false>(ga, smem, threads, s);
+  return rel ? launch<false, false, true>(ga, smem, threads, s)
+             : launch<false, false, false>(ga, smem, threads, s);
 }
 
 extern "C" {
@@ -88,8 +106,8 @@ long long acs_decide_grouped_smem(const int32_t* dims, int n_dims,
 // g_idx; returns cudaGetLastError() after the launch, or -1 when the
 // argument counts do not match this build
 int acs_decide_grouped(const int64_t* ptrs, int n_ptrs, const int32_t* dims,
-                       int n_dims, int with_acl, int with_hr, int threads,
-                       void* stream) {
+                       int n_dims, int with_acl, int with_hr, int with_rel,
+                       int threads, void* stream) {
   GroupedArgs ga;
   if (n_ptrs != kNumPtrs + 1 ||
       !fill_args(&ga.a, ptrs, kNumPtrs, dims, n_dims))
@@ -98,12 +116,8 @@ int acs_decide_grouped(const int64_t* ptrs, int n_ptrs, const int32_t* dims,
   if (ga.a.B == 0) return 0;
   const size_t smem = smem_layout(ga.a, with_acl != 0).total;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (with_acl) {
-    return with_hr ? launch<true, true>(ga, smem, threads, s)
-                   : launch<true, false>(ga, smem, threads, s);
-  }
-  return with_hr ? launch<false, true>(ga, smem, threads, s)
-                 : launch<false, false>(ga, smem, threads, s);
+  return dispatch(ga, smem, threads, s, with_acl != 0, with_hr != 0,
+                  with_rel != 0);
 }
 
 }  // extern "C"

@@ -3,7 +3,8 @@
 //
 // Replaces the JAX package's ops/prefilter.py PrefilteredKernel._sig_runner
 // (`body` / `slot_fn` / `one`: the per-row subject fold on the signature
-// planes, the HR pass from the owner bitplanes, the ACL short path, the
+// planes, the HR pass from the owner bitplanes, the relation-path fold on
+// the closure bitplanes (with_rel, :563-583), the ACL short path, the
 // condition wiring, _policy_gates_core, _combine_and_decide_flat with its
 // KR-window packed-key reductions, last-set-wins and the flat-order abort,
 // then the un-permute through gp_orig).  Host side:
@@ -62,16 +63,19 @@
   X(const uint8_t*, rl_hrchk) X(const uint8_t*, pl_collect)                  \
   X(const uint8_t*, pl_op_hit) X(const uint8_t*, pl_triv)                    \
   X(const int32_t*, pl_rs) X(const uint8_t*, pl_hrchk)                       \
+  X(const int32_t*, rl_rel_idx) X(const uint8_t*, rl_rel_dir)                \
+  X(const int32_t*, pl_rel_idx) X(const uint8_t*, pl_rel_dir)                \
   X(const int32_t*, slot_g) X(const int32_t*, mega_rows)                     \
   X(const int32_t*, grid2row) X(const int32_t*, gp_orig)                     \
   X(int32_t*, out_decision) X(int32_t*, out_cacheable) X(int32_t*, out_status)
 
 #define SD_DIMS(X)                                                           \
   X(NSLOT) X(R) X(S) X(KP) X(KR) X(KS) X(NR) X(NOP) X(WROW) X(NSUB)          \
-  X(NROLE) X(NACT) X(NRU) X(NWORDS) X(C) X(O_SUB_IDS) X(O_SUB_VALS)          \
-  X(O_ROLES) X(O_ACT_IDS) X(O_ACT_VALS) X(O_N_ENT_ATTRS) X(O_N_RA)           \
-  X(O_ACL_SHORT) X(O_CTX_PRESENT) X(O_OWN_RUNS) X(O_OWN_BITS)                \
-  X(O_COND_TRUE) X(O_COND_ABORT) X(O_COND_CODE) X(NEEDS_PAIRS)
+  X(NROLE) X(NACT) X(NRU) X(NWORDS) X(NRU_REL) X(NWORDS_REL) X(C)          \
+  X(O_SUB_IDS) X(O_SUB_VALS) X(O_ROLES) X(O_ACT_IDS) X(O_ACT_VALS)           \
+  X(O_N_ENT_ATTRS) X(O_N_RA) X(O_ACL_SHORT) X(O_CTX_PRESENT) X(O_OWN_RUNS)   \
+  X(O_OWN_BITS) X(O_REL_RUNS) X(O_REL_BITS) X(O_COND_TRUE) X(O_COND_ABORT)   \
+  X(O_COND_CODE) X(NEEDS_PAIRS)
 
 struct DecArgs {
   SD_PTRS(ACS_FIELD)
@@ -86,8 +90,10 @@ struct Row {
   const int32_t* roles;
   const int32_t* sub_ids;
   const int32_t* sub_vals;
-  const int32_t* runs;
+  const int32_t* runs;  // owner bitplanes
   const int32_t* bits;
+  const int32_t* rel_runs;  // relation-closure bitplanes
+  const int32_t* rel_bits;
   const int32_t* cond_true;  // [C] each
   const int32_t* cond_abort;
   const int32_t* cond_code;
@@ -132,6 +138,19 @@ __device__ __forceinline__ bool hr_pass(const DecArgs& a, const Row& r,
   return !hr_bad(r.bits, r.runs, a.NRU, a.NOP, a.NR, v, hr_check, coll, ops);
 }
 
+// the relation-path gate of one plane slot: no requirement (idx < 0), or
+// no collected run whose closure verdict fails (plane A, or plane B for a
+// !direct path: hr_bad with nop 0 and hr_check = !direct)
+__device__ __forceinline__ bool rel_pass(const DecArgs& a, const Row& r,
+                                         int idx, bool direct,
+                                         const uint8_t* collect) {
+  if (idx < 0) return true;
+  uint32_t coll = 0;
+  for (int j = 0; j < a.NR; ++j) coll |= (uint32_t)(collect[j] != 0) << j;
+  return !hr_bad(r.rel_bits, r.rel_runs, a.NRU_REL, 0, a.NR, idx, !direct,
+                 coll, 0);
+}
+
 // the group's planes: every pointer of `a` advanced to group g
 __device__ __forceinline__ DecArgs group_view(const DecArgs& a, int g) {
   DecArgs v = a;
@@ -152,10 +171,17 @@ __device__ __forceinline__ DecArgs group_view(const DecArgs& a, int g) {
   v.sl_n_sub += sets; v.sl_sub_ids += sets * a.KS;
   v.sl_sub_vals += sets * a.KS; v.multi_ok += sets;
   if (a.rl_collect != nullptr) {
-    v.rl_collect += rules * a.NR; v.rl_op_hit += rules * a.NOP;
+    v.rl_collect += rules * a.NR; v.pl_collect += pols * a.NR;
+  }
+  if (a.rl_op_hit != nullptr) {
+    v.rl_op_hit += rules * a.NOP;
     v.rl_triv += rules; v.rl_rs += rules; v.rl_hrchk += rules;
-    v.pl_collect += pols * a.NR; v.pl_op_hit += pols * a.NOP;
+    v.pl_op_hit += pols * a.NOP;
     v.pl_triv += pols; v.pl_rs += pols; v.pl_hrchk += pols;
+  }
+  if (a.rl_rel_idx != nullptr) {
+    v.rl_rel_idx += rules; v.rl_rel_dir += rules;
+    v.pl_rel_idx += pols; v.pl_rel_dir += pols;
   }
   return v;
 }
@@ -174,7 +200,7 @@ __device__ __forceinline__ int policy_planes(const DecArgs& v, const Row& r,
 
 // decides one row against group view v; every lane of the warp calls it
 // (the warp reductions need all 32), lane 0 holds the result
-template <bool WITH_HR>
+template <bool WITH_HR, bool WITH_REL>
 __device__ void decide_sig_row(const DecArgs& v, const Row& r, int lane,
                                int* decision, int* cacheable, int* status) {
   const int KR = v.KR;
@@ -221,6 +247,9 @@ __device__ void decide_sig_row(const DecArgs& v, const Row& r, int lane,
         pol_subject = hr_pass(v, r, v.pl_triv[p], v.pl_rs[p], v.pl_hrchk[p],
                               v.pl_collect + (size_t)p * v.NR,
                               v.pl_op_hit + (size_t)p * v.NOP);
+      if (WITH_REL && pol_subject && v.pol_has_subjects[p])
+        pol_subject = rel_pass(v, r, v.pl_rel_idx[p], v.pl_rel_dir[p],
+                               v.pl_collect + (size_t)p * v.NR);
       int first_deny = ACS_BIG, first_permit = ACS_BIG, first = ACS_BIG;
       int last = -1;
       for (int kr = 0; kr < KR && scope; ++kr) {
@@ -237,6 +266,9 @@ __device__ void decide_sig_row(const DecArgs& v, const Row& r, int lane,
             reached = hr_pass(v, r, v.rl_triv[q], v.rl_rs[q], v.rl_hrchk[q],
                               v.rl_collect + q * v.NR,
                               v.rl_op_hit + q * v.NOP);
+          if (WITH_REL && reached)
+            reached = rel_pass(v, r, v.rl_rel_idx[q], v.rl_rel_dir[q],
+                               v.rl_collect + q * v.NR);
         }
         if (!reached) continue;
         const int ci = v.rule_cond[q];
@@ -304,7 +336,7 @@ __device__ void decide_sig_row(const DecArgs& v, const Row& r, int lane,
   }
 }
 
-template <bool WITH_HR>
+template <bool WITH_HR, bool WITH_REL>
 __global__ void sig_decide_kernel(const DecArgs a) {
   const int slot = blockIdx.x;
   const int lane = threadIdx.x & 31;
@@ -328,6 +360,8 @@ __global__ void sig_decide_kernel(const DecArgs a) {
     r.ctx_ok = WITH_HR && w[a.O_CTX_PRESENT] != 0 && n_ra > 0;
     r.runs = WITH_HR ? w + a.O_OWN_RUNS : nullptr;
     r.bits = WITH_HR ? w + a.O_OWN_BITS : nullptr;
+    r.rel_runs = WITH_REL ? w + a.O_REL_RUNS : nullptr;
+    r.rel_bits = WITH_REL ? w + a.O_REL_BITS : nullptr;
     r.multi = w[a.O_N_ENT_ATTRS] > 1;
     const int id0 = w[a.O_ACT_IDS], val0 = w[a.O_ACT_VALS];
     const bool is_action = id0 == k[2];
@@ -336,7 +370,8 @@ __global__ void sig_decide_kernel(const DecArgs a) {
     const int shortcut = w[a.O_ACL_SHORT];
     r.acl_row = shortcut == 1 || (shortcut == 0 && n_ra > 0 && crud);
     int decision, cacheable, status;
-    decide_sig_row<WITH_HR>(v, r, lane, &decision, &cacheable, &status);
+    decide_sig_row<WITH_HR, WITH_REL>(v, r, lane, &decision, &cacheable,
+                                      &status);
     if (lane == 0) {
       a.out_decision[row] = decision;
       a.out_cacheable[row] = cacheable;
@@ -355,7 +390,8 @@ const char* acs_sig_decide_layout() {
 // launches one block per slot on `stream`; returns cudaGetLastError()
 // after the launch, or -1 when the argument counts do not match this build
 int acs_sig_decide(const int64_t* ptrs, int n_ptrs, const int32_t* dims,
-                   int n_dims, int with_hr, int threads, void* stream_ptr) {
+                   int n_dims, int with_hr, int with_rel, int threads,
+                   void* stream_ptr) {
   if (n_ptrs != kSdPtrs || n_dims != kSdDims) return -1;
   DecArgs da;
   DecArgs* a = &da;
@@ -364,11 +400,17 @@ int acs_sig_decide(const int64_t* ptrs, int n_ptrs, const int32_t* dims,
   i = 0;
   SD_DIMS(ACS_SET_DIM)
   if (da.NSLOT == 0) return 0;
-  if (with_hr && (da.rl_collect == nullptr || da.NR > MAX_NR ||
-                  da.NOP > MAX_NOP))
+  if ((with_hr || with_rel) && (da.rl_collect == nullptr || da.NR > MAX_NR))
+    return -1;
+  if (with_hr && (da.rl_op_hit == nullptr || da.NOP > MAX_NOP)) return -1;
+  if (with_rel && (da.rl_rel_idx == nullptr || da.O_REL_RUNS < 0 ||
+                   da.O_REL_BITS < 0))
     return -1;
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  auto kernel = with_hr ? sig_decide_kernel<true> : sig_decide_kernel<false>;
+  auto kernel = with_hr ? (with_rel ? sig_decide_kernel<true, true>
+                                    : sig_decide_kernel<true, false>)
+                        : (with_rel ? sig_decide_kernel<false, true>
+                                    : sig_decide_kernel<false, false>);
   kernel<<<da.NSLOT, threads, 0, stream>>>(da);
   return (int)cudaGetLastError();
 }

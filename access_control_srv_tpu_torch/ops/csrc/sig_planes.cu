@@ -20,11 +20,14 @@
 // prefix resets included) against the group's pseudo-request: no subjects,
 // no properties, so the PERMIT property-fail reduces to has_props and an
 // entity hit.  Five component bits per target go to a scratch byte, and for
-// HR trees the per-run collection bits and per-op-slot hits to two scratch
-// words.  After __syncthreads, phase 2: threads stride over the S*KP*KR rule
+// HR or relation trees the per-run collection bits (and for HR the
+// per-op-slot hits) to scratch words.  After __syncthreads, phase 2: threads stride over the S*KP*KR rule
 // positions, the S*KP policies and the S sets, gather the component bits
-// through rule_target / pol_target / set_target and write every plane; one
-// thread per set folds the multi-entity recheck.  Scratch is global memory
+// through rule_target / pol_target / set_target and write every plane (for
+// relation trees (with_rel) also the relation-path vocab index and !direct
+// flag of each rule and policy target, and the collection planes an HR tree
+// would carry; ops/prefilter.py:755-776); one thread per set folds the
+// multi-entity recheck.  Scratch is global memory
 // allocated by the host (Tp can exceed what shared memory holds).
 
 #include "decide_core.cuh"
@@ -39,7 +42,8 @@
   X(const int32_t*, t_ent_tails) X(const int32_t*, t_op_vals)                \
   X(const int32_t*, t_prop_vals) X(const int32_t*, t_prop_sfx)               \
   X(const uint8_t*, t_has_props) X(const int32_t*, t_n_res)                  \
-  X(const int32_t*, t_rs_idx)                                                \
+  X(const int32_t*, t_rs_idx) X(const int32_t*, t_rel_idx)                   \
+  X(const uint8_t*, t_rel_direct)                                            \
   X(const int32_t*, rule_effect) X(const int32_t*, rule_target)              \
   X(const int32_t*, pol_target) X(const int32_t*, set_target)                \
   X(const uint8_t*, pol_valid) X(const int32_t*, pol_effect)                 \
@@ -64,6 +68,8 @@
   X(int32_t*, rl_rs) X(uint8_t*, rl_hrchk)                                   \
   X(uint8_t*, pl_collect) X(uint8_t*, pl_op_hit) X(uint8_t*, pl_triv)        \
   X(int32_t*, pl_rs) X(uint8_t*, pl_hrchk)                                   \
+  X(int32_t*, rl_rel_idx) X(uint8_t*, rl_rel_dir)                            \
+  X(int32_t*, pl_rel_idx) X(uint8_t*, pl_rel_dir)                            \
   X(uint8_t*, comp_bits) X(int32_t*, comp_collect) X(int32_t*, comp_op)
 
 #define SP_DIMS(X)                                                           \
@@ -91,6 +97,7 @@ __device__ __forceinline__ SigArgs group_view(const SigArgs& a, int g) {
   v.t_op_vals += T * a.KO;
   v.t_prop_vals += T * a.KPR; v.t_prop_sfx += T * a.KPR;
   v.t_has_props += T; v.t_n_res += T; v.t_rs_idx += T;
+  v.t_rel_idx += T; v.t_rel_direct += T;
   v.rgx_set += (size_t)g * a.W * a.E;
   v.pfx_neq += (size_t)g * a.W * a.E;
   return v;
@@ -111,20 +118,38 @@ __device__ __forceinline__ void copy_subject(const SigArgs& v, int t,
   }
 }
 
+// the collection state of a target row (per-run bits) to plane slot q
+__device__ __forceinline__ void copy_collect(const SigArgs& v, size_t q,
+                                             uint32_t collect, uint8_t* coll) {
+  for (int j = 0; j < v.NR; ++j) coll[q * v.NR + j] = (collect >> j) & 1u;
+}
+
 // stage B's per-signature pieces of target row t, copied to plane slot q
 __device__ __forceinline__ void copy_hr(const SigArgs& v, int t, size_t q,
                                         uint32_t collect, uint32_t op_hit,
                                         uint8_t* coll, uint8_t* op,
                                         uint8_t* triv, int32_t* rs,
                                         uint8_t* hrchk) {
-  for (int j = 0; j < v.NR; ++j) coll[q * v.NR + j] = (collect >> j) & 1u;
+  copy_collect(v, q, collect, coll);
   for (int j = 0; j < v.NOP; ++j) op[q * v.NOP + j] = (op_hit >> j) & 1u;
   triv[q] = v.t_n_subjects[t] == 0 || !v.t_has_scoping[t];
   rs[q] = v.t_rs_idx[t];
   hrchk[q] = v.t_hr_check[t];
 }
 
+// the relation-path pieces of target row t (the requirement's vocab index,
+// -1 for none, and its !direct flag), plus the collection state when the HR
+// planes do not already carry it, copied to plane slot q
 template <bool WITH_HR>
+__device__ __forceinline__ void copy_rel(const SigArgs& v, int t, size_t q,
+                                         uint32_t collect, uint8_t* coll,
+                                         int32_t* idx, uint8_t* dir) {
+  if (!WITH_HR) copy_collect(v, q, collect, coll);
+  idx[q] = v.t_rel_idx[t];
+  dir[q] = v.t_rel_direct[t];
+}
+
+template <bool WITH_HR, bool WITH_REL>
 __global__ void sig_planes_kernel(const SigArgs a) {
   const int g = blockIdx.x;
   const SigArgs v = group_view(a, g);
@@ -134,12 +159,10 @@ __global__ void sig_planes_kernel(const SigArgs a) {
 
   // ---- phase 1: stage A components per target row of the group
   for (int t = threadIdx.x; t < a.T; t += blockDim.x) {
-    const TargetComp c = target_components(v, g, t, WITH_HR);
+    const TargetComp c = target_components(v, g, t, WITH_HR || WITH_REL);
     cbits[t] = c.bits;
-    if (WITH_HR) {
-      ccoll[t] = (int32_t)c.collect;
-      cop[t] = (int32_t)c.op_hit;
-    }
+    if (WITH_HR || WITH_REL) ccoll[t] = (int32_t)c.collect;
+    if (WITH_HR) cop[t] = (int32_t)c.op_hit;
   }
   __syncthreads();
 
@@ -162,6 +185,9 @@ __global__ void sig_planes_kernel(const SigArgs a) {
     if (WITH_HR)
       copy_hr(v, t, q, ccoll[t], cop[t], a.rl_collect, a.rl_op_hit,
               a.rl_triv, a.rl_rs, a.rl_hrchk);
+    if (WITH_REL)
+      copy_rel<WITH_HR>(v, t, q, ccoll[t], a.rl_collect, a.rl_rel_idx,
+                        a.rl_rel_dir);
   }
   const int32_t* pt = a.pol_target + g * n_pol;
   for (size_t x = threadIdx.x; x < n_pol; x += blockDim.x) {
@@ -178,6 +204,9 @@ __global__ void sig_planes_kernel(const SigArgs a) {
     if (WITH_HR)
       copy_hr(v, t, q, ccoll[t], cop[t], a.pl_collect, a.pl_op_hit,
               a.pl_triv, a.pl_rs, a.pl_hrchk);
+    if (WITH_REL)
+      copy_rel<WITH_HR>(v, t, q, ccoll[t], a.pl_collect, a.pl_rel_idx,
+                        a.pl_rel_dir);
   }
   const int32_t* st = a.set_target + (size_t)g * a.S;
   const int32_t* pent = a.r_ent_vals + (size_t)g * a.NR;
@@ -220,7 +249,8 @@ const char* acs_sig_planes_layout() {
 // launches one block per group on `stream`; returns cudaGetLastError()
 // after the launch, or -1 when the argument counts do not match this build
 int acs_sig_planes(const int64_t* ptrs, int n_ptrs, const int32_t* dims,
-                   int n_dims, int with_hr, int threads, void* stream_ptr) {
+                   int n_dims, int with_hr, int with_rel, int threads,
+                   void* stream_ptr) {
   if (n_ptrs != kSpPtrs || n_dims != kSpDims) return -1;
   SigArgs sa;
   SigArgs* a = &sa;
@@ -229,8 +259,16 @@ int acs_sig_planes(const int64_t* ptrs, int n_ptrs, const int32_t* dims,
   i = 0;
   SP_DIMS(ACS_SET_DIM)
   if (sa.G == 0) return 0;
+  if ((with_hr || with_rel) && (sa.rl_collect == nullptr || sa.NR > MAX_NR))
+    return -1;
+  if ((with_hr && sa.rl_op_hit == nullptr) ||
+      (with_rel && sa.rl_rel_idx == nullptr))
+    return -1;
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  auto kernel = with_hr ? sig_planes_kernel<true> : sig_planes_kernel<false>;
+  auto kernel = with_hr ? (with_rel ? sig_planes_kernel<true, true>
+                                    : sig_planes_kernel<true, false>)
+                        : (with_rel ? sig_planes_kernel<false, true>
+                                    : sig_planes_kernel<false, false>);
   kernel<<<sa.G, threads, 0, stream>>>(sa);
   return (int)cudaGetLastError();
 }

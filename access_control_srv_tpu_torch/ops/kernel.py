@@ -18,9 +18,11 @@ are wrapped here the same way: ``sig_planes`` (``csrc/sig_planes.cu``),
 wrapper checks its library's argument layout string when it loads and
 counts its launches in ``LAUNCHES``.
 
-Not ported yet, and refused with ``NotImplementedError``: trees whose
-targets carry relation paths (the ReBAC relation planes) and the explain
-output.
+Trees whose targets carry relation paths (ReBAC) take each kernel's
+``with_rel`` variant, which folds the per-batch relation-closure
+bitplanes (``r_rel_runs`` / ``r_rel_bits``, ``ops/relation.py``) into the
+HR gate.  Not ported yet, and refused with ``NotImplementedError``: the
+explain output.
 """
 
 from __future__ import annotations
@@ -66,8 +68,8 @@ TABLE_ARRAYS = (
     "t_n_subjects", "t_role", "t_has_role", "t_has_scoping", "t_hr_check",
     "t_skip_acl", "t_sub_ids", "t_sub_vals", "t_act_ids", "t_act_vals",
     "t_ent_vals", "t_ent_w", "t_ent_tails", "t_op_vals", "t_prop_vals",
-    "t_prop_sfx", "t_has_props", "t_n_res", "t_rs_idx",
-    "set_valid", "set_ca", "set_has_target", "set_target",
+    "t_prop_sfx", "t_has_props", "t_n_res", "t_rs_idx", "t_rel_idx",
+    "t_rel_direct", "set_valid", "set_ca", "set_has_target", "set_target",
     "pol_valid", "pol_ca", "pol_effect", "pol_cacheable", "pol_has_target",
     "pol_target", "pol_has_subjects", "pol_n_rules", "pol_eff_ctx",
     "pol_has_props", "pol_ent_vals",
@@ -80,14 +82,15 @@ ROW_ARRAYS = (
     "r_prop_run", "r_prop_tail", "r_op_vals", "r_ra3", "r_ra2", "r_n_ra",
     "r_ctx_present", "r_n_entity_attrs", "r_has_props", "r_acl_short",
     "r_acl_ent", "r_acl_inst", "r_acl_hr", "r_hr_roles", "r_subject_id",
-    "r_own_runs", "r_own_bits",
+    "r_own_runs", "r_own_bits", "r_rel_runs", "r_rel_bits",
 )
 BATCH_ARRAYS = ("rgx_set", "pfx_neq", "cond_true", "cond_abort", "cond_code")
 OUTPUTS = ("out_decision", "out_cacheable", "out_status")
 DIMS = (
     "B", "T", "S", "KP", "KR", "KS", "KA", "KE", "KO", "KPR",
     "NSUB", "NROLE", "NACT", "NR", "NP", "NOP", "NRA", "NHR",
-    "NACLE", "NACLI", "NHRR", "NRU", "NWORDS", "W", "E", "C", "CSTRIDE",
+    "NACLE", "NACLI", "NHRR", "NRU", "NWORDS", "NRU_REL", "NWORDS_REL", "W",
+    "E", "C", "CSTRIDE",
 )
 
 # bounds of the kernel's per-thread bitmask state (csrc MAX_*)
@@ -136,13 +139,15 @@ def resolve_device(device=None) -> torch.device:
 
 
 # the argument order of csrc/sig_planes.cu: the stacked varying tables it
-# reads, the shared policy arrays, the pseudo-requests, the planes (HR
-# planes last, null without HR) and three scratch arrays
+# reads, the shared policy arrays, the pseudo-requests, the planes (the HR
+# planes, then the relation planes, each null where the variant has none)
+# and three scratch arrays
 SIG_PLANES_INPUTS = (
     "t_n_subjects", "t_role", "t_has_role", "t_has_scoping", "t_hr_check",
     "t_skip_acl", "t_sub_ids", "t_sub_vals", "t_act_ids", "t_act_vals",
     "t_ent_vals", "t_ent_w", "t_ent_tails", "t_op_vals", "t_prop_vals",
-    "t_prop_sfx", "t_has_props", "t_n_res", "t_rs_idx",
+    "t_prop_sfx", "t_has_props", "t_n_res", "t_rs_idx", "t_rel_idx",
+    "t_rel_direct",
     "rule_effect", "rule_target", "pol_target", "set_target",
     "pol_valid", "pol_effect", "pol_has_props", "pol_ent_vals",
 )
@@ -152,7 +157,7 @@ SIG_PSEUDO = (
     "r_has_props", "rgx_set", "pfx_neq",
 )
 SIG_SCRATCH = ("comp_bits", "comp_collect", "comp_op")
-SIG_PLANES_PTRS = SIG_PLANES_INPUTS + SIG_PSEUDO + plane_names(True) \
+SIG_PLANES_PTRS = SIG_PLANES_INPUTS + SIG_PSEUDO + plane_names(True, True) \
     + SIG_SCRATCH
 SIG_PLANES_DIMS = ("G", "T", "S", "KP", "KR", "KS", "KA", "KE", "KO", "KPR",
                    "NACT", "NR", "NP", "NOP", "W", "E")
@@ -168,7 +173,7 @@ SIG_DECIDE_CS = (
     "rule_has_target", "rule_cond",
 )
 SIG_DECIDE_MAPS = ("slot_g", "mega_rows", "grid2row", "gp_orig")
-SIG_DECIDE_PTRS = SIG_DECIDE_INV + SIG_DECIDE_CS + plane_names(True) \
+SIG_DECIDE_PTRS = SIG_DECIDE_INV + SIG_DECIDE_CS + plane_names(True, True) \
     + SIG_DECIDE_MAPS + OUTPUTS
 # the packed row's columns the kernel reads, by the offset dim naming them
 SIG_ROW_OFFSETS = (
@@ -177,12 +182,13 @@ SIG_ROW_OFFSETS = (
     ("O_ACT_VALS", "r_act_vals"), ("O_N_ENT_ATTRS", "r_n_entity_attrs"),
     ("O_N_RA", "r_n_ra"), ("O_ACL_SHORT", "r_acl_short"),
     ("O_CTX_PRESENT", "r_ctx_present"), ("O_OWN_RUNS", "r_own_runs"),
-    ("O_OWN_BITS", "r_own_bits"), ("O_COND_TRUE", "cond_true"),
+    ("O_OWN_BITS", "r_own_bits"), ("O_REL_RUNS", "r_rel_runs"),
+    ("O_REL_BITS", "r_rel_bits"), ("O_COND_TRUE", "cond_true"),
     ("O_COND_ABORT", "cond_abort"), ("O_COND_CODE", "cond_code"),
 )
 SIG_DECIDE_DIMS = (
     "NSLOT", "R", "S", "KP", "KR", "KS", "NR", "NOP", "WROW", "NSUB",
-    "NROLE", "NACT", "NRU", "NWORDS", "C",
+    "NROLE", "NACT", "NRU", "NWORDS", "NRU_REL", "NWORDS_REL", "C",
 ) + tuple(o for o, _ in SIG_ROW_OFFSETS) + ("NEEDS_PAIRS",)
 
 _libs: dict = {}
@@ -224,7 +230,7 @@ def _dense_library(name: str):
     layout, plus its shared-memory sizing entry point."""
     extra = ("g_idx",) if name == "decide_grouped" else ()
     lib = _library(name, TABLE_ARRAYS + ROW_ARRAYS + BATCH_ARRAYS + OUTPUTS
-                   + extra, DIMS, 2)
+                   + extra, DIMS, 3)
     smem = getattr(lib, f"acs_{name}_smem")
     smem.restype = ctypes.c_longlong
     smem.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
@@ -257,6 +263,8 @@ def _dims(c: dict, r: dict) -> dict[str, int]:
         "NACLE": r["r_acl_inst"].shape[1], "NACLI": r["r_acl_inst"].shape[2],
         "NHRR": r["r_hr_roles"].shape[1], "NRU": r["r_own_runs"].shape[1],
         "NWORDS": r["r_own_bits"].shape[1],
+        "NRU_REL": r["r_rel_runs"].shape[1],
+        "NWORDS_REL": r["r_rel_bits"].shape[1],
         "W": r["rgx_set"].shape[0], "E": r["rgx_set"].shape[1],
         "C": r["cond_true"].shape[0], "CSTRIDE": r["cond_true"].shape[1],
     }
@@ -323,7 +331,7 @@ def pack_args(c: dict, r: dict, extra: tuple = (),
 
 
 def _launch_dense(name: str, args: LaunchArgs, with_acl: bool,
-                  with_hr: bool) -> torch.Tensor:
+                  with_hr: bool, with_rel: bool) -> torch.Tensor:
     """One launch of ``decide_dense`` or ``decide_grouped``."""
     dev = args.out.device
     lib = _dense_library(name)
@@ -339,41 +347,44 @@ def _launch_dense(name: str, args: LaunchArgs, with_acl: bool,
         code = getattr(lib, f"acs_{name}")(
             ctypes.addressof(args.ptrs), len(args.ptrs),
             ctypes.addressof(args.dims), len(args.dims), int(with_acl),
-            int(with_hr), args.threads,
+            int(with_hr), int(with_rel), args.threads,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _check_launch(name, lib, code)
     return args.out
 
 
-def decide_dense(c: dict, r: dict, with_acl: bool, with_hr: bool
-                 ) -> torch.Tensor:
+def decide_dense(c: dict, r: dict, with_acl: bool, with_hr: bool,
+                 with_rel: bool) -> torch.Tensor:
     """Dense decisions for a whole batch -> int32 [3, B] (decision,
     cacheable, status).  CUDA tensors launch the kernel; CPU tensors run
     the plain version."""
     if r["r_n_ra"].device.type == "cuda":
         return _launch_dense("decide_dense", pack_args(c, r), with_acl,
-                             with_hr)
-    return torch.stack(decide_dense_ref(c, r, with_acl, with_hr))
+                             with_hr, with_rel)
+    return torch.stack(decide_dense_ref(c, r, with_acl, with_hr, with_rel))
 
 
 def decide_grouped(inv: dict, cs: dict, g_idx: torch.Tensor, r: dict,
-                   with_acl: bool, with_hr: bool) -> torch.Tensor:
+                   with_acl: bool, with_hr: bool, with_rel: bool
+                   ) -> torch.Tensor:
     """The dense program per row against its own compacted subtree:
     ``inv`` the group-invariant tables, ``cs`` the varying tables stacked
     ``[G, ...]``, ``g_idx`` int32 [B] each row's group -> int32 [3, B].
     CUDA tensors launch ``csrc/decide_grouped.cu``; CPU tensors run the
     plain version."""
     if g_idx.device.type != "cuda":
-        return decide_grouped_ref(inv, cs, g_idx, r, with_acl, with_hr)
+        return decide_grouped_ref(inv, cs, g_idx, r, with_acl, with_hr,
+                                  with_rel)
     if g_idx.dtype != torch.int32 or g_idx.shape[0] != r["r_n_ra"].shape[0]:
         raise ValueError("decide_grouped: g_idx must be int32 [B]")
     args = pack_args({**inv, **cs}, r, extra=(("g_idx", g_idx),),
                      name="decide_grouped")
-    return _launch_dense("decide_grouped", args, with_acl, with_hr)
+    return _launch_dense("decide_grouped", args, with_acl, with_hr, with_rel)
 
 
-def pack_sig_planes(tabs: dict, inv: dict, pseudo: dict, with_hr: bool):
+def pack_sig_planes(tabs: dict, inv: dict, pseudo: dict, with_hr: bool,
+                    with_rel: bool):
     """Check and pack one ``sig_planes`` launch: allocates the planes and
     the scratch arrays -> (planes dict, scratch dict, pointer array,
     shape-int array, threads per block).  The caller keeps the scratch
@@ -402,12 +413,12 @@ def pack_sig_planes(tabs: dict, inv: dict, pseudo: dict, with_hr: bool):
         "rl": ((G, S, KP, KR), b), "pl": ((G, S, KP), b), "sl": ((G, S), b),
     }
     out = {}
-    for k in plane_names(with_hr):
+    for k in plane_names(with_hr, with_rel):
         pre = {"rl": "rl", "pl": "pl", "pp": "pl", "sl": "sl",
                "ss": "sl", "mu": "sl"}[k[:2]]
         shape, dtype = shapes[pre]
         field = k.split("_", 1)[1]
-        if field in ("role", "n_sub", "rs"):
+        if field in ("role", "n_sub", "rs", "rel_idx"):
             dtype = i32
         elif field in ("sub_ids", "sub_vals"):
             dtype, shape = i32, shape + (KS,)
@@ -428,23 +439,24 @@ def pack_sig_planes(tabs: dict, inv: dict, pseudo: dict, with_hr: bool):
     return out, scratch, ptrs, cdims, threads_for(T)
 
 
-def sig_planes(tabs: dict, inv: dict, pseudo: dict, with_hr: bool) -> dict:
+def sig_planes(tabs: dict, inv: dict, pseudo: dict, with_hr: bool,
+               with_rel: bool) -> dict:
     """Stage A per signature group, gathered to rule / policy / set
     planes: ``tabs`` the stacked varying tables ``[G, ...]``, ``inv`` the
     group-invariant tables, ``pseudo`` one pseudo-request per group
     (``rgx_set`` / ``pfx_neq`` ``[G, W, E]``) -> the planes ``[G, ...]``
-    under ``prefilter_ref.plane_names(with_hr)``.  CUDA tensors launch
-    ``csrc/sig_planes.cu``; CPU tensors run the plain version."""
+    under ``prefilter_ref.plane_names(with_hr, with_rel)``.  CUDA tensors
+    launch ``csrc/sig_planes.cu``; CPU tensors run the plain version."""
     dev = pseudo["r_ent_vals"].device
     if dev.type != "cuda":
-        return sig_planes_ref(tabs, inv, pseudo, with_hr)
+        return sig_planes_ref(tabs, inv, pseudo, with_hr, with_rel)
     out, scratch, ptrs, cdims, threads = pack_sig_planes(tabs, inv, pseudo,
-                                                         with_hr)
-    lib = _library("sig_planes", SIG_PLANES_PTRS, SIG_PLANES_DIMS, 1)
+                                                         with_hr, with_rel)
+    lib = _library("sig_planes", SIG_PLANES_PTRS, SIG_PLANES_DIMS, 2)
     with torch.cuda.device(dev):
         code = lib.acs_sig_planes(
             ctypes.addressof(ptrs), len(ptrs), ctypes.addressof(cdims),
-            len(cdims), int(with_hr), threads,
+            len(cdims), int(with_hr), int(with_rel), threads,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _check_launch("sig_planes", lib, code)
@@ -453,7 +465,7 @@ def sig_planes(tabs: dict, inv: dict, pseudo: dict, with_hr: bool) -> dict:
 
 def pack_sig_decide(inv: dict, cs: dict, planes: dict, slot_g, mega_rows,
                     grid2row, gp_orig, schedule: tuple, needs_pairs: bool,
-                    with_hr: bool):
+                    with_hr: bool, with_rel: bool):
     """Check and pack one ``sig_decide`` launch: allocates the zeroed
     output -> (output, pointer array, shape-int array)."""
     dev = mega_rows.device
@@ -471,12 +483,14 @@ def pack_sig_decide(inv: dict, cs: dict, planes: dict, slot_g, mega_rows,
     d = {
         "NSLOT": NSLOT, "R": R, "S": S, "KP": KP, "KR": KR,
         "KS": planes["rl_sub_ids"].shape[-1],
-        "NR": planes["rl_collect"].shape[-1] if with_hr else 0,
+        "NR": planes["rl_collect"].shape[-1] if with_hr or with_rel else 0,
         "NOP": planes["rl_op_hit"].shape[-1] if with_hr else 0,
         "WROW": off, "NSUB": widths["r_sub_ids"],
         "NROLE": widths["r_roles"], "NACT": widths["r_act_ids"],
         "NRU": widths.get("r_own_runs", 0),
         "NWORDS": widths.get("r_own_bits", 0),
+        "NRU_REL": widths.get("r_rel_runs", 0),
+        "NWORDS_REL": widths.get("r_rel_bits", 0),
         "C": widths["cond_true"], "NEEDS_PAIRS": int(needs_pairs),
     }
     for dim, col in SIG_ROW_OFFSETS:
@@ -493,7 +507,8 @@ def pack_sig_decide(inv: dict, cs: dict, planes: dict, slot_g, mega_rows,
 
 def sig_decide(inv: dict, cs: dict, planes: dict, slot_g, mega_rows,
                grid2row, gp_orig, n_rows: int, schedule: tuple,
-               needs_pairs: bool, with_hr: bool) -> torch.Tensor:
+               needs_pairs: bool, with_hr: bool, with_rel: bool
+               ) -> torch.Tensor:
     """Decisions of a packed, slot-laid-out batch on the signature path:
     ``slot_g`` int32 [NSLOT] each slot's group, ``mega_rows`` int32
     [b_pad, W] the packed rows (columns per ``schedule``: (name, width,
@@ -506,15 +521,15 @@ def sig_decide(inv: dict, cs: dict, planes: dict, slot_g, mega_rows,
     if dev.type != "cuda":
         return sig_decide_ref(inv, cs, planes, slot_g, mega_rows, grid2row,
                               gp_orig, n_rows, schedule, needs_pairs,
-                              with_hr)
+                              with_hr, with_rel)
     out, ptrs, cdims = pack_sig_decide(inv, cs, planes, slot_g, mega_rows,
                                        grid2row, gp_orig, schedule,
-                                       needs_pairs, with_hr)
-    lib = _library("sig_decide", SIG_DECIDE_PTRS, SIG_DECIDE_DIMS, 1)
+                                       needs_pairs, with_hr, with_rel)
+    lib = _library("sig_decide", SIG_DECIDE_PTRS, SIG_DECIDE_DIMS, 2)
     with torch.cuda.device(dev):
         code = lib.acs_sig_decide(
             ctypes.addressof(ptrs), len(ptrs), ctypes.addressof(cdims),
-            len(cdims), int(with_hr), SIG_DECIDE_THREADS,
+            len(cdims), int(with_hr), int(with_rel), SIG_DECIDE_THREADS,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _check_launch("sig_decide", lib, code)
@@ -609,14 +624,10 @@ class DecisionKernel:
             raise NotImplementedError(
                 "explain output: not ported yet (serving-shell slice)"
             )
-        if tree_needs_rel(compiled.arrays):
-            raise NotImplementedError(
-                "relation-path targets (ReBAC relation planes): not ported "
-                "yet (ReBAC slice)"
-            )
         self.compiled = compiled
         self.device = resolve_device(device)
         self.with_hr = tree_needs_hr(compiled.arrays)
+        self.with_rel = tree_needs_rel(compiled.arrays)
         self._c = tables_from_numpy(compiled.arrays, self.device,
                                     keys=TABLE_ARRAYS)
 
@@ -632,10 +643,13 @@ class DecisionKernel:
 
         Only batches carrying ACL pairs take the kernel variant with the
         verifyACL create-path scan; the no-pair variant is exact for
-        everything else."""
+        everything else.  Relation trees read the batch's relation-closure
+        bitplanes (a batch encoded without a store carries empty-table
+        planes: every relation check fails closed)."""
         with_acl = bool((np.asarray(batch.arrays["r_acl_ent"]) >= 0).any())
         b, r = batch_from_numpy(batch, self.device, keys=ROW_ARRAYS)
-        return readback(decide_dense(self._c, r, with_acl, self.with_hr), b)
+        return readback(decide_dense(self._c, r, with_acl, self.with_hr,
+                                     self.with_rel), b)
 
 
 def readback(out: torch.Tensor, b: int):

@@ -1,7 +1,8 @@
 """Plain PyTorch version of the dense decision kernel.
 
 A stage-for-stage mirror of the JAX package's ``ops/kernel._evaluate_one``
-(``_match_targets``, ``_hr_pass_from_bits``, ``_acl_pass``,
+(``_match_targets``, ``_hr_pass_from_bits``, ``_rel_pass_from_bits``,
+``_acl_pass``,
 ``_rule_predicates``, ``_policy_gates`` and ``_combine_and_decide``), with
 the batch axis written out in front of every intermediate instead of
 ``vmap`` and Python loops over the static scan lengths instead of
@@ -75,11 +76,15 @@ def _take_runs(state, idx):
 
 def _owner_bit_reader(bits, v, ebits: int):
     """Unpack accessor over the host-packed owner bitplanes: ``bits`` is
-    [B, NWORDS] int32, ``v`` [T] vocab indices; ``bit(k)`` -> [B, T]."""
-    B = bits.shape[0]
+    [B, NWORDS] int32, ``v`` [T] vocab indices; ``bit(k)`` -> [B, T].
+    Word indices are clamped to the planes: the 1-wide dummy planes of a
+    batch encoded without relation bits are never read where it matters
+    (their runs are all absent), but the gather must stay in bounds."""
+    B, nwords = bits.shape
     if ebits <= 32:
         epw = 32 // ebits
-        words = torch.gather(bits, 1, (v // epw)[None].expand(B, -1))
+        words = torch.gather(
+            bits, 1, (v // epw).clamp(max=nwords - 1)[None].expand(B, -1))
         codes = words >> ((v % epw) * ebits)[None]
 
         def bit(k: int):
@@ -90,7 +95,8 @@ def _owner_bit_reader(bits, v, ebits: int):
     base = v * wpe
 
     def bit(k: int):
-        w = torch.gather(bits, 1, (base + k // 32)[None].expand(B, -1))
+        w = torch.gather(
+            bits, 1, (base + k // 32).clamp(max=nwords - 1)[None].expand(B, -1))
         return ((w >> (k % 32)) & 1) == 1
 
     return bit
@@ -119,6 +125,27 @@ def _hr_pass_from_bits(r, v, collect, op_hit, hr_check, trivial):
     return trivial[None] | (ctx_ok[:, None] & ~bad)
 
 
+def _rel_pass_from_bits(r, v, collect, direct, trivial):
+    """The relation-path gate from the host-packed closure bitplanes
+    (``ops/relation.pack_relation_bitplanes``) -> [B, T]: the owner
+    layout with no operation slots (``ebits = 2 * NRU``), bit ``g``
+    (full closure) or bit ``NRU + g`` (literal tuples only, where
+    ``direct``) per collected run; no context term.  ``trivial`` marks
+    target rows without a relation requirement (``t_rel_idx < 0``)."""
+    runs = r["r_rel_runs"]  # [B, NRU]
+    nru = runs.shape[1]
+    bit = _owner_bit_reader(r["r_rel_bits"], v.clamp(min=0), 2 * nru)
+    bad = torch.zeros(collect.shape[:2], dtype=torch.bool,
+                      device=collect.device)
+    n_runs = collect.shape[-1]
+    for g in range(nru):
+        coll_g = torch.zeros_like(bad)
+        for nr in range(n_runs):
+            coll_g = coll_g | ((runs[:, g] == nr)[:, None] & collect[..., nr])
+        bad = bad | (coll_g & torch.where(direct[None], bit(nru + g), bit(g)))
+    return trivial[None] | ~bad
+
+
 def _hr_collect_state(c, r, rgx_hit, pfx_neq, ent_valid):
     """Stage B's signature-determined pieces, shared by the dense matcher
     and the components mode: the per-(target row, entity run) sticky
@@ -145,15 +172,16 @@ def _hr_collect_state(c, r, rgx_hit, pfx_neq, ent_valid):
 
 
 def _match_targets(c, r, with_hr: bool, components: bool = False,
-                   wia: bool = False):
-    """Stages A (target matching) and B (HR scopes): per-target-row match
+                   wia: bool = False, with_rel: bool = False):
+    """Stages A (target matching) and B (HR scopes, then the relation-path
+    fold ANDed into ``hr_pass`` when ``with_rel``): per-target-row match
     planes [B, T].
 
     ``components=True`` returns the resource/action stage-A planes
     (``sig_res_ex_p/d``, ``sig_res_rg_p/d``, ``sig_act_ok``) without the
     subject fold, plus stage B's ``sig_collect`` / ``sig_op_hit`` when
-    ``with_hr``: what the signature path precomputes per resource
-    signature from a property-free pseudo-request.
+    ``with_hr`` or ``with_rel``: what the signature path precomputes per
+    resource signature from a property-free pseudo-request.
 
     ``wia=True`` (components mode only, the one the reverse query uses)
     adds the whatIsAllowed-mode planes: PERMIT fails only when the target
@@ -266,7 +294,7 @@ def _match_targets(c, r, with_hr: bool, components: bool = False,
         }
         if wia:
             out.update(_wia_planes("sig_wia_", "sig_maybe_", None))
-        if with_hr:
+        if with_hr or with_rel:
             out["sig_collect"], out["sig_op_hit"] = _hr_collect_state(
                 c, r, rgx_hit, pfx_neq, ent_valid
             )
@@ -281,14 +309,23 @@ def _match_targets(c, r, with_hr: bool, components: bool = False,
     }
     if wia:
         out.update(_wia_planes("tm_wia_", "maybe_mask_", base))
-    if not with_hr:
+    if not with_hr and not with_rel:
         out["hr_pass"] = torch.ones_like(base)
         return out
     collect, op_hit = _hr_collect_state(c, r, rgx_hit, pfx_neq, ent_valid)
-    hr_trivial = (c["t_n_subjects"] == 0) | ~c["t_has_scoping"]
-    out["hr_pass"] = _hr_pass_from_bits(
-        r, c["t_rs_idx"].long(), collect, op_hit, c["t_hr_check"], hr_trivial
-    )
+    hr = torch.ones_like(base)
+    if with_hr:
+        hr_trivial = (c["t_n_subjects"] == 0) | ~c["t_has_scoping"]
+        hr = _hr_pass_from_bits(r, c["t_rs_idx"].long(), collect, op_hit,
+                                c["t_hr_check"], hr_trivial)
+    if with_rel:
+        # ANDed into hr_pass, so both gate sites (the rule's reach and the
+        # policy-subject gate) read it, as the oracle pairs the HR-scope
+        # and relation checks
+        idx = c["t_rel_idx"]
+        hr = hr & _rel_pass_from_bits(r, idx.long(), collect,
+                                      c["t_rel_direct"], idx < 0)
+    out["hr_pass"] = hr
     return out
 
 
@@ -704,8 +741,8 @@ def _combine_and_decide_flat(c, reached, acl_rule, has_cond, cond_t, cond_a,
                          c["rule_cacheable_raw"])
 
 
-def _evaluate(c, r, with_acl: bool, with_hr: bool):
-    m = _match_targets(c, r, with_hr)
+def _evaluate(c, r, with_acl: bool, with_hr: bool, with_rel: bool):
+    m = _match_targets(c, r, with_hr, with_rel=with_rel)
     reached, acl_rule, has_cond, cond_t, cond_a, cond_c = _rule_predicates(
         c, r, m, with_acl
     )
@@ -724,7 +761,8 @@ def chunk_rows(c: dict) -> int:
     return max(64, min(8192, CHUNK_ELEMS // width))
 
 
-def decide_dense_ref(c: dict, r: dict, with_acl: bool, with_hr: bool):
+def decide_dense_ref(c: dict, r: dict, with_acl: bool, with_hr: bool,
+                     with_rel: bool):
     """The plain version of the dense decision kernel over a whole batch:
     (decision, cacheable, status) int32 [B], in row chunks."""
     B = r["r_n_ra"].shape[0]
@@ -740,5 +778,5 @@ def decide_dense_ref(c: dict, r: dict, with_acl: bool, with_hr: bool):
                 rc[k] = v[:, lo:hi]
             else:
                 rc[k] = v[lo:hi]
-        outs.append(_evaluate(c, rc, with_acl, with_hr))
+        outs.append(_evaluate(c, rc, with_acl, with_hr, with_rel))
     return tuple(torch.cat([o[i] for o in outs]) for i in range(3))

@@ -23,7 +23,8 @@ a leading group axis ``[G, ...]`` on the device.  Then, per batch:
   (K2) and cached; the rows, sorted by signature into ``[NSLOT, R]`` slots
   of one group each and packed into one int32 row buffer, are decided by
   the ``sig_decide`` kernel (K3), which folds the subject side, the owner
-  bitplanes, the ACL short path and the conditions per row;
+  bitplanes, the relation-closure bitplanes, the ACL short path and the
+  conditions per row;
 - any other batch is decided by the ``decide_grouped`` kernel (K4), the
   dense program per row against its own group's subtree.
 
@@ -32,9 +33,12 @@ dense ``DecisionKernel``.  Compacted subtrees, stacks, planes and parsed
 signature groups are cached, so steady traffic pays neither compaction
 nor the upload of policy data again.
 
+Relation-path (ReBAC) trees take the kernels' ``with_rel`` variants: the
+signature planes carry each rule's and policy's relation-vocab index and
+``!direct`` flag, and the packed rows carry the batch's closure bitplanes.
 Not ported yet, and refused with ``NotImplementedError`` naming the
-slice: relation-path trees, ``explain=True``, the ``mesh`` / ``axis``
-arguments, and ``dynamic_policies`` / ``shared_jits``.
+slice: ``explain=True``, the ``mesh`` / ``axis`` arguments, and
+``dynamic_policies`` / ``shared_jits``.
 """
 
 from __future__ import annotations
@@ -86,6 +90,8 @@ _SIG_R_KEYS = [
 # owner side travels as host-packed bitplanes (r_ctx_present packed as an
 # int32 column)
 _SIG_R_KEYS_HR = _SIG_R_KEYS + ["r_ctx_present", "r_own_runs", "r_own_bits"]
+# the relation-closure bitplanes ride the same packed row buffer
+_SIG_R_KEYS_REL = ["r_rel_runs", "r_rel_bits"]
 
 _RULE_FIELDS = [
     "rule_valid", "rule_effect", "rule_cacheable_raw", "rule_cacheable_eff",
@@ -205,12 +211,13 @@ def _pad_sub(arr: np.ndarray, name: str, krp: int, tp: int) -> np.ndarray:
 
 
 class Stack(NamedTuple):
-    """A signature set's stacked subtrees on the device, with the two
-    static facts the kernels are chosen by."""
+    """A signature set's stacked subtrees on the device, with the static
+    facts the kernels are chosen by."""
 
     tables: dict  # name -> [G, ...] tensor of the varying kernel tables
     needs_pairs: bool  # some subject-bearing target matches by pairs
     with_hr: bool  # tree_needs_hr of the stacked tables
+    with_rel: bool  # tree_needs_rel of the stacked tables
 
 
 class PrefilteredKernel:
@@ -257,11 +264,6 @@ class PrefilteredKernel:
                 "dynamic_policies / shared_jits (hot delta patching): not "
                 "ported yet (delta slice)"
             )
-        if tree_needs_rel(compiled.arrays):
-            raise NotImplementedError(
-                "relation-path targets (ReBAC relation planes): not ported "
-                "yet (ReBAC slice)"
-            )
         self.compiled = compiled
         self.device = resolve_device(device)
         self.cache_size = cache_size
@@ -275,7 +277,11 @@ class PrefilteredKernel:
         self._bits: dict[tuple, dict[str, torch.Tensor]] = {}
         self._ginfo: dict[tuple, tuple] = {}
         self._dense: Optional[DecisionKernel] = None
+        # the variant of the signature kernels, fixed for the tree: the
+        # sub-tree, stack and plane caches live on this instance, so each
+        # holds one variant's entries
         self.needs_hr = tree_needs_hr(compiled.arrays)
+        self.needs_rel = tree_needs_rel(compiled.arrays)
         self.active = compiled.n_rules >= MIN_RULES
         if not self.active:
             self._dense = DecisionKernel(compiled, device=self.device)
@@ -320,6 +326,7 @@ class PrefilteredKernel:
                                           VARYING_TABLES),
                 needs_pairs=bool((~has_role & (n_sub > 0)).any()),
                 with_hr=any(tree_needs_hr(p) for p in padded),
+                with_rel=any(tree_needs_rel(p) for p in padded),
             )
             if len(self._stacks) >= 16:
                 self._stacks.pop(next(iter(self._stacks)))
@@ -384,7 +391,7 @@ class PrefilteredKernel:
             bits = sig_planes(
                 stack.tables, self._c_inv,
                 {k: _tensor(v, self.device) for k, v in pseudo.items()},
-                self.needs_hr,
+                self.needs_hr, self.needs_rel,
             )
             if len(self._bits) >= 16:
                 self._bits.pop(next(iter(self._bits)))
@@ -588,6 +595,8 @@ class PrefilteredKernel:
         lay them out in group-dense ``[NSLOT, R]`` slots and launch K3."""
         B = inv.shape[0]
         r_keys = _SIG_R_KEYS_HR if self.needs_hr else _SIG_R_KEYS
+        if self.needs_rel:
+            r_keys = r_keys + _SIG_R_KEYS_REL
         schedule = []
         for k in r_keys:
             tail = np.asarray(batch.arrays[k]).shape[1:]
@@ -665,7 +674,7 @@ class PrefilteredKernel:
             out = sig_decide(
                 self._c_inv, cs, bits, slot_g_d, mega_rows_d,
                 grid2row_d.reshape(ns_pad, R), gp_orig_d, B, tuple(schedule),
-                stack.needs_pairs, self.needs_hr,
+                stack.needs_pairs, self.needs_hr, self.needs_rel,
             )
             host = take((3, b_pad))
             pool.tensor(host).copy_(out, non_blocking=True)
@@ -693,10 +702,12 @@ class PrefilteredKernel:
 
     def _launch_grouped(self, batch, inv, stack: Stack, with_acl: bool):
         """The per-row path (ACL pairs or request properties in the
-        batch): K4 over the stacked subtrees, one group index per row."""
+        batch): K4 over the stacked subtrees, one group index per row, in
+        the variant of the stack (a stack without relation rows runs the
+        plain variant even on a relation tree)."""
         b, r = batch_from_numpy(batch, self.device, keys=ROW_ARRAYS)
         _, _, _, pad_lead = lead_padding(batch)
         g_idx = _tensor(pad_lead(inv.astype(np.int32)), self.device)
         return readback(
             decide_grouped(self._c_inv, stack.tables, g_idx, r, with_acl,
-                           stack.with_hr), b)
+                           stack.with_hr, stack.with_rel), b)

@@ -6,7 +6,8 @@ programs, written over the batched building blocks of ``kernel_ref``:
 - ``sig_planes_ref``: ``_planes_for.bits_fn`` (stage A in components mode
   per signature pseudo-request, gathered to rule / policy / set planes);
 - ``sig_decide_ref``: ``_sig_runner``'s ``body`` (the per-row subject
-  fold, HR pass, ACL short path, conditions, policy gates and the
+  fold, HR pass, relation-path fold, ACL short path, conditions, policy
+  gates and the
   flat-order combination on the group's planes, un-permuted through
   ``gp_orig``);
 - ``decide_grouped_ref``: ``_runner``'s ``body`` (the dense program per
@@ -29,6 +30,7 @@ from .kernel_ref import (
     _match_targets,
     _multi_entity_ok,
     _policy_gates_core,
+    _rel_pass_from_bits,
     _rule_conditions,
     decide_dense_ref,
 )
@@ -43,18 +45,25 @@ SET_PLANES = ("ss_ex_p", "sl_role", "sl_has_role", "sl_n_sub", "sl_sub_ids",
               "sl_sub_vals", "multi_ok")
 HR_PLANES = ("rl_collect", "rl_op_hit", "rl_triv", "rl_rs", "rl_hrchk",
              "pl_collect", "pl_op_hit", "pl_triv", "pl_rs", "pl_hrchk")
+REL_PLANES = ("rl_rel_idx", "rl_rel_dir", "pl_rel_idx", "pl_rel_dir")
 
 
-def plane_names(with_hr: bool) -> tuple:
-    return RULE_PLANES + POL_PLANES + SET_PLANES + (
-        HR_PLANES if with_hr else ())
+def plane_names(with_hr: bool, with_rel: bool) -> tuple:
+    """The planes of a variant: the relation fold reads the collection
+    planes, which otherwise come with the HR set."""
+    names = RULE_PLANES + POL_PLANES + SET_PLANES
+    if with_hr:
+        names += HR_PLANES
+    elif with_rel:
+        names += ("rl_collect", "pl_collect")
+    return names + (REL_PLANES if with_rel else ())
 
 
-def _group_planes(c, r, with_hr: bool) -> dict:
+def _group_planes(c, r, with_hr: bool, with_rel: bool) -> dict:
     """One group's planes from its tables ``c`` and its pseudo-request
     ``r`` (a batch of one row)."""
-    comp = {k: v[0] for k, v in _match_targets(c, r, with_hr,
-                                               components=True).items()}
+    comp = {k: v[0] for k, v in _match_targets(
+        c, r, with_hr, components=True, with_rel=with_rel).items()}
     act = comp["sig_act_ok"]
     rt = c["rule_target"].long()
     pt = c["pol_target"].long()
@@ -86,15 +95,21 @@ def _group_planes(c, r, with_hr: bool) -> dict:
             out[prefix + "_triv"] = triv[idx]
             out[prefix + "_rs"] = c["t_rs_idx"][idx]
             out[prefix + "_hrchk"] = c["t_hr_check"][idx]
+    if with_rel:
+        for prefix, idx in (("rl", rt), ("pl", pt)):
+            out[prefix + "_collect"] = comp["sig_collect"][idx]
+            out[prefix + "_rel_idx"] = c["t_rel_idx"][idx]
+            out[prefix + "_rel_dir"] = c["t_rel_direct"][idx]
     return out
 
 
-def sig_planes_ref(tabs: dict, inv: dict, pseudo: dict, with_hr: bool
-                   ) -> dict:
+def sig_planes_ref(tabs: dict, inv: dict, pseudo: dict, with_hr: bool,
+                   with_rel: bool) -> dict:
     """K2's plain version: ``tabs`` the stacked varying tables ``[G, ...]``,
     ``inv`` the group-invariant policy arrays, ``pseudo`` the per-group
     pseudo-requests ``[G, ...]`` (``rgx_set`` / ``pfx_neq`` ``[G, W, E]``).
-    Returns the planes ``[G, ...]`` under ``plane_names(with_hr)``."""
+    Returns the planes ``[G, ...]`` under ``plane_names(with_hr,
+    with_rel)``."""
     G = pseudo["r_ent_vals"].shape[0]
     per_group = []
     for g in range(G):
@@ -103,9 +118,9 @@ def sig_planes_ref(tabs: dict, inv: dict, pseudo: dict, with_hr: bool
              if k not in ("rgx_set", "pfx_neq")}
         r["rgx_set"] = pseudo["rgx_set"][g]
         r["pfx_neq"] = pseudo["pfx_neq"][g]
-        per_group.append(_group_planes(c, r, with_hr))
+        per_group.append(_group_planes(c, r, with_hr, with_rel))
     return {k: torch.stack([p[k] for p in per_group])
-            for k in plane_names(with_hr)}
+            for k in plane_names(with_hr, with_rel)}
 
 
 def _sub_fold(r, n_sub, has_role, role, sub_ids, sub_vals,
@@ -151,7 +166,19 @@ def _hr_planes_pass(r, v, collect, op_hit, hr_check, trivial):
     return out.reshape((-1,) + shape)
 
 
-def _sig_rows(c, sg, r, needs_pairs: bool, with_hr: bool):
+def _rel_planes_pass(r, idx, collect, direct):
+    """``_rel_pass_from_bits`` on a group's planes (any leading shape P)
+    -> [R, *P]."""
+    shape = tuple(idx.shape)
+    v = idx.reshape(-1)
+    out = _rel_pass_from_bits(
+        r, v.long(), collect.reshape((1, -1, collect.shape[-1])),
+        direct.reshape(-1), v < 0,
+    )
+    return out.reshape((-1,) + shape)
+
+
+def _sig_rows(c, sg, r, needs_pairs: bool, with_hr: bool, with_rel: bool):
     """Decisions of rows ``r`` (batched [R, ...]) of one group against its
     tables ``c`` and planes ``sg`` -> three int32 [R]."""
     S, KP, KR = c["rule_effect"].shape
@@ -185,6 +212,15 @@ def _sig_rows(c, sg, r, needs_pairs: bool, with_hr: bool):
                                  sg["pl_triv"])  # [R, S, KP]
         reached = reached & (~rht_f | hr_rule)
         pol_subject = ~c["pol_has_subjects"][None] | hr_pol
+    if with_rel:
+        rel_rule = _rel_planes_pass(r, flat(sg["rl_rel_idx"]),
+                                    sg["rl_collect"].reshape(S, M, -1),
+                                    flat(sg["rl_rel_dir"]))  # [R, S, M]
+        rel_pol = _rel_planes_pass(r, sg["pl_rel_idx"], sg["pl_collect"],
+                                   sg["pl_rel_dir"])  # [R, S, KP]
+        reached = reached & (~rht_f | rel_rule)
+        pol_rel = ~c["pol_has_subjects"][None] | rel_pol
+        pol_subject = pol_rel if pol_subject is None else pol_subject & pol_rel
     kind = _action_kind(c, r)
     short = r["r_acl_short"]
     row_ok = (short == 1) | ((short == 0) & (r["r_n_ra"] > 0) & (kind > 0))
@@ -232,7 +268,8 @@ def unpack_rows(rows: torch.Tensor, schedule) -> dict:
 
 def sig_decide_ref(inv: dict, cs: dict, planes: dict, slot_g, mega_rows,
                    grid2row, gp_orig, n_rows: int, schedule,
-                   needs_pairs: bool, with_hr: bool) -> torch.Tensor:
+                   needs_pairs: bool, with_hr: bool, with_rel: bool
+                   ) -> torch.Tensor:
     """K3's plain version -> int32 [3, b_pad]: every grid position of the
     ``[NSLOT, R]`` slot layout decided against its slot's group, then
     gathered back to request order through ``gp_orig`` for the ``n_rows``
@@ -249,7 +286,7 @@ def sig_decide_ref(inv: dict, cs: dict, planes: dict, slot_g, mega_rows,
         sg = {k: v[g] for k, v in planes.items()}
         r = unpack_rows(grid_rows[pos], schedule)
         out_flat[:, pos] = torch.stack(_sig_rows(c, sg, r, needs_pairs,
-                                                 with_hr))
+                                                 with_hr, with_rel))
     out = torch.zeros((3, gp_orig.shape[0]), dtype=torch.int32,
                       device=mega_rows.device)
     out[:, :n_rows] = out_flat[:, gp_orig[:n_rows].long()]
@@ -257,7 +294,7 @@ def sig_decide_ref(inv: dict, cs: dict, planes: dict, slot_g, mega_rows,
 
 
 def decide_grouped_ref(inv: dict, cs: dict, g_idx, r: dict, with_acl: bool,
-                       with_hr: bool) -> torch.Tensor:
+                       with_hr: bool, with_rel: bool) -> torch.Tensor:
     """K4's plain version -> int32 [3, B]: the dense program per row
     against ``inv`` joined with its group's subtree ``cs[g_idx[row]]``,
     rows of one group batched."""
@@ -275,5 +312,5 @@ def decide_grouped_ref(inv: dict, cs: dict, g_idx, r: dict, with_acl: bool,
             else:
                 rr[k] = v[rows]
         out[:, rows] = torch.stack(decide_dense_ref(c, rr, with_acl,
-                                                    with_hr))
+                                                    with_hr, with_rel))
     return out

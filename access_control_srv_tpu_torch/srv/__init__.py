@@ -1,6 +1,9 @@
-"""Serving layer of the port: the hybrid kernel/oracle evaluator and the
-direct-mode permission-lattice audit sweep."""
+"""Serving layer of the port: the hybrid kernel/oracle evaluator, the
+relation-tuple store it serves ReBAC trees from (with its event bus) and
+the direct-mode permission-lattice audit sweep."""
 
 from .evaluator import HybridEvaluator
+from .events import EventBus
+from .relations import RelationTupleStore
 
-__all__ = ["HybridEvaluator"]
+__all__ = ["EventBus", "HybridEvaluator", "RelationTupleStore"]

@@ -15,11 +15,20 @@ Batched ``whatIsAllowed`` runs the ``ReverseQueryKernel``
 built lazily on the first reverse batch and rebuilt after a version
 change; smaller trees take the scalar walk.
 
+Relation-path (ReBAC) trees are served through the kernels' relation
+variants: ``attach_relation_store`` wires a ``RelationTupleStore``
+(``srv/relations.py``), whose flat verdict tables every batch encode packs
+into relation-closure bitplanes.  Tuple churn changes decisions without
+a recompile or a new kernel build.  Without a store, relation checks fail
+closed on the kernel and the oracle alike.
+
 A refresh recompiles the whole tree (``compile_policies``), the JAX
 evaluator's ``delta_enabled=False`` path.  Not ported yet: the decision
-cache, token / HR-scope preparation (token rows are served by the oracle,
-which resolves them itself), delta patching, async compiles, the watchdog,
-telemetry and tracing, explain, relations and tenancy.
+cache (and with it the epoch bump on tuple churn), token / HR-scope
+preparation (token rows are served by the oracle, which resolves them
+itself), delta patching, async compiles, the watchdog, telemetry and
+tracing, explain (with its relation provenance), the native wire
+encoder's relation tables and tenancy.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from ..ops.compile import DECISION_NAMES, compile_policies
 from ..ops.encode import _CAPS_FLOOR, encode_requests, fits_floor, request_needs
 from ..ops.kernel import resolve_device
 from ..ops.prefilter import PrefilteredKernel
+from ..ops.relation import relation_bits_needed
 
 # trees with fewer rules skip the candidate index (its build and lookups
 # cost more than the walk it saves)
@@ -62,6 +72,10 @@ class HybridEvaluator:
         # replace_policy_sets swap fails the identity check at once and
         # the refresh that follows rebuilds it.
         self._cand: Optional[tuple] = None
+        # tuple writes seen by an attached relation store (the JAX
+        # evaluator bumps its decision-cache epoch here; the port has no
+        # decision cache yet)
+        self.relation_churn = 0
         self._lock = threading.Lock()
         self.refresh(wait=True)
 
@@ -113,6 +127,31 @@ class HybridEvaluator:
     @property
     def kernel_active(self) -> bool:
         return self._kernel is not None
+
+    # ------------------------------------------------------ relation plumbing
+
+    def attach_relation_store(self, store) -> None:
+        """Wire a ``RelationTupleStore``: the oracle reads it through
+        ``engine.relation_store`` and every batch encode packs its flat
+        verdict tables.  Tuple churn changes decisions but swaps nothing:
+        the compiled tables, the kernels and their built libraries stay
+        as they are."""
+        self.engine.relation_store = store
+
+        def _on_change(_gen: int) -> None:
+            with self._lock:
+                self.relation_churn += 1
+
+        store.on_change(_on_change)
+
+    def _relation_tables(self, compiled):
+        """The store's flat verdict tables for this compile, or None
+        (encode then packs fail-closed planes, or dummies for a tree
+        without relation paths)."""
+        store = getattr(self.engine, "relation_store", None)
+        if store is None or not relation_bits_needed(compiled):
+            return None
+        return store.tables_for(compiled)
 
     # ------------------------------------------------------------ evaluation
 
@@ -226,6 +265,7 @@ class HybridEvaluator:
     def _eval_encoded_async(self, kernel, compiled, requests: list, caps):
         batch = encode_requests(
             requests, compiled, self.engine.resource_adapter, caps=caps,
+            relation_tables=self._relation_tables(compiled),
         )
         materialize = kernel.evaluate_async(batch)
 

@@ -10,8 +10,9 @@ PyTorch version:
    ``sig_decide``, ``decide_grouped``, ``wia_planes``), one nvcc each, all
    started together; ptxas registers, shared memory and spills per kernel;
 3. dense kernel vs plain: ``decide_dense`` against ``kernel_ref`` on the
-   card, exactly equal, on every supported fixture tree, the seed data and
-   the 511-rule scoped tree, in all four with_acl x with_hr variants;
+   card, exactly equal, on every supported fixture tree (the relation
+   fixture without a store: fail-closed), the seed data and the 511-rule
+   scoped tree, in all four with_acl x with_hr variants;
 4. dense kernel vs the port's scalar oracle on a sample per tree;
 5. the dense main path: ``HybridEvaluator(engine).is_allowed_batch`` on
    4096 mixed requests against the 511-rule tree (below ``MIN_RULES``, so
@@ -46,11 +47,31 @@ PyTorch version:
 11. the lattice sweep: ``AuditSweepManager`` in direct mode over the
    128 x 128 x 1 lattice on the 10,000-rule tree in 4,096-cell chunks, a
    warm then a timed sweep (zero ``wia_planes`` launches), the bitmap held
-   against ``engine.is_allowed`` on a 256-cell strided sample; then
-   ``wia_planes`` times at the three shapes.
+   against ``engine.is_allowed`` on a 256-cell strided sample;
+12. relation variants vs plain: every ``with_rel`` call of
+   ``decide_dense``, ``sig_planes``, ``sig_decide`` and
+   ``decide_grouped`` held exactly against its plain version: the JAX
+   package's ``tests/test_relations.py`` shapes (three rewrite kinds,
+   depths 1-6, plain / ACL / property rows, a ``skip_relation_bits``
+   batch, no store) through ``DecisionKernel`` and a forced
+   ``PrefilteredKernel``, and the 720-rule stress tree with relation-path
+   subjects on three rules in four, unscoped and scoped (signature
+   kernels unforced), with every with_acl x with_hr combination of the
+   relation variants;
+13. the ReBAC main path, the JAX package's ``rebac-serve``: 1,000,000
+   tuples (100,000 documents behind depth-4 folder chains), batches of
+   4,096 rows through ``HybridEvaluator.attach_relation_store`` and
+   ``is_allowed_batch`` (the 2-rule tree: the dense relation variant),
+   every first-batch response against ``engine.is_allowed``; warm
+   decisions/s, the stage split, K1's relation variant beside the same
+   program on ``skip_relation_bits`` planes; then tuple churn that flips
+   a probe with no new build, no ``sig_planes`` launch and an unchanged
+   compiled version; then the times of the relation variants and of
+   ``wia_planes`` at their shapes.
 
 Any mismatch or error exits non-zero.  The line before the last is the
-kernel table as one JSON object; the last line is
+kernel table as one JSON object (K1-K4 carry their ``with_rel`` variant's
+launches and times beside their own); the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero before
 printing any result.  Run from the repository root::
 
@@ -70,6 +91,7 @@ import zlib
 
 import numpy as np
 import torch
+import yaml
 
 from access_control_srv_tpu_torch.core import (
     AccessController,
@@ -94,8 +116,10 @@ from access_control_srv_tpu_torch.ops.encode import (
 )
 from access_control_srv_tpu_torch.ops.kernel_ref import decide_dense_ref
 from access_control_srv_tpu_torch.ops.lattice import LatticeSpec, load_bitmap
+from access_control_srv_tpu_torch.ops.relation import pack_relation_bitplanes
 from access_control_srv_tpu_torch.srv.audit_sweep import AuditSweepManager
 from access_control_srv_tpu_torch.srv.evaluator import HybridEvaluator
+from access_control_srv_tpu_torch.srv.relations import RelationTupleStore
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 URNS = Urns()
@@ -135,6 +159,15 @@ REPLACES = {
     "decide_grouped": "access_control_srv_tpu/ops/prefilter.py:341",
     "wia_planes": "access_control_srv_tpu/ops/reverse.py:97",
 }
+# the with_rel stage of each kernel in the JAX programs (file:line)
+REPLACES_REL = {
+    "decide_dense": "access_control_srv_tpu/ops/kernel.py:680",
+    "sig_planes": "access_control_srv_tpu/ops/prefilter.py:755",
+    "sig_decide": "access_control_srv_tpu/ops/prefilter.py:563",
+    "decide_grouped": "access_control_srv_tpu/ops/prefilter.py:334",
+}
+# the rebac-serve tuple count (the JAX package's REBAC_TUPLES default)
+REBAC_TUPLES = 1_000_000
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, and the scalar (non-tensor
 # core) float32 rate used for the kernel's int32 compare/logic operations
 PEAK_BYTES_PER_S = 3.35e12
@@ -502,12 +535,13 @@ def card_line() -> str:
 
 
 def device_inputs(compiled, batch, device):
-    """(tables, real rows, batch tensors, with_acl, with_hr) on ``device``
-    as DecisionKernel carries them."""
+    """(tables, real rows, batch tensors, (with_acl, with_hr, with_rel))
+    on ``device`` as DecisionKernel carries them."""
     c = tables_from_numpy(compiled.arrays, device, keys=kmod.TABLE_ARRAYS)
     b, r = batch_from_numpy(batch, device, keys=kmod.ROW_ARRAYS)
     with_acl = bool((batch.arrays["r_acl_ent"] >= 0).any())
-    return c, b, r, with_acl, kmod.tree_needs_hr(compiled.arrays)
+    return c, b, r, (with_acl, kmod.tree_needs_hr(compiled.arrays),
+                     kmod.tree_needs_rel(compiled.arrays))
 
 
 def time_ms(fn, iters: int = ITERS) -> float:
@@ -525,19 +559,30 @@ def time_ms(fn, iters: int = ITERS) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(c: dict, r: dict) -> tuple[float, str, int, int]:
+REL_TABLES = ("t_rel_idx", "t_rel_direct")
+REL_ROWS = ("r_rel_runs", "r_rel_bits")
+
+
+def bound_ms(c: dict, r: dict, with_rel: bool = False
+             ) -> tuple[float, str, int, int]:
     """The least time the card could take for one call: the larger of the
     bytes the kernel must move (every input once, outputs once) over the
     HBM rate and the int32 compare/logic operations of its loops at these
-    shapes over the scalar peak.  Returns (ms, bound_by, bytes, ops)."""
+    shapes over the scalar peak.  The relation arrays count only for the
+    with_rel variant (three operations per target row and relation run:
+    the run test, the collect bit, the closure bit).  Returns (ms,
+    bound_by, bytes, ops)."""
     d = kmod._dims(c, r)
-    nbytes = sum(int(c[k].nbytes) for k in kmod.TABLE_ARRAYS)
-    nbytes += sum(int(r[k].nbytes) for k in kmod.ROW_ARRAYS + kmod.BATCH_ARRAYS)
+    skip = () if with_rel else REL_TABLES + REL_ROWS
+    nbytes = sum(int(c[k].nbytes) for k in kmod.TABLE_ARRAYS if k not in skip)
+    nbytes += sum(int(r[k].nbytes) for k in kmod.ROW_ARRAYS + kmod.BATCH_ARRAYS
+                  if k not in skip)
     nbytes += 3 * 4 * d["B"]
     per_target = (
         d["KS"] * d["NSUB"] + d["NROLE"] + d["KA"] * d["NACT"]
         + 3 * d["KE"] * d["NR"] + d["KO"] * d["NOP"]
         + d["NP"] * (d["KE"] + 2 * d["KPR"]) + 4 * d["NR"] + 16
+        + (3 * d["NRU_REL"] if with_rel else 0)
     )
     per_rule, per_policy = 12, 16 + d["KE"] * d["NR"]
     per_row = (d["T"] * per_target + d["S"] * d["KP"] * d["KR"] * per_rule
@@ -550,11 +595,16 @@ def bound_ms(c: dict, r: dict) -> tuple[float, str, int, int]:
     return t_ops, "operations", nbytes, ops
 
 
-def kernel_vs_plain(c, r, with_acl, with_hr):
+def dense_plain(c, r, with_acl, with_hr, with_rel):
+    """decide_dense's plain version, stacked as the kernel returns it."""
+    return torch.stack(decide_dense_ref(c, r, with_acl, with_hr, with_rel))
+
+
+def kernel_vs_plain(c, r, flags):
     """Kernel and plain version on the same device tensors: (kernel out,
     plain out), int32 [3, B] each."""
-    got = kmod.decide_dense(c, r, with_acl, with_hr)
-    want = torch.stack(decide_dense_ref(c, r, with_acl, with_hr))
+    got = kmod.decide_dense(c, r, *flags)
+    want = dense_plain(c, r, *flags)
     torch.cuda.synchronize()
     return got, want
 
@@ -581,9 +631,6 @@ def phase_kernel_vs_plain(device, n_rows: int, stats: dict) -> dict:
             log(f"  {name}: not kernel-supported "
                 f"({compiled.unsupported_reason or 'no rules'}), skipped")
             continue
-        if kmod.tree_needs_rel(compiled.arrays):
-            log(f"  {name}: relation-path targets (not ported yet), skipped")
-            continue
         rng = random.Random(zlib.crc32(name.encode()))
         stress = name == "scoped_511"
         with_pairs = grid_requests(rng, n_rows, stress) + odd_requests(rng, stress)
@@ -591,8 +638,8 @@ def phase_kernel_vs_plain(device, n_rows: int, stats: dict) -> dict:
         for reqs in (with_pairs, no_pairs):
             batch = encode_requests(reqs, compiled)
             n_inel += int((~batch.eligible).sum())
-            c, b, r, with_acl, with_hr = device_inputs(compiled, batch, device)
-            got, want = kernel_vs_plain(c, r, with_acl, with_hr)
+            c, b, r, flags = device_inputs(compiled, batch, device)
+            got, want = kernel_vs_plain(c, r, flags)
             err = int((got.long() - want.long()).abs().max())
             stats["max_abs_err"] = max(stats["max_abs_err"], err)
             if err != 0:
@@ -600,8 +647,7 @@ def phase_kernel_vs_plain(device, n_rows: int, stats: dict) -> dict:
                 raise AssertionError(
                     f"{name}: kernel != plain at rows {bad}: "
                     f"{got[:, bad].tolist()} vs {want[:, bad].tolist()}")
-            key = (with_acl, with_hr)
-            variants[key] = variants.get(key, 0) + b
+            variants[flags] = variants.get(flags, 0) + b
             dec = got[0, :b].cpu().numpy()
             elig = batch.eligible
             seen.update(int(x) for x in np.unique(dec[elig]))
@@ -622,13 +668,14 @@ def phase_kernel_vs_plain(device, n_rows: int, stats: dict) -> dict:
                         f"{name}: kernel row {i} {host[:, i].tolist()} "
                         f"!= oracle {want_row}")
                 n_checked += 1
-            log(f"  {name} with_acl={with_acl} with_hr={with_hr}: {b} rows "
+            log(f"  {name} (with_acl, with_hr, with_rel)={flags}: {b} rows "
                 f"equal to the plain version, {n_checked} equal to the oracle")
     if seen != {0, 1, 2}:
         raise AssertionError(f"decisions seen {sorted(seen)}: need all three")
     if n_inel == 0:
         raise AssertionError("no ineligible rows were generated")
-    if len(variants) != 4:
+    if not {(a, h, False) for a in (False, True) for h in (False, True)} \
+            <= set(variants):
         raise AssertionError(f"variants run: {sorted(variants)}")
     return variants
 
@@ -664,12 +711,12 @@ def phase_end_to_end(device, n_rows: int, stats: dict):
     floor = [r for r in copy.deepcopy(reqs)
              if fits_floor(request_needs(r, compiled.urns))]
     batch = encode_requests(floor, compiled, caps=dict(_CAPS_FLOOR))
-    c, b, r, with_acl, with_hr = device_inputs(compiled, batch, device)
-    got, want = kernel_vs_plain(c, r, with_acl, with_hr)
+    c, b, r, flags = device_inputs(compiled, batch, device)
+    got, want = kernel_vs_plain(c, r, flags)
     if not torch.equal(got, want):
         raise AssertionError("main-path batch: kernel != plain")
-    ms = time_ms(lambda: kmod.decide_dense(c, r, with_acl, with_hr))
-    plain_ms = time_ms(lambda: decide_dense_ref(c, r, with_acl, with_hr), 2)
+    ms = time_ms(lambda: kmod.decide_dense(c, r, *flags))
+    plain_ms = time_ms(lambda: dense_plain(c, r, *flags), 2)
     bms, by, nbytes, ops = bound_ms(c, r)
     stats["main"] = dict(launches=launches, ms=ms, plain_ms=plain_ms,
                          bound_ms=bms, bound_by=by, rows=int(r["r_n_ra"].shape[0]),
@@ -709,16 +756,16 @@ def phase_throughput(device, name: str, total: int, card: str) -> dict:
     stress = name == "scoped_511"
     batch = bench_batch(compiled, 4096, total, stress=stress)
     torch.cuda.reset_peak_memory_stats()
-    c, b, r, with_acl, with_hr = device_inputs(compiled, batch, device)
-    got, want = kernel_vs_plain(c, r, with_acl, with_hr)
+    c, b, r, flags = device_inputs(compiled, batch, device)
+    got, want = kernel_vs_plain(c, r, flags)
     if not torch.equal(got, want):
         raise AssertionError(f"{name}: kernel != plain at {total} rows")
     dec = got[0].cpu().numpy()
     shares = {k: float((dec == v).mean()) for k, v in DEC_CODE.items()}
     if not stress and not 0.45 <= shares["PERMIT"] <= 0.55:
         raise AssertionError(f"seed PERMIT share {shares['PERMIT']}")
-    ms = time_ms(lambda: kmod.decide_dense(c, r, with_acl, with_hr))
-    plain_ms = time_ms(lambda: decide_dense_ref(c, r, with_acl, with_hr), 2)
+    ms = time_ms(lambda: kmod.decide_dense(c, r, *flags))
+    plain_ms = time_ms(lambda: dense_plain(c, r, *flags), 2)
     bms, by, nbytes, ops = bound_ms(c, r)
     out = dict(config=name, rows=total, kernel_ms=ms,
                kernel_decisions_per_s=total / (ms / 1e3), plain_ms=plain_ms,
@@ -893,26 +940,33 @@ PLAIN = {
     "sig_planes": prefilter_ref.sig_planes_ref,
     "sig_decide": prefilter_ref.sig_decide_ref,
     "decide_grouped": prefilter_ref.decide_grouped_ref,
+    "decide_dense": dense_plain,
 }
+# the variant flags at the end of each wrapper's arguments
+N_FLAGS = {"sig_planes": 2, "sig_decide": 2, "decide_grouped": 3,
+           "decide_dense": 3}
 
 
 class KernelCheck:
     """While active, every ``sig_planes`` / ``sig_decide`` /
-    ``decide_grouped`` call the prefilter makes launches the kernel, then
+    ``decide_grouped`` call the prefilter makes (and with ``dense``, every
+    ``decide_dense`` call of ``DecisionKernel``) launches the kernel, then
     runs the plain version on the same device tensors; any difference
-    raises.  Records per kernel the calls and the largest error, and keeps
-    the arguments of each kernel's last call (device tensors, untouched)
-    for the timing phase."""
+    raises.  Records per kernel the calls, the largest error and the
+    variants (flag tuples) run, and keeps the arguments of each kernel's
+    last call (device tensors, untouched) for the timing phase."""
 
-    def __init__(self, stats: dict):
+    def __init__(self, stats: dict, dense: bool = False):
         self.stats = stats
         self.args: dict[str, tuple] = {}
         self._saved = {}
+        self._names = list(PLAIN) if dense else list(PLAIN)[:3]
 
     def __enter__(self):
-        for name in PLAIN:
-            orig = getattr(pfmod, name)
-            self._saved[name] = orig
+        for name in self._names:
+            mod = kmod if name == "decide_dense" else pfmod
+            orig = getattr(mod, name)
+            self._saved[name] = (mod, orig)
 
             def checked(*args, _name=name, _orig=orig):
                 self.args[_name] = args
@@ -920,20 +974,23 @@ class KernelCheck:
                 want = PLAIN[_name](*args)
                 torch.cuda.synchronize()
                 err = _max_err(got, want)
-                st = self.stats.setdefault(_name, {"calls": 0, "max_abs_err": 0})
+                st = self.stats.setdefault(_name, {"calls": 0, "max_abs_err": 0,
+                                                   "variants": set()})
                 st["calls"] += 1
                 st["max_abs_err"] = max(st["max_abs_err"], err)
+                st["variants"].add(tuple(bool(f) for f in
+                                         args[-N_FLAGS[_name]:]))
                 if err != 0:
                     raise AssertionError(f"{_name}: kernel != plain "
                                          f"(max abs err {err})")
                 return got
 
-            setattr(pfmod, name, checked)
+            setattr(mod, name, checked)
         return self
 
     def __exit__(self, *exc):
-        for name, orig in self._saved.items():
-            setattr(pfmod, name, orig)
+        for name, (mod, orig) in self._saved.items():
+            setattr(mod, name, orig)
         return False
 
 
@@ -978,7 +1035,8 @@ def phase_sig_vs_plain(device, stats: dict) -> None:
             aborts = int((dec[2] != 200).sum())
             log(f"  {label}: {len(reqs)} rows, kernels {ran} equal to their "
                 f"plain versions; {aborts} abort rows; needs_hr={kern.needs_hr}")
-    missing = [k for k in PLAIN if stats.get(k, {}).get("calls", 0) == 0]
+    missing = [k for k in list(PLAIN)[:3]
+               if stats.get(k, {}).get("calls", 0) == 0]
     if missing:
         raise AssertionError(f"phase 6 never ran {missing}")
 
@@ -1013,7 +1071,8 @@ def run_main_path(label: str, evaluator, engine, requests, expect, stats,
         responses = evaluator.is_allowed_batch(requests)
     launches = dict(kmod.LAUNCHES)
     for k, v in check.items():
-        st = stats.setdefault(k, {"calls": 0, "max_abs_err": 0})
+        st = stats.setdefault(k, {"calls": 0, "max_abs_err": 0,
+                                  "variants": set()})
         st["max_abs_err"] = max(st["max_abs_err"], v["max_abs_err"])
     for k in expect:
         if launches[k] < 1:
@@ -1076,11 +1135,12 @@ def _finish_bound(nbytes: int, ops: int) -> tuple[float, str, int, int]:
     return t_ops, "operations", nbytes, ops
 
 
-def bound_sig_planes(tabs, inv, pseudo, with_hr, out):
+def bound_sig_planes(tabs, inv, pseudo, with_hr, with_rel, out):
     """Bytes: the stacked tables, policy arrays and pseudo-requests read
     once, the planes written once.  Operations: stage A's compares per
     target row of every group, one per plane element written."""
-    nbytes = sum(int(t.nbytes) for t in tabs.values())
+    nbytes = sum(int(t.nbytes) for k, t in tabs.items()
+                 if with_rel or k not in REL_TABLES)
     nbytes += sum(int(inv[k].nbytes) for k in kmod.SIG_PLANES_INPUTS
                   if k in inv)
     nbytes += sum(int(t.nbytes) for t in pseudo.values())
@@ -1101,7 +1161,7 @@ def bound_sig_decide(args) -> tuple[float, str, int, int]:
     owner checks and combine compares of every rule position of its group
     and the policy and set folds."""
     (inv, cs, planes, slot_g, rows, g2r, gp, n_rows, schedule,
-     needs_pairs, with_hr) = args
+     needs_pairs, with_hr, with_rel) = args
     nbytes = sum(int(t.nbytes) for t in (slot_g, rows, g2r, gp))
     nbytes += 3 * 4 * int(gp.shape[0])
     nbytes += sum(int(t.nbytes) for t in planes.values())
@@ -1114,6 +1174,7 @@ def bound_sig_decide(args) -> tuple[float, str, int, int]:
     sub = nrole + (ks * nsub if needs_pairs else 0)
     hr = (widths.get("r_own_runs", 0) + planes["rl_op_hit"].shape[-1]
           if with_hr else 0)
+    hr += 3 * widths.get("r_rel_runs", 0) if with_rel else 0
     per_row = S * KP * KR * (sub + hr + 12) + S * KP * (2 * sub + hr + 20) \
         + S * (sub + 12)
     return _finish_bound(nbytes, n_rows * per_row)
@@ -1123,16 +1184,20 @@ def time_kernel(name: str, args: tuple, plain_iters: int = 1) -> dict:
     """The kernel and its plain version on one call's arguments, CUDA
     events (the kernel: mean of ITERS launches after a warm-up)."""
     launch = {"sig_planes": kmod.sig_planes, "sig_decide": kmod.sig_decide,
-              "decide_grouped": kmod.decide_grouped}[name]
+              "decide_grouped": kmod.decide_grouped,
+              "decide_dense": kmod.decide_dense}[name]
     ms = time_ms(lambda: launch(*args))
     plain_ms = time_ms(lambda: PLAIN[name](*args), plain_iters)
     if name == "sig_planes":
         bms, by, nbytes, ops = bound_sig_planes(*args, launch(*args))
     elif name == "sig_decide":
         bms, by, nbytes, ops = bound_sig_decide(args)
+    elif name == "decide_grouped":
+        inv, cs, _, r, _, _, with_rel = args
+        bms, by, nbytes, ops = bound_ms({**inv, **cs}, r, with_rel)
     else:
-        inv, cs, _, r, _, _ = args
-        bms, by, nbytes, ops = bound_ms({**inv, **cs}, r)
+        c, r, _, _, with_rel = args
+        bms, by, nbytes, ops = bound_ms(c, r, with_rel)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 bytes=nbytes, ops=ops)
 
@@ -1196,7 +1261,7 @@ def phase_sig_main(device, stats: dict, card: str) -> dict:
     launches, b_args = run_main_path("(b) stress HR 8192", evaluator, engine,
                                      reqs_b, ("sig_planes", "sig_decide"),
                                      stats)
-    if not b_args["sig_decide"][-1]:
+    if not b_args["sig_decide"][-2]:
         raise AssertionError("(b): sig_decide ran without HR")
     out["b"] = {"launches": launches,
                 "sig_planes": time_kernel("sig_planes", b_args["sig_planes"]),
@@ -1522,6 +1587,524 @@ def phase_lattice(device, stats: dict, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------ ReBAC: trees and tuples
+
+
+DOC = "urn:restorecommerce:acs:model:document.Document"
+FOLDER = "urn:restorecommerce:acs:model:folder.Folder"
+REL_PATHS = ("viewer", "owner", "parent.owner", "viewer|parent.owner",
+             "owner!direct")
+
+
+def relation_engine(path: str = "viewer") -> AccessController:
+    """``tests/fixtures/relation_policies.yml`` (a relation-gated PERMIT
+    rule on documents, then a DENY fallback) with its relation path
+    replaced by ``path``."""
+    with open(os.path.join(REPO, "tests", "fixtures",
+                           "relation_policies.yml")) as fh:
+        text = fh.read()
+    return engine_from_doc(yaml.safe_load(
+        text.replace("value: viewer", f"value: {path}")))
+
+
+def tuple_store(*ops) -> RelationTupleStore:
+    """A store after ``ops``, each (method name, arguments...)."""
+    store = RelationTupleStore()
+    for name, *args in ops:
+        getattr(store, name)(*args)
+    return store
+
+
+def doc_requests(subjects, docs, **kw) -> list[Request]:
+    """Reads of every subject on every document (a list of ids is one
+    multi-resource row)."""
+    return [build_request(
+        subject_id=s, resource_type=[DOC] * len(d) if isinstance(d, list)
+        else DOC, resource_id=d, action_type=URNS["read"], **kw)
+        for s in subjects for d in docs]
+
+
+def rel_fixture_cases() -> list[tuple]:
+    """(label, engine, store or None, requests, encode options): the JAX
+    package's ``tests/test_relations.py`` shapes: the three rewrite
+    kinds, folder chains of depth 1-6, the kernel-variant tuples with
+    plain, ACL and property rows, a batch encoded with
+    ``skip_relation_bits`` and one without a store."""
+    owner = ("set_rewrite", DOC, "viewer",
+             [("this",), ("computed_userset", "owner")])
+    subjects = ["alice", "bob", "carol", "mallory"]
+    docs = ["doc1", "doc2", "doc3", ["doc1", "doc3"]]
+    kinds = {
+        "direct": (("create", [(DOC, "doc1", "viewer", "alice")]),),
+        "computed_userset": (owner, ("create",
+                                     [(DOC, "doc1", "owner", "alice")])),
+        "tuple_to_userset": (
+            ("set_rewrite", DOC, "viewer",
+             [("this",), ("tuple_to_userset", "parent", "viewer")]),
+            ("create", [(DOC, "doc1", "parent",
+                         {"object": {"entity": FOLDER, "id": "f1"}}),
+                        (FOLDER, "f1", "viewer", "alice")])),
+    }
+    cases = [(f"rewrite {k}", relation_engine(), tuple_store(*ops),
+              doc_requests(subjects, docs), {}) for k, ops in kinds.items()]
+    for depth in range(1, 7):
+        path = ".".join(["parent"] * (depth - 1) + ["owner"])
+        chain = [(DOC, "doc1", "owner", "alice")] if depth == 1 else [
+            (DOC, "doc1", "parent", {"object": {"entity": FOLDER,
+                                                "id": "f1"}})]
+        if depth > 1:
+            chain += [(FOLDER, f"f{i}", "parent",
+                       {"object": {"entity": FOLDER, "id": f"f{i + 1}"}})
+                      for i in range(1, depth - 1)]
+            chain += [(FOLDER, f"f{depth - 1}", "owner", "alice"),
+                      (DOC, "doc2", "parent",
+                       {"object": {"entity": FOLDER, "id": f"f{depth - 1}"}})]
+        cases.append((f"depth {depth}", relation_engine(path),
+                       tuple_store(("create", chain)),
+                       doc_requests(subjects, docs), {}))
+    variants = tuple_store(owner, ("create", [
+        (DOC, "doc1", "owner", "alice"), (DOC, "doc2", "viewer", "bob"),
+        (DOC, "doc3", "viewer", {"object": {"entity": "group", "id": "g"},
+                                 "relation": "member"}),
+        ("group", "g", "member", "carol")]))
+    cases += [
+        ("variants", relation_engine(), variants,
+         doc_requests(subjects, docs), {}),
+        ("variants ACL", relation_engine(), variants,
+         doc_requests(subjects, docs[:3]) + doc_requests(
+             subjects[:2], docs[:1], acl_indicatory_entity=ORG,
+             acl_instances=["Org1"]), {}),
+        ("variants properties", relation_engine(), variants,
+         doc_requests(subjects, docs[:3], resource_property=DOC + "#name"),
+         {}),
+        ("skip_relation_bits", relation_engine(), variants,
+         doc_requests(subjects, docs), {"skip_relation_bits": True}),
+        ("no store", relation_engine(), None, doc_requests(subjects, docs),
+         {}),
+    ]
+    return cases
+
+
+def rel_stress_doc(scoped: bool):
+    """The 720-rule stress tree with a relation-path subject on three
+    rules in four (the five path shapes of ``REL_PATHS`` in turn);
+    ``scoped`` adds the roleScopingEntity to every rule, so the HR and
+    the relation folds stack."""
+    doc = small_stress_doc(scoped=scoped)
+    for pol in doc["policy_sets"][0]["policies"]:
+        for rule in pol["rules"]:
+            rid = int(rule["id"][1:])
+            if rid % 4 != 3:
+                rule["target"]["subjects"].append(
+                    {"id": URNS["relation"],
+                     "value": REL_PATHS[rid % len(REL_PATHS)]})
+    return doc
+
+
+def rel_stress_store(seed: int = 3) -> RelationTupleStore:
+    """Viewer and owner grants and parent links to owned folders on the
+    stress entities' documents ``doc0``-``doc7``, users ``u0``-``u15``,
+    and a viewer rewrite on one entity."""
+    rng = random.Random(seed)
+    users = [f"u{i}" for i in range(16)]
+    tuples = []
+    for ent in STRESS_ENTITIES[:16]:
+        for d in range(8):
+            if rng.random() < 0.5:
+                tuples.append((ent, f"doc{d}", "viewer", rng.choice(users)))
+            if rng.random() < 0.4:
+                tuples.append((ent, f"doc{d}", "owner", rng.choice(users)))
+            if rng.random() < 0.4:
+                tuples.append((ent, f"doc{d}", "parent", {"object": {
+                    "entity": FOLDER, "id": f"f{rng.randrange(4)}"}}))
+    tuples += [(FOLDER, f"f{f}", "owner", rng.choice(users))
+               for f in range(4)]
+    return tuple_store(("set_rewrite", STRESS_ENTITIES[0], "viewer",
+                        [("this",), ("computed_userset", "owner")]),
+                       ("create", tuples))
+
+
+def rel_stress_traffic(n: int, seed: int, scoped: bool, acl: bool = False
+                       ) -> list[Request]:
+    """Rows on the relation stress tree: roles of the tree, the 16
+    entities, documents ``doc0``-``doc7``, users ``u0``-``u15``; scoped
+    rows carry an Org1 role scope and owners; ``acl`` puts an ACL pair on
+    every eighth row."""
+    rng = random.Random(seed)
+    actions = ACTIONS[:4]
+    out = []
+    for i in range(n):
+        role = f"role-{rng.randrange(23)}"
+        kw = {}
+        if scoped:
+            kw = dict(role_scoping_entity=ORG, role_scoping_instance="Org1",
+                      owner_indicatory_entity=ORG,
+                      owner_instance=rng.choice(OWNERS))
+        if acl and i % 8 == 0:
+            kw.update(acl_indicatory_entity=ORG,
+                      acl_instances=[rng.choice(OWNERS[:4])])
+        req = build_request(
+            subject_id=f"u{rng.randrange(16)}", subject_role=role,
+            resource_type=STRESS_ENTITIES[rng.randrange(16)],
+            resource_id=f"doc{rng.randrange(8)}",
+            action_type=rng.choice(actions), **kw)
+        if not scoped:
+            req.context["subject"]["role_associations"] = [
+                {"role": role, "attributes": []}]
+        out.append(req)
+    return out
+
+
+def oracle_rows(engine, store, requests, batch, out, rows=None) -> int:
+    """Eligible rows (all, or those of ``rows``) of a kernel output
+    against ``engine.is_allowed`` with ``store`` attached: (decision,
+    cacheable, status)."""
+    engine.relation_store = store
+    host = [o.cpu().numpy() if isinstance(o, torch.Tensor) else o
+            for o in out]
+    n = 0
+    for i in range(len(requests)) if rows is None else rows:
+        if not batch.eligible[i]:
+            continue
+        resp = engine.is_allowed(copy.deepcopy(requests[i]))
+        cach = resp.evaluation_cacheable
+        want = (DEC_CODE[resp.decision], -1 if cach is None else int(cach),
+                resp.operation_status.code)
+        got = tuple(int(h[i]) for h in host)
+        if got != want:
+            raise AssertionError(f"row {i}: kernel {got} != oracle {want}")
+        n += 1
+    return n
+
+
+# ------------------------------------ ReBAC: relation variants vs plain
+
+
+def phase_rel_vs_plain(device, stats: dict) -> dict:
+    """Phase 12: every ``with_rel`` call of ``decide_dense``,
+    ``sig_planes``, ``sig_decide`` and ``decide_grouped`` held exactly
+    against its plain version on the same device tensors: the relation
+    fixture's cases through ``DecisionKernel`` and a forced
+    ``PrefilteredKernel``, then the 720-rule relation tree (unscoped and
+    scoped, at or above ``MIN_RULES``, so the signature kernels run
+    unforced) with plain and ACL batches.  Returns the arguments of the
+    unscoped 720-rule calls for the timing phase and their launches."""
+    with KernelCheck(stats, dense=True):
+        for label, engine, store, reqs, kw in rel_fixture_cases():
+            compiled = compile_policies(engine.policy_sets, engine.urns)
+            tables = store.tables_for(compiled) if store else None
+            batch = encode_requests(copy.deepcopy(reqs), compiled,
+                                    relation_tables=tables, **kw)
+            dense = kmod.DecisionKernel(compiled, device=device)
+            forced = pfmod.PrefilteredKernel(compiled, device=device)
+            forced.active, forced._dense = True, None
+            out = dense.evaluate(batch)
+            if not all(np.array_equal(a, b) for a, b in
+                       zip(out, forced.evaluate(batch))):
+                raise AssertionError(f"{label}: dense != signature path")
+            n = (0 if kw.get("skip_relation_bits")
+                 else oracle_rows(engine, store, reqs, batch, out))
+            log(f"  {label}: {len(reqs)} rows, every kernel call equal to "
+                f"its plain version, {n} rows equal to the oracle; "
+                f"decisions {out[0].tolist()}")
+    out = {}
+    for scoped in (False, True):
+        engine = engine_from_doc(rel_stress_doc(scoped))
+        compiled = compile_policies(engine.policy_sets, engine.urns)
+        if not compiled.supported or compiled.n_rules < pfmod.MIN_RULES:
+            raise AssertionError("the relation stress tree is not on the "
+                                 "signature path")
+        store = rel_stress_store()
+        tables = store.tables_for(compiled)
+        kern = pfmod.PrefilteredKernel(compiled, device=device)
+        dense = kmod.DecisionKernel(compiled, device=device)
+        check: dict = {}
+        for acl in (False, True):
+            reqs = rel_stress_traffic(512, 17 + acl, scoped, acl)
+            batch = encode_requests(copy.deepcopy(reqs), compiled,
+                                    relation_tables=tables)
+            reset_launches()
+            with KernelCheck(check, dense=True) as chk:
+                got = kern.evaluate(batch)
+                want = dense.evaluate(batch)
+            launches = dict(kmod.LAUNCHES)
+            if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError("720 relation tree: dense != "
+                                     "signature path")
+            ran = ("decide_grouped",) if acl else ("sig_planes",
+                                                   "sig_decide")
+            if not all(launches[k] for k in ran + ("decide_dense",)):
+                raise AssertionError(f"720 relation tree: launches "
+                                     f"{launches}")
+            n = oracle_rows(engine, store, reqs, batch, got,
+                            rows=range(0, 512, 8))
+            permits = int((got[0][batch.eligible] == 1).sum())
+            label = f"720 relation{' HR' if scoped else ''}" \
+                f"{' ACL' if acl else ''}"
+            log(f"  {label}: 512 rows, launches {launches}, every call "
+                f"equal to its plain version; {n} sampled rows equal to "
+                f"the oracle; {permits} PERMIT")
+            if not scoped:
+                out["launches_acl" if acl else "launches"] = launches
+                out.update({k: v for k, v in chk.args.items()
+                            if k != "decide_dense"})
+        for k, v in check.items():
+            st = stats.setdefault(k, {"calls": 0, "max_abs_err": 0,
+                                      "variants": set()})
+            st["calls"] += v["calls"]
+            st["max_abs_err"] = max(st["max_abs_err"], v["max_abs_err"])
+            st["variants"] |= v["variants"]
+    want = {
+        "decide_dense": {(a, h, True) for a in (False, True)
+                         for h in (False, True)},
+        "decide_grouped": {(True, False, True), (False, False, True),
+                           (True, True, True)},
+        "sig_planes": {(False, True), (True, True)},
+        "sig_decide": {(False, True), (True, True)},
+    }
+    for name, variants in want.items():
+        if not variants <= stats.get(name, {}).get("variants", set()):
+            raise AssertionError(f"phase 12: {name} ran the variants "
+                                 f"{sorted(stats[name]['variants'])}")
+    log("  variants run (with_rel last): " + json.dumps(
+        {k: sorted(stats[k]["variants"]) for k in want}))
+    return out
+
+
+# ------------------------------------------ ReBAC: the rebac-serve path
+
+
+def rebac_setup(n_tuples: int, n_objects: int, depth: int):
+    """The JAX package's ``rebac-serve`` configuration
+    (``bench_all._rebac_setup``, copied): the relation fixture with the
+    path ``viewer|parent...owner`` (``depth - 1`` parent hops), documents
+    behind folder chains (64 documents per chain, ``depth - 1`` folders,
+    the last one owned by ``chain-owner-{c % 512}``), the rest of the
+    tuple budget as direct viewer grants.  Returns (engine, store, tuple
+    count)."""
+    path = "viewer|" + ".".join(["parent"] * (depth - 1) + ["owner"])
+    engine = relation_engine(path)
+    n_chains = max(1, n_objects // 64)
+    tuples: list[tuple] = []
+    for c in range(n_chains):
+        for h in range(depth - 2):
+            tuples.append((FOLDER, f"f{c}_{h}", "parent",
+                           {"object": {"entity": FOLDER,
+                                       "id": f"f{c}_{h + 1}"}}))
+        tuples.append((FOLDER, f"f{c}_{max(depth - 2, 0)}", "owner",
+                       f"chain-owner-{c % 512}"))
+    for i in range(n_objects):
+        tuples.append((DOC, f"doc{i}", "parent",
+                       {"object": {"entity": FOLDER,
+                                   "id": f"f{i % n_chains}_0"}}))
+    i = 0
+    while len(tuples) < n_tuples:
+        tuples.append((DOC, f"doc{i % n_objects}", "viewer",
+                       f"viewer-{i % 4096}"))
+        i += 1
+    store = RelationTupleStore()
+    store.create(tuples)
+    return engine, store, len(tuples)
+
+
+def rebac_request(subject: str, doc_id: str) -> Request:
+    return Request(
+        target=Target(
+            subjects=[Attribute(id=URNS["role"], value="member"),
+                      Attribute(id=URNS["subjectID"], value=subject)],
+            resources=[Attribute(id=URNS["entity"], value=DOC),
+                       Attribute(id=URNS["resourceID"], value=doc_id)],
+            actions=[Attribute(id=URNS["actionID"], value=URNS["read"])],
+        ),
+        context={"resources": [],
+                 "subject": {"id": subject, "role_associations": [],
+                             "hierarchical_scopes": []}},
+    )
+
+
+def rebac_requests(n_objects: int, batch: int) -> list[Request]:
+    """The ``rebac-serve`` traffic (``bench_all._rebac_requests``,
+    copied): 45% direct viewer hits, 35% chain-owner hits, 20% misses,
+    numpy seed 11."""
+    n_chains = max(1, n_objects // 64)
+    rng = np.random.default_rng(11)
+    out = []
+    for i in range(batch):
+        draw = rng.random()
+        rid_idx = int(rng.integers(n_objects))
+        if draw < 0.45:
+            k = int(rng.integers(6))
+            subject = f"viewer-{(rid_idx + k * n_objects) % 4096}"
+        elif draw < 0.8:
+            subject = f"chain-owner-{(rid_idx % n_chains) % 512}"
+        else:
+            subject = f"stranger-{i}"
+        out.append(rebac_request(subject, f"doc{rid_idx}"))
+    return out
+
+
+def phase_rebac(device, stats: dict, card: str, n_tuples: int,
+                n_objects: int = 100_000, depth: int = 4,
+                batch_rows: int = 4096) -> dict:
+    """Phase 13: the ``rebac-serve`` main path.  The store attached to
+    ``HybridEvaluator``; the first batch with every ``decide_dense`` call
+    held against its plain version and every response against the
+    oracle; warm decisions/s and the stage split; K1's relation variant
+    beside the same kernel on the batch encoded with
+    ``skip_relation_bits``; then a tuple create and delete that flip a
+    probe's decision with no new build, no ``sig_planes`` launch and an
+    unchanged compiled version."""
+    t0 = time.perf_counter()
+    engine, store, n = rebac_setup(n_tuples, n_objects, depth)
+    setup_s = time.perf_counter() - t0
+    evaluator = HybridEvaluator(engine, device=device)
+    compiled = evaluator._compiled
+    kern = evaluator._kernel
+    if kern.active or not kern._dense.with_rel:
+        raise AssertionError("rebac-serve: not the dense relation variant")
+    t0 = time.perf_counter()
+    tables = store.tables_for(compiled)
+    fold_s = time.perf_counter() - t0
+    evaluator.attach_relation_store(store)
+    log(f"  rebac-serve: {n} tuples, {n_objects} documents, depth {depth}; "
+        f"store built in {setup_s:.1f} s, closure fold {fold_s:.2f} s "
+        f"({len(tables['obj_keys'])} objects, {len(tables['pairs'])} "
+        f"pairs); {compiled.n_rules} rules, T={compiled.T}")
+    reqs = rebac_requests(n_objects, batch_rows)
+
+    check: dict = {}
+    reset_launches()
+    with KernelCheck(check, dense=True):
+        responses = evaluator.is_allowed_batch(copy.deepcopy(reqs))
+    launches = dict(kmod.LAUNCHES)
+    if launches["decide_dense"] < 1:
+        raise AssertionError("rebac-serve launched no decide_dense")
+    st = stats.setdefault("decide_dense", {"calls": 0, "max_abs_err": 0,
+                                           "variants": set()})
+    st["max_abs_err"] = max(st["max_abs_err"],
+                            check["decide_dense"]["max_abs_err"])
+    if check["decide_dense"]["variants"] != {(False, False, True)}:
+        raise AssertionError(f"rebac-serve ran {check['decide_dense']}")
+    t0 = time.perf_counter()
+    for i, req in enumerate(reqs):
+        want = engine.is_allowed(copy.deepcopy(req))
+        if response_key(responses[i]) != response_key(want):
+            raise AssertionError(f"rebac-serve row {i}: "
+                                 f"{response_key(responses[i])} != "
+                                 f"{response_key(want)}")
+    oracle_s = time.perf_counter() - t0
+    decisions: dict = {}
+    for resp in responses:
+        decisions[resp.decision] = decisions.get(resp.decision, 0) + 1
+    if not decisions.get("PERMIT"):
+        raise AssertionError("rebac-serve: no relation-decided PERMIT")
+    log(f"  first batch: {batch_rows} responses equal to the oracle "
+        f"({oracle_s:.1f} s for the oracle walk); launches {launches}; "
+        f"decide_dense equal to its plain version; decisions {decisions} "
+        f"(every PERMIT relation-decided: the tree's only PERMIT rule is "
+        f"the relation rule)")
+
+    warm = [copy.deepcopy(reqs) for _ in range(3)]
+    evaluator.is_allowed_batch(copy.deepcopy(reqs))
+    t0 = time.perf_counter()
+    for b in warm:
+        evaluator.is_allowed_batch(b)
+    batch_s = (time.perf_counter() - t0) / len(warm)
+
+    # the stage split of one warm batch, each stage timed alone
+    b = copy.deepcopy(reqs)
+    t = [time.perf_counter()]
+    tables = evaluator._relation_tables(compiled)
+    t.append(time.perf_counter())
+    batch = encode_requests(b, compiled, engine.resource_adapter,
+                            relation_tables=tables)
+    t.append(time.perf_counter())
+    thunk = kern.evaluate_async(batch)
+    out = thunk()
+    t.append(time.perf_counter())
+    evaluator._decode_batch(b, batch, out)
+    t.append(time.perf_counter())
+    stages = {k: (t[i + 1] - t[i]) * 1e3 for i, k in enumerate(
+        ("fold_cached", "encode", "device", "decode"))}
+    t0 = time.perf_counter()
+    pack_relation_bitplanes(batch.arrays, compiled, tables)
+    stages["of_encode_pack_relation_bitplanes"] = \
+        (time.perf_counter() - t0) * 1e3
+
+    # K1's relation variant on this batch beside the same program on the
+    # batch encoded with skip_relation_bits (1-wide dummy planes)
+    _, r = batch_from_numpy(batch, device, keys=kmod.ROW_ARRAYS)
+    flags = (False, False, True)
+    args = (kern._dense._c, r) + flags
+    k1 = time_kernel("decide_dense", args, plain_iters=2)
+    skip = encode_requests(copy.deepcopy(reqs), compiled,
+                           skip_relation_bits=True)
+    _, r_skip = batch_from_numpy(skip, device, keys=kmod.ROW_ARRAYS)
+    got, want = kernel_vs_plain(kern._dense._c, r_skip, flags)
+    if not torch.equal(got, want):
+        raise AssertionError("rebac-serve skip batch: kernel != plain")
+    # in turns (relation, dummy, dummy, relation), one card, one call
+    turns = [time_ms(lambda rr=rr: kmod.decide_dense(kern._dense._c, rr,
+                                                     *flags))
+             for rr in (r, r_skip, r_skip, r)]
+    rel_ms, skip_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    k1.update(turns_ms=turns, skip_relation_bits_ms=skip_ms,
+              overhead_pct=(rel_ms / skip_ms - 1.0) * 100.0,
+              launches=launches["decide_dense"], rows=int(r["r_n_ra"].shape[0]),
+              NRU_REL=int(r["r_rel_runs"].shape[1]))
+
+    # tuple churn: a grant created and deleted flips the probe; nothing
+    # is rebuilt, compiled or launched beyond the dense kernel
+    probe = rebac_request("churn-probe-user", "doc0")
+    grant = [(DOC, "doc0", "viewer", "churn-probe-user")]
+    built = sorted(os.listdir(cuda_build.BUILD_DIR))
+    libs = sorted(cuda_build._libs)
+    version = compiled.version
+    reset_launches()
+    seen, ttv_ms = [], []
+    for op in (None, "create", "delete"):
+        t0 = time.perf_counter()
+        if op is not None:
+            getattr(store, op)(grant)
+        resp = evaluator.is_allowed_batch([copy.deepcopy(probe)])[0]
+        if op is not None:
+            ttv_ms.append((time.perf_counter() - t0) * 1e3)
+        want = engine.is_allowed(copy.deepcopy(probe))
+        if response_key(resp) != response_key(want):
+            raise AssertionError(f"churn {op}: {response_key(resp)} != "
+                                 f"{response_key(want)}")
+        seen.append(resp.decision)
+    churn_launches = dict(kmod.LAUNCHES)
+    if seen != ["DENY", "PERMIT", "DENY"]:
+        raise AssertionError(f"churn decisions {seen}")
+    if (sorted(os.listdir(cuda_build.BUILD_DIR)) != built
+            or sorted(cuda_build._libs) != libs
+            or evaluator._compiled.version != version
+            or evaluator._kernel is not kern
+            or churn_launches["sig_planes"] != 0
+            or churn_launches["decide_dense"] != 3
+            or evaluator.relation_churn != 2):
+        raise AssertionError(f"churn swapped something: launches "
+                             f"{churn_launches}, version "
+                             f"{evaluator._compiled.version} vs {version}")
+    out = {
+        "tuples": n, "objects": n_objects, "depth": depth,
+        "rows": batch_rows, "setup_s": setup_s, "fold_s": fold_s,
+        "decisions_per_s": batch_rows / batch_s, "batch_ms": batch_s * 1e3,
+        "stages_ms": stages, "decisions": decisions, "launches": launches,
+        "k1": k1, "churn": {"decisions": seen, "ttv_ms": ttv_ms,
+                            "launches": churn_launches},
+    }
+    log(f"  rebac-serve on {card}: {out['decisions_per_s']:.0f} decisions/s "
+        f"warm ({out['batch_ms']:.3f} ms per {batch_rows}), stages (ms) "
+        f"{json.dumps(stages)}")
+    log(f"  decide_dense with_rel on {card}: {json.dumps(k1)}")
+    log(f"  churn: decisions {seen}, time to visibility {ttv_ms} ms, "
+        f"launches {churn_launches}, no new build, compiled version "
+        f"{version} unchanged")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -1551,8 +2134,9 @@ def main() -> int:
 
     log("phase 3-4: dense kernel vs plain version, kernel vs oracle")
     variants = phase_kernel_vs_plain(device, 1024, stats)
-    for (acl, hr), n in sorted(variants.items()):
-        log(f"  variant with_acl={acl} with_hr={hr}: {n} rows checked")
+    for flags, n in sorted(variants.items()):
+        log(f"  variant (with_acl, with_hr, with_rel)={flags}: {n} rows "
+            f"checked")
 
     log("phase 5: dense main path (HybridEvaluator.is_allowed_batch, "
         "511 rules)")
@@ -1592,6 +2176,22 @@ def main() -> int:
     log("phase 11: lattice sweep (128 x 128 x 1 on 10,000 rules)")
     lat = phase_lattice(device, sig_stats, card)
 
+    log("phase 12: relation variants vs plain versions (fixture, 720 rules)")
+    rel = phase_rel_vs_plain(device, sig_stats)
+
+    log("phase 13: ReBAC main path (rebac-serve, 1,000,000 tuples)")
+    rebac = phase_rebac(device, sig_stats, card, REBAC_TUPLES)
+
+    log("  relation variants' times (CUDA events, 5 launches after a "
+        "warm-up):")
+    rel_rows = {"decide_dense": dict(rebac["k1"])}
+    for name, key in (("sig_planes", "launches"), ("sig_decide", "launches"),
+                      ("decide_grouped", "launches_acl")):
+        rel_rows[name] = time_kernel(name, rel[name])
+        rel_rows[name]["launches"] = rel[key][name]
+        log(f"  {name} with_rel (720 relation tree) on {card}: "
+            + json.dumps(rel_rows[name]))
+
     log("  wia_planes times (CUDA events, 5 launches after a warm-up):")
     k5 = {}
     for key, args in (("wia-large", wl["args"]), ("lattice", lat["args"]),
@@ -1627,12 +2227,21 @@ def main() -> int:
         **{k: k5["wia-large"][k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by")},
     })
+    keys = ("launches", "ms", "plain_ms", "bound_ms", "bound_by")
+    for r in rows:
+        if r["name"] in rel_rows:
+            t = rel_rows[r["name"]]
+            r["with_rel"] = {
+                "replaces": REPLACES_REL[r["name"]],
+                "max_abs_err": sig_stats[r["name"]]["max_abs_err"],
+                **{k: t[k] for k in keys}, "library_ms": None}
     print(json.dumps({"kernels": [{
         "name": r["name"], "route": "cuda", "source": CSRC + r["name"] + ".cu",
         "replaces": REPLACES[r["name"]], "launches": r["launches"],
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None,
+        **({"with_rel": r["with_rel"]} if "with_rel" in r else {}),
     } for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

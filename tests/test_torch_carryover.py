@@ -149,6 +149,8 @@ import access_control_srv_tpu_torch.ops.reverse_ref
 import access_control_srv_tpu_torch.ops.lattice
 import access_control_srv_tpu_torch.core.candidate_index
 import access_control_srv_tpu_torch.srv.audit_sweep
+import access_control_srv_tpu_torch.srv.events
+import access_control_srv_tpu_torch.srv.relations
 import chip_smoke
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "access_control_srv_tpu")]
@@ -169,6 +171,8 @@ def test_no_reference_import_lines():
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    assert {os.path.join(PORT, "srv", n) for n in ("events.py", "relations.py")
+            } <= set(files)
     for path in files:
         with open(path) as fh:
             assert not pattern.search(fh.read()), path

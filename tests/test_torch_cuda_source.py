@@ -162,7 +162,8 @@ def emulated(tmp_path_factory):
     lib.acs_decide_dense.restype = ctypes.c_int
     lib.acs_decide_dense.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
     ]
     lib.acs_decide_dense_smem.restype = ctypes.c_longlong
     lib.acs_decide_dense_smem.argtypes = [
@@ -177,15 +178,16 @@ def run_emulated(lib, compiled, batch):
     _, r = batch_from_numpy(batch, "cpu", keys=tkernel.ROW_ARRAYS)
     with_acl = bool((batch.arrays["r_acl_ent"] >= 0).any())
     with_hr = tkernel.tree_needs_hr(compiled.arrays)
+    with_rel = tkernel.tree_needs_rel(compiled.arrays)
     args = tkernel.pack_args(c, r)
     args.out.fill_(-7)
     code = lib.acs_decide_dense(
         ctypes.addressof(args.ptrs), len(args.ptrs),
         ctypes.addressof(args.dims), len(args.dims), int(with_acl),
-        int(with_hr), args.threads, None,
+        int(with_hr), int(with_rel), args.threads, None,
     )
     assert code == 0
-    want = torch.stack(decide_dense_ref(c, r, with_acl, with_hr))
+    want = torch.stack(decide_dense_ref(c, r, with_acl, with_hr, with_rel))
     return args.out, want
 
 
@@ -226,8 +228,8 @@ def test_argument_count_mismatch_is_refused(emulated):
     ptrs = (ctypes.c_int64 * 3)()
     dims = (ctypes.c_int32 * 3)()
     assert emulated.acs_decide_dense(
-        ctypes.addressof(ptrs), 3, ctypes.addressof(dims), 3, 0, 0, 64, None
-    ) == -1
+        ctypes.addressof(ptrs), 3, ctypes.addressof(dims), 3, 0, 0, 0, 64,
+        None) == -1
 
 
 @pytest.mark.parametrize("name", KERNEL_FIXTURES + ["seed_data"])
@@ -320,3 +322,81 @@ def test_condition_aborts(emulated):
     got, want = run_emulated(emulated, tc, batch)
     assert torch.equal(got, want)
     assert (got[2] != 200).any()
+
+
+def relation_batch(teng, specs, case="store", value_ops=None):
+    """A port-compiled relation tree and a batch packed from a port tuple
+    store's tables (``case`` "no_store": fail-closed empty tables;
+    "skip_bits": the 1-wide dummy planes)."""
+    from .test_torch_relations import VARIANT_OPS, both_stores
+
+    tc = compile_policies(teng.policy_sets, teng.urns)
+    assert tkernel.tree_needs_rel(tc.arrays)
+    store = both_stores(*(value_ops or VARIANT_OPS))[1]
+    tables = None if case == "no_store" else store.tables_for(tc)
+    batch = encode_requests([build_request(s, tmodels) for s in specs], tc,
+                            relation_tables=tables,
+                            skip_relation_bits=case == "skip_bits")
+    return tc, batch
+
+
+@pytest.mark.parametrize("case", ["store", "no_store", "skip_bits", "acl"])
+def test_relation_fixture(emulated, case):
+    """The with_rel variants (and with ACL pairs, with_acl + with_rel) on
+    the relation fixture: closure planes, fail-closed planes and dummy
+    planes."""
+    from .test_torch_relations import ORG, VARIANT_SPECS, rel_specs
+
+    _, teng = make_engines("relation_policies.yml")
+    specs = list(VARIANT_SPECS)
+    if case == "acl":
+        specs += rel_specs(["alice", "bob"], ["doc1", "doc3"],
+                           acl_indicatory_entity=ORG, acl_instances=["Org1"])
+    tc, batch = relation_batch(teng, specs, case)
+    got, want = run_emulated(emulated, tc, batch)
+    assert torch.equal(got, want)
+    assert (got[0, :len(specs)] == 1).any() == (case in ("store", "acl",
+                                                         "skip_bits"))
+
+
+def test_relation_depth_chain(emulated, tmp_path):
+    """The rebac-serve path shape, viewer|parent.parent.owner, over a
+    folder chain, with a multi-resource row (two collected runs)."""
+    from .test_torch_relations import FOLDER, NS, rel_engines, rel_specs
+
+    _, teng = rel_engines(tmp_path, "viewer|parent.parent.owner")
+    ops = (("create", [
+        (NS, "doc1", "parent", {"object": {"entity": FOLDER, "id": "f0"}}),
+        (FOLDER, "f0", "parent", {"object": {"entity": FOLDER, "id": "f1"}}),
+        (FOLDER, "f1", "owner", "alice"),
+        (NS, "doc2", "viewer", "bob"),
+    ]),)
+    specs = rel_specs(["alice", "bob", "eve"],
+                      ["doc1", "doc2", ["doc1", "doc2"]])
+    tc, batch = relation_batch(teng, specs, value_ops=ops)
+    got, want = run_emulated(emulated, tc, batch)
+    assert torch.equal(got, want)
+    assert got[0, :len(specs)].tolist() == [1, 2, 2, 2, 1, 2, 2, 2, 2]
+
+
+@pytest.mark.parametrize("scoped", [False, True])
+def test_relation_stress_tree(emulated, scoped):
+    """The 550-rule relation tree of test_torch_relations, densely: 550
+    target rows over 256-thread blocks, HR and relation folds stacked
+    when scoped."""
+    from .test_torch_relations import (
+        rel_stress_doc,
+        rel_stress_specs,
+        stress_stores,
+    )
+
+    doc, entities, actions = rel_stress_doc(scoped)
+    _, teng = engines_from_doc(doc)
+    tc = compile_policies(teng.policy_sets, teng.urns)
+    tables = stress_stores(entities)[1].tables_for(tc)
+    specs = rel_stress_specs(entities, actions, 12, 5, scoped)
+    batch = encode_requests([build_request(s, tmodels) for s in specs], tc,
+                            relation_tables=tables)
+    assert tkernel.tree_needs_hr(tc.arrays) == scoped
+    got, want = run_emulated(emulated, tc, batch)
+    assert torch.equal(got, want)

@@ -180,9 +180,28 @@ def engines_512():
 
 
 def test_refusals():
-    _, teng = make_engines("relation_policies.yml")
-    with pytest.raises(NotImplementedError, match="relation"):
-        HybridEvaluator(teng, device="cpu")
+    # relation-path trees, refused before the ReBAC slice, are served and
+    # equal the JAX evaluator with a tuple store attached to each
+    from access_control_srv_tpu.srv.relations import (
+        RelationTupleStore as JaxStore,
+    )
+    from access_control_srv_tpu_torch.srv.relations import RelationTupleStore
+
+    doc = "urn:restorecommerce:acs:model:document.Document"
+    jeng, teng = make_engines("relation_policies.yml")
+    jev = JaxEvaluator(jeng, delta_enabled=False)
+    tev = HybridEvaluator(teng, device="cpu")
+    for ev, store in ((jev, JaxStore()), (tev, RelationTupleStore())):
+        ev.attach_relation_store(store)
+        store.create([(doc, "doc1", "viewer", "alice")])
+    specs = [request_spec(jax_build_request(
+        subject_id=s, resource_type=doc, resource_id=d,
+        action_type=URNS["read"]))
+        for s in ("alice", "bob") for d in ("doc1", "doc2")]
+    want = jev.is_allowed_batch([build_request(s, jmodels) for s in specs])
+    got = tev.is_allowed_batch([build_request(s, tmodels) for s in specs])
+    assert [response_key(g) for g in got] == [response_key(w) for w in want]
+    assert [g.decision for g in got] == ["PERMIT", "DENY", "DENY", "DENY"]
     # the 512-rule tree is served now, through the signature path, and
     # equals the JAX evaluator
     specs = spec_grid(n=16, seed=4)

@@ -46,6 +46,7 @@ from .utils import build_request as jax_build_request
 ORG = "urn:restorecommerce:acs:model:organization.Organization"
 USER = "urn:restorecommerce:acs:model:user.User"
 BUCKET = "urn:restorecommerce:acs:model:bucket.Bucket"
+NS_DOC = "urn:restorecommerce:acs:model:document.Document"
 
 KERNEL_FIXTURES = [
     "basic_policies.yml", "policy_targets.yml", "policy_set_targets.yml",
@@ -358,7 +359,8 @@ def test_jax_compiled_arrays_carry_over():
     b, r = batch_from_numpy(jb, "cpu")
     assert r["r_n_ra"].shape[0] == tkernel.pow2_bucket(b)
     assert all(t.is_contiguous() for t in c.values())
-    out = decide_dense_ref(c, r, True, tkernel.tree_needs_hr(jc.arrays))
+    out = decide_dense_ref(c, r, True, tkernel.tree_needs_hr(jc.arrays),
+                           False)
     for w, g in zip(want, out):
         assert np.array_equal(np.asarray(w), g[:b].numpy())
 
@@ -399,15 +401,29 @@ def test_device_none_raises_without_cuda(monkeypatch):
 
 
 def test_refusals():
+    """The explain output stays refused; relation-path trees, refused
+    before the ReBAC slice, are decided, equal to the JAX kernel on a
+    batch packed from a tuple store's tables."""
+    from access_control_srv_tpu.srv.relations import RelationTupleStore
+
     _, teng = make_engines("basic_policies.yml")
     tc = tcompile(teng.policy_sets, teng.urns)
     with pytest.raises(NotImplementedError, match="explain"):
         DecisionKernel(tc, device="cpu", explain=True)
-    _, reng = make_engines("relation_policies.yml")
-    rc = tcompile(reng.policy_sets, reng.urns)
+    jeng, _ = make_engines("relation_policies.yml")
+    rc = jcompile(jeng.policy_sets, jeng.urns)
     assert rc.supported and tkernel.tree_needs_rel(rc.arrays)
-    with pytest.raises(NotImplementedError, match="relation"):
-        DecisionKernel(rc, device="cpu")
+    kernel = DecisionKernel(rc, device="cpu")
+    assert kernel.with_rel and not kernel.with_hr
+    store = RelationTupleStore()
+    store.create([(NS_DOC, "doc1", "viewer", "alice")])
+    reqs = [jax_build_request(subject_id=s, resource_type=NS_DOC,
+                              resource_id=d, action_type=URNS["read"])
+            for s in ("alice", "bob") for d in ("doc1", "doc2")]
+    batch = jencode(reqs, rc, relation_tables=store.tables_for(rc))
+    got = kernel.evaluate(batch)
+    assert_exact(JaxKernel(rc).evaluate(batch), got)
+    assert got[0].tolist() == [1, 2, 2, 2]
 
 
 def test_rule_key_round_trip():

@@ -501,10 +501,29 @@ def test_refusals(stress):
                       (dict(shared_jits={}), "delta")):
         with pytest.raises(NotImplementedError, match=match):
             PrefilteredKernel(compiled, device="cpu", **kw)
+    # relation-path trees, refused before the ReBAC slice, are decided by
+    # the dense delegate and, forced, by the signature path, both equal
+    # to the JAX kernel's
+    from access_control_srv_tpu.srv.relations import RelationTupleStore
+
+    doc = "urn:restorecommerce:acs:model:document.Document"
     engine = make_engine("relation_policies.yml")
     rc = jcompile(engine.policy_sets, engine.urns)
-    with pytest.raises(NotImplementedError, match="ReBAC"):
-        PrefilteredKernel(rc, device="cpu")
+    store = RelationTupleStore()
+    store.create([(doc, "doc1", "viewer", "alice")])
+    reqs = [build_request(subject_id=s, resource_type=doc, resource_id=d,
+                          action_type=URNS["read"])
+            for s in ("alice", "bob") for d in ("doc1", "doc2")]
+    batch = jencode(reqs, rc, relation_tables=store.tables_for(rc))
+    for force in (False, True):
+        tk = port_kernel(rc, force=force)
+        assert tk.needs_rel and tk.active == force
+        jk = JaxPrefiltered(rc)
+        if force:
+            force_active(jk)
+        got = tk.evaluate(batch)
+        assert_same(jk.evaluate(batch), got)
+        assert got[0].tolist() == [1, 2, 2, 2]
 
 
 def test_device_none_raises_without_cuda(stress, monkeypatch):

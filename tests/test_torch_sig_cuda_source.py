@@ -41,8 +41,8 @@ ENTRY = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
     out = {}
-    for name, flags in (("sig_planes", 1), ("sig_decide", 1),
-                        ("decide_grouped", 2)):
+    for name, flags in (("sig_planes", 2), ("sig_decide", 2),
+                        ("decide_grouped", 3)):
         lib = build_emulated(name, tmp_path_factory.mktemp(f"{name}_emu"))
         getattr(lib, f"acs_{name}_layout").restype = ctypes.c_char_p
         entry = getattr(lib, f"acs_{name}")
@@ -95,24 +95,25 @@ def replay(libs, calls):
                 t.view(torch.uint8).fill_(0xCD)
             code = lib.acs_sig_planes(
                 ctypes.addressof(ptrs), len(ptrs), ctypes.addressof(dims),
-                len(dims), int(args[3]), threads, None)
+                len(dims), int(args[3]), int(args[4]), threads, None)
             assert code == 0
             assert sorted(got) == sorted(want)
             for k in got:
                 assert torch.equal(got[k], want[k]), k
         elif name == "sig_decide":
             (inv, cs, planes, slot_g, rows, g2r, gp, n_rows, schedule,
-             needs_pairs, with_hr) = args
+             needs_pairs, with_hr, with_rel) = args
             got, ptrs, dims = tkernel.pack_sig_decide(
                 inv, cs, planes, slot_g, rows, g2r, gp, schedule,
-                needs_pairs, with_hr)
+                needs_pairs, with_hr, with_rel)
             code = lib.acs_sig_decide(
                 ctypes.addressof(ptrs), len(ptrs), ctypes.addressof(dims),
-                len(dims), int(with_hr), tkernel.SIG_DECIDE_THREADS, None)
+                len(dims), int(with_hr), int(with_rel),
+                tkernel.SIG_DECIDE_THREADS, None)
             assert code == 0
             assert torch.equal(got, want)
         else:
-            inv, cs, g_idx, r, with_acl, with_hr = args
+            inv, cs, g_idx, r, with_acl, with_hr, with_rel = args
             packed = tkernel.pack_args({**inv, **cs}, r,
                                        extra=(("g_idx", g_idx),),
                                        name="decide_grouped")
@@ -120,19 +121,20 @@ def replay(libs, calls):
             code = lib.acs_decide_grouped(
                 ctypes.addressof(packed.ptrs), len(packed.ptrs),
                 ctypes.addressof(packed.dims), len(packed.dims),
-                int(with_acl), int(with_hr), packed.threads, None)
+                int(with_acl), int(with_hr), int(with_rel), packed.threads,
+                None)
             assert code == 0
             assert torch.equal(packed.out, want)
         seen.add(name)
     return seen
 
 
-def run(compiled, requests, force=True, **kw):
+def run(compiled, requests, force=True, relation_tables=None, **kw):
     kern = tprefilter.PrefilteredKernel(compiled, device="cpu", **kw)
     if force:
         kern.active = True
         kern._dense = None
-    batch = jencode(requests, compiled)
+    batch = jencode(requests, compiled, relation_tables=relation_tables)
     kern.evaluate(batch)
     return kern
 
@@ -154,10 +156,10 @@ def test_argument_count_mismatch_is_refused(libs):
     ptrs = (ctypes.c_int64 * 3)()
     dims = (ctypes.c_int32 * 3)()
     args = (ctypes.addressof(ptrs), 3, ctypes.addressof(dims), 3)
-    assert libs["sig_planes"].acs_sig_planes(*args, 0, 64, None) == -1
-    assert libs["sig_decide"].acs_sig_decide(*args, 0, 128, None) == -1
+    assert libs["sig_planes"].acs_sig_planes(*args, 0, 0, 64, None) == -1
+    assert libs["sig_decide"].acs_sig_decide(*args, 0, 0, 128, None) == -1
     assert libs["decide_grouped"].acs_decide_grouped(
-        *args, 0, 0, 64, None) == -1
+        *args, 0, 0, 0, 64, None) == -1
 
 
 @pytest.mark.parametrize("name", ["basic_policies.yml", "conditions.yml",
@@ -203,7 +205,7 @@ def test_hr_tree(libs, monkeypatch):
     run(compiled, hr_requests(16, 22) + grid_requests(n=16, seed=3))
     seen = replay(libs, calls)
     assert seen == {"sig_planes", "sig_decide", "decide_grouped"}
-    assert any(name == "sig_decide" and args[-1] for name, args, _ in calls)
+    assert any(name == "sig_decide" and args[-2] for name, args, _ in calls)
 
 
 def test_regex_signature_trees(libs, monkeypatch):
@@ -230,6 +232,55 @@ def test_combining_algorithms(libs, monkeypatch):
     calls = record(monkeypatch)
     run(compiled, [build_request(s, jmodels) for s in specs])
     assert replay(libs, calls) == {"sig_planes", "sig_decide"}
+
+
+def test_relation_fixture(libs, monkeypatch):
+    """The relation variants, forced onto the signature machinery: K2's
+    relation and collection planes, K3's closure-bitplane fold, and with
+    an ACL row K4's with_acl + with_rel program."""
+    from .test_torch_relations import (
+        ORG,
+        VARIANT_OPS,
+        VARIANT_SPECS,
+        both_stores,
+        rel_specs,
+    )
+
+    engine = make_engine("relation_policies.yml")
+    compiled = jcompile(engine.policy_sets, engine.urns)
+    tables = both_stores(*VARIANT_OPS)[1].tables_for(compiled)
+    calls = record(monkeypatch)
+    acl = rel_specs(["alice"], ["doc1"], acl_indicatory_entity=ORG,
+                    acl_instances=["Org1"])
+    for specs in (VARIANT_SPECS, VARIANT_SPECS[:4] + acl):
+        run(compiled, [build_request(s, jmodels) for s in specs],
+            relation_tables=tables)
+    assert replay(libs, calls) == {"sig_planes", "sig_decide",
+                                   "decide_grouped"}
+    assert all(args[-1] for _, args, _ in calls)
+
+
+@pytest.mark.parametrize("scoped", [False, True])
+def test_relation_stress_tree(libs, monkeypatch, scoped):
+    """The 550-rule relation tree, above MIN_RULES, unforced: the
+    relation variants of K2 and K3 (stacked on the HR ones when
+    scoped)."""
+    from .test_torch_relations import (
+        rel_stress_doc,
+        rel_stress_specs,
+        stress_stores,
+    )
+
+    doc, entities, actions = rel_stress_doc(scoped)
+    engine = engine_of(doc)
+    compiled = jcompile(engine.policy_sets, engine.urns)
+    tables = stress_stores(entities)[1].tables_for(compiled)
+    calls = record(monkeypatch)
+    specs = rel_stress_specs(entities, actions, 48, 9, scoped)
+    run(compiled, [build_request(s, jmodels) for s in specs], force=False,
+        relation_tables=tables)
+    assert replay(libs, calls) == {"sig_planes", "sig_decide"}
+    assert all(args[-1] and args[-2] == scoped for _, args, _ in calls)
 
 
 def test_library_path_covers_headers(tmp_path):
