@@ -2,11 +2,14 @@
 //
 // decide_dense.cu (the dense kernel), decide_grouped.cu (the same per-row
 // program over per-row compacted subtrees), sig_planes.cu (stage A per
-// resource signature) and wia_planes.cu (the whatIsAllowed planes per
-// representative row) include this header.  It holds the argument list of
-// the dense program, its per-target stages A-C, and the per-row stages D-G
-// (`decide_row`), written once.  The plain PyTorch versions they are held
-// against: ops/kernel_ref.py and ops/prefilter_ref.py.
+// resource signature), wia_planes.cu (the whatIsAllowed planes per
+// representative row), shard_chunk.cu (the sharded programs' per-shard
+// halves) and shard_tail.cu (their merge tail) include this header.  It
+// holds the argument list of the dense program, its per-target stages A-C,
+// and the per-row stages D (`stage_gates`), E (`scan_rules`), F
+// (`stage_sets`) and G (`row_program`), written once.  The plain PyTorch
+// versions they are held against: ops/kernel_ref.py, ops/prefilter_ref.py
+// and ops/shard_ref.py.
 
 #pragma once
 
@@ -573,24 +576,74 @@ __device__ __forceinline__ int select_pos(int ca, int first_deny,
   return 0;
 }
 
-// the whole dense program for request row b, run by one thread block over
-// the tables in `a`; `smem` is the block's dynamic shared memory, laid out
-// by smem_layout
+// the row programs built from the stages below: the dense decision (K1,
+// also decide_grouped), the rule-chunk shard program (K7: stages A-E on
+// one rule chunk, packed keys out) and the set-chunk shard program (K8:
+// stages A-F on one set chunk, the last-set key out)
+enum RowMode { ROW_DENSE = 0, ROW_RULE_CHUNK = 1, ROW_SET_CHUNK = 2 };
+
+// packed-key columns per (set, policy) in a rule chunk's merge row:
+// first-DENY, first-PERMIT and first keys (pos << 3 | effect << 1 |
+// cacheable, ACS_BIGKEY when none), the negated last key ((pos + 1) << 3 |
+// payload, 0 when none; the MAX rides the MIN as a negation) and the
+// policy's gate (valid, set gate and policy gate: identical on every shard)
+#define KEY_COLS 5
+#define ACS_BIGKEY 2000000000
+#define ACS_INT_MAX 2147483647
+
+// the shard programs' shape ints after the dense ones: the model-axis size,
+// this shard's model coordinate, its first global rule (K7) or set (K8)
+// position, and the padded global rule extent (K7)
+#define ACS_CHUNK_DIMS(X) X(N_MODEL) X(RANK) X(OFFSET) X(KR_TOTAL)
+
+struct Chunk {
+  int32_t* merge;  // [B, W] this shard's merge rows (chunk_width)
+  ACS_CHUNK_DIMS(ACS_DIM_FIELD)
+};
+
+struct ChunkArgs {
+  Args a;
+  Chunk ch;
+};
+
+static const int kNumChunkDims = 0 ACS_CHUNK_DIMS(ACS_COUNT);
+
+// width of one merge row: K7's keys then the abort slots, K8's negated
+// last-set key then the abort slots; one slot of three ints per model
+// shard (first aborting rule in global flat order, its status code, its
+// raw cacheable + 1), INT_MAX in every slot but the shard's own, so the
+// MIN over shards is an all-gather of the slots
+__host__ __device__ inline int chunk_width(int mode, int S, int KP,
+                                           int n_model) {
+  return (mode == ROW_RULE_CHUNK ? S * KP * KEY_COLS : 1) + n_model * 3;
+}
+
+// fills `ca` from a shard program's pointers (the dense list, whose three
+// outputs are null, then the merge buffer) and shape ints (the dense ones,
+// then ACS_CHUNK_DIMS); false when the counts differ from this build's
+static bool fill_chunk_args(ChunkArgs* ca, const int64_t* ptrs, int n_ptrs,
+                            const int32_t* dims, int n_dims) {
+  if (n_ptrs != kNumPtrs + 1 || n_dims != kNumDims + kNumChunkDims)
+    return false;
+  if (!fill_args(&ca->a, ptrs, kNumPtrs, dims, kNumDims)) return false;
+  ca->ch.merge = reinterpret_cast<int32_t*>(ptrs[kNumPtrs]);
+  int i = kNumDims;
+#define ACS_SET_CHUNK_DIM(name) ca->ch.name = dims[i++];
+  ACS_CHUNK_DIMS(ACS_SET_CHUNK_DIM)
+#undef ACS_SET_CHUNK_DIM
+  return true;
+}
+
+// stages A-C for request row b: the per-row verifyACL pieces, then one
+// thread per target row writes its six match bits to shared memory
 template <bool WITH_ACL, bool WITH_HR, bool WITH_REL>
-__device__ void decide_row(const Args& a, int b, unsigned char* smem) {
-  const SmemLayout L = smem_layout(a, WITH_ACL);
+__device__ void stage_targets(const Args& a, int b, const SmemLayout& L,
+                              unsigned char* smem) {
   uint64_t* elig = reinterpret_cast<uint64_t*>(smem + L.elig);
   uint64_t* same = reinterpret_cast<uint64_t*>(smem + L.same);
   int32_t* scal = reinterpret_cast<int32_t*>(smem + L.scal);
   uint8_t* tbits = smem + L.tbits;
-  uint8_t* setinfo = smem + L.setinfo;
-  uint8_t* contrib = smem + L.contrib;
-  uint8_t* setres = smem + L.setres;
-
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
 
   if (tid == 0) {
     scal[0] = ACS_BIG;  // first aborting rule, flat position
@@ -630,12 +683,19 @@ __device__ void decide_row(const Args& a, int b, unsigned char* smem) {
     __syncthreads();
   }
 
-  // ---- stages A-C: one thread per target row
   for (int t = tid; t < a.T; t += blockDim.x)
     tbits[t] = target_bits<WITH_ACL, WITH_HR, WITH_REL>(a, b, t, elig, same);
   __syncthreads();
+}
 
-  // ---- stage D: policy gates per set (one warp per set)
+// stage D: policy gates per set (one warp per set) -> setinfo
+__device__ void stage_gates(const Args& a, int b, const SmemLayout& L,
+                            unsigned char* smem) {
+  const uint8_t* tbits = smem + L.tbits;
+  uint8_t* setinfo = smem + L.setinfo;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
   const int32_t* rev = a.r_ent_vals + (size_t)b * a.NR;
   const uint8_t* rvalid = a.r_ent_valid + (size_t)b * a.NR;
   const bool multi = a.r_n_entity_attrs[b] > 1;
@@ -684,77 +744,103 @@ __device__ void decide_row(const Args& a, int b, unsigned char* smem) {
     }
   }
   __syncthreads();
+}
 
-  // ---- stage E: rule combination per policy (one warp per policy)
-  const int n_pol = a.S * a.KP;
-  for (int p = warp; p < n_pol; p += nwarps) {
-    const int s = p / a.KP;
-    const uint8_t si = setinfo[s];
-    const bool exact = si & 1, eval_deny = si & 2, set_gate = si & 4;
-    const bool pv = a.pol_valid[p];
-    const uint8_t tb = tbits[a.pol_target[p]];
-    const uint8_t tm = exact ? (eval_deny ? TB_EX_D : TB_EX_P)
-                             : (eval_deny ? TB_RG_D : TB_RG_P);
-    const bool pol_gate = (!a.pol_has_target[p] || (tb & tm)) && pv;
-    const bool pol_subject = !a.pol_has_subjects[p] || (tb & TB_HR);
-    const bool scope = set_gate && pol_gate;
-    int first_deny = ACS_BIG, first_permit = ACS_BIG, first = ACS_BIG;
-    int last = -1, abort_pos = ACS_BIG;
-    if (scope) {
-      for (int kr = lane; kr < a.KR; kr += 32) {
-        const int q = p * a.KR + kr;
-        if (!a.rule_valid[q]) continue;
-        const bool has_t = a.rule_has_target[q];
-        const uint8_t tr = has_t ? tbits[a.rule_target[q]] : 0xff;
-        const int eff = a.rule_effect[q];
-        const bool deny = eff == 2;
-        const bool tm_rule = (tr & (deny ? TB_EX_D : TB_EX_P)) ||
-                             (tr & (deny ? TB_RG_D : TB_RG_P));
-        if (!tm_rule || !(tr & TB_HR)) continue;  // not reached
-        const int ci = a.rule_cond[q];
-        bool ct = true, cab = false;
-        if (ci >= 0 && a.C > 0) {
-          ct = a.cond_true[(size_t)ci * a.CSTRIDE + b];
-          cab = a.cond_abort[(size_t)ci * a.CSTRIDE + b];
-        }
-        if (ci >= 0 && cab) {
-          abort_pos = min(abort_pos, q);
-          continue;
-        }
-        if ((ci < 0 || ct) && (tr & TB_ACL) && pol_subject) {
-          first = min(first, kr);
-          last = max(last, kr);
-          if (eff == 2) first_deny = min(first_deny, kr);
-          if (eff == 1) first_permit = min(first_permit, kr);
-        }
+// stage E for policy p, run by one warp: positional first-DENY /
+// first-PERMIT / first / last collected rule (kr) and the first aborting
+// rule (local flat position), warp-reduced so every lane holds them
+struct PolicyScan {
+  int first_deny, first_permit, first, last, abort_pos;
+  bool gate;  // valid, set gate and policy gate (the no-rules premise)
+};
+
+__device__ PolicyScan scan_rules(const Args& a, int b, int p,
+                                 const uint8_t* tbits,
+                                 const uint8_t* setinfo) {
+  const int lane = threadIdx.x & 31;
+  const int s = p / a.KP;
+  const uint8_t si = setinfo[s];
+  const bool exact = si & 1, eval_deny = si & 2, set_gate = si & 4;
+  const bool pv = a.pol_valid[p];
+  const uint8_t tb = tbits[a.pol_target[p]];
+  const uint8_t tm = exact ? (eval_deny ? TB_EX_D : TB_EX_P)
+                           : (eval_deny ? TB_RG_D : TB_RG_P);
+  const bool pol_gate = (!a.pol_has_target[p] || (tb & tm)) && pv;
+  const bool pol_subject = !a.pol_has_subjects[p] || (tb & TB_HR);
+  const bool scope = set_gate && pol_gate;
+  PolicyScan r;
+  r.first_deny = ACS_BIG;
+  r.first_permit = ACS_BIG;
+  r.first = ACS_BIG;
+  r.last = -1;
+  r.abort_pos = ACS_BIG;
+  r.gate = pv && set_gate && pol_gate;
+  if (scope) {
+    for (int kr = lane; kr < a.KR; kr += 32) {
+      const int q = p * a.KR + kr;
+      if (!a.rule_valid[q]) continue;
+      const bool has_t = a.rule_has_target[q];
+      const uint8_t tr = has_t ? tbits[a.rule_target[q]] : 0xff;
+      const int eff = a.rule_effect[q];
+      const bool deny = eff == 2;
+      const bool tm_rule = (tr & (deny ? TB_EX_D : TB_EX_P)) ||
+                           (tr & (deny ? TB_RG_D : TB_RG_P));
+      if (!tm_rule || !(tr & TB_HR)) continue;  // not reached
+      const int ci = a.rule_cond[q];
+      bool ct = true, cab = false;
+      if (ci >= 0 && a.C > 0) {
+        ct = a.cond_true[(size_t)ci * a.CSTRIDE + b];
+        cab = a.cond_abort[(size_t)ci * a.CSTRIDE + b];
+      }
+      if (ci >= 0 && cab) {
+        r.abort_pos = min(r.abort_pos, q);
+        continue;
+      }
+      if ((ci < 0 || ct) && (tr & TB_ACL) && pol_subject) {
+        r.first = min(r.first, kr);
+        r.last = max(r.last, kr);
+        if (eff == 2) r.first_deny = min(r.first_deny, kr);
+        if (eff == 1) r.first_permit = min(r.first_permit, kr);
       }
     }
-    first_deny = warp_min(first_deny);
-    first_permit = warp_min(first_permit);
-    first = warp_min(first);
-    last = warp_max(last);
-    abort_pos = warp_min(abort_pos);
-    if (lane == 0) {
-      if (abort_pos < ACS_BIG) atomicMin(&scal[0], abort_pos);
-      const int sel = select_pos(a.pol_ca[p], first_deny, first_permit,
-                                 first, last);
-      const int sel_c = min(max(sel, 0), a.KR - 1);
-      const bool no_rules = pv && set_gate && pol_gate &&
-                            a.pol_n_rules[p] == 0 && a.pol_effect[p] > 0;
-      const bool present = no_rules || last >= 0;
-      const int eff = no_rules ? a.pol_effect[p] : a.rule_effect[p * a.KR + sel_c];
-      const bool cach = no_rules ? a.pol_cacheable[p]
-                                 : a.rule_cacheable_eff[p * a.KR + sel_c];
-      contrib[p] = (present ? 1 : 0) | ((eff & 3) << 1) | (cach ? 8 : 0);
-    }
   }
-  __syncthreads();
+  r.first_deny = warp_min(r.first_deny);
+  r.first_permit = warp_min(r.first_permit);
+  r.first = warp_min(r.first);
+  r.last = warp_max(r.last);
+  r.abort_pos = warp_min(r.abort_pos);
+  return r;
+}
 
-  // ---- stage F: policy combination per set (one warp per set)
-  for (int s = warp; s < a.S; s += nwarps) {
+// policy p's contribution byte (present | eff << 1 | cach << 3): the rule
+// the combining algorithm selects, or the policy's own effect when it has
+// no rules
+__device__ __forceinline__ uint8_t policy_contrib(const Args& a, int p,
+                                                  const PolicyScan& r) {
+  const int sel = select_pos(a.pol_ca[p], r.first_deny, r.first_permit,
+                             r.first, r.last);
+  const int sel_c = min(max(sel, 0), a.KR - 1);
+  const bool no_rules = r.gate && a.pol_n_rules[p] == 0 && a.pol_effect[p] > 0;
+  const bool present = no_rules || r.last >= 0;
+  const int eff = no_rules ? a.pol_effect[p] : a.rule_effect[p * a.KR + sel_c];
+  const bool cach = no_rules ? a.pol_cacheable[p]
+                             : a.rule_cacheable_eff[p * a.KR + sel_c];
+  return (present ? 1 : 0) | ((eff & 3) << 1) | (cach ? 8 : 0);
+}
+
+// stage F: policy combination per set (one warp per set) over the
+// contribution bytes -> setres[s] (eff | cach << 2) of every set with a
+// contribution, and the last such set by atomicMax on *winner
+__device__ void stage_sets(const int32_t* set_ca, int S, int KP,
+                           const uint8_t* contrib, uint8_t* setres,
+                           int32_t* winner) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  for (int s = warp; s < S; s += nwarps) {
     int first_deny = ACS_BIG, first_permit = ACS_BIG, first = ACS_BIG, last = -1;
-    for (int kp = lane; kp < a.KP; kp += 32) {
-      const uint8_t c8 = contrib[s * a.KP + kp];
+    for (int kp = lane; kp < KP; kp += 32) {
+      const uint8_t c8 = contrib[s * KP + kp];
       if (!(c8 & 1)) continue;
       const int eff = (c8 >> 1) & 3;
       first = min(first, kp);
@@ -767,33 +853,137 @@ __device__ void decide_row(const Args& a, int b, unsigned char* smem) {
     first = warp_min(first);
     last = warp_max(last);
     if (lane == 0 && last >= 0) {
-      const int sel = select_pos(a.set_ca[s], first_deny, first_permit,
+      const int sel = select_pos(set_ca[s], first_deny, first_permit,
                                  first, last);
-      const uint8_t c8 = contrib[s * a.KP + min(max(sel, 0), a.KP - 1)];
+      const uint8_t c8 = contrib[s * KP + min(max(sel, 0), KP - 1)];
       setres[s] = ((c8 >> 1) & 3) | (((c8 >> 3) & 1) << 2);
-      atomicMax(&scal[1], s);
+      atomicMax(winner, s);
+    }
+  }
+  __syncthreads();
+}
+
+// one abort slot per model shard into a merge row: this shard's triple in
+// its own slot, INT_MAX elsewhere
+__device__ __forceinline__ void write_abort_slots(int32_t* slots, int n_model,
+                                                  int rank, int pos, int code,
+                                                  int cach1) {
+  for (int d = 0; d < n_model; ++d) {
+    const bool own = d == rank;
+    slots[d * 3] = own ? pos : ACS_INT_MAX;
+    slots[d * 3 + 1] = own ? code : ACS_INT_MAX;
+    slots[d * 3 + 2] = own ? cach1 : ACS_INT_MAX;
+  }
+}
+
+// one row program for request row b, run by one thread block over the
+// tables in `a`; `smem` is the block's dynamic shared memory, laid out by
+// smem_layout.  ROW_DENSE writes the decision outputs; the shard modes
+// write row b of `ch.merge` (chunk_width ints)
+template <int MODE, bool WITH_ACL, bool WITH_HR, bool WITH_REL>
+__device__ void row_program(const Args& a, int b, unsigned char* smem,
+                            const Chunk& ch) {
+  const SmemLayout L = smem_layout(a, WITH_ACL);
+  int32_t* scal = reinterpret_cast<int32_t*>(smem + L.scal);
+  const uint8_t* tbits = smem + L.tbits;
+  const uint8_t* setinfo = smem + L.setinfo;
+  uint8_t* contrib = smem + L.contrib;
+  uint8_t* setres = smem + L.setres;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+
+  // ---- stages A-C, then D
+  stage_targets<WITH_ACL, WITH_HR, WITH_REL>(a, b, L, smem);
+  stage_gates(a, b, L, smem);
+
+  // ---- stage E: rule combination per policy (one warp per policy)
+  const int n_pol = a.S * a.KP;
+  int32_t* row = nullptr;
+  if (MODE != ROW_DENSE)
+    row = ch.merge + (size_t)b * chunk_width(MODE, a.S, a.KP, ch.N_MODEL);
+  for (int p = warp; p < n_pol; p += nwarps) {
+    const PolicyScan r = scan_rules(a, b, p, tbits, setinfo);
+    if (lane != 0) continue;
+    if (r.abort_pos < ACS_BIG) atomicMin(&scal[0], r.abort_pos);
+    if (MODE == ROW_RULE_CHUNK) {
+      // GLOBAL rule positions packed with the rule's (effect, cacheable)
+      int32_t* k = row + p * KEY_COLS;
+      const int base = p * a.KR;
+      auto key = [&](int kr, int shift) {
+        return ((ch.OFFSET + kr + shift) << 3) |
+               (a.rule_effect[base + kr] << 1) |
+               (a.rule_cacheable_eff[base + kr] ? 1 : 0);
+      };
+      k[0] = r.first_deny < ACS_BIG ? key(r.first_deny, 0) : ACS_BIGKEY;
+      k[1] = r.first_permit < ACS_BIG ? key(r.first_permit, 0) : ACS_BIGKEY;
+      k[2] = r.first < ACS_BIG ? key(r.first, 0) : ACS_BIGKEY;
+      k[3] = r.last >= 0 ? -key(r.last, 1) : 0;
+      k[4] = r.gate ? 1 : 0;
+    } else {
+      contrib[p] = policy_contrib(a, p, r);
     }
   }
   __syncthreads();
 
-  // ---- stage G: last-set-wins, then condition aborts preempt everything
-  if (tid == 0) {
-    const int winner = scal[1];
+  // ---- stage F (not in a rule chunk: its policies are partial)
+  if (MODE != ROW_RULE_CHUNK)
+    stage_sets(a.set_ca, a.S, a.KP, contrib, setres, &scal[1]);
+
+  // ---- stage G
+  if (tid != 0) return;
+  const int winner = scal[1];
+  const int abort_pos = scal[0];
+  const bool aborted = abort_pos < ACS_BIG;
+  const int code = aborted
+      ? a.cond_code[(size_t)a.rule_cond[abort_pos] * a.CSTRIDE + b] : 0;
+  const int cach_raw = aborted && a.rule_cacheable_raw[abort_pos] ? 1 : 0;
+  if (MODE == ROW_DENSE) {
+    // last-set-wins, then condition aborts preempt everything
     int decision = 0, cacheable = -1, status = 200;
     if (winner >= 0) {
       decision = setres[winner] & 3;
       cacheable = (setres[winner] >> 2) & 1;
     }
-    const int abort_pos = scal[0];
-    if (abort_pos < ACS_BIG) {
+    if (aborted) {
       decision = 2;
-      cacheable = a.rule_cacheable_raw[abort_pos] ? 1 : 0;
-      status = a.cond_code[(size_t)a.rule_cond[abort_pos] * a.CSTRIDE + b];
+      cacheable = cach_raw;
+      status = code;
     }
     a.out_decision[b] = decision;
     a.out_cacheable[b] = cacheable;
     a.out_status[b] = status;
+    return;
   }
+  // the shard modes: the abort position in GLOBAL flat rule order
+  int gpos = ACS_BIG;
+  if (aborted) {
+    if (MODE == ROW_RULE_CHUNK) {
+      const int pk = abort_pos / a.KR, kr = abort_pos % a.KR;
+      gpos = pk * ch.KR_TOTAL + ch.OFFSET + kr;
+    } else {
+      gpos = ch.OFFSET * a.KP * a.KR + abort_pos;
+    }
+  }
+  int32_t* slots = row + (MODE == ROW_RULE_CHUNK ? n_pol * KEY_COLS : 1);
+  write_abort_slots(slots, ch.N_MODEL, ch.RANK, gpos, aborted ? code : 0,
+                    aborted ? cach_raw + 1 : 0);
+  if (MODE == ROW_SET_CHUNK) {
+    // last-set-wins across shards: the negated key of this shard's last
+    // contributing set at its GLOBAL position + 1
+    int k = 0;
+    if (winner >= 0)
+      k = ((ch.OFFSET + winner + 1) << 3) | ((setres[winner] & 3) << 1) |
+          ((setres[winner] >> 2) & 1);
+    row[0] = -k;
+  }
+}
+
+// the dense program (decide_dense.cu, decide_grouped.cu)
+template <bool WITH_ACL, bool WITH_HR, bool WITH_REL>
+__device__ void decide_row(const Args& a, int b, unsigned char* smem) {
+  row_program<ROW_DENSE, WITH_ACL, WITH_HR, WITH_REL>(a, b, smem, Chunk{});
 }
 
 extern "C" {

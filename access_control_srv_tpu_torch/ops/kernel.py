@@ -14,9 +14,13 @@ are wrapped here the same way: ``sig_planes`` (``csrc/sig_planes.cu``),
 (``csrc/decide_grouped.cu``), with plain versions in
 ``ops/prefilter_ref.py``.  The reverse query's kernel
 (``ops/reverse.ReverseQueryKernel``) is ``wia_planes``
-(``csrc/wia_planes.cu``, plain version ``ops/reverse_ref.py``).  Every
-wrapper checks its library's argument layout string when it loads and
-counts its launches in ``LAUNCHES``.
+(``csrc/wia_planes.cu``, plain version ``ops/reverse_ref.py``).  The
+sharded programs' kernels (``parallel/rule_shard.py``,
+``parallel/pod_shard.py``) are ``rule_chunk`` and ``set_chunk`` (the two
+modes of ``csrc/shard_chunk.cu``) and ``shard_tail``
+(``csrc/shard_tail.cu``), with plain versions in ``ops/shard_ref.py``.
+Every wrapper checks its library's argument layout string when it loads
+and counts its launches in ``LAUNCHES``.
 
 Trees whose targets carry relation paths (ReBAC) take each kernel's
 ``with_rel`` variant, which folds the per-batch relation-closure
@@ -50,17 +54,27 @@ from .prefilter_ref import (
     sig_planes_ref,
 )
 from .reverse_ref import PLANE_KEYS, WIA_ROWS, WIA_TABLES, wia_planes_ref
+from .shard_ref import (
+    MODE_RULE,
+    MODE_SET,
+    merge_width,
+    rule_chunk_ref,
+    set_chunk_ref,
+    shard_tail_ref,
+)
 
 __all__ = [
     "BIG", "DecisionKernel", "LAUNCHES", "decide_dense", "decide_grouped",
     "lead_padding", "pack_rule_key", "pad_cols", "pow2_bucket",
-    "resolve_device", "sig_decide", "sig_planes", "tree_needs_hr",
-    "tree_needs_rel", "unpack_rule_key", "wia_planes",
+    "resolve_device", "rule_chunk", "set_chunk", "shard_tail", "sig_decide",
+    "sig_planes", "tree_needs_hr", "tree_needs_rel", "unpack_rule_key",
+    "wia_planes",
 ]
 
 # kernel launches per wrapper, counted where the wrapper launches
 LAUNCHES = {"decide_dense": 0, "sig_planes": 0, "sig_decide": 0,
-            "decide_grouped": 0, "wia_planes": 0}
+            "decide_grouped": 0, "wia_planes": 0, "rule_chunk": 0,
+            "set_chunk": 0, "shard_tail": 0}
 
 # the argument order of csrc/decide_dense.cu (checked against the
 # library's own layout string when it loads)
@@ -308,13 +322,9 @@ def _c_arrays(ptrs: list[int], dims: list[int]):
             (ctypes.c_int32 * len(dims))(*dims))
 
 
-def pack_args(c: dict, r: dict, extra: tuple = (),
-              name: str = "decide_dense") -> LaunchArgs:
-    """Check the tensors (one device, contiguous, int32 or bool, shapes
-    within the kernel's limits), allocate the outputs and pack the C
-    arguments of one launch of the dense program; ``extra`` (name,
-    tensor) pairs follow the outputs (``decide_grouped``'s ``g_idx``)."""
-    dev = r["r_n_ra"].device
+def _dense_named(c: dict, r: dict, name: str) -> tuple[dict, list]:
+    """The dense program's shape ints and its (name, tensor) inputs after
+    checking the shapes against the kernel's limits."""
     dims = _dims(c, r)
     for k, limit in _LIMITS.items():
         if dims[k] > limit:
@@ -322,6 +332,17 @@ def pack_args(c: dict, r: dict, extra: tuple = (),
                              f"kernel's limit {limit}")
     named = [(k, c[k]) for k in TABLE_ARRAYS]
     named += [(k, r[k]) for k in ROW_ARRAYS + BATCH_ARRAYS]
+    return dims, named
+
+
+def pack_args(c: dict, r: dict, extra: tuple = (),
+              name: str = "decide_dense") -> LaunchArgs:
+    """Check the tensors (one device, contiguous, int32 or bool, shapes
+    within the kernel's limits), allocate the outputs and pack the C
+    arguments of one launch of the dense program; ``extra`` (name,
+    tensor) pairs follow the outputs (``decide_grouped``'s ``g_idx``)."""
+    dev = r["r_n_ra"].device
+    dims, named = _dense_named(c, r, name)
     out = torch.empty((3, dims["B"]), dtype=torch.int32, device=dev)
     named += [(k, out[i]) for i, k in enumerate(OUTPUTS)]
     ptrs, cdims = _c_arrays(_c_ptrs(name, named + list(extra), dev),
@@ -363,6 +384,140 @@ def decide_dense(c: dict, r: dict, with_acl: bool, with_hr: bool,
         return _launch_dense("decide_dense", pack_args(c, r), with_acl,
                              with_hr, with_rel)
     return torch.stack(decide_dense_ref(c, r, with_acl, with_hr, with_rel))
+
+
+# the shard programs' shape ints after the dense ones (csrc/decide_core.cuh
+# ACS_CHUNK_DIMS); their pointers are the dense list, whose three outputs
+# are passed null, then the merge buffer
+CHUNK_DIMS = ("N_MODEL", "RANK", "OFFSET", "KR_TOTAL")
+CHUNK_PTRS = TABLE_ARRAYS + ROW_ARRAYS + BATCH_ARRAYS + OUTPUTS + ("merge",)
+# the merge tail's tables (the rule-sharded mode) and argument order
+TAIL_TABLES = ("pol_ca", "pol_effect", "pol_cacheable", "pol_n_rules",
+               "set_ca")
+TAIL_PTRS = ("merge",) + TAIL_TABLES + OUTPUTS
+TAIL_DIMS = ("B", "S", "KP", "N_MODEL")
+# threads per shard_tail block: 4 warps over the policies (rule-sharded
+# mode), one warp (pod-sharded mode, one thread per row does the work)
+TAIL_THREADS = {MODE_RULE: 128, MODE_SET: 32}
+
+
+def pack_chunk_args(name: str, mode: int, c: dict, r: dict, offset: int,
+                    kr_total: int, n_model: int, rank: int) -> LaunchArgs:
+    """Check and pack one launch of a shard program (``rule_chunk`` mode
+    ``MODE_RULE``, ``set_chunk`` mode ``MODE_SET``): allocates its merge
+    rows [B, W] as the launch's ``out``."""
+    dev = r["r_n_ra"].device
+    dims, named = _dense_named(c, r, name)
+    dims.update(N_MODEL=n_model, RANK=rank, OFFSET=offset, KR_TOTAL=kr_total)
+    out = torch.empty((dims["B"], merge_width(mode, dims["S"], dims["KP"],
+                                              n_model)),
+                      dtype=torch.int32, device=dev)
+    named += [(k, None) for k in OUTPUTS] + [("merge", out)]
+    ptrs, cdims = _c_arrays(_c_ptrs(name, named, dev),
+                            [dims[k] for k in DIMS + CHUNK_DIMS])
+    return LaunchArgs(out=out, ptrs=ptrs, dims=cdims, shape=dims,
+                      threads=threads_for(dims["T"]))
+
+
+def _launch_chunk(name: str, mode: int, args: LaunchArgs, with_acl: bool,
+                  with_hr: bool, with_rel: bool) -> torch.Tensor:
+    """One launch of ``csrc/shard_chunk.cu`` in ``mode``, counted under
+    the wrapper's ``name`` (``rule_chunk`` or ``set_chunk``)."""
+    dev = args.out.device
+    lib = _library("shard_chunk", CHUNK_PTRS, DIMS + CHUNK_DIMS, 4)
+    lib.acs_shard_chunk_smem.restype = ctypes.c_longlong
+    lib.acs_shard_chunk_smem.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                         ctypes.c_int]
+    lib.acs_max_smem_optin.restype = ctypes.c_int
+    smem = lib.acs_shard_chunk_smem(ctypes.addressof(args.dims),
+                                    len(args.dims), int(with_acl))
+    with torch.cuda.device(dev):
+        limit = lib.acs_max_smem_optin()
+        if smem > limit:
+            raise ValueError(
+                f"{name}: the shard needs {smem} bytes of shared memory "
+                f"per block, the device allows {limit}"
+            )
+        code = lib.acs_shard_chunk(
+            ctypes.addressof(args.ptrs), len(args.ptrs),
+            ctypes.addressof(args.dims), len(args.dims), mode, int(with_acl),
+            int(with_hr), int(with_rel), args.threads,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _check_launch(name, lib, code)
+    return args.out
+
+
+def rule_chunk(c: dict, r: dict, kr_offset: int, kr_total: int,
+               n_model: int, rank: int, with_acl: bool, with_hr: bool,
+               with_rel: bool) -> torch.Tensor:
+    """Stages A-E of the rule-sharded program on one shard's compacted
+    tables -> its int32 merge rows [B, W] (``ops/shard_ref``'s
+    layout).  CUDA tensors launch ``csrc/shard_chunk.cu`` in its
+    rule-chunk mode; CPU tensors run the plain version."""
+    if r["r_n_ra"].device.type != "cuda":
+        return rule_chunk_ref(c, r, kr_offset, kr_total, n_model, rank,
+                              with_acl, with_hr, with_rel)
+    args = pack_chunk_args("rule_chunk", MODE_RULE, c, r, kr_offset,
+                           kr_total, n_model, rank)
+    return _launch_chunk("rule_chunk", MODE_RULE, args, with_acl, with_hr,
+                         with_rel)
+
+
+def set_chunk(c: dict, r: dict, s_offset: int, n_model: int, rank: int,
+              with_acl: bool, with_hr: bool, with_rel: bool) -> torch.Tensor:
+    """Stages A-F of the pod-sharded program on one shard's set slots ->
+    its int32 merge rows [B, W].  CUDA tensors launch
+    ``csrc/shard_chunk.cu`` in its set-chunk mode; CPU tensors run the
+    plain version."""
+    if r["r_n_ra"].device.type != "cuda":
+        return set_chunk_ref(c, r, s_offset, n_model, rank, with_acl,
+                             with_hr, with_rel)
+    S, KP, KR = c["rule_valid"].shape
+    args = pack_chunk_args("set_chunk", MODE_SET, c, r, s_offset, KR,
+                           n_model, rank)
+    return _launch_chunk("set_chunk", MODE_SET, args, with_acl, with_hr,
+                         with_rel)
+
+
+def pack_shard_tail(merge: torch.Tensor, n_model: int,
+                    tabs: dict | None):
+    """Check and pack one ``shard_tail`` launch: allocates the output ->
+    (output [3, B], pointer array, shape-int array, mode)."""
+    dev = merge.device
+    mode = MODE_SET if tabs is None else MODE_RULE
+    S, KP = (0, 0) if tabs is None else tabs["pol_ca"].shape
+    B = merge.shape[0]
+    if merge.dim() != 2 or merge.shape[1] != merge_width(mode, S, KP,
+                                                         n_model):
+        raise ValueError("shard_tail: the merge rows do not match the "
+                         "tables and the model-axis size")
+    out = torch.empty((3, B), dtype=torch.int32, device=dev)
+    src = {"merge": merge, **dict(zip(OUTPUTS, out)), **(tabs or {})}
+    named = [(k, src.get(k)) for k in TAIL_PTRS]
+    ptrs, cdims = _c_arrays(_c_ptrs("shard_tail", named, dev),
+                            [B, S, KP, n_model])
+    return out, ptrs, cdims, mode
+
+
+def shard_tail(merge: torch.Tensor, n_model: int, tabs: dict | None = None
+               ) -> torch.Tensor:
+    """The decisions from the merged merge rows -> int32 [3, B]
+    (decision, cacheable, status).  ``tabs`` (``TAIL_TABLES``) selects the
+    rule-sharded tail, None the pod-sharded one.  CUDA tensors launch
+    ``csrc/shard_tail.cu``; CPU tensors run the plain version."""
+    if merge.device.type != "cuda":
+        return shard_tail_ref(merge, n_model, tabs)
+    out, ptrs, cdims, mode = pack_shard_tail(merge, n_model, tabs)
+    lib = _library("shard_tail", TAIL_PTRS, TAIL_DIMS, 1)
+    with torch.cuda.device(merge.device):
+        code = lib.acs_shard_tail(
+            ctypes.addressof(ptrs), len(ptrs), ctypes.addressof(cdims),
+            len(cdims), mode, TAIL_THREADS[mode],
+            torch.cuda.current_stream(merge.device).cuda_stream,
+        )
+    _check_launch("shard_tail", lib, code)
+    return out
 
 
 def decide_grouped(inv: dict, cs: dict, g_idx: torch.Tensor, r: dict,

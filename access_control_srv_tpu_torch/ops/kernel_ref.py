@@ -649,10 +649,12 @@ def _apply_aborts(decision, cacheable, abort_rule, cond_c, cach_raw):
     return decision, cacheable, status
 
 
-def _combine_and_decide(c, reached, acl_rule, has_cond, cond_t, cond_a,
-                        cond_c, pol_gate, set_gate, pol_subject):
-    """Stages E-G: rule combination per policy, policy combination per
-    set, last-set-wins and condition aborts in flat rule order."""
+def _policy_contributions(c, reached, acl_rule, has_cond, cond_t, cond_a,
+                          pol_gate, set_gate, pol_subject):
+    """Stage E alone: each policy's winning-rule contribution [B, S, KP]
+    (present, effect, cacheable) and the abort-rule mask [B, S, KP, KR];
+    split out, as in the JAX package, so the pod-sharded program can run
+    stages A-F per shard (``ops/shard_ref.set_chunk_ref``)."""
     scope = set_gate[:, :, None, None] & pol_gate[:, :, :, None]
     abort_rule = reached & has_cond & cond_a & scope
     matches = reached & (~has_cond | cond_t) & ~(has_cond & cond_a) & acl_rule
@@ -681,6 +683,16 @@ def _combine_and_decide(c, reached, acl_rule, has_cond, cond_t, cond_a,
     contrib_eff = torch.where(no_rules, c["pol_effect"][None], rule_eff_sel)
     contrib_cach = torch.where(no_rules, c["pol_cacheable"][None],
                                rule_cach_sel)
+    return contrib_present, contrib_eff, contrib_cach, abort_rule
+
+
+def _combine_and_decide(c, reached, acl_rule, has_cond, cond_t, cond_a,
+                        cond_c, pol_gate, set_gate, pol_subject):
+    """Stages E-G: rule combination per policy, policy combination per
+    set, last-set-wins and condition aborts in flat rule order."""
+    contrib_present, contrib_eff, contrib_cach, abort_rule = (
+        _policy_contributions(c, reached, acl_rule, has_cond, cond_t,
+                              cond_a, pol_gate, set_gate, pol_subject))
     decision, cacheable = _combine_sets(c, contrib_present, contrib_eff,
                                         contrib_cach)
     return _apply_aborts(decision, cacheable, abort_rule, cond_c,
@@ -761,13 +773,12 @@ def chunk_rows(c: dict) -> int:
     return max(64, min(8192, CHUNK_ELEMS // width))
 
 
-def decide_dense_ref(c: dict, r: dict, with_acl: bool, with_hr: bool,
-                     with_rel: bool):
-    """The plain version of the dense decision kernel over a whole batch:
-    (decision, cacheable, status) int32 [B], in row chunks."""
+def row_chunks(c: dict, r: dict):
+    """The batch ``r`` in row chunks of ``chunk_rows(c)`` rows each (the
+    regex matrices whole, the condition columns cut along their row
+    axis)."""
     B = r["r_n_ra"].shape[0]
     step = chunk_rows(c)
-    outs = []
     for lo in range(0, B, step):
         hi = min(B, lo + step)
         rc = {}
@@ -778,5 +789,13 @@ def decide_dense_ref(c: dict, r: dict, with_acl: bool, with_hr: bool,
                 rc[k] = v[:, lo:hi]
             else:
                 rc[k] = v[lo:hi]
-        outs.append(_evaluate(c, rc, with_acl, with_hr, with_rel))
+        yield rc
+
+
+def decide_dense_ref(c: dict, r: dict, with_acl: bool, with_hr: bool,
+                     with_rel: bool):
+    """The plain version of the dense decision kernel over a whole batch:
+    (decision, cacheable, status) int32 [B], in row chunks."""
+    outs = [_evaluate(c, rc, with_acl, with_hr, with_rel)
+            for rc in row_chunks(c, r)]
     return tuple(torch.cat([o[i] for o in outs]) for i in range(3))

@@ -36,8 +36,15 @@ nor the upload of policy data again.
 Relation-path (ReBAC) trees take the kernels' ``with_rel`` variants: the
 signature planes carry each rule's and policy's relation-vocab index and
 ``!direct`` flag, and the packed rows carry the batch's closure bitplanes.
-Not ported yet, and refused with ``NotImplementedError`` naming the
-slice: ``explain=True``, the ``mesh`` / ``axis`` arguments, and
+
+With a ``mesh`` (``parallel/mesh.py``) requests shard over its ``axis``
+while the stacks and planes replicate, as in the JAX package: below
+``MIN_RULES`` the delegate is ``ShardedDecisionKernel`` (K6); above it
+K4's rows and K3's slots split over the ranks of the axis, each rank
+launches its share, and the outputs merge over the axis group (K4's
+``[3, rows]`` all-gathered; K3's request-order outputs, zero on the rows
+another rank decides, summed).  Not ported yet, and refused with
+``NotImplementedError`` naming the slice: ``explain=True`` and
 ``dynamic_policies`` / ``shared_jits``.
 """
 
@@ -229,8 +236,7 @@ class PrefilteredKernel:
     device)."""
 
     def __init__(self, compiled: CompiledPolicies, device=None,
-                 cache_size: int = 1024, mesh=None,
-                 axis: Optional[str] = None,
+                 cache_size: int = 1024, mesh=None, axis: str = "data",
                  max_groups: int = 512, telemetry=None,
                  dynamic_policies: bool = False,
                  shared_jits: Optional[dict] = None,
@@ -245,7 +251,10 @@ class PrefilteredKernel:
         compaction/stack cache hits and misses and guard splits.
 
         ``staging``: the host buffer pool of the packed row buffer and
-        the slot maps (pinned when the device is CUDA)."""
+        the slot maps (pinned when the device is CUDA).
+
+        ``mesh``: a ``parallel.mesh.Mesh``; requests shard over its
+        ``axis`` and the tables live on the mesh's device."""
         if not compiled.supported:
             raise ValueError(
                 f"policy tree unsupported by kernel: {compiled.unsupported_reason}"
@@ -254,18 +263,16 @@ class PrefilteredKernel:
             raise NotImplementedError(
                 "explain output: not ported yet (serving-shell slice)"
             )
-        if mesh is not None or axis is not None:
-            raise NotImplementedError(
-                "mesh / axis (requests sharded over devices): not ported "
-                "yet (multi-device slice)"
-            )
         if dynamic_policies or shared_jits is not None:
             raise NotImplementedError(
                 "dynamic_policies / shared_jits (hot delta patching): not "
                 "ported yet (delta slice)"
             )
         self.compiled = compiled
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.axis = axis
+        self.device = mesh.device if mesh is not None else resolve_device(
+            device)
         self.cache_size = cache_size
         self.max_groups = max_groups
         self.telemetry = telemetry
@@ -276,7 +283,7 @@ class PrefilteredKernel:
         self._stacks: dict[tuple, Stack] = {}
         self._bits: dict[tuple, dict[str, torch.Tensor]] = {}
         self._ginfo: dict[tuple, tuple] = {}
-        self._dense: Optional[DecisionKernel] = None
+        self._dense = None
         # the variant of the signature kernels, fixed for the tree: the
         # sub-tree, stack and plane caches live on this instance, so each
         # holds one variant's entries
@@ -284,7 +291,13 @@ class PrefilteredKernel:
         self.needs_rel = tree_needs_rel(compiled.arrays)
         self.active = compiled.n_rules >= MIN_RULES
         if not self.active:
-            self._dense = DecisionKernel(compiled, device=self.device)
+            if mesh is not None:
+                # a configured mesh is honored on every tree size
+                from ..parallel.mesh import ShardedDecisionKernel
+
+                self._dense = ShardedDecisionKernel(compiled, mesh, axis)
+            else:
+                self._dense = DecisionKernel(compiled, device=self.device)
         self._c_inv = tables_from_numpy(compiled.arrays, self.device,
                                         keys=INVARIANT_TABLES)
 
@@ -646,6 +659,9 @@ class PrefilteredKernel:
             slot_base = np.concatenate(([0], np.cumsum(slots_per_g)))
             nslot = int(slot_base[-1])
             ns_pad = half_pow2_bucket(nslot, floor=8)
+            n_data = 1 if self.mesh is None else self.mesh.shape[self.axis]
+            if ns_pad % n_data:
+                ns_pad = -(-ns_pad // n_data) * n_data
             starts = np.concatenate(([0], np.cumsum(counts)))
             rk = np.arange(B) - starts[inv[row_order]]
             grid_pos = (
@@ -665,6 +681,23 @@ class PrefilteredKernel:
             gp_orig.fill(0)
             gp_orig[row_order] = grid_pos.astype(np.int32)
 
+            ns_own = ns_pad
+            if n_data > 1:
+                # this rank's share of the slots; rows in other ranks'
+                # slots map to -1 and stay 0 in this rank's output
+                ns_own = ns_pad // n_data
+                lo = self.mesh.coords[self.axis] * ns_own * R
+                gp_own = take((b_pad,))
+                np.copyto(gp_own, np.where(
+                    (gp_orig >= lo) & (gp_orig < lo + ns_own * R),
+                    gp_orig - lo, -1))
+                gp_own[B:] = 0
+                slot_own = take((ns_own,))
+                np.copyto(slot_own, slot_g[lo // R:lo // R + ns_own])
+                g2r_own = take((ns_own * R,))
+                np.copyto(g2r_own, grid2row_flat[lo:lo + ns_own * R])
+                slot_g, grid2row_flat, gp_orig = slot_own, g2r_own, gp_own
+
             cs = {k: stack.tables[k] for k in _SIG_C_KEYS}
             dev = self.device
             slot_g_d, mega_rows_d, grid2row_d, gp_orig_d = (
@@ -673,9 +706,14 @@ class PrefilteredKernel:
             )
             out = sig_decide(
                 self._c_inv, cs, bits, slot_g_d, mega_rows_d,
-                grid2row_d.reshape(ns_pad, R), gp_orig_d, B, tuple(schedule),
+                grid2row_d.reshape(ns_own, R), gp_orig_d, B, tuple(schedule),
                 stack.needs_pairs, self.needs_hr, self.needs_rel,
             )
+            if n_data > 1:
+                from ..parallel.mesh import all_reduce
+
+                out = all_reduce(out, self.mesh, self.axis,
+                                 torch.distributed.ReduceOp.SUM)
             host = take((3, b_pad))
             pool.tensor(host).copy_(out, non_blocking=True)
             done = None
@@ -705,6 +743,22 @@ class PrefilteredKernel:
         batch): K4 over the stacked subtrees, one group index per row, in
         the variant of the stack (a stack without relation rows runs the
         plain variant even on a relation tree)."""
+        if self.mesh is not None:
+            # this rank's row slice; the outputs gather over the axis
+            from ..parallel.mesh import all_gather_cols, row_slice, \
+                shard_bucket
+
+            n_data = self.mesh.shape[self.axis]
+            index = self.mesh.coords[self.axis]
+            b, r = row_slice(batch, self.device, ROW_ARRAYS, n_data, index)
+            per = shard_bucket(b, n_data) // n_data
+            g_all = np.zeros((per * n_data,), np.int32)
+            g_all[:b] = inv
+            g_idx = _tensor(g_all[index * per:(index + 1) * per],
+                            self.device)
+            out = decide_grouped(self._c_inv, stack.tables, g_idx, r,
+                                 with_acl, stack.with_hr, stack.with_rel)
+            return readback(all_gather_cols(out, self.mesh, self.axis), b)
         b, r = batch_from_numpy(batch, self.device, keys=ROW_ARRAYS)
         _, _, _, pad_lead = lead_padding(batch)
         g_idx = _tensor(pad_lead(inv.astype(np.int32)), self.device)

@@ -273,7 +273,8 @@ def sig_decide_ref(inv: dict, cs: dict, planes: dict, slot_g, mega_rows,
     """K3's plain version -> int32 [3, b_pad]: every grid position of the
     ``[NSLOT, R]`` slot layout decided against its slot's group, then
     gathered back to request order through ``gp_orig`` for the ``n_rows``
-    real rows (padding rows stay 0)."""
+    real rows (padding rows, and rows whose ``gp_orig`` is negative because
+    another rank decides their slots, stay 0)."""
     NS, R = grid2row.shape
     grid_rows = mega_rows[grid2row.reshape(-1).long()]  # [NS * R, W]
     out_flat = torch.zeros((3, NS * R), dtype=torch.int32,
@@ -289,7 +290,9 @@ def sig_decide_ref(inv: dict, cs: dict, planes: dict, slot_g, mega_rows,
                                                  with_hr, with_rel))
     out = torch.zeros((3, gp_orig.shape[0]), dtype=torch.int32,
                       device=mega_rows.device)
-    out[:, :n_rows] = out_flat[:, gp_orig[:n_rows].long()]
+    gp = gp_orig[:n_rows].long()
+    rows = (gp >= 0).nonzero().flatten()
+    out[:, rows] = out_flat[:, gp[rows]]
     return out
 
 

@@ -22,13 +22,22 @@ into relation-closure bitplanes.  Tuple churn changes decisions without
 a recompile or a new kernel build.  Without a store, relation checks fail
 closed on the kernel and the oracle alike.
 
+With a ``mesh`` (``parallel/mesh.py``) the kernel choice is the JAX
+evaluator's: ``pod_shards`` set -> ``PodShardedKernel`` (the set axis over
+``model_axis``, default "model"); else ``model_axis`` set ->
+``RuleShardedKernel``; else ``PrefilteredKernel`` with requests sharded
+over ``mesh_axis``.  Every rank of the mesh serves the same requests and
+gets the whole batch's responses.
+
 A refresh recompiles the whole tree (``compile_policies``), the JAX
-evaluator's ``delta_enabled=False`` path.  Not ported yet: the decision
-cache (and with it the epoch bump on tuple churn), token / HR-scope
-preparation (token rows are served by the oracle, which resolves them
-itself), delta patching, async compiles, the watchdog, telemetry and
-tracing, explain (with its relation provenance), the native wire
-encoder's relation tables and tenancy.
+evaluator's ``delta_enabled=False`` path; the JAX pod path compiles
+through the delta subsystem's capacity-bucketed compile, which waits for
+the delta slice (capacities differ, decisions do not).  Not ported yet:
+the decision cache (and with it the epoch bump on tuple churn), token /
+HR-scope preparation (token rows are served by the oracle, which
+resolves them itself), delta patching, async compiles, the watchdog,
+telemetry and tracing, explain (with its relation provenance), the
+native wire encoder's relation tables and tenancy.
 """
 
 from __future__ import annotations
@@ -54,16 +63,23 @@ CANDIDATE_MIN_RULES = 256
 
 class HybridEvaluator:
     def __init__(self, engine: AccessController, device=None,
-                 explain: bool = False):
+                 explain: bool = False, mesh=None, mesh_axis: str = "data",
+                 model_axis: Optional[str] = None,
+                 pod_shards: Optional[int] = None):
         if explain:
             raise NotImplementedError(
                 "explain output: not ported yet (serving-shell slice)"
             )
         self.engine = engine
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        self.model_axis = model_axis
+        self.pod_shards = pod_shards
+        self.device = mesh.device if mesh is not None else resolve_device(
+            device)
         self._version = 0
         self._compiled = None
-        self._kernel: Optional[PrefilteredKernel] = None
+        self._kernel = None  # see _make_kernel
         self._rq_kernel: Optional[reverse.ReverseQueryKernel] = None
         self._tree_snapshot = None
         # candidate index over the LIVE engine tree: oracle rows skip rules
@@ -99,9 +115,7 @@ class HybridEvaluator:
         )
         kernel = None
         if compiled.supported and compiled.n_rules > 0:
-            # keeps per-request work O(matching rules) on large trees and
-            # delegates to the dense kernel below MIN_RULES
-            kernel = PrefilteredKernel(compiled, device=self.device)
+            kernel = self._make_kernel(compiled)
         cand = self._build_candidate_index()
         with self._lock:
             if version >= self._version:  # drop stale compiles
@@ -110,6 +124,42 @@ class HybridEvaluator:
                 self._rq_kernel = None  # lazy: built on first wia batch
                 self._tree_snapshot = tree_snapshot
                 self._cand = cand
+
+    def _make_kernel(self, compiled):
+        """The kernel for a supported compile: pod-sharded, rule-sharded
+        or the signature prefilter (which delegates to the dense kernel
+        below MIN_RULES), by the mesh configuration."""
+        if self.pod_shards is not None and self.mesh is not None:
+            # the SET axis partitions over the model axis with per-shard
+            # compacted target subtables
+            from ..parallel.pod_shard import PodShardedKernel
+
+            return PodShardedKernel(
+                compiled, self.mesh, data_axis=self.mesh_axis,
+                model_axis=self.model_axis or "model",
+                prev_t_cap=getattr(self._kernel, "t_cap", 0),
+            )
+        if self.model_axis is not None and self.mesh is not None:
+            # the rule axis partitions over the model axis
+            from ..parallel.rule_shard import RuleShardedKernel
+
+            return RuleShardedKernel(compiled, self.mesh,
+                                     data_axis=self.mesh_axis,
+                                     model_axis=self.model_axis)
+        # keeps per-request work O(matching rules) on large trees and
+        # delegates to the dense kernel below MIN_RULES
+        return PrefilteredKernel(compiled, device=self.device,
+                                 mesh=self.mesh, axis=self.mesh_axis)
+
+    def shard_identity(self) -> Optional[dict]:
+        """Pod-sharding surface: shard count, per-shard fingerprints and
+        capacities, applied-patch watermarks; None when the active kernel
+        is not pod-sharded."""
+        kernel = self._kernel
+        if kernel is None or not getattr(kernel, "supports_shard_patch",
+                                         False):
+            return None
+        return kernel.shard_identity()
 
     def _build_candidate_index(self) -> Optional[tuple]:
         """(live tree, CandidateIndex) for trees worth indexing, else

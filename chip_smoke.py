@@ -6,9 +6,11 @@ through its main paths and checks every kernel on them against its plain
 PyTorch version:
 
 1. device: the card's name and power limit;
-2. build: the five CUDA sources (``decide_dense``, ``sig_planes``,
-   ``sig_decide``, ``decide_grouped``, ``wia_planes``), one nvcc each, all
-   started together; ptxas registers, shared memory and spills per kernel;
+2. build: the seven CUDA sources (``decide_dense``, ``sig_planes``,
+   ``sig_decide``, ``decide_grouped``, ``wia_planes``, ``shard_chunk``
+   (the ``rule_chunk`` and ``set_chunk`` kernels), ``shard_tail``), one
+   nvcc each, all started together; ptxas registers, shared memory and
+   spills per kernel;
 3. dense kernel vs plain: ``decide_dense`` against ``kernel_ref`` on the
    card, exactly equal, on every supported fixture tree (the relation
    fixture without a store: fail-closed), the seed data and the 511-rule
@@ -69,9 +71,34 @@ PyTorch version:
    compiled version; then the times of the relation variants and of
    ``wia_planes`` at their shapes.
 
+14. the sharded programs' kernels vs plain: every shard of a 4-way rule
+   partition and set partition of the shard-scale tree (the JAX
+   package's ``bench_shard_scale``: the seed data plus 8,000 stress rules,
+   2,048 wide rows), the 100k stress tree (``KR_local`` 100) and every
+   fixture tree through ``rule_chunk``, ``set_chunk`` and ``shard_tail``,
+   each exactly equal to its plain version; the shards' merge rows merged
+   with ``amin`` (what the MIN ``all_reduce`` computes) and the merged
+   decisions equal to ``PrefilteredKernel``'s;
+15. the multi-device main paths: four ranks on the one card over gloo
+   (``parallel.launch_local``), ``HybridEvaluator`` with ``mesh`` (4, 1)
+   (K6 on the 511-rule tree, K3 and, with ACL rows, K4 on the shard-scale
+   tree), ``model_axis`` at (2, 2) and (1, 4) (K7) and ``pod_shards`` at
+   (2, 2) and (1, 4) (K8), each with the counts set to 0 just before its
+   first batch and read just after, and every kernel call of that batch
+   held exactly against its plain version; every rank's responses equal
+   to the single-device evaluator's, 32 sampled rows equal to the oracle;
+   per layout decisions/s and launches, and each kernel's time, plain
+   time and bound on the very arguments the batch gave it (these are the
+   K6-K8 rows of the kernel table), with the collective times; then one
+   rule flip through ``PodShardedKernel.patched``:
+   one shard re-sliced, the decision changed, no library built;
+16. NCCL at world size 1: the rule- and pod-sharded evaluators at (1, 1)
+   and the merge rows' MIN ``all_reduce`` through NCCL on the card.
+
 Any mismatch or error exits non-zero.  The line before the last is the
 kernel table as one JSON object (K1-K4 carry their ``with_rel`` variant's
-launches and times beside their own); the last line is
+launches and times beside their own, ``decide_dense`` K6's); the last
+line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero before
 printing any result.  Run from the repository root::
 
@@ -84,8 +111,10 @@ import copy
 import json
 import os
 import random
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 
@@ -107,6 +136,7 @@ from access_control_srv_tpu_torch.ops import prefilter as pfmod
 from access_control_srv_tpu_torch.ops import prefilter_ref
 from access_control_srv_tpu_torch.ops import reverse as rmod
 from access_control_srv_tpu_torch.ops import reverse_ref
+from access_control_srv_tpu_torch.ops import shard_ref
 from access_control_srv_tpu_torch.ops.carry import batch_from_numpy, tables_from_numpy
 from access_control_srv_tpu_torch.ops.encode import (
     _CAPS_FLOOR,
@@ -117,6 +147,8 @@ from access_control_srv_tpu_torch.ops.encode import (
 from access_control_srv_tpu_torch.ops.kernel_ref import decide_dense_ref
 from access_control_srv_tpu_torch.ops.lattice import LatticeSpec, load_bitmap
 from access_control_srv_tpu_torch.ops.relation import pack_relation_bitplanes
+from access_control_srv_tpu_torch.parallel import mesh as mmod
+from access_control_srv_tpu_torch.parallel import pod_shard, rule_shard
 from access_control_srv_tpu_torch.srv.audit_sweep import AuditSweepManager
 from access_control_srv_tpu_torch.srv.evaluator import HybridEvaluator
 from access_control_srv_tpu_torch.srv.relations import RelationTupleStore
@@ -150,7 +182,12 @@ DEC_CODE = {"INDETERMINATE": 0, "PERMIT": 1, "DENY": 2}
 
 CSRC = "access_control_srv_tpu_torch/ops/csrc/"
 KERNELS = ("decide_dense", "sig_planes", "sig_decide", "decide_grouped",
-           "wia_planes")
+           "wia_planes", "rule_chunk", "set_chunk", "shard_tail")
+# the source each kernel is built from (csrc/<source>.cu): rule_chunk and
+# set_chunk are the two modes of one source
+SOURCE = {**{name: name for name in KERNELS}, "rule_chunk": "shard_chunk",
+          "set_chunk": "shard_chunk"}
+SOURCES = tuple(dict.fromkeys(SOURCE.values()))
 # the JAX program each kernel replaces (file:line)
 REPLACES = {
     "decide_dense": "access_control_srv_tpu/ops/kernel.py:1015",
@@ -158,6 +195,9 @@ REPLACES = {
     "sig_decide": "access_control_srv_tpu/ops/prefilter.py:475",
     "decide_grouped": "access_control_srv_tpu/ops/prefilter.py:341",
     "wia_planes": "access_control_srv_tpu/ops/reverse.py:97",
+    "rule_chunk": "access_control_srv_tpu/parallel/rule_shard.py:146",
+    "set_chunk": "access_control_srv_tpu/parallel/pod_shard.py:182",
+    "shard_tail": "access_control_srv_tpu/parallel/rule_shard.py:192",
 }
 # the with_rel stage of each kernel in the JAX programs (file:line)
 REPLACES_REL = {
@@ -941,55 +981,70 @@ PLAIN = {
     "sig_decide": prefilter_ref.sig_decide_ref,
     "decide_grouped": prefilter_ref.decide_grouped_ref,
     "decide_dense": dense_plain,
+    "rule_chunk": shard_ref.rule_chunk_ref,
+    "set_chunk": shard_ref.set_chunk_ref,
+    "shard_tail": shard_ref.shard_tail_ref,
 }
 # the variant flags at the end of each wrapper's arguments
 N_FLAGS = {"sig_planes": 2, "sig_decide": 2, "decide_grouped": 3,
-           "decide_dense": 3}
+           "decide_dense": 3, "rule_chunk": 3, "set_chunk": 3,
+           "shard_tail": 0}
+# the modules that call each wrapper (each imports it by name)
+SITES = {"sig_planes": (pfmod,), "sig_decide": (pfmod,),
+         "decide_grouped": (pfmod,), "decide_dense": (kmod, mmod),
+         "rule_chunk": (rule_shard,), "set_chunk": (pod_shard,),
+         "shard_tail": (rule_shard, pod_shard)}
+SIG_KERNELS = ("sig_planes", "sig_decide", "decide_grouped")
 
 
 class KernelCheck:
-    """While active, every ``sig_planes`` / ``sig_decide`` /
-    ``decide_grouped`` call the prefilter makes (and with ``dense``, every
-    ``decide_dense`` call of ``DecisionKernel``) launches the kernel, then
-    runs the plain version on the same device tensors; any difference
-    raises.  Records per kernel the calls, the largest error and the
-    variants (flag tuples) run, and keeps the arguments of each kernel's
-    last call (device tensors, untouched) for the timing phase."""
+    """While active, every call of the wrappers in ``names`` (by default
+    the three the prefilter makes, and with ``dense`` also
+    ``decide_dense``) launches the kernel, then runs the plain version on
+    the same device tensors; any difference raises.  Records per kernel
+    the calls, the largest error and the variants (flag tuples) run, and
+    keeps the arguments of each kernel's calls (device tensors, untouched;
+    ``args`` the last, ``calls`` all) for the timing phases."""
 
-    def __init__(self, stats: dict, dense: bool = False):
+    def __init__(self, stats: dict, dense: bool = False, names=None):
         self.stats = stats
         self.args: dict[str, tuple] = {}
-        self._saved = {}
-        self._names = list(PLAIN) if dense else list(PLAIN)[:3]
+        self.calls: dict[str, list] = {}
+        self._saved = []
+        self._names = names or SIG_KERNELS + (("decide_dense",) if dense
+                                              else ())
 
     def __enter__(self):
         for name in self._names:
-            mod = kmod if name == "decide_dense" else pfmod
-            orig = getattr(mod, name)
-            self._saved[name] = (mod, orig)
-
-            def checked(*args, _name=name, _orig=orig):
-                self.args[_name] = args
-                got = _orig(*args)
-                want = PLAIN[_name](*args)
-                torch.cuda.synchronize()
-                err = _max_err(got, want)
-                st = self.stats.setdefault(_name, {"calls": 0, "max_abs_err": 0,
-                                                   "variants": set()})
-                st["calls"] += 1
-                st["max_abs_err"] = max(st["max_abs_err"], err)
-                st["variants"].add(tuple(bool(f) for f in
-                                         args[-N_FLAGS[_name]:]))
-                if err != 0:
-                    raise AssertionError(f"{_name}: kernel != plain "
-                                         f"(max abs err {err})")
-                return got
-
-            setattr(mod, name, checked)
+            for mod in SITES[name]:
+                orig = getattr(mod, name)
+                self._saved.append((mod, name, orig))
+                setattr(mod, name, self._checked(name, orig))
         return self
 
+    def _checked(self, name: str, orig):
+        def checked(*args):
+            self.args[name] = args
+            self.calls.setdefault(name, []).append(args)
+            got = orig(*args)
+            want = PLAIN[name](*args)
+            torch.cuda.synchronize()
+            err = _max_err(got, want)
+            st = self.stats.setdefault(name, {"calls": 0, "max_abs_err": 0,
+                                              "variants": set()})
+            st["calls"] += 1
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            st["variants"].add(tuple(bool(f) for f in
+                                     args[len(args) - N_FLAGS[name]:]))
+            if err != 0:
+                raise AssertionError(f"{name}: kernel != plain "
+                                     f"(max abs err {err})")
+            return got
+
+        return checked
+
     def __exit__(self, *exc):
-        for name, (mod, orig) in self._saved.items():
+        for mod, name, orig in self._saved:
             setattr(mod, name, orig)
         return False
 
@@ -1035,7 +1090,7 @@ def phase_sig_vs_plain(device, stats: dict) -> None:
             aborts = int((dec[2] != 200).sum())
             log(f"  {label}: {len(reqs)} rows, kernels {ran} equal to their "
                 f"plain versions; {aborts} abort rows; needs_hr={kern.needs_hr}")
-    missing = [k for k in list(PLAIN)[:3]
+    missing = [k for k in SIG_KERNELS
                if stats.get(k, {}).get("calls", 0) == 0]
     if missing:
         raise AssertionError(f"phase 6 never ran {missing}")
@@ -2105,6 +2160,550 @@ def phase_rebac(device, stats: dict, card: str, n_tuples: int,
     return out
 
 
+# ------------------------------------------- multi-device kernels (K6-K8)
+
+# the JAX package's bench_shard_scale configuration: data/seed_data plus
+# the 8,000-rule stress set, 2,048 wide rows drawn at numpy seed 23
+SHARD_RULES = 8000
+SHARD_ROWS = 2048
+SHARD_SEED = 23
+# the JAX program K6 runs (the dense kernel with the batch over data)
+K6_REPLACES = "access_control_srv_tpu/parallel/mesh.py:97"
+# the pod-sharded tail shard_tail also replaces (its rule-sharded tail is
+# REPLACES["shard_tail"])
+TAIL_ALSO_REPLACES = "access_control_srv_tpu/parallel/pod_shard.py:230"
+
+
+def shard_scale_engine() -> AccessController:
+    """The shard-scale tree: the seed data's policy set, then the
+    8,000-rule stress set (two sets)."""
+    engine = engine_for("seed_data")
+    for ps in load_policy_sets(stress_doc(SHARD_RULES)):
+        engine.update_policy_set(ps)
+    return engine
+
+
+def shard_scale_traffic(n_acl: int = 0) -> list[Request]:
+    """The shard-scale rows: the JAX package's wide serving rows
+    (``_serving_batch_msg(wide=True)``), which draw role and entity as
+    ``bench_stress`` traffic does."""
+    return stress_traffic(SHARD_ROWS, seed=SHARD_SEED, n_acl=n_acl)
+
+
+def shard_flags(compiled, batch) -> tuple:
+    return (bool((batch.arrays["r_acl_ent"] >= 0).any()),
+            kmod.tree_needs_hr(compiled.arrays),
+            kmod.tree_needs_rel(compiled.arrays))
+
+
+def _checked(name: str, stats: dict, got, want) -> None:
+    torch.cuda.synchronize()
+    err = _max_err(got, want)
+    st = stats.setdefault(name, {"calls": 0, "max_abs_err": 0})
+    st["calls"] += 1
+    st["max_abs_err"] = max(st["max_abs_err"], err)
+    if err != 0:
+        raise AssertionError(f"{name}: kernel != plain (max abs err {err})")
+
+
+def bound_chunk(c, r, flags, out) -> tuple[float, str, int, int]:
+    """A shard kernel's bound: the dense bound's inputs and operations at
+    the shard's shapes, with its merge rows as the output."""
+    _, _, nbytes, ops = bound_ms(c, r, flags[2])
+    return _finish_bound(nbytes - 12 * int(r["r_n_ra"].shape[0])
+                         + int(out.nbytes), ops)
+
+
+def bound_tail(merge, tabs, out) -> tuple[float, str, int, int]:
+    """The tail's bound: the merge rows and tables read once, three int32
+    written per row; per (set, policy) about 16 integer operations (the
+    selection, the no-rules test, the combination), per abort slot two."""
+    nbytes = int(merge.nbytes) + int(out.nbytes)
+    B = int(merge.shape[0])
+    per_row = 8
+    if tabs is not None:
+        nbytes += sum(int(t.nbytes) for t in tabs.values())
+        S, KP = tabs["pol_ca"].shape
+        per_row += 16 * S * KP
+    return _finish_bound(nbytes, B * per_row)
+
+
+def check_sharded(label: str, compiled, batch, device, n_model: int,
+                  want, stats: dict) -> None:
+    """Every shard of an ``n_model``-way rule partition and set partition
+    of ``compiled``: each shard kernel and the tail held against their
+    plain versions on the same device tensors (exactly equal), the
+    shards' merge rows merged with ``amin`` (what the MIN all_reduce
+    computes), and the tail's decisions equal to ``want`` (int32 [3, B],
+    the single-device kernel's) on every eligible row."""
+    flags = shard_flags(compiled, batch)
+    _, r = mmod.row_slice(batch, device, kmod.ROW_ARRAYS, 1, 0)
+    el = torch.from_numpy(np.asarray(batch.eligible)).to(device)
+    n = batch.B
+
+    part = rule_shard.partition_rules(compiled, n_model)
+    kr_total = part.kr_local * n_model
+    merges = []
+    for d in range(n_model):
+        cd = tables_from_numpy({k: part.arrays[k][d]
+                                for k in kmod.TABLE_ARRAYS}, device)
+        args = (cd, r, int(part.kr_offsets[d]), kr_total, n_model, d, *flags)
+        got = kmod.rule_chunk(*args)
+        _checked("rule_chunk", stats, got, shard_ref.rule_chunk_ref(*args))
+        merges.append(got)
+    merged = torch.stack(merges).amin(dim=0)
+    tabs = tables_from_numpy(compiled.arrays, device, keys=kmod.TAIL_TABLES)
+    out7 = kmod.shard_tail(merged, n_model, tabs)
+    _checked("shard_tail", stats, out7,
+             shard_ref.shard_tail_ref(merged, n_model, tabs))
+
+    shards, s_local = pod_shard.partition_sets(compiled, n_model)
+    merges = []
+    for d, sh in enumerate(shards):
+        cd = tables_from_numpy({k: sh.arrays[k] for k in kmod.TABLE_ARRAYS},
+                               device)
+        args = (cd, r, sh.s_lo, n_model, d, *flags)
+        got = kmod.set_chunk(*args)
+        _checked("set_chunk", stats, got, shard_ref.set_chunk_ref(*args))
+        merges.append(got)
+    merged = torch.stack(merges).amin(dim=0)
+    out8 = kmod.shard_tail(merged, n_model)
+    _checked("shard_tail", stats, out8,
+             shard_ref.shard_tail_ref(merged, n_model))
+
+    for tag, out in (("rule-sharded", out7), ("pod-sharded", out8)):
+        if not torch.equal(out[:, :n][:, el], want[:, el]):
+            raise AssertionError(f"{label}: {tag} decisions differ from "
+                                 f"PrefilteredKernel's")
+    log(f"  {label}: {n} rows, {n_model} rule shards (KR_local "
+        f"{part.kr_local}) and {n_model} set shards (S_local {s_local}): "
+        f"every kernel equal to its plain version, merged decisions equal "
+        f"to PrefilteredKernel's on {int(el.sum())} eligible rows")
+
+
+def single_device_out(compiled, batch, device) -> torch.Tensor:
+    out = pfmod.PrefilteredKernel(compiled, device=device).evaluate(batch)
+    return torch.from_numpy(np.stack(out)).to(device)
+
+
+def phase_shard_vs_plain(device, stats: dict, tree_100k) -> None:
+    """Phase 14: every shard of a 4-way rule and set partition of the
+    shard-scale tree (2,048 rows), the 100k stress tree (1,024 rows of
+    ``bench_stress`` traffic; KR_local 100) and every fixture tree (grid
+    traffic) through ``rule_chunk`` / ``set_chunk`` / ``shard_tail``
+    against their plain versions; merged decisions equal to the
+    single-device ``PrefilteredKernel``'s.  (The kernels' times come from
+    phase 15, on the arguments the main path gives them.)"""
+    t0 = time.perf_counter()
+    engine = shard_scale_engine()
+    compiled = compile_policies(engine.policy_sets, engine.urns)
+    log(f"  shard-scale tree: {compiled.n_rules} rules, S={compiled.S} "
+        f"KP={compiled.KP} KR={compiled.KR} T={compiled.T} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    batch = encode_requests(shard_scale_traffic(), compiled)
+    want = single_device_out(compiled, batch, device)
+    check_sharded("shard-scale", compiled, batch, device, 4, want, stats)
+
+    _, compiled_100k, _ = tree_100k
+    batch = encode_requests(stress_traffic(1024, seed=11), compiled_100k)
+    want = single_device_out(compiled_100k, batch, device)
+    check_sharded("100k stress", compiled_100k, batch, device, 4, want,
+                  stats)
+
+    rng = random.Random(14)
+    for name in tree_names():
+        eng = engine_for(name)
+        comp = compile_policies(eng.policy_sets, eng.urns)
+        if not comp.supported or comp.n_rules == 0:
+            continue
+        batch = encode_requests(grid_requests(rng, 256), comp)
+        want = single_device_out(comp, batch, device)
+        check_sharded(name, comp, batch, device, 4, want, stats)
+
+
+def _reset_counts() -> None:
+    reset_launches()
+    for k in mmod.COLLECTIVES:
+        mmod.COLLECTIVES[k] = 0
+
+
+def _host_ms(fn, iters: int = ITERS) -> float:
+    """Host-clock milliseconds per call, each ending in a device sync (a
+    collective's time: gloo runs on the host)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def layout_stage_times(kernel, calls: dict, check: dict) -> dict:
+    """One rank's stage times for a sharded kernel on the arguments its
+    main-path batch gave each kernel (``KernelCheck.calls``): per kernel
+    the batch's launches and their plain versions (CUDA events, summed
+    over the batch's calls), the bound from those inputs and the largest
+    difference the check saw (``kernels``), timed while the other ranks
+    wait at a barrier, so no other rank's kernel shares the card; then
+    the MIN all_reduce over model and the all-gather over data (host
+    clock: gloo stages through the host).  Every rank runs the same
+    calls, so the collectives pair up."""
+    import torch.distributed as dist
+
+    mesh = kernel.mesh
+    if isinstance(kernel, rule_shard.RuleShardedKernel):
+        names, model_axis = ("rule_chunk", "shard_tail"), kernel.model_axis
+    elif isinstance(kernel, pod_shard.PodShardedKernel):
+        names, model_axis = ("set_chunk", "shard_tail"), kernel.model_axis
+    else:  # ShardedDecisionKernel
+        names, model_axis = ("decide_dense",), None
+    data_axis = kernel.axis if model_axis is None else kernel.data_axis
+    out: dict = {"kernels": {}}
+
+    def bound(name: str, a: tuple) -> tuple:
+        res = getattr(kmod, name)(*a)
+        if name == "decide_dense":
+            return bound_ms(a[0], a[1], a[-1])
+        if name == "shard_tail":
+            return bound_tail(a[0], a[2] if len(a) > 2 else None, res)
+        return bound_chunk(a[0], a[1], a[-3:], res)
+
+    def timed(name: str) -> None:
+        launch = getattr(kmod, name)
+        bounds = [bound(name, a) for a in calls[name]]
+        out["kernels"][name] = {
+            "ms": sum(time_ms(lambda a=a: launch(*a)) for a in calls[name]),
+            "plain_ms": sum(time_ms(lambda a=a: PLAIN[name](*a), 1)
+                            for a in calls[name]),
+            "bound_ms": sum(b[0] for b in bounds),
+            "bound_by": max(bounds)[1],
+            "max_abs_err": check[name]["max_abs_err"],
+            "launches": len(calls[name]),
+            "rows": [int(a[0].shape[0] if name == "shard_tail"
+                         else a[1]["r_n_ra"].shape[0]) for a in calls[name]]}
+
+    for turn in range(dist.get_world_size()):
+        dist.barrier()
+        if turn == dist.get_rank():
+            for name in names:
+                timed(name)
+    dist.barrier()
+    if model_axis is not None:
+        merge = getattr(kmod, names[0])(*calls[names[0]][-1])
+        torch.cuda.synchronize()
+        out["merge_bytes"] = int(merge.nbytes)
+        out["all_reduce_ms"] = _host_ms(
+            lambda: mmod.all_reduce(merge.clone(), mesh, model_axis))
+    res = getattr(kmod, names[-1])(*calls[names[-1]][-1])
+    out["gather_ms"] = _host_ms(
+        lambda: mmod.all_gather_cols(res, mesh, data_axis))
+    return out
+
+
+def _victim_probe(engine):
+    """A stress rule whose effect flip changes the decision of the request
+    built from its own target: (rule, probe request, decision before,
+    decision after), the engine left flipped."""
+    stress = engine.policy_sets["stress"]
+    for pol in stress.combinables.values():
+        for rule in pol.combinables.values():
+            t = rule.target
+            role = next(a.value for a in t.subjects if a.id == URNS["role"])
+            probe = Request(
+                target=Target(
+                    subjects=[Attribute(id=URNS["role"], value=role),
+                              Attribute(id=URNS["subjectID"], value="u0")],
+                    resources=list(t.resources) + [
+                        Attribute(id=URNS["resourceID"], value="res-0")],
+                    actions=list(t.actions)),
+                context={"resources": [], "subject": {
+                    "id": "u0",
+                    "role_associations": [{"role": role, "attributes": []}],
+                    "hierarchical_scopes": []}})
+            before = engine.is_allowed(copy.deepcopy(probe)).decision
+            rule.effect = "DENY" if rule.effect == "PERMIT" else "PERMIT"
+            after = engine.is_allowed(copy.deepcopy(probe)).decision
+            if after != before:
+                return rule, probe, before, after
+            rule.effect = "DENY" if rule.effect == "PERMIT" else "PERMIT"
+    raise AssertionError("no stress rule flips its own probe")
+
+
+def built_state() -> tuple:
+    """What this process has built and loaded, and the libraries on disk."""
+    on_disk = (sorted(os.listdir(cuda_build.BUILD_DIR))
+               if os.path.isdir(cuda_build.BUILD_DIR) else [])
+    return set(cuda_build.BUILD_LOG), set(cuda_build._libs), on_disk
+
+
+def pod_patch_check(engine, kernel) -> dict:
+    """One rule flip through ``PodShardedKernel.patched``: exactly one
+    shard re-sliced (its fingerprint moves, the others are reused by
+    reference), the probe's decision changes to the oracle's, and no
+    library is built."""
+    rule, probe, before, after = _victim_probe(engine)
+    try:
+        compiled = compile_policies(engine.policy_sets, engine.urns)
+        slot = list(engine.policy_sets).index("stress")
+        built = built_state()
+        t0 = time.perf_counter()
+        patched = kernel.patched(compiled, [slot])
+        d_new = int(patched.evaluate(encode_requests(
+            [copy.deepcopy(probe)], compiled))[0][0])
+        ttv_ms = (time.perf_counter() - t0) * 1e3
+        d_old = int(kernel.evaluate(encode_requests(
+            [copy.deepcopy(probe)], kernel.compiled))[0][0])
+        fp0 = [sh.fingerprint for sh in kernel.shards]
+        fp1 = [sh.fingerprint for sh in patched.shards]
+        changed = [i for i in range(len(fp0)) if fp0[i] != fp1[i]]
+        reused = [a is b for a, b in zip(kernel.shards, patched.shards)]
+        if len(changed) != 1 or sum(reused) != len(reused) - 1:
+            raise AssertionError(f"patch re-sliced shards {changed}")
+        if (d_old, d_new) != (DEC_CODE[before], DEC_CODE[after]):
+            raise AssertionError(f"patch: decisions {d_old} -> {d_new}, "
+                                 f"oracle {before} -> {after}")
+        if built != built_state():
+            raise AssertionError("the patch built a library")
+    finally:
+        rule.effect = "DENY" if rule.effect == "PERMIT" else "PERMIT"
+    return {"rule": rule.id, "shard": changed[0], "decision": [d_old, d_new],
+            "ttv_ms": ttv_ms, "new_builds": 0}
+
+
+def rank_device(rank: int) -> torch.device:
+    """A rank's card, ``cuda:{rank % device_count}``, made current."""
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    return dev
+
+
+def phase15_rank(rank: int, world: int, out_dir: str) -> None:
+    """One rank of phase 15 (``launch_local``, gloo, every rank on the one
+    card): the single-device evaluator's responses, then each mesh
+    configuration's ``HybridEvaluator`` with the counts set to 0 just
+    before its first batch and read just after, every kernel call of that
+    batch held against its plain version; every response equal to the
+    single device's, a sample (rank 0) equal to the oracle; warm
+    decisions/s and the stage times; the pod patch at (1, 4)."""
+    from access_control_srv_tpu_torch.parallel import make_mesh2
+
+    device = rank_device(rank)
+    engine = shard_scale_engine()
+    small = engine_for("scoped_511")
+    traffic = {
+        "shard-scale": (engine, shard_scale_traffic()),
+        "shard-scale ACL": (engine, shard_scale_traffic(n_acl=16)),
+        "scoped_511": (small, grid_requests(random.Random(5), SHARD_ROWS,
+                                            stress=True)),
+    }
+    want = {}
+    for key, (eng, reqs) in traffic.items():
+        single = HybridEvaluator(eng, device=device)
+        want[key] = [response_key(x) for x in
+                     single.is_allowed_batch(copy.deepcopy(reqs))]
+        del single
+    configs = [
+        ("K6 mesh (4,1)", "scoped_511", (4, 1), {}),
+        ("K3 mesh (4,1)", "shard-scale", (4, 1), {}),
+        ("K4 mesh (4,1)", "shard-scale ACL", (4, 1), {}),
+        ("K7 model_axis (2,2)", "shard-scale", (2, 2),
+         {"model_axis": "model"}),
+        ("K7 model_axis (1,4)", "shard-scale", (1, 4),
+         {"model_axis": "model"}),
+        ("K8 pod_shards (2,2)", "shard-scale", (2, 2),
+         {"model_axis": "model", "pod_shards": 2}),
+        ("K8 pod_shards (1,4)", "shard-scale", (1, 4),
+         {"model_axis": "model", "pod_shards": 4}),
+    ]
+    meshes: dict = {}
+    res: dict = {"layouts": {}}
+    for label, key, layout, kw in configs:
+        if layout not in meshes:
+            meshes[layout] = make_mesh2(*layout, device=device)
+        eng, reqs = traffic[key]
+        ev = HybridEvaluator(eng, mesh=meshes[layout], **kw)
+        check: dict = {}
+        _reset_counts()
+        with KernelCheck(check, names=tuple(PLAIN)) as chk:
+            got = ev.is_allowed_batch(copy.deepcopy(reqs))
+        launches = {k: v for k, v in kmod.LAUNCHES.items() if v}
+        colls = dict(mmod.COLLECTIVES)
+        # the plain versions' cached blocks go back to the card before the
+        # warm batches: four ranks share its memory
+        reserved = torch.cuda.memory_reserved(device)
+        torch.cuda.empty_cache()
+        bad = [i for i, g in enumerate(got) if response_key(g) != want[key][i]]
+        if bad:
+            raise AssertionError(f"{label} rank {rank}: rows {bad[:8]} differ "
+                                 f"from the single device")
+        sampled = sample_oracle(eng, reqs, got) if rank == 0 else 0
+        ev.is_allowed_batch(copy.deepcopy(reqs))
+        t0 = time.perf_counter()
+        for _ in range(3):
+            ev.is_allowed_batch(reqs)
+        dt = (time.perf_counter() - t0) / 3
+        kernel = ev._kernel
+        if kw:
+            stage_kernel = kernel
+        elif key == "scoped_511":
+            stage_kernel = kernel._dense
+        else:
+            stage_kernel = None
+        stages = {} if stage_kernel is None else layout_stage_times(
+            stage_kernel, chk.calls, check)
+        res["layouts"][label] = {
+            "rows": len(reqs), "kernel": type(kernel).__name__,
+            "launches": launches, "collectives": colls,
+            "checked": {k: [v["calls"], v["max_abs_err"]]
+                        for k, v in check.items()},
+            "decisions_per_s": len(reqs) / dt, "batch_ms": dt * 1e3,
+            "reserved_after_check": reserved, "oracle_rows": sampled,
+            **stages}
+        del chk
+        if label == "K8 pod_shards (1,4)":
+            res["patch"] = pod_patch_check(eng, kernel)
+        del ev, kernel, stage_kernel
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+
+
+def phase15(card: str) -> dict:
+    """Phase 15: four ranks sharing the card over gloo (NCCL does not put
+    two ranks of one communicator on one GPU); returns rank 0's results
+    with the launches summed, and the checked calls and errors maxed, over
+    the ranks."""
+    from access_control_srv_tpu_torch.parallel import launch_local
+
+    out_dir = tempfile.mkdtemp(prefix="acs-phase15-")
+    t0 = time.perf_counter()
+    launch_local(4, "chip_smoke:phase15_rank", (out_dir,), backend="gloo",
+                 timeout_s=700)
+    ranks = []
+    for rank in range(4):
+        with open(os.path.join(out_dir, f"rank{rank}.json")) as fh:
+            ranks.append(json.load(fh))
+    shutil.rmtree(out_dir)
+    res = ranks[0]
+    for label, row in res["layouts"].items():
+        total: dict = {}
+        err: dict = {}
+        for rk in ranks:
+            rl = rk["layouts"][label]
+            for k, v in rl["launches"].items():
+                total[k] = total.get(k, 0) + v
+            for k, (calls, e) in rl["checked"].items():
+                c0, e0 = err.get(k, (0, 0))
+                err[k] = (c0 + calls, max(e0, e))
+        row["launches_all_ranks"] = total
+        row["max_abs_err_all_ranks"] = {k: e for k, (_, e) in err.items()}
+        # each kernel's row is its slowest rank's launch (the layout's
+        # critical path), with every rank's ms beside it
+        for name in row.get("kernels", {}):
+            per = [rk["layouts"][label]["kernels"][name] for rk in ranks]
+            slow = max(range(len(per)), key=lambda i: per[i]["ms"])
+            row["kernels"][name] = {**per[slow], "rank": slow,
+                                    "ms_per_rank": [t["ms"] for t in per]}
+        stage = {k: (round(v, 4) if isinstance(v, float) else v)
+                 for k, v in row.items() if k.endswith("_ms")
+                 or k == "merge_bytes"}
+        log(f"  {label} [{row['kernel']}]: {row['rows']} rows, every rank's "
+            f"responses equal to the single device ({row['oracle_rows']} "
+            f"sampled equal to the oracle); kernel calls held against "
+            f"their plain versions (all ranks: calls, max abs err) "
+            f"{json.dumps(err)}; {row['decisions_per_s']:.0f} decisions/s "
+            f"per rank; launches (all ranks) {total}; collectives per rank "
+            f"{row['collectives']}; {row['reserved_after_check']} bytes "
+            f"reserved after the checked batch (rank 0); stages (rank 0) "
+            f"{json.dumps(stage)} on "
+            f"{card} (gloo, 4 ranks on one card)")
+        for name, t in row.get("kernels", {}).items():
+            log(f"    {name} at this layout's main-path shapes, each rank "
+                f"timed alone, slowest rank on {card}: {json.dumps(t)}")
+    p = res["patch"]
+    log(f"  pod patch at (1,4): rule {p['rule']} flipped, shard {p['shard']} "
+        f"re-sliced alone, decision {p['decision'][0]} -> "
+        f"{p['decision'][1]}, {p['ttv_ms']:.1f} ms to the first patched "
+        f"decision, no library built")
+    log(f"  phase 15 took {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def phase16_rank(rank: int, world: int, out_dir: str) -> None:
+    """Phase 16's one rank (NCCL, world size 1): the rule- and
+    pod-sharded evaluators at (1, 1) against the single device, and the
+    merge rows' MIN all_reduce through NCCL on the card (CUDA events)."""
+    import torch.distributed as dist
+
+    from access_control_srv_tpu_torch.parallel import make_mesh2
+    from access_control_srv_tpu_torch.parallel.mesh import row_slice
+
+    device = rank_device(rank)
+    engine = shard_scale_engine()
+    reqs = shard_scale_traffic()
+    want = [response_key(x) for x in HybridEvaluator(
+        engine, device=device).is_allowed_batch(copy.deepcopy(reqs))]
+    mesh = make_mesh2(1, 1, device=device)
+    res = {"backend": mesh.backend}
+    for label, kw in (("K7", {"model_axis": "model"}),
+                      ("K8", {"model_axis": "model", "pod_shards": 1})):
+        ev = HybridEvaluator(engine, mesh=mesh, **kw)
+        reset_launches()
+        got = ev.is_allowed_batch(copy.deepcopy(reqs))
+        if [response_key(g) for g in got] != want:
+            raise AssertionError(f"phase 16 {label}: responses differ")
+        res[label] = {"launches": {k: v for k, v in kmod.LAUNCHES.items()
+                                   if v}}
+    k = ev._kernel
+    batch = encode_requests(copy.deepcopy(reqs), ev._compiled,
+                            caps=dict(_CAPS_FLOOR))
+    _, r = row_slice(batch, device, kmod.ROW_ARRAYS, 1, 0)
+    merge = kmod.set_chunk(k._c, r, k._own.s_lo, 1, 0,
+                           *shard_flags(ev._compiled, batch))
+    res["nccl_all_reduce_ms"] = _host_ms(
+        lambda: dist.all_reduce(merge, op=dist.ReduceOp.MIN))
+    res["merge_bytes"] = int(merge.nbytes)
+    with open(os.path.join(out_dir, "rank0.json"), "w") as fh:
+        json.dump(res, fh)
+
+
+def phase16(card: str) -> dict:
+    from access_control_srv_tpu_torch.parallel import launch_local
+
+    out_dir = tempfile.mkdtemp(prefix="acs-phase16-")
+    launch_local(1, "chip_smoke:phase16_rank", (out_dir,), backend="nccl",
+                 timeout_s=300)
+    with open(os.path.join(out_dir, "rank0.json")) as fh:
+        res = json.load(fh)
+    shutil.rmtree(out_dir)
+    log(f"  NCCL world size 1: K7 launches {res['K7']['launches']}, K8 "
+        f"launches {res['K8']['launches']}, responses equal to the single "
+        f"device; NCCL MIN all_reduce of {res['merge_bytes']} bytes "
+        f"{res['nccl_all_reduce_ms']:.4f} ms on {card}")
+    return res
+
+
+def sharded_row(p15: dict, name: str, program: str) -> dict:
+    """A kernel's numbers on phase 15's main path for ``program`` (K6,
+    K7 or K8): ms, plain ms and bound from the slowest rank's launches of
+    one batch in the program's (4, 1) or (1, 4) layout, the launches and
+    the largest error over all its layouts and ranks."""
+    layouts = {k: v for k, v in p15["layouts"].items()
+               if k.startswith(program + " ")}
+    launches = sum(v["launches_all_ranks"].get(name, 0)
+                   for v in layouts.values())
+    if not launches:
+        raise AssertionError(f"phase 15's {program} layouts launched no "
+                             f"{name}")
+    err = max(v["max_abs_err_all_ranks"].get(name, 0)
+              for v in layouts.values())
+    t = next(v for k, v in layouts.items()
+             if k.endswith(("(1,4)", "(4,1)")))["kernels"][name]
+    return {"launches": launches, "max_abs_err": err,
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -2124,10 +2723,10 @@ def main() -> int:
 
     log("phase 2: build")
     t0 = time.perf_counter()
-    cuda_build.build(list(KERNELS))
-    log(f"  {', '.join(KERNELS)} built in {time.perf_counter() - t0:.1f} s "
+    cuda_build.build(list(SOURCES))
+    log(f"  {', '.join(SOURCES)} built in {time.perf_counter() - t0:.1f} s "
         f"(one nvcc each, in parallel)")
-    for name in KERNELS:
+    for name in SOURCES:
         for line in cuda_build.BUILD_LOG.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas {name}: {line.strip()}")
@@ -2167,7 +2766,8 @@ def main() -> int:
             f"{json.dumps(st['stages_ms'])} on {card}")
 
     log("phase 9: wia_planes vs plain version (fixtures, 1k, 10k, 100k)")
-    wia = phase_wia_vs_plain(device, sig_stats, sig.pop("tree_100k"))
+    tree_100k = sig.pop("tree_100k")
+    wia = phase_wia_vs_plain(device, sig_stats, tree_100k)
 
     log("phase 10: whatIsAllowed main path (wia-large, 1,000 rules, "
         "2,048 queries)")
@@ -2181,6 +2781,18 @@ def main() -> int:
 
     log("phase 13: ReBAC main path (rebac-serve, 1,000,000 tuples)")
     rebac = phase_rebac(device, sig_stats, card, REBAC_TUPLES)
+
+    log("phase 14: rule_chunk, set_chunk, shard_tail vs plain versions "
+        "(shard-scale, 100k, fixtures; 4 shards)")
+    phase_shard_vs_plain(device, sig_stats, tree_100k)
+    del tree_100k
+
+    log("phase 15: HybridEvaluator on meshes, 4 ranks sharing the card "
+        "(gloo)")
+    p15 = phase15(card)
+
+    log("phase 16: NCCL, world size 1")
+    phase16(card)
 
     log("  relation variants' times (CUDA events, 5 launches after a "
         "warm-up):")
@@ -2203,7 +2815,7 @@ def main() -> int:
         f"{lat['timed_launches']}")
     log(f"  max_memory_allocated {torch.cuda.max_memory_allocated()} bytes "
         f"on {card}")
-    log(f"  kernels: {json.dumps(list(KERNELS))}; "
+    log(f"  sources: {json.dumps(list(SOURCES))}; "
         f"{time.perf_counter() - t_start:.1f} s in all")
 
     main_stats = stats["main"]
@@ -2227,6 +2839,19 @@ def main() -> int:
         **{k: k5["wia-large"][k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by")},
     })
+    rows[0]["k6"] = {"replaces": K6_REPLACES, **sharded_row(
+        p15, "decide_dense", "K6"), "library_ms": None}
+    # the K7 / K8 rows: the slowest rank's launch at (1, 4) of the main
+    # path, the launches and errors of both layouts of their program on
+    # all ranks
+    rows.append({"name": "rule_chunk", **sharded_row(p15, "rule_chunk",
+                                                      "K7")})
+    rows.append({"name": "set_chunk", **sharded_row(p15, "set_chunk",
+                                                     "K8")})
+    rows.append({"name": "shard_tail", **sharded_row(p15, "shard_tail",
+                                                      "K7"),
+                 "pod": {"replaces": TAIL_ALSO_REPLACES, **sharded_row(
+                     p15, "shard_tail", "K8"), "library_ms": None}})
     keys = ("launches", "ms", "plain_ms", "bound_ms", "bound_by")
     for r in rows:
         if r["name"] in rel_rows:
@@ -2236,12 +2861,14 @@ def main() -> int:
                 "max_abs_err": sig_stats[r["name"]]["max_abs_err"],
                 **{k: t[k] for k in keys}, "library_ms": None}
     print(json.dumps({"kernels": [{
-        "name": r["name"], "route": "cuda", "source": CSRC + r["name"] + ".cu",
+        "name": r["name"], "route": "cuda",
+        "source": CSRC + SOURCE[r["name"]] + ".cu",
         "replaces": REPLACES[r["name"]], "launches": r["launches"],
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None,
         **({"with_rel": r["with_rel"]} if "with_rel" in r else {}),
+        **{k: r[k] for k in ("k6", "pod") if k in r},
     } for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

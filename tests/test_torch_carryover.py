@@ -151,6 +151,14 @@ import access_control_srv_tpu_torch.core.candidate_index
 import access_control_srv_tpu_torch.srv.audit_sweep
 import access_control_srv_tpu_torch.srv.events
 import access_control_srv_tpu_torch.srv.relations
+import access_control_srv_tpu_torch.parallel
+import access_control_srv_tpu_torch.parallel.cluster
+import access_control_srv_tpu_torch.parallel.mesh
+import access_control_srv_tpu_torch.parallel.pod_shard
+import access_control_srv_tpu_torch.parallel.rule_shard
+import access_control_srv_tpu_torch.ops.shard_ref
+import access_control_srv_tpu_torch.ops.delta
+import tests.torch_world
 import chip_smoke
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "access_control_srv_tpu")]
@@ -167,12 +175,17 @@ def test_no_reference_import_lines():
     pattern = re.compile(
         r"^\s*(import|from) (jax|access_control_srv_tpu)(\.|\s|$)", re.M
     )
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tests", "torch_world.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
     assert {os.path.join(PORT, "srv", n) for n in ("events.py", "relations.py")
             } <= set(files)
+    assert {os.path.join(PORT, "parallel", n) for n in (
+        "__init__.py", "cluster.py", "mesh.py", "pod_shard.py",
+        "rule_shard.py")} <= set(files)
+    assert os.path.join(PORT, "ops", "shard_ref.py") in files
     for path in files:
         with open(path) as fh:
             assert not pattern.search(fh.read()), path

@@ -210,10 +210,25 @@ def test_refusals():
     _, teng = make_engines("basic_policies.yml")
     with pytest.raises(NotImplementedError, match="explain"):
         HybridEvaluator(teng, device="cpu", explain=True)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        PrefilteredKernel(tev._compiled, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        PrefilteredKernel(tev._compiled, device="cpu", axis="data")
+    # a mesh, refused before the multi-device slice, is served: on a
+    # 1-rank mesh the evaluator equals the JAX evaluator on a 1-device
+    # mesh (multi-rank meshes: tests/test_torch_mesh.py)
+    import jax
+    import numpy as np
+    from jax.sharding import Mesh
+
+    from access_control_srv_tpu_torch.parallel import make_mesh
+
+    jeng, teng = make_engines("role_scopes.yml")
+    jev = JaxEvaluator(jeng, delta_enabled=False,
+                       mesh=Mesh(np.array(jax.devices()[:1]), ("data",)))
+    tev = HybridEvaluator(teng, mesh=make_mesh(device="cpu"))
+    assert isinstance(tev._kernel, PrefilteredKernel)
+    assert tev._kernel.mesh is tev.mesh
+    specs = spec_grid(n=32, seed=4)
+    want = jev.is_allowed_batch([build_request(s, jmodels) for s in specs])
+    got = tev.is_allowed_batch([build_request(s, tmodels) for s in specs])
+    assert [response_key(g) for g in got] == [response_key(w) for w in want]
 
 
 def test_device_none_raises_without_cuda(monkeypatch):

@@ -493,14 +493,27 @@ def test_async_materialize_releases_leases(stress):
 
 
 def test_refusals(stress):
-    compiled = stress[3]
+    doc, entities, actions, compiled = stress
     for kw, match in ((dict(explain=True), "explain"),
-                      (dict(mesh=object()), "multi-device"),
-                      (dict(axis="data"), "multi-device"),
                       (dict(dynamic_policies=True), "delta"),
                       (dict(shared_jits={}), "delta")):
         with pytest.raises(NotImplementedError, match=match):
             PrefilteredKernel(compiled, device="cpu", **kw)
+    # ``mesh`` and ``axis``, refused before the multi-device slice, are
+    # served: a 1-rank mesh and an explicit axis equal the JAX kernel on
+    # a 1-device mesh (multi-rank meshes: tests/test_torch_mesh.py)
+    import jax
+    from jax.sharding import Mesh
+
+    from access_control_srv_tpu_torch.parallel import make_mesh
+
+    batch = jencode(stress_requests(entities, actions, n=40), compiled)
+    want = JaxPrefiltered(compiled, mesh=Mesh(np.array(jax.devices()[:1]),
+                                              ("data",))).evaluate(batch)
+    for kw in (dict(mesh=make_mesh(device="cpu")), dict(axis="data")):
+        tk = PrefilteredKernel(compiled, device="cpu", **kw)
+        assert tk.active
+        assert_same(want, tk.evaluate(batch))
     # relation-path trees, refused before the ReBAC slice, are decided by
     # the dense delegate and, forced, by the signature path, both equal
     # to the JAX kernel's

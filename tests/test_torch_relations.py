@@ -585,6 +585,11 @@ def rel_stress_doc(scoped: bool):
 def stress_stores(entities, seed: int = 3):
     """Both stores over the stress entities' documents: viewer and owner
     grants, parent links to folders with owners, a viewer rewrite."""
+    return both_stores(*stress_store_ops(entities, seed))
+
+
+def stress_store_ops(entities, seed: int = 3):
+    """The operations of ``stress_stores``."""
     rng = random.Random(seed)
     tuples = []
     for ent in entities:
@@ -598,11 +603,11 @@ def stress_stores(entities, seed: int = 3):
                     "entity": FOLDER, "id": f"f{rng.randrange(4)}"}}))
     for f in range(4):
         tuples.append((FOLDER, f"f{f}", "owner", rng.choice(STRESS_USERS)))
-    return both_stores(
+    return [
         ("set_rewrite", entities[0], "viewer",
          [("this",), ("computed_userset", "owner")]),
         ("create", tuples),
-    )
+    ]
 
 
 def rel_stress_specs(entities, actions, n: int, seed: int, scoped: bool):

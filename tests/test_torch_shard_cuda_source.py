@@ -1,0 +1,197 @@
+"""The CUDA sources of the sharded programs' kernels, run on the CPU.
+
+``ops/csrc/shard_chunk.cu`` (``rule_chunk`` and ``set_chunk``, its two
+modes) and ``shard_tail.cu`` (with the shared ``decide_core.cuh``) are
+compiled as C++ with g++ against the
+threaded stand-in for ``cuda_runtime.h`` of ``test_torch_cuda_source``
+(one ``std::thread`` per CUDA thread, barriers for ``__syncthreads`` and
+the warp shuffles).  Every shard of a 2- or 4-way partition
+(``partition_rules`` / ``partition_sets``) runs its shard kernel on the
+whole batch; the shards' merge rows are merged with ``amin`` (what the
+MIN ``all_reduce`` computes) and the tail kernel decides.  Each kernel's
+output must equal its plain version (``ops/shard_ref.py``) exactly,
+and the merged decisions must equal the dense plain version's.  That nvcc
+accepts the sources for ``sm_90a``, and their timing, are checked on the
+card by ``chip_smoke.py``.
+"""
+
+import ctypes
+
+import numpy as np
+import pytest
+import torch
+
+import access_control_srv_tpu_torch.models as tmodels
+from access_control_srv_tpu_torch.ops import compile_policies, encode_requests
+from access_control_srv_tpu_torch.ops import kernel as tkernel
+from access_control_srv_tpu_torch.ops.carry import tables_from_numpy
+from access_control_srv_tpu_torch.ops.kernel_ref import decide_dense_ref
+from access_control_srv_tpu_torch.ops import shard_ref
+from access_control_srv_tpu_torch.parallel import pod_shard, rule_shard
+from access_control_srv_tpu_torch.parallel.mesh import row_slice
+
+from .test_torch_carryover import build_request, make_engines, spec_grid
+from .test_torch_cuda_source import build_emulated
+from .test_torch_kernel import engines_from_doc
+from .test_torch_pod_shard import MIXED_SPECS, mixed_ca_doc
+from .test_torch_rule_shard import REL_OPS, REL_SPECS, two_shard_abort_doc
+from .torch_world import port_store
+
+ENTRY = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+# each kernel's library, and the ints between its shape ints and its
+# threads (the mode, then the variant flags)
+LIBRARY = {"rule_chunk": "shard_chunk", "set_chunk": "shard_chunk",
+           "shard_tail": "shard_tail"}
+MODE = {"rule_chunk": tkernel.MODE_RULE, "set_chunk": tkernel.MODE_SET}
+FLAGS = {"shard_chunk": 4, "shard_tail": 1}
+
+
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    out = {}
+    for name, flags in FLAGS.items():
+        lib = build_emulated(name, tmp_path_factory.mktemp(f"{name}_emu"))
+        getattr(lib, f"acs_{name}_layout").restype = ctypes.c_char_p
+        entry = getattr(lib, f"acs_{name}")
+        entry.restype = ctypes.c_int
+        entry.argtypes = ENTRY + [ctypes.c_int] * (flags + 1) + [
+            ctypes.c_void_p]
+        out[name] = lib
+    smem = out["shard_chunk"].acs_shard_chunk_smem
+    smem.restype = ctypes.c_longlong
+    smem.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    return {name: out[lib] for name, lib in LIBRARY.items()}
+
+
+def run_chunk(lib, name, mode, c, r, offset, kr_total, n_model, rank, flags):
+    args = tkernel.pack_chunk_args(name, mode, c, r, offset, kr_total,
+                                   n_model, rank)
+    args.out.fill_(-7)
+    code = lib.acs_shard_chunk(
+        ctypes.addressof(args.ptrs), len(args.ptrs),
+        ctypes.addressof(args.dims), len(args.dims), mode, *map(int, flags),
+        args.threads, None)
+    assert code == 0
+    return args.out
+
+
+def run_tail(lib, merge, n_model, tabs):
+    out, ptrs, dims, mode = tkernel.pack_shard_tail(merge, n_model, tabs)
+    out.fill_(-7)
+    assert lib.acs_shard_tail(ctypes.addressof(ptrs), len(ptrs),
+                              ctypes.addressof(dims), len(dims), mode,
+                              tkernel.TAIL_THREADS[mode], None) == 0
+    return out
+
+
+def check_tree(libs, compiled, batch, n_model: int) -> torch.Tensor:
+    """Both sharded programs on every shard of an ``n_model``-way split:
+    each kernel equal to its plain version, the merged decisions equal to
+    the dense plain version's; returns the decisions [3, B]."""
+    flags = (bool((batch.arrays["r_acl_ent"] >= 0).any()),
+             tkernel.tree_needs_hr(compiled.arrays),
+             tkernel.tree_needs_rel(compiled.arrays))
+    _, r = row_slice(batch, "cpu", tkernel.ROW_ARRAYS, 1, 0)
+    c = tables_from_numpy(compiled.arrays, "cpu", keys=tkernel.TABLE_ARRAYS)
+    dense = torch.stack(decide_dense_ref(c, r, *flags))
+    el = torch.from_numpy(np.asarray(batch.eligible))
+    n = batch.B
+
+    part = rule_shard.partition_rules(compiled, n_model)
+    kr_total = part.kr_local * n_model
+    merges = []
+    for d in range(n_model):
+        cd = tables_from_numpy({k: part.arrays[k][d]
+                                for k in tkernel.TABLE_ARRAYS}, "cpu")
+        off = int(part.kr_offsets[d])
+        want = shard_ref.rule_chunk_ref(cd, r, off, kr_total, n_model, d,
+                                        *flags)
+        got = run_chunk(libs["rule_chunk"], "rule_chunk", tkernel.MODE_RULE,
+                        cd, r, off, kr_total, n_model, d, flags)
+        assert torch.equal(got, want), ("rule_chunk", d)
+        merges.append(got)
+    merged = torch.stack(merges).amin(dim=0)
+    tabs = {k: c[k] for k in tkernel.TAIL_TABLES}
+    want = shard_ref.shard_tail_ref(merged, n_model, tabs)
+    got7 = run_tail(libs["shard_tail"], merged, n_model, tabs)
+    assert torch.equal(got7, want)
+    assert torch.equal(got7[:, :n][:, el], dense[:, :n][:, el])
+
+    shards, _ = pod_shard.partition_sets(compiled, n_model)
+    merges = []
+    for d, sh in enumerate(shards):
+        cd = tables_from_numpy({k: sh.arrays[k]
+                                for k in tkernel.TABLE_ARRAYS}, "cpu")
+        want = shard_ref.set_chunk_ref(cd, r, sh.s_lo, n_model, d, *flags)
+        got = run_chunk(libs["set_chunk"], "set_chunk", tkernel.MODE_SET,
+                        cd, r, sh.s_lo, cd["rule_valid"].shape[2], n_model,
+                        d, flags)
+        assert torch.equal(got, want), ("set_chunk", d)
+        merges.append(got)
+    merged = torch.stack(merges).amin(dim=0)
+    want = shard_ref.shard_tail_ref(merged, n_model)
+    got8 = run_tail(libs["shard_tail"], merged, n_model, None)
+    assert torch.equal(got8, want)
+    assert torch.equal(got8[:, :n][:, el], dense[:, :n][:, el])
+    return got7[:, :n]
+
+
+def port_batch(teng, specs, store_ops=None):
+    tc = compile_policies(teng.policy_sets, teng.urns)
+    tables = None if store_ops is None else port_store(store_ops).tables_for(
+        tc)
+    return tc, encode_requests([build_request(s, tmodels) for s in specs],
+                               tc, relation_tables=tables)
+
+
+@pytest.mark.parametrize("name", ["rule_chunk", "set_chunk", "shard_tail"])
+def test_layout_matches_host(libs, name):
+    if name == "shard_tail":
+        ptrs, dims = tkernel.TAIL_PTRS, tkernel.TAIL_DIMS
+    else:
+        ptrs, dims = tkernel.CHUNK_PTRS, tkernel.DIMS + tkernel.CHUNK_DIMS
+    lib = LIBRARY[name]
+    assert getattr(libs[name], f"acs_{lib}_layout")().decode() == \
+        ",".join(ptrs) + ",|" + ",".join(dims) + ","
+
+
+@pytest.mark.parametrize("name", ["rule_chunk", "set_chunk", "shard_tail"])
+def test_argument_count_mismatch_is_refused(libs, name):
+    ptrs = (ctypes.c_int64 * 3)()
+    dims = (ctypes.c_int32 * 3)()
+    lib = LIBRARY[name]
+    extra = [MODE.get(name, 1)] + [0] * (FLAGS[lib] - 1)
+    assert getattr(libs[name], f"acs_{lib}")(
+        ctypes.addressof(ptrs), 3, ctypes.addressof(dims), 3, *extra, 64,
+        None) == -1
+
+
+@pytest.mark.parametrize("name,n_model", [
+    ("role_scopes.yml", 4), ("conditions.yml", 2), ("acl_policies.yml", 2),
+    ("props_multi_rules_entities.yml", 2)])
+def test_fixture_trees(libs, name, n_model):
+    _, teng = make_engines(name)
+    tc, batch = port_batch(teng, spec_grid(n=8, seed=53))
+    check_tree(libs, tc, batch, n_model)
+
+
+@pytest.mark.parametrize("n_model", [2])
+def test_aborts_on_either_shard(libs, n_model):
+    _, teng = engines_from_doc(two_shard_abort_doc())
+    tc, batch = port_batch(teng, spec_grid(n=24, seed=29))
+    out = check_tree(libs, tc, batch, n_model)
+    assert len(set(out[1][out[2] != 200].tolist())) == 2
+
+
+def test_relation_fixture(libs):
+    _, teng = make_engines("relation_policies.yml")
+    tc, batch = port_batch(teng, REL_SPECS, REL_OPS)
+    out = check_tree(libs, tc, batch, 2)
+    assert (out[0] == 1).any()
+
+
+@pytest.mark.parametrize("n_model", [4])
+def test_mixed_combining_algorithms(libs, n_model):
+    _, teng = engines_from_doc(mixed_ca_doc())
+    tc, batch = port_batch(teng, MIXED_SPECS)
+    check_tree(libs, tc, batch, n_model)
