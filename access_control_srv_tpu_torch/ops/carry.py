@@ -63,11 +63,14 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def tables_from_numpy(arrays: dict, device, keys=None
+def tables_from_numpy(arrays: dict, device, keys=None, optional=()
                       ) -> dict[str, torch.Tensor]:
     """Compiled policy arrays -> device tensors; ``keys`` limits them to
-    the ones the consumer reads (all of them when None)."""
-    names = arrays if keys is None else keys
+    the ones the consumer reads (all of them when None), ``optional``
+    adds those of its names the arrays carry (``rule_orig_flat`` of a
+    compacted subtree compiled for explain, by either package)."""
+    names = list(arrays if keys is None else keys)
+    names += [k for k in optional if k in arrays and k not in names]
     return {k: _tensor(np.asarray(arrays[k]), device) for k in names}
 
 

@@ -10,6 +10,14 @@
 // (`stage_sets`) and G (`row_program`), written once.  The plain PyTorch
 // versions they are held against: ops/kernel_ref.py, ops/prefilter_ref.py
 // and ops/shard_ref.py.
+//
+// Explain mode (the EXPLAIN template flag of row_program) adds a fourth
+// output per row, the provenance code (flat_pos << 2) | kind of
+// srv/explain.py: after stage F one warp re-derives the winning set's
+// selected policy from its contribution bytes and re-runs stage E's scan for
+// that one policy, the same selection by construction, so no per-policy
+// selection is kept in shared memory.  Explain-off instantiations run the
+// code they ran before the flag.
 
 #pragma once
 
@@ -52,6 +60,7 @@
   X(const uint8_t*, rule_cacheable_raw) X(const uint8_t*, rule_cacheable_eff) \
   X(const uint8_t*, rule_has_target) X(const int32_t*, rule_target)          \
   X(const int32_t*, rule_cond) X(const int32_t*, acl_consts)                 \
+  X(const int32_t*, rule_orig_flat)                                          \
   X(const int32_t*, r_sub_ids) X(const int32_t*, r_sub_vals)                 \
   X(const int32_t*, r_roles) X(const int32_t*, r_act_ids)                    \
   X(const int32_t*, r_act_vals) X(const int32_t*, r_ent_vals)                \
@@ -70,7 +79,8 @@
   X(const uint8_t*, rgx_set) X(const uint8_t*, pfx_neq)                      \
   X(const uint8_t*, cond_true) X(const uint8_t*, cond_abort)                 \
   X(const int32_t*, cond_code)                                               \
-  X(int32_t*, out_decision) X(int32_t*, out_cacheable) X(int32_t*, out_status)
+  X(int32_t*, out_decision) X(int32_t*, out_cacheable) X(int32_t*, out_status) \
+  X(int32_t*, out_explain)
 
 // shape ints of the dense program, in the order the host passes them
 #define ACS_DIMS(X)                                                          \
@@ -609,13 +619,15 @@ struct ChunkArgs {
 static const int kNumChunkDims = 0 ACS_CHUNK_DIMS(ACS_COUNT);
 
 // width of one merge row: K7's keys then the abort slots, K8's negated
-// last-set key then the abort slots; one slot of three ints per model
-// shard (first aborting rule in global flat order, its status code, its
-// raw cacheable + 1), INT_MAX in every slot but the shard's own, so the
-// MIN over shards is an all-gather of the slots
+// last-set key (and in explain mode its negated provenance key) then the
+// abort slots; one slot of three ints per model shard (first aborting rule
+// in global flat order, its status code, its raw cacheable + 1), INT_MAX in
+// every slot but the shard's own, so the MIN over shards is an all-gather
+// of the slots
 __host__ __device__ inline int chunk_width(int mode, int S, int KP,
-                                           int n_model) {
-  return (mode == ROW_RULE_CHUNK ? S * KP * KEY_COLS : 1) + n_model * 3;
+                                           int n_model, bool explain) {
+  return (mode == ROW_RULE_CHUNK ? S * KP * KEY_COLS : 1 + (explain ? 1 : 0)) +
+         n_model * 3;
 }
 
 // fills `ca` from a shard program's pointers (the dense list, whose three
@@ -828,6 +840,31 @@ __device__ __forceinline__ uint8_t policy_contrib(const Args& a, int p,
   return (present ? 1 : 0) | ((eff & 3) << 1) | (cach ? 8 : 0);
 }
 
+// set s's policy slot the combining algorithm selects over the
+// contribution bytes (clamped to [0, KP)), run by one warp: every lane
+// returns it; *any tells whether some policy contributed
+__device__ __forceinline__ int set_pick(int ca, int s, int KP,
+                                        const uint8_t* contrib, bool* any) {
+  const int lane = threadIdx.x & 31;
+  int first_deny = ACS_BIG, first_permit = ACS_BIG, first = ACS_BIG, last = -1;
+  for (int kp = lane; kp < KP; kp += 32) {
+    const uint8_t c8 = contrib[s * KP + kp];
+    if (!(c8 & 1)) continue;
+    const int eff = (c8 >> 1) & 3;
+    first = min(first, kp);
+    last = max(last, kp);
+    if (eff == 2) first_deny = min(first_deny, kp);
+    if (eff == 1) first_permit = min(first_permit, kp);
+  }
+  first_deny = warp_min(first_deny);
+  first_permit = warp_min(first_permit);
+  first = warp_min(first);
+  last = warp_max(last);
+  *any = last >= 0;
+  const int sel = select_pos(ca, first_deny, first_permit, first, last);
+  return min(max(sel, 0), KP - 1);
+}
+
 // stage F: policy combination per set (one warp per set) over the
 // contribution bytes -> setres[s] (eff | cach << 2) of every set with a
 // contribution, and the last such set by atomicMax on *winner
@@ -838,29 +875,46 @@ __device__ void stage_sets(const int32_t* set_ca, int S, int KP,
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   for (int s = warp; s < S; s += nwarps) {
-    int first_deny = ACS_BIG, first_permit = ACS_BIG, first = ACS_BIG, last = -1;
-    for (int kp = lane; kp < KP; kp += 32) {
+    bool any;
+    const int kp = set_pick(set_ca[s], s, KP, contrib, &any);
+    if (lane == 0 && any) {
       const uint8_t c8 = contrib[s * KP + kp];
-      if (!(c8 & 1)) continue;
-      const int eff = (c8 >> 1) & 3;
-      first = min(first, kp);
-      last = max(last, kp);
-      if (eff == 2) first_deny = min(first_deny, kp);
-      if (eff == 1) first_permit = min(first_permit, kp);
-    }
-    first_deny = warp_min(first_deny);
-    first_permit = warp_min(first_permit);
-    first = warp_min(first);
-    last = warp_max(last);
-    if (lane == 0 && last >= 0) {
-      const int sel = select_pos(set_ca[s], first_deny, first_permit,
-                                 first, last);
-      const uint8_t c8 = contrib[s * KP + min(max(sel, 0), KP - 1)];
       setres[s] = ((c8 >> 1) & 3) | (((c8 >> 3) & 1) << 2);
       atomicMax(winner, s);
     }
   }
   __syncthreads();
+}
+
+// the provenance code's fields: (pos << 2) | kind with pos non-negative
+// below 2^28 on trees that pass explain_capacity_ok; the shift runs
+// unsigned so a wrapped position wraps as JAX's int32 shift does
+__device__ __forceinline__ int explain_code(int pos, int kind) {
+  return (int)(((uint32_t)pos << 2) | (uint32_t)kind);
+}
+
+// the winning set s's deciding policy and rule, run by one warp (every
+// lane returns the same): its policy p, the rule slot its combining
+// algorithm selects (clamped to [0, KR)) and whether the policy's own
+// effect decided (no rules)
+struct ExplainPick {
+  int p, kr;
+  bool no_rules;
+};
+
+__device__ ExplainPick explain_pick(const Args& a, int b, int s,
+                                    const uint8_t* tbits,
+                                    const uint8_t* setinfo,
+                                    const uint8_t* contrib) {
+  bool any;
+  ExplainPick out;
+  out.p = s * a.KP + set_pick(a.set_ca[s], s, a.KP, contrib, &any);
+  const PolicyScan r = scan_rules(a, b, out.p, tbits, setinfo);
+  const int sel = select_pos(a.pol_ca[out.p], r.first_deny, r.first_permit,
+                             r.first, r.last);
+  out.kr = min(max(sel, 0), a.KR - 1);
+  out.no_rules = r.gate && a.pol_n_rules[out.p] == 0 && a.pol_effect[out.p] > 0;
+  return out;
 }
 
 // one abort slot per model shard into a merge row: this shard's triple in
@@ -878,9 +932,13 @@ __device__ __forceinline__ void write_abort_slots(int32_t* slots, int n_model,
 
 // one row program for request row b, run by one thread block over the
 // tables in `a`; `smem` is the block's dynamic shared memory, laid out by
-// smem_layout.  ROW_DENSE writes the decision outputs; the shard modes
-// write row b of `ch.merge` (chunk_width ints)
-template <int MODE, bool WITH_ACL, bool WITH_HR, bool WITH_REL>
+// smem_layout.  ROW_DENSE writes the decision outputs (and with EXPLAIN the
+// provenance code, rule positions mapped through rule_orig_flat when the
+// rule axis was compacted); the shard modes write row b of `ch.merge`
+// (chunk_width ints; EXPLAIN only in ROW_SET_CHUNK, where the shard's own
+// provenance rides as a key that orders like the global set position: a
+// no-rules policy's position is scaled by KR, which the tail undoes)
+template <int MODE, bool WITH_ACL, bool WITH_HR, bool WITH_REL, bool EXPLAIN>
 __device__ void row_program(const Args& a, int b, unsigned char* smem,
                             const Chunk& ch) {
   const SmemLayout L = smem_layout(a, WITH_ACL);
@@ -902,7 +960,8 @@ __device__ void row_program(const Args& a, int b, unsigned char* smem,
   const int n_pol = a.S * a.KP;
   int32_t* row = nullptr;
   if (MODE != ROW_DENSE)
-    row = ch.merge + (size_t)b * chunk_width(MODE, a.S, a.KP, ch.N_MODEL);
+    row = ch.merge +
+          (size_t)b * chunk_width(MODE, a.S, a.KP, ch.N_MODEL, EXPLAIN);
   for (int p = warp; p < n_pol; p += nwarps) {
     const PolicyScan r = scan_rules(a, b, p, tbits, setinfo);
     if (lane != 0) continue;
@@ -931,6 +990,11 @@ __device__ void row_program(const Args& a, int b, unsigned char* smem,
   if (MODE != ROW_RULE_CHUNK)
     stage_sets(a.set_ca, a.S, a.KP, contrib, setres, &scal[1]);
 
+  // ---- explain: the winning set's deciding policy and rule (warp 0)
+  ExplainPick pick = {0, 0, false};
+  if (EXPLAIN && warp == 0 && scal[1] >= 0)
+    pick = explain_pick(a, b, scal[1], tbits, setinfo, contrib);
+
   // ---- stage G
   if (tid != 0) return;
   const int winner = scal[1];
@@ -954,6 +1018,16 @@ __device__ void row_program(const Args& a, int b, unsigned char* smem,
     a.out_decision[b] = decision;
     a.out_cacheable[b] = cacheable;
     a.out_status[b] = status;
+    if (EXPLAIN) {
+      const int32_t* orig = a.rule_orig_flat;
+      const int q = pick.p * a.KR + pick.kr;
+      int code = 0;
+      if (winner >= 0)
+        code = pick.no_rules ? explain_code(pick.p, 2)
+                             : explain_code(orig ? orig[q] : q, 1);
+      if (aborted) code = explain_code(orig ? orig[abort_pos] : abort_pos, 3);
+      a.out_explain[b] = code;
+    }
     return;
   }
   // the shard modes: the abort position in GLOBAL flat rule order
@@ -966,9 +1040,20 @@ __device__ void row_program(const Args& a, int b, unsigned char* smem,
       gpos = ch.OFFSET * a.KP * a.KR + abort_pos;
     }
   }
-  int32_t* slots = row + (MODE == ROW_RULE_CHUNK ? n_pol * KEY_COLS : 1);
+  int32_t* slots =
+      row + (MODE == ROW_RULE_CHUNK ? n_pol * KEY_COLS : 1 + (EXPLAIN ? 1 : 0));
   write_abort_slots(slots, ch.N_MODEL, ch.RANK, gpos, aborted ? code : 0,
                     aborted ? cach_raw + 1 : 0);
+  if (MODE == ROW_SET_CHUNK && EXPLAIN) {
+    // this shard's provenance key, negated (0 when no set contributed)
+    int key = 0;
+    if (winner >= 0) {
+      const int pos = (ch.OFFSET * a.KP + pick.p) * a.KR +
+                      (pick.no_rules ? 0 : pick.kr);
+      key = explain_code(pos, pick.no_rules ? 2 : 1);
+    }
+    row[1] = -key;
+  }
   if (MODE == ROW_SET_CHUNK) {
     // last-set-wins across shards: the negated key of this shard's last
     // contributing set at its GLOBAL position + 1
@@ -981,9 +1066,24 @@ __device__ void row_program(const Args& a, int b, unsigned char* smem,
 }
 
 // the dense program (decide_dense.cu, decide_grouped.cu)
-template <bool WITH_ACL, bool WITH_HR, bool WITH_REL>
+template <bool WITH_ACL, bool WITH_HR, bool WITH_REL, bool EXPLAIN>
 __device__ void decide_row(const Args& a, int b, unsigned char* smem) {
-  row_program<ROW_DENSE, WITH_ACL, WITH_HR, WITH_REL>(a, b, smem, Chunk{});
+  row_program<ROW_DENSE, WITH_ACL, WITH_HR, WITH_REL, EXPLAIN>(a, b, smem,
+                                                               Chunk{});
+}
+
+// a launch's N variant flags as template arguments: Launch<Fs...>::run
+// with the flags read from `flags` one at a time (every combination is
+// instantiated)
+template <int N, template <bool...> class Launch, bool... Fs, class... A>
+static int dispatch_flags(const bool* flags, A&&... args) {
+  if constexpr (sizeof...(Fs) == N) {
+    return Launch<Fs...>::run(args...);
+  } else {
+    return flags[sizeof...(Fs)]
+               ? dispatch_flags<N, Launch, Fs..., true>(flags, args...)
+               : dispatch_flags<N, Launch, Fs..., false>(flags, args...);
+  }
 }
 
 extern "C" {

@@ -33,46 +33,40 @@
 // eligibility per HR role, instance value equality) are built once per block
 // into shared memory before stage A.
 //
+// Explain mode (decide_core.cuh row_program): after stage F warp 0
+// re-derives the winning set's policy and re-scans that policy's rules, and
+// thread 0 writes the provenance code as a fourth output (the JAX
+// program's explain recovery, ops/kernel.py:1165-1185).
+//
 // The policy tables and request arrays are kernel arguments (one struct of
-// device pointers plus the shape ints); with_acl / with_hr / with_rel are
-// template parameters (8 variants).  Bools arrive as uint8.  The relation
+// device pointers plus the shape ints); with_acl / with_hr / with_rel /
+// explain are template parameters (16 variants).  Bools arrive as uint8.  The relation
 // planes' width (NRU_REL) comes from their shapes, so the 1-wide dummy
 // planes of a batch encoded without relation bits are read as they are.  The kernel allocates nothing.
 
 #include "decide_core.cuh"
 
-template <bool WITH_ACL, bool WITH_HR, bool WITH_REL>
+template <bool WITH_ACL, bool WITH_HR, bool WITH_REL, bool EXPLAIN>
 __global__ void decide_dense_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  decide_row<WITH_ACL, WITH_HR, WITH_REL>(a, blockIdx.x, smem);
+  decide_row<WITH_ACL, WITH_HR, WITH_REL, EXPLAIN>(a, blockIdx.x, smem);
 }
 
-template <bool WITH_ACL, bool WITH_HR, bool WITH_REL>
-static int launch(const Args& a, size_t smem, int threads, cudaStream_t stream) {
-  auto kernel = decide_dense_kernel<WITH_ACL, WITH_HR, WITH_REL>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+// one launch of the variant (with_acl, with_hr, with_rel, explain)
+template <bool... F>
+struct DenseLaunch {
+  static int run(const Args& a, size_t smem, int threads,
+                 cudaStream_t stream) {
+    auto kernel = decide_dense_kernel<F...>;
+    if (smem > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    kernel<<<a.B, threads, smem, stream>>>(a);
+    return (int)cudaGetLastError();
   }
-  kernel<<<a.B, threads, smem, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// the variant of the flags: with_acl x with_hr x with_rel
-static int dispatch(const Args& a, size_t smem, int threads, cudaStream_t s,
-                    bool acl, bool hr, bool rel) {
-  if (acl) {
-    if (hr) return rel ? launch<true, true, true>(a, smem, threads, s)
-                       : launch<true, true, false>(a, smem, threads, s);
-    return rel ? launch<true, false, true>(a, smem, threads, s)
-               : launch<true, false, false>(a, smem, threads, s);
-  }
-  if (hr) return rel ? launch<false, true, true>(a, smem, threads, s)
-                     : launch<false, true, false>(a, smem, threads, s);
-  return rel ? launch<false, false, true>(a, smem, threads, s)
-             : launch<false, false, false>(a, smem, threads, s);
-}
+};
 
 extern "C" {
 
@@ -89,17 +83,20 @@ long long acs_decide_dense_smem(const int32_t* dims, int n_dims, int with_acl) {
 }
 
 // launches the kernel on `stream`; returns cudaGetLastError() after the
-// launch, or -1 when the argument counts do not match this build
+// launch, or -1 when the argument counts do not match this build or the
+// explain variant has no output to write
 int acs_decide_dense(const int64_t* ptrs, int n_ptrs, const int32_t* dims,
                      int n_dims, int with_acl, int with_hr, int with_rel,
-                     int threads, void* stream) {
+                     int explain, int threads, void* stream) {
   Args a;
   if (!fill_args(&a, ptrs, n_ptrs, dims, n_dims)) return -1;
+  if (explain && a.out_explain == nullptr) return -1;
   if (a.B == 0) return 0;
   const size_t smem = smem_layout(a, with_acl != 0).total;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return dispatch(a, smem, threads, s, with_acl != 0, with_hr != 0,
-                  with_rel != 0);
+  const bool flags[4] = {with_acl != 0, with_hr != 0, with_rel != 0,
+                         explain != 0};
+  return dispatch_flags<4, DenseLaunch>(
+      flags, a, smem, threads, reinterpret_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

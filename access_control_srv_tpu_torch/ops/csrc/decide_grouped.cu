@@ -20,7 +20,10 @@
 // arrays; the group-invariant policy/set metadata and the batch arrays are
 // as in the dense kernel.  The host chooses the with_rel variant from the
 // stacked subtrees (as the JAX runner keys on tree_needs_rel(stacked)), so a
-// batch whose groups carry no relation rows runs the plain variant.
+// batch whose groups carry no relation rows runs the plain variant.  In
+// explain mode the stacked rule_orig_flat (each compacted slot's original
+// flat position, group-varying like the rule arrays) maps the winning rule
+// back to the uncompacted tree, as the JAX runner's recovery does.
 
 #include "decide_core.cuh"
 
@@ -49,43 +52,33 @@ __device__ __forceinline__ Args group_view(const Args& a, int g) {
   v.rule_valid += rules; v.rule_effect += rules;
   v.rule_cacheable_raw += rules; v.rule_cacheable_eff += rules;
   v.rule_has_target += rules; v.rule_target += rules; v.rule_cond += rules;
+  if (a.rule_orig_flat != nullptr) v.rule_orig_flat += rules;
   return v;
 }
 
-template <bool WITH_ACL, bool WITH_HR, bool WITH_REL>
+template <bool WITH_ACL, bool WITH_HR, bool WITH_REL, bool EXPLAIN>
 __global__ void decide_grouped_kernel(const GroupedArgs ga) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x;
-  decide_row<WITH_ACL, WITH_HR, WITH_REL>(group_view(ga.a, ga.g_idx[b]), b, smem);
+  decide_row<WITH_ACL, WITH_HR, WITH_REL, EXPLAIN>(
+      group_view(ga.a, ga.g_idx[b]), b, smem);
 }
 
-template <bool WITH_ACL, bool WITH_HR, bool WITH_REL>
-static int launch(const GroupedArgs& ga, size_t smem, int threads,
-                  cudaStream_t stream) {
-  auto kernel = decide_grouped_kernel<WITH_ACL, WITH_HR, WITH_REL>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+// one launch of the variant (with_acl, with_hr, with_rel, explain)
+template <bool... F>
+struct GroupedLaunch {
+  static int run(const GroupedArgs& ga, size_t smem, int threads,
+                 cudaStream_t stream) {
+    auto kernel = decide_grouped_kernel<F...>;
+    if (smem > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    kernel<<<ga.a.B, threads, smem, stream>>>(ga);
+    return (int)cudaGetLastError();
   }
-  kernel<<<ga.a.B, threads, smem, stream>>>(ga);
-  return (int)cudaGetLastError();
-}
-
-// the variant of the flags: with_acl x with_hr x with_rel
-static int dispatch(const GroupedArgs& ga, size_t smem, int threads,
-                    cudaStream_t s, bool acl, bool hr, bool rel) {
-  if (acl) {
-    if (hr) return rel ? launch<true, true, true>(ga, smem, threads, s)
-                       : launch<true, true, false>(ga, smem, threads, s);
-    return rel ? launch<true, false, true>(ga, smem, threads, s)
-               : launch<true, false, false>(ga, smem, threads, s);
-  }
-  if (hr) return rel ? launch<false, true, true>(ga, smem, threads, s)
-                     : launch<false, true, false>(ga, smem, threads, s);
-  return rel ? launch<false, false, true>(ga, smem, threads, s)
-             : launch<false, false, false>(ga, smem, threads, s);
-}
+};
 
 extern "C" {
 
@@ -104,20 +97,23 @@ long long acs_decide_grouped_smem(const int32_t* dims, int n_dims,
 
 // launches the kernel on `stream`: the dense program's pointers, then
 // g_idx; returns cudaGetLastError() after the launch, or -1 when the
-// argument counts do not match this build
+// argument counts do not match this build or the explain variant has no
+// output to write
 int acs_decide_grouped(const int64_t* ptrs, int n_ptrs, const int32_t* dims,
                        int n_dims, int with_acl, int with_hr, int with_rel,
-                       int threads, void* stream) {
+                       int explain, int threads, void* stream) {
   GroupedArgs ga;
   if (n_ptrs != kNumPtrs + 1 ||
       !fill_args(&ga.a, ptrs, kNumPtrs, dims, n_dims))
     return -1;
   ga.g_idx = reinterpret_cast<const int32_t*>(ptrs[kNumPtrs]);
+  if (explain && ga.a.out_explain == nullptr) return -1;
   if (ga.a.B == 0) return 0;
   const size_t smem = smem_layout(ga.a, with_acl != 0).total;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return dispatch(ga, smem, threads, s, with_acl != 0, with_hr != 0,
-                  with_rel != 0);
+  const bool flags[4] = {with_acl != 0, with_hr != 0, with_rel != 0,
+                         explain != 0};
+  return dispatch_flags<4, GroupedLaunch>(
+      flags, ga, smem, threads, reinterpret_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

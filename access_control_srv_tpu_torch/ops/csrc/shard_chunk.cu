@@ -55,47 +55,46 @@
 // costs what the dense kernel costs on a quarter of the rules and a set
 // shard what it costs on its own sets (a set shard holds whole sets, so
 // the shards' work is as uneven as the sets are); only the stage after E
-// (rule_chunk) or F (set_chunk) differs.  The mode and with_acl / with_hr
-// / with_rel are template parameters (16 variants).  The kernel allocates
-// nothing.
+// (rule_chunk) or F (set_chunk) differs.  In explain mode set_chunk also
+// writes the negated provenance key of the shard's last contributing set
+// after its set key (decide_core.cuh row_program); the MIN merge then
+// leaves the owner's, with no second collective.  The mode and with_acl /
+// with_hr / with_rel (and for set_chunk explain) are template parameters
+// (24 variants).  The kernel allocates nothing.
 
 #include "decide_core.cuh"
 
-template <int MODE, bool WITH_ACL, bool WITH_HR, bool WITH_REL>
+template <int MODE, bool WITH_ACL, bool WITH_HR, bool WITH_REL, bool EXPLAIN>
 __global__ void shard_chunk_kernel(const ChunkArgs ca) {
   extern __shared__ __align__(16) unsigned char smem[];
-  row_program<MODE, WITH_ACL, WITH_HR, WITH_REL>(ca.a, blockIdx.x, smem,
-                                                 ca.ch);
+  row_program<MODE, WITH_ACL, WITH_HR, WITH_REL, EXPLAIN>(ca.a, blockIdx.x,
+                                                          smem, ca.ch);
 }
 
-template <int MODE, bool WITH_ACL, bool WITH_HR, bool WITH_REL>
-static int launch(const ChunkArgs& ca, size_t smem, int threads,
-                  cudaStream_t stream) {
-  auto kernel = shard_chunk_kernel<MODE, WITH_ACL, WITH_HR, WITH_REL>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kernel<<<ca.a.B, threads, smem, stream>>>(ca);
-  return (int)cudaGetLastError();
-}
-
-// the variant of the flags: with_acl x with_hr x with_rel
+// one launch in MODE of the variant (with_acl, with_hr, with_rel,
+// explain); the rule-chunk mode has no explain variant
 template <int MODE>
-static int dispatch(const ChunkArgs& ca, size_t smem, int threads,
-                    cudaStream_t s, bool acl, bool hr, bool rel) {
-  if (acl) {
-    if (hr) return rel ? launch<MODE, true, true, true>(ca, smem, threads, s)
-                       : launch<MODE, true, true, false>(ca, smem, threads, s);
-    return rel ? launch<MODE, true, false, true>(ca, smem, threads, s)
-               : launch<MODE, true, false, false>(ca, smem, threads, s);
-  }
-  if (hr) return rel ? launch<MODE, false, true, true>(ca, smem, threads, s)
-                     : launch<MODE, false, true, false>(ca, smem, threads, s);
-  return rel ? launch<MODE, false, false, true>(ca, smem, threads, s)
-             : launch<MODE, false, false, false>(ca, smem, threads, s);
-}
+struct ChunkLaunch {
+  template <bool... F>
+  struct Variant {
+    static int run(const ChunkArgs& ca, size_t smem, int threads,
+                   cudaStream_t stream) {
+      constexpr bool flags[] = {F...};
+      if constexpr (MODE == ROW_RULE_CHUNK && flags[3]) {
+        return -1;
+      } else {
+        auto kernel = shard_chunk_kernel<MODE, F...>;
+        if (smem > 48 * 1024) {
+          cudaError_t err = cudaFuncSetAttribute(
+              kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+          if (err != cudaSuccess) return (int)err;
+        }
+        kernel<<<ca.a.B, threads, smem, stream>>>(ca);
+        return (int)cudaGetLastError();
+      }
+    }
+  };
+};
 
 extern "C" {
 
@@ -116,22 +115,27 @@ long long acs_shard_chunk_smem(const int32_t* dims, int n_dims,
   return (long long)smem_layout(a, with_acl != 0).total;
 }
 
-// launches the kernel on `stream` in `mode` (1: rule_chunk, 2: set_chunk);
-// returns cudaGetLastError() after the launch, or -1 when the argument
-// counts or the mode do not match this build
+// launches the kernel on `stream` in `mode` (1: rule_chunk, 2: set_chunk;
+// explain only in set_chunk mode, where the merge row carries one more
+// column); returns cudaGetLastError() after the launch, or -1 when the
+// argument counts, the mode or the explain flag do not match this build
 int acs_shard_chunk(const int64_t* ptrs, int n_ptrs, const int32_t* dims,
                     int n_dims, int mode, int with_acl, int with_hr,
-                    int with_rel, int threads, void* stream) {
+                    int with_rel, int explain, int threads, void* stream) {
   ChunkArgs ca;
   if (!fill_chunk_args(&ca, ptrs, n_ptrs, dims, n_dims)) return -1;
   if (mode != ROW_RULE_CHUNK && mode != ROW_SET_CHUNK) return -1;
+  if (explain && mode != ROW_SET_CHUNK) return -1;
   if (ca.a.B == 0) return 0;
   const size_t smem = smem_layout(ca.a, with_acl != 0).total;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const bool acl = with_acl != 0, hr = with_hr != 0, rel = with_rel != 0;
+  const bool flags[4] = {with_acl != 0, with_hr != 0, with_rel != 0,
+                         explain != 0};
   if (mode == ROW_RULE_CHUNK)
-    return dispatch<ROW_RULE_CHUNK>(ca, smem, threads, s, acl, hr, rel);
-  return dispatch<ROW_SET_CHUNK>(ca, smem, threads, s, acl, hr, rel);
+    return dispatch_flags<4, ChunkLaunch<ROW_RULE_CHUNK>::Variant>(
+        flags, ca, smem, threads, s);
+  return dispatch_flags<4, ChunkLaunch<ROW_SET_CHUNK>::Variant>(
+      flags, ca, smem, threads, s);
 }
 
 }  // extern "C"

@@ -25,7 +25,14 @@
 // Both then take the first aborting rule over the N_MODEL slots (the
 // least global flat position; positions are unique) and let it preempt:
 // DENY, its cacheable, its status code.  Outputs are int32 [3, B]:
-// decision, cacheable (-1 none), status.
+// decision, cacheable (-1 none), status; with EXPLAIN (a template
+// parameter, the host's `explain`) a fourth, the provenance code of
+// srv/explain.py, with rule positions in strides (KP, KR): in K7 mode the
+// winning set's selected policy is re-derived by one warp and its merged
+// selection key names the GLOBAL rule (KR the padded kr_total), as the JAX
+// program's recovery does with no extra collective; in K8 mode the merged
+// provenance key is the owning shard's (its no-rules positions scaled by
+// KR, which is divided back out here); an abort names the aborting rule.
 //
 // What bounds it: bytes, each merge row read once and three int32
 // written (well under a microsecond at 3.35 TB/s for the shard-scale
@@ -44,9 +51,10 @@
   X(const int32_t*, merge) X(const int32_t*, pol_ca)                         \
   X(const int32_t*, pol_effect) X(const uint8_t*, pol_cacheable)             \
   X(const int32_t*, pol_n_rules) X(const int32_t*, set_ca)                   \
-  X(int32_t*, out_decision) X(int32_t*, out_cacheable) X(int32_t*, out_status)
+  X(int32_t*, out_decision) X(int32_t*, out_cacheable) X(int32_t*, out_status) \
+  X(int32_t*, out_explain)
 
-#define TAIL_DIMS(X) X(B) X(S) X(KP) X(N_MODEL)
+#define TAIL_DIMS(X) X(B) X(S) X(KP) X(N_MODEL) X(KR)
 
 struct TailArgs {
   TAIL_PTRS(ACS_FIELD)
@@ -63,35 +71,45 @@ __host__ __device__ inline size_t tail_smem(const TailArgs& t, int mode) {
   return align_up(sizeof(int32_t) + (size_t)t.S * t.KP + t.S, 16);
 }
 
+// policy p's selected merged key (the combining algorithm's pick, 0 when
+// none) from its merged keys; *any: some rule was collected, *no_rules:
+// the policy's own effect contributes
+__device__ __forceinline__ int merged_sel(const TailArgs& t,
+                                          const int32_t* k, int p,
+                                          bool* any, bool* no_rules) {
+  const int k_last = -k[3];
+  *any = k_last > 0;
+  // the last key packs pos + 1: minus 8 aligns it with the first keys
+  const int fallback = *any ? k_last - 8 : 0;
+  const int sel_do = k[0] < ACS_BIGKEY ? k[0] : fallback;
+  const int sel_po = k[1] < ACS_BIGKEY ? k[1] : fallback;
+  const int sel_fa = k[2] < ACS_BIGKEY ? k[2] : 0;
+  const int ca = t.pol_ca[p];
+  *no_rules = k[4] != 0 && t.pol_n_rules[p] == 0 && t.pol_effect[p] > 0;
+  return ca == 0 ? sel_do : (ca == 1 ? sel_po : (ca == 2 ? sel_fa : 0));
+}
+
 // policy p's contribution byte (present | eff << 1 | cach << 3) from its
 // merged keys: the combining algorithm's pick, or the policy's own effect
 // when it has no rules
 __device__ __forceinline__ uint8_t merged_contrib(const TailArgs& t,
                                                   const int32_t* k, int p) {
-  const int k_last = -k[3];
-  const bool any = k_last > 0;
-  // the last key packs pos + 1: minus 8 aligns it with the first keys
-  const int fallback = any ? k_last - 8 : 0;
-  const int sel_do = k[0] < ACS_BIGKEY ? k[0] : fallback;
-  const int sel_po = k[1] < ACS_BIGKEY ? k[1] : fallback;
-  const int sel_fa = k[2] < ACS_BIGKEY ? k[2] : 0;
-  const int ca = t.pol_ca[p];
-  const int sel = ca == 0 ? sel_do : (ca == 1 ? sel_po : (ca == 2 ? sel_fa : 0));
-  const bool no_rules = k[4] != 0 && t.pol_n_rules[p] == 0 && t.pol_effect[p] > 0;
+  bool any, no_rules;
+  const int sel = merged_sel(t, k, p, &any, &no_rules);
   const bool present = no_rules || any;
   const int eff = no_rules ? t.pol_effect[p] : (sel >> 1) & 3;
   const bool cach = no_rules ? t.pol_cacheable[p] != 0 : (sel & 1) != 0;
   return (present ? 1 : 0) | ((eff & 3) << 1) | (cach ? 8 : 0);
 }
 
-template <int MODE>
+template <int MODE, bool EXPLAIN>
 __global__ void shard_tail_kernel(const TailArgs t) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int32_t* row =
-      t.merge + (size_t)b * chunk_width(MODE, t.S, t.KP, t.N_MODEL);
-  int decision = 0, cacheable = -1, status = 200;
+      t.merge + (size_t)b * chunk_width(MODE, t.S, t.KP, t.N_MODEL, EXPLAIN);
+  int decision = 0, cacheable = -1, status = 200, code = 0;
   if (MODE == ROW_RULE_CHUNK) {
     int32_t* winner = reinterpret_cast<int32_t*>(smem);
     uint8_t* contrib = smem + sizeof(int32_t);
@@ -101,10 +119,20 @@ __global__ void shard_tail_kernel(const TailArgs t) {
       contrib[p] = merged_contrib(t, row + p * KEY_COLS, p);
     __syncthreads();
     stage_sets(t.set_ca, t.S, t.KP, contrib, setres, winner);
+    const int s = *winner;
+    if (EXPLAIN && tid < 32 && s >= 0) {
+      // the winning set's selected policy (warp 0), then its merged key:
+      // the GLOBAL rule position rides in the key's high bits
+      bool any, no_rules;
+      const int p = s * t.KP + set_pick(t.set_ca[s], s, t.KP, contrib, &any);
+      const int sel = merged_sel(t, row + p * KEY_COLS, p, &any, &no_rules);
+      code = no_rules ? explain_code(p, 2)
+                      : explain_code(p * t.KR + (sel >> 3), 1);
+    }
     if (tid != 0) return;
-    if (*winner >= 0) {
-      decision = setres[*winner] & 3;
-      cacheable = (setres[*winner] >> 2) & 1;
+    if (s >= 0) {
+      decision = setres[s] & 3;
+      cacheable = (setres[s] >> 2) & 1;
     }
   } else {
     if (tid != 0) return;
@@ -113,10 +141,16 @@ __global__ void shard_tail_kernel(const TailArgs t) {
       decision = (k_win >> 1) & 3;
       cacheable = k_win & 1;
     }
+    if (EXPLAIN) {
+      // the owner's key: a no-rules position scaled by KR comes back
+      const int key = -row[1];
+      code = (key & 3) == 2 ? explain_code((key >> 2) / max(t.KR, 1), 2) : key;
+    }
   }
   // condition aborts: the least global flat position over the shards'
   // slots preempts everything
-  const int32_t* slots = row + (MODE == ROW_RULE_CHUNK ? t.S * t.KP * KEY_COLS : 1);
+  const int32_t* slots =
+      row + (MODE == ROW_RULE_CHUNK ? t.S * t.KP * KEY_COLS : 1 + (EXPLAIN ? 1 : 0));
   int best = ACS_INT_MAX, owner = 0;
   for (int d = 0; d < t.N_MODEL; ++d) {
     if (slots[d * 3] < best) {
@@ -128,15 +162,17 @@ __global__ void shard_tail_kernel(const TailArgs t) {
     decision = 2;
     cacheable = slots[owner * 3 + 2] - 1;
     status = slots[owner * 3 + 1];
+    code = explain_code(best, 3);
   }
   t.out_decision[b] = decision;
   t.out_cacheable[b] = cacheable;
   t.out_status[b] = status;
+  if (EXPLAIN) t.out_explain[b] = code;
 }
 
-template <int MODE>
+template <int MODE, bool EXPLAIN>
 static int launch(const TailArgs& t, int threads, cudaStream_t stream) {
-  auto kernel = shard_tail_kernel<MODE>;
+  auto kernel = shard_tail_kernel<MODE, EXPLAIN>;
   const size_t smem = tail_smem(t, MODE);
   kernel<<<t.B, threads, smem, stream>>>(t);
   return (int)cudaGetLastError();
@@ -150,10 +186,12 @@ const char* acs_shard_tail_layout() {
 }
 
 // launches the kernel on `stream` in `mode` (1: the rule-sharded tail,
-// 2: the pod-sharded tail); returns cudaGetLastError() after the launch,
-// or -1 when the argument counts or the mode do not match this build
+// 2: the pod-sharded tail), with the provenance output when `explain`;
+// returns cudaGetLastError() after the launch, or -1 when the argument
+// counts or the mode do not match this build
 int acs_shard_tail(const int64_t* ptrs, int n_ptrs, const int32_t* dims,
-                   int n_dims, int mode, int threads, void* stream) {
+                   int n_dims, int mode, int explain, int threads,
+                   void* stream) {
   if (n_ptrs != kNumTailPtrs || n_dims != kNumTailDims) return -1;
   TailArgs t;
   int i = 0;
@@ -162,10 +200,15 @@ int acs_shard_tail(const int64_t* ptrs, int n_ptrs, const int32_t* dims,
   TAIL_PTRS(TAIL_SET_PTR)
   i = 0;
   TAIL_DIMS(TAIL_SET_DIM)
+  if (explain && t.out_explain == nullptr) return -1;
   if (t.B == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (mode == ROW_RULE_CHUNK) return launch<ROW_RULE_CHUNK>(t, threads, s);
-  if (mode == ROW_SET_CHUNK) return launch<ROW_SET_CHUNK>(t, threads, s);
+  if (mode == ROW_RULE_CHUNK)
+    return explain ? launch<ROW_RULE_CHUNK, true>(t, threads, s)
+                   : launch<ROW_RULE_CHUNK, false>(t, threads, s);
+  if (mode == ROW_SET_CHUNK)
+    return explain ? launch<ROW_SET_CHUNK, true>(t, threads, s)
+                   : launch<ROW_SET_CHUNK, false>(t, threads, s);
   return -1;
 }
 

@@ -33,6 +33,16 @@
 // three outputs at its original position: only real grid positions store
 // (gp_orig[grid2row[p]] == p), pad positions read row 0 and must not
 // overwrite it.
+//
+// Explain mode (the EXPLAIN template flag; the JAX package's
+// _combine_and_decide_flat recovery, ops/kernel.py:920-944): the set loop
+// remembers the last contributing set, its selected policy and the gates
+// that policy was scanned under; after the loop lane 0 walks that one
+// policy's rules again (the same selection by construction), reads the
+// winner's within-set position as key >> 3 and maps it through the group's
+// rule_orig_flat (clamped, as JAX clips the take) to the uncompacted tree.
+// The fourth output is the provenance code (flat_pos << 2) | kind of
+// srv/explain.py.
 
 #include "decide_core.cuh"
 
@@ -46,6 +56,7 @@
   X(const uint8_t*, rule_valid) X(const int32_t*, rule_effect)               \
   X(const uint8_t*, rule_cacheable_raw) X(const uint8_t*, rule_cacheable_eff) \
   X(const uint8_t*, rule_has_target) X(const int32_t*, rule_cond)            \
+  X(const int32_t*, rule_orig_flat)                                          \
   X(const uint8_t*, rl_ex) X(const uint8_t*, rl_rg)                          \
   X(const int32_t*, rl_role) X(const uint8_t*, rl_has_role)                  \
   X(const int32_t*, rl_n_sub) X(const int32_t*, rl_sub_ids)                  \
@@ -67,7 +78,8 @@
   X(const int32_t*, pl_rel_idx) X(const uint8_t*, pl_rel_dir)                \
   X(const int32_t*, slot_g) X(const int32_t*, mega_rows)                     \
   X(const int32_t*, grid2row) X(const int32_t*, gp_orig)                     \
-  X(int32_t*, out_decision) X(int32_t*, out_cacheable) X(int32_t*, out_status)
+  X(int32_t*, out_decision) X(int32_t*, out_cacheable) X(int32_t*, out_status) \
+  X(int32_t*, out_explain)
 
 #define SD_DIMS(X)                                                           \
   X(NSLOT) X(R) X(S) X(KP) X(KR) X(KS) X(NR) X(NOP) X(WROW) X(NSUB)          \
@@ -160,6 +172,7 @@ __device__ __forceinline__ DecArgs group_view(const DecArgs& a, int g) {
   v.rule_valid += rules; v.rule_effect += rules;
   v.rule_cacheable_raw += rules; v.rule_cacheable_eff += rules;
   v.rule_has_target += rules; v.rule_cond += rules;
+  if (a.rule_orig_flat != nullptr) v.rule_orig_flat += rules;
   v.rl_ex += rules; v.rl_rg += rules; v.rl_role += rules;
   v.rl_has_role += rules; v.rl_n_sub += rules;
   v.rl_sub_ids += rules * a.KS; v.rl_sub_vals += rules * a.KS;
@@ -198,14 +211,100 @@ __device__ __forceinline__ int policy_planes(const DecArgs& v, const Row& r,
          (v.pp_rg_p[p] ? 4 : 0) | (v.pp_rg_d[p] ? 8 : 0);
 }
 
-// decides one row against group view v; every lane of the warp calls it
-// (the warp reductions need all 32), lane 0 holds the result
+// policy p (= s * KP + kp) of one row, scanned by one lane: its rules in
+// order under the set gate and the policy-plane bit tm_bit, the first-DENY /
+// first-PERMIT / first / last collected rule as packed keys (within-set
+// position kp * KR + kr << 3 | effect << 1 | cacheable), the key its
+// combining algorithm selects (an unknown algorithm selects key 0, effect 0,
+// as the flat JAX combine does; compile refuses one on a policy that has
+// rules), whether the policy's own effect contributes, and the first
+// aborting rule folded into *abort_pos
+struct PolicySel {
+  int sel, last;
+  bool no_rules;
+};
+
 template <bool WITH_HR, bool WITH_REL>
-__device__ void decide_sig_row(const DecArgs& v, const Row& r, int lane,
-                               int* decision, int* cacheable, int* status) {
+__device__ __forceinline__ PolicySel scan_policy(const DecArgs& v,
+                                                 const Row& r, int p, int kp,
+                                                 bool set_gate, int tm_bit,
+                                                 int* abort_pos) {
   const int KR = v.KR;
+  const bool pv = v.pol_valid[p];
+  const bool pol_gate =
+      (!v.pol_has_target[p] || (policy_planes(v, r, p) & tm_bit)) && pv;
+  const bool scope = set_gate && pol_gate;
+  bool pol_subject = true;
+  if (WITH_HR && v.pol_has_subjects[p])
+    pol_subject = hr_pass(v, r, v.pl_triv[p], v.pl_rs[p], v.pl_hrchk[p],
+                          v.pl_collect + (size_t)p * v.NR,
+                          v.pl_op_hit + (size_t)p * v.NOP);
+  if (WITH_REL && pol_subject && v.pol_has_subjects[p])
+    pol_subject = rel_pass(v, r, v.pl_rel_idx[p], v.pl_rel_dir[p],
+                           v.pl_collect + (size_t)p * v.NR);
+  int first_deny = ACS_BIG, first_permit = ACS_BIG, first = ACS_BIG;
+  int last = -1;
+  for (int kr = 0; kr < KR && scope; ++kr) {
+    const size_t q = (size_t)p * KR + kr;
+    if (!v.rule_valid[q]) continue;
+    const bool rht = v.rule_has_target[q];
+    bool reached = true;
+    if (rht) {
+      reached = (v.rl_ex[q] || v.rl_rg[q]) &&
+                sub_fold(v, r, v.rl_n_sub[q], v.rl_has_role[q],
+                         v.rl_role[q], v.rl_sub_ids + q * v.KS,
+                         v.rl_sub_vals + q * v.KS);
+      if (WITH_HR && reached)
+        reached = hr_pass(v, r, v.rl_triv[q], v.rl_rs[q], v.rl_hrchk[q],
+                          v.rl_collect + q * v.NR,
+                          v.rl_op_hit + q * v.NOP);
+      if (WITH_REL && reached)
+        reached = rel_pass(v, r, v.rl_rel_idx[q], v.rl_rel_dir[q],
+                           v.rl_collect + q * v.NR);
+    }
+    if (!reached) continue;
+    const int ci = v.rule_cond[q];
+    bool ct = true, cab = false;
+    if (ci >= 0 && v.C > 0) {
+      ct = r.cond_true[ci] != 0;
+      cab = r.cond_abort[ci] != 0;
+    }
+    if (ci >= 0 && cab) {
+      *abort_pos = min(*abort_pos, (int)q);
+      continue;
+    }
+    const bool acl = !rht || v.rl_skip[q] || r.acl_row;
+    if ((ci < 0 || ct) && acl && pol_subject) {
+      const int eff = v.rule_effect[q];
+      const int key = ((kp * KR + kr) << 3) | (eff << 1) |
+                      (v.rule_cacheable_eff[q] ? 1 : 0);
+      first = min(first, key);
+      last = max(last, key);
+      if (eff == 2) first_deny = min(first_deny, key);
+      if (eff == 1) first_permit = min(first_permit, key);
+    }
+  }
+  PolicySel out;
+  out.sel = select_pos(v.pol_ca[p], first_deny, first_permit, first, last);
+  out.last = last;
+  out.no_rules = pv && set_gate && pol_gate && v.pol_n_rules[p] == 0 &&
+                 v.pol_effect[p] > 0;
+  return out;
+}
+
+// decides one row against group view v; every lane of the warp calls it
+// (the warp reductions need all 32), lane 0 holds the result (and with
+// EXPLAIN the provenance code)
+template <bool WITH_HR, bool WITH_REL, bool EXPLAIN>
+__device__ void decide_sig_row(const DecArgs& v, const Row& r, int lane,
+                               int* decision, int* cacheable, int* status,
+                               int* code) {
   int win_key = -1;  // (effect << 1 | cacheable) of the last contributing set
   int abort_pos = ACS_BIG;
+  // explain: the last contributing set, its selected policy and the gates
+  // that policy was scanned under
+  int win_s = -1, win_kp = 0, win_tm = 0;
+  bool win_gate = false;
   for (int s = 0; s < v.S; ++s) {
     const bool sl_sub = sub_fold(v, r, v.sl_n_sub[s], v.sl_has_role[s],
                                  v.sl_role[s], v.sl_sub_ids + (size_t)s * v.KS,
@@ -237,71 +336,13 @@ __device__ void decide_sig_row(const DecArgs& v, const Row& r, int lane,
     int p_first_deny = ACS_BIG, p_first_permit = ACS_BIG;
     int p_first = ACS_BIG, p_last = -1, key0 = 0;
     for (int kp = lane; kp < v.KP; kp += 32) {
+      const PolicySel q = scan_policy<WITH_HR, WITH_REL>(
+          v, r, s * v.KP + kp, kp, set_gate, tm_bit, &abort_pos);
       const int p = s * v.KP + kp;
-      const bool pv = v.pol_valid[p];
-      const bool pol_gate =
-          (!v.pol_has_target[p] || (policy_planes(v, r, p) & tm_bit)) && pv;
-      const bool scope = set_gate && pol_gate;
-      bool pol_subject = true;
-      if (WITH_HR && v.pol_has_subjects[p])
-        pol_subject = hr_pass(v, r, v.pl_triv[p], v.pl_rs[p], v.pl_hrchk[p],
-                              v.pl_collect + (size_t)p * v.NR,
-                              v.pl_op_hit + (size_t)p * v.NOP);
-      if (WITH_REL && pol_subject && v.pol_has_subjects[p])
-        pol_subject = rel_pass(v, r, v.pl_rel_idx[p], v.pl_rel_dir[p],
-                               v.pl_collect + (size_t)p * v.NR);
-      int first_deny = ACS_BIG, first_permit = ACS_BIG, first = ACS_BIG;
-      int last = -1;
-      for (int kr = 0; kr < KR && scope; ++kr) {
-        const size_t q = (size_t)p * KR + kr;
-        if (!v.rule_valid[q]) continue;
-        const bool rht = v.rule_has_target[q];
-        bool reached = true;
-        if (rht) {
-          reached = (v.rl_ex[q] || v.rl_rg[q]) &&
-                    sub_fold(v, r, v.rl_n_sub[q], v.rl_has_role[q],
-                             v.rl_role[q], v.rl_sub_ids + q * v.KS,
-                             v.rl_sub_vals + q * v.KS);
-          if (WITH_HR && reached)
-            reached = hr_pass(v, r, v.rl_triv[q], v.rl_rs[q], v.rl_hrchk[q],
-                              v.rl_collect + q * v.NR,
-                              v.rl_op_hit + q * v.NOP);
-          if (WITH_REL && reached)
-            reached = rel_pass(v, r, v.rl_rel_idx[q], v.rl_rel_dir[q],
-                               v.rl_collect + q * v.NR);
-        }
-        if (!reached) continue;
-        const int ci = v.rule_cond[q];
-        bool ct = true, cab = false;
-        if (ci >= 0 && v.C > 0) {
-          ct = r.cond_true[ci] != 0;
-          cab = r.cond_abort[ci] != 0;
-        }
-        if (ci >= 0 && cab) {
-          abort_pos = min(abort_pos, (int)q);
-          continue;
-        }
-        const bool acl = !rht || v.rl_skip[q] || r.acl_row;
-        if ((ci < 0 || ct) && acl && pol_subject) {
-          const int eff = v.rule_effect[q];
-          const int key = ((kp * KR + kr) << 3) | (eff << 1) |
-                          (v.rule_cacheable_eff[q] ? 1 : 0);
-          first = min(first, key);
-          last = max(last, key);
-          if (eff == 2) first_deny = min(first_deny, key);
-          if (eff == 1) first_permit = min(first_permit, key);
-        }
-      }
-      // an unknown algorithm selects key 0 (effect 0), as the flat JAX
-      // combine does; compile refuses one on a policy that has rules
-      const int sel = select_pos(v.pol_ca[p], first_deny, first_permit,
-                                 first, last);
-      const bool no_rules = pv && set_gate && pol_gate &&
-                            v.pol_n_rules[p] == 0 && v.pol_effect[p] > 0;
-      const bool present = no_rules || last >= 0;
-      const int payload = no_rules ? ((v.pol_effect[p] << 1) |
-                                      (v.pol_cacheable[p] ? 1 : 0))
-                                   : (sel & 7);
+      const bool present = q.no_rules || q.last >= 0;
+      const int payload = q.no_rules ? ((v.pol_effect[p] << 1) |
+                                        (v.pol_cacheable[p] ? 1 : 0))
+                                     : (q.sel & 7);
       if (kp == 0) key0 = payload;
       if (present) {
         const int pkey = (kp << 3) | payload;
@@ -319,10 +360,17 @@ __device__ void decide_sig_row(const DecArgs& v, const Row& r, int lane,
     key0 = warp_max(lane == 0 ? key0 : 0);
     if (p_last >= 0) {  // the set contributes: last set wins
       const int ca = v.set_ca[s];
-      const int sel = ca == 0 || ca == 1 || ca == 2
+      const bool known = ca == 0 || ca == 1 || ca == 2;
+      const int sel = known
           ? select_pos(ca, p_first_deny, p_first_permit, p_first, p_last)
           : key0;
       win_key = sel & 7;
+      if (EXPLAIN) {
+        win_s = s;
+        win_kp = known ? min(max(sel >> 3, 0), v.KP - 1) : 0;
+        win_gate = set_gate;
+        win_tm = tm_bit;
+      }
     }
   }
   abort_pos = warp_min(abort_pos);
@@ -334,9 +382,31 @@ __device__ void decide_sig_row(const DecArgs& v, const Row& r, int lane,
     *cacheable = v.rule_cacheable_raw[abort_pos] ? 1 : 0;
     *status = r.cond_code[v.rule_cond[abort_pos]];
   }
+  if (EXPLAIN && lane == 0) {
+    const int32_t* orig = v.rule_orig_flat;
+    *code = 0;
+    if (win_s >= 0) {
+      int ignored = ACS_BIG;
+      const int win_flat = win_s * v.KP + win_kp;
+      const PolicySel q = scan_policy<WITH_HR, WITH_REL>(
+          v, r, win_flat, win_kp, win_gate, win_tm, &ignored);
+      if (q.no_rules) {
+        *code = explain_code(win_flat, 2);
+      } else {
+        // the winner's within-set position; >> is arithmetic, so a -1
+        // "last" stays -1, as in JAX
+        const int M = v.KP * v.KR;
+        const int pos = win_s * M + (q.sel >> 3);
+        *code = explain_code(
+            orig ? orig[min(max(pos, 0), v.S * M - 1)] : pos, 1);
+      }
+    }
+    if (abort_pos < ACS_BIG)
+      *code = explain_code(orig ? orig[abort_pos] : abort_pos, 3);
+  }
 }
 
-template <bool WITH_HR, bool WITH_REL>
+template <bool WITH_HR, bool WITH_REL, bool EXPLAIN>
 __global__ void sig_decide_kernel(const DecArgs a) {
   const int slot = blockIdx.x;
   const int lane = threadIdx.x & 31;
@@ -369,16 +439,27 @@ __global__ void sig_decide_kernel(const DecArgs a) {
                                     val0 == k[5] || val0 == k[6]);
     const int shortcut = w[a.O_ACL_SHORT];
     r.acl_row = shortcut == 1 || (shortcut == 0 && n_ra > 0 && crud);
-    int decision, cacheable, status;
-    decide_sig_row<WITH_HR, WITH_REL>(v, r, lane, &decision, &cacheable,
-                                      &status);
+    int decision, cacheable, status, code;
+    decide_sig_row<WITH_HR, WITH_REL, EXPLAIN>(v, r, lane, &decision,
+                                               &cacheable, &status, &code);
     if (lane == 0) {
       a.out_decision[row] = decision;
       a.out_cacheable[row] = cacheable;
       a.out_status[row] = status;
+      if (EXPLAIN) a.out_explain[row] = code;
     }
   }
 }
+
+// one launch of the variant (with_hr, with_rel, explain)
+template <bool... F>
+struct SigLaunch {
+  static int run(const DecArgs& da, int threads, cudaStream_t stream) {
+    auto kernel = sig_decide_kernel<F...>;
+    kernel<<<da.NSLOT, threads, 0, stream>>>(da);
+    return (int)cudaGetLastError();
+  }
+};
 
 extern "C" {
 
@@ -389,9 +470,10 @@ const char* acs_sig_decide_layout() {
 
 // launches one block per slot on `stream`; returns cudaGetLastError()
 // after the launch, or -1 when the argument counts do not match this build
+// or a variant's inputs are missing
 int acs_sig_decide(const int64_t* ptrs, int n_ptrs, const int32_t* dims,
-                   int n_dims, int with_hr, int with_rel, int threads,
-                   void* stream_ptr) {
+                   int n_dims, int with_hr, int with_rel, int explain,
+                   int threads, void* stream_ptr) {
   if (n_ptrs != kSdPtrs || n_dims != kSdDims) return -1;
   DecArgs da;
   DecArgs* a = &da;
@@ -406,13 +488,10 @@ int acs_sig_decide(const int64_t* ptrs, int n_ptrs, const int32_t* dims,
   if (with_rel && (da.rl_rel_idx == nullptr || da.O_REL_RUNS < 0 ||
                    da.O_REL_BITS < 0))
     return -1;
-  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  auto kernel = with_hr ? (with_rel ? sig_decide_kernel<true, true>
-                                    : sig_decide_kernel<true, false>)
-                        : (with_rel ? sig_decide_kernel<false, true>
-                                    : sig_decide_kernel<false, false>);
-  kernel<<<da.NSLOT, threads, 0, stream>>>(da);
-  return (int)cudaGetLastError();
+  if (explain && da.out_explain == nullptr) return -1;
+  const bool flags[3] = {with_hr != 0, with_rel != 0, explain != 0};
+  return dispatch_flags<3, SigLaunch>(
+      flags, da, threads, reinterpret_cast<cudaStream_t>(stream_ptr));
 }
 
 }  // extern "C"

@@ -25,8 +25,14 @@ and counts its launches in ``LAUNCHES``.
 Trees whose targets carry relation paths (ReBAC) take each kernel's
 ``with_rel`` variant, which folds the per-batch relation-closure
 bitplanes (``r_rel_runs`` / ``r_rel_bits``, ``ops/relation.py``) into the
-HR gate.  Not ported yet, and refused with ``NotImplementedError``: the
-explain output.
+HR gate.
+
+Explain mode (``explain=True`` on ``decide_dense``, ``decide_grouped``,
+``sig_decide``, ``set_chunk`` and ``shard_tail``, and on
+``DecisionKernel``) adds the fourth output of the JAX programs: one int32
+per row, the provenance code ``(flat_pos << 2) | kind`` that
+``srv/explain.py`` decodes.  It is a template flag of each kernel; the
+explain-off launches run the variants they ran before.
 """
 
 from __future__ import annotations
@@ -64,7 +70,8 @@ from .shard_ref import (
 )
 
 __all__ = [
-    "BIG", "DecisionKernel", "LAUNCHES", "decide_dense", "decide_grouped",
+    "BIG", "DecisionKernel", "LAUNCHES", "ORIG_TABLE", "decide_dense",
+    "decide_grouped",
     "lead_padding", "pack_rule_key", "pad_cols", "pow2_bucket",
     "resolve_device", "rule_chunk", "set_chunk", "shard_tail", "sig_decide",
     "sig_planes", "tree_needs_hr", "tree_needs_rel", "unpack_rule_key",
@@ -99,7 +106,15 @@ ROW_ARRAYS = (
     "r_own_runs", "r_own_bits", "r_rel_runs", "r_rel_bits",
 )
 BATCH_ARRAYS = ("rgx_set", "pfx_neq", "cond_true", "cond_abort", "cond_code")
-OUTPUTS = ("out_decision", "out_cacheable", "out_status")
+# the fourth output is written by the explain variants only (null otherwise)
+OUTPUTS = ("out_decision", "out_cacheable", "out_status", "out_explain")
+# each compacted rule slot's original flat position: the explain variants
+# map the winning rule through it when the rule axis was compacted
+# (``prefilter.compact_rules(..., explain=True)``); null otherwise
+ORIG_TABLE = "rule_orig_flat"
+# the argument order of the dense program (csrc/decide_core.cuh ACS_PTRS)
+DENSE_PTRS = TABLE_ARRAYS + (ORIG_TABLE,) + ROW_ARRAYS + BATCH_ARRAYS \
+    + OUTPUTS
 DIMS = (
     "B", "T", "S", "KP", "KR", "KS", "KA", "KE", "KO", "KPR",
     "NSUB", "NROLE", "NACT", "NR", "NP", "NOP", "NRA", "NHR",
@@ -187,8 +202,8 @@ SIG_DECIDE_CS = (
     "rule_has_target", "rule_cond",
 )
 SIG_DECIDE_MAPS = ("slot_g", "mega_rows", "grid2row", "gp_orig")
-SIG_DECIDE_PTRS = SIG_DECIDE_INV + SIG_DECIDE_CS + plane_names(True, True) \
-    + SIG_DECIDE_MAPS + OUTPUTS
+SIG_DECIDE_PTRS = SIG_DECIDE_INV + SIG_DECIDE_CS + (ORIG_TABLE,) \
+    + plane_names(True, True) + SIG_DECIDE_MAPS + OUTPUTS
 # the packed row's columns the kernel reads, by the offset dim naming them
 SIG_ROW_OFFSETS = (
     ("O_SUB_IDS", "r_sub_ids"), ("O_SUB_VALS", "r_sub_vals"),
@@ -243,8 +258,7 @@ def _dense_library(name: str):
     """``decide_dense`` or ``decide_grouped``: the dense program's
     layout, plus its shared-memory sizing entry point."""
     extra = ("g_idx",) if name == "decide_grouped" else ()
-    lib = _library(name, TABLE_ARRAYS + ROW_ARRAYS + BATCH_ARRAYS + OUTPUTS
-                   + extra, DIMS, 3)
+    lib = _library(name, DENSE_PTRS + extra, DIMS, 4)
     smem = getattr(lib, f"acs_{name}_smem")
     smem.restype = ctypes.c_longlong
     smem.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
@@ -324,27 +338,41 @@ def _c_arrays(ptrs: list[int], dims: list[int]):
 
 def _dense_named(c: dict, r: dict, name: str) -> tuple[dict, list]:
     """The dense program's shape ints and its (name, tensor) inputs after
-    checking the shapes against the kernel's limits."""
+    checking the shapes against the kernel's limits (``rule_orig_flat``
+    null when the tables carry none)."""
     dims = _dims(c, r)
     for k, limit in _LIMITS.items():
         if dims[k] > limit:
             raise ValueError(f"{name}: {k}={dims[k]} exceeds the "
                              f"kernel's limit {limit}")
     named = [(k, c[k]) for k in TABLE_ARRAYS]
+    named.append((ORIG_TABLE, c.get(ORIG_TABLE)))
     named += [(k, r[k]) for k in ROW_ARRAYS + BATCH_ARRAYS]
     return dims, named
 
 
+def _outputs(n_rows: int, explain: bool, dev, zeroed: bool = False):
+    """An int32 output [3 or 4, n_rows] and its (name, row) pairs, the
+    fourth pointer null without explain."""
+    alloc = torch.zeros if zeroed else torch.empty
+    out = alloc((4 if explain else 3, n_rows), dtype=torch.int32,
+                device=dev)
+    return out, [(k, out[i] if i < out.shape[0] else None)
+                 for i, k in enumerate(OUTPUTS)]
+
+
 def pack_args(c: dict, r: dict, extra: tuple = (),
-              name: str = "decide_dense") -> LaunchArgs:
+              name: str = "decide_dense", explain: bool = False
+              ) -> LaunchArgs:
     """Check the tensors (one device, contiguous, int32 or bool, shapes
-    within the kernel's limits), allocate the outputs and pack the C
-    arguments of one launch of the dense program; ``extra`` (name,
-    tensor) pairs follow the outputs (``decide_grouped``'s ``g_idx``)."""
+    within the kernel's limits), allocate the outputs ([4, B] with
+    ``explain``) and pack the C arguments of one launch of the dense
+    program; ``extra`` (name, tensor) pairs follow the outputs
+    (``decide_grouped``'s ``g_idx``)."""
     dev = r["r_n_ra"].device
     dims, named = _dense_named(c, r, name)
-    out = torch.empty((3, dims["B"]), dtype=torch.int32, device=dev)
-    named += [(k, out[i]) for i, k in enumerate(OUTPUTS)]
+    out, out_named = _outputs(dims["B"], explain, dev)
+    named += out_named
     ptrs, cdims = _c_arrays(_c_ptrs(name, named + list(extra), dev),
                             [dims[k] for k in DIMS])
     return LaunchArgs(out=out, ptrs=ptrs, dims=cdims, shape=dims,
@@ -353,7 +381,8 @@ def pack_args(c: dict, r: dict, extra: tuple = (),
 
 def _launch_dense(name: str, args: LaunchArgs, with_acl: bool,
                   with_hr: bool, with_rel: bool) -> torch.Tensor:
-    """One launch of ``decide_dense`` or ``decide_grouped``."""
+    """One launch of ``decide_dense`` or ``decide_grouped`` (the explain
+    variant when the output has four rows)."""
     dev = args.out.device
     lib = _dense_library(name)
     smem = getattr(lib, f"acs_{name}_smem")(
@@ -368,49 +397,55 @@ def _launch_dense(name: str, args: LaunchArgs, with_acl: bool,
         code = getattr(lib, f"acs_{name}")(
             ctypes.addressof(args.ptrs), len(args.ptrs),
             ctypes.addressof(args.dims), len(args.dims), int(with_acl),
-            int(with_hr), int(with_rel), args.threads,
-            torch.cuda.current_stream(dev).cuda_stream,
+            int(with_hr), int(with_rel), int(args.out.shape[0] == 4),
+            args.threads, torch.cuda.current_stream(dev).cuda_stream,
         )
     _check_launch(name, lib, code)
     return args.out
 
 
 def decide_dense(c: dict, r: dict, with_acl: bool, with_hr: bool,
-                 with_rel: bool) -> torch.Tensor:
+                 with_rel: bool, *, explain: bool = False) -> torch.Tensor:
     """Dense decisions for a whole batch -> int32 [3, B] (decision,
-    cacheable, status).  CUDA tensors launch the kernel; CPU tensors run
-    the plain version."""
+    cacheable, status; ``explain`` appends the provenance code).  CUDA
+    tensors launch the kernel; CPU tensors run the plain version."""
     if r["r_n_ra"].device.type == "cuda":
-        return _launch_dense("decide_dense", pack_args(c, r), with_acl,
+        return _launch_dense("decide_dense",
+                             pack_args(c, r, explain=explain), with_acl,
                              with_hr, with_rel)
-    return torch.stack(decide_dense_ref(c, r, with_acl, with_hr, with_rel))
+    return torch.stack(decide_dense_ref(c, r, with_acl, with_hr, with_rel,
+                                        explain=explain))
 
 
 # the shard programs' shape ints after the dense ones (csrc/decide_core.cuh
-# ACS_CHUNK_DIMS); their pointers are the dense list, whose three outputs
-# are passed null, then the merge buffer
+# ACS_CHUNK_DIMS); their pointers are the dense list, whose outputs are
+# passed null, then the merge buffer
 CHUNK_DIMS = ("N_MODEL", "RANK", "OFFSET", "KR_TOTAL")
-CHUNK_PTRS = TABLE_ARRAYS + ROW_ARRAYS + BATCH_ARRAYS + OUTPUTS + ("merge",)
-# the merge tail's tables (the rule-sharded mode) and argument order
+CHUNK_PTRS = DENSE_PTRS + ("merge",)
+# the merge tail's tables (the rule-sharded mode) and argument order; KR
+# is the rule stride of the explain code (the padded kr_total of the
+# rule-sharded tables, the pod tables' KR)
 TAIL_TABLES = ("pol_ca", "pol_effect", "pol_cacheable", "pol_n_rules",
                "set_ca")
 TAIL_PTRS = ("merge",) + TAIL_TABLES + OUTPUTS
-TAIL_DIMS = ("B", "S", "KP", "N_MODEL")
+TAIL_DIMS = ("B", "S", "KP", "N_MODEL", "KR")
 # threads per shard_tail block: 4 warps over the policies (rule-sharded
 # mode), one warp (pod-sharded mode, one thread per row does the work)
 TAIL_THREADS = {MODE_RULE: 128, MODE_SET: 32}
 
 
 def pack_chunk_args(name: str, mode: int, c: dict, r: dict, offset: int,
-                    kr_total: int, n_model: int, rank: int) -> LaunchArgs:
+                    kr_total: int, n_model: int, rank: int,
+                    explain: bool = False) -> LaunchArgs:
     """Check and pack one launch of a shard program (``rule_chunk`` mode
-    ``MODE_RULE``, ``set_chunk`` mode ``MODE_SET``): allocates its merge
-    rows [B, W] as the launch's ``out``."""
+    ``MODE_RULE``, ``set_chunk`` mode ``MODE_SET``, the latter's merge
+    row one column wider with ``explain``): allocates its merge rows
+    [B, W] as the launch's ``out``."""
     dev = r["r_n_ra"].device
     dims, named = _dense_named(c, r, name)
     dims.update(N_MODEL=n_model, RANK=rank, OFFSET=offset, KR_TOTAL=kr_total)
     out = torch.empty((dims["B"], merge_width(mode, dims["S"], dims["KP"],
-                                              n_model)),
+                                              n_model, explain)),
                       dtype=torch.int32, device=dev)
     named += [(k, None) for k in OUTPUTS] + [("merge", out)]
     ptrs, cdims = _c_arrays(_c_ptrs(name, named, dev),
@@ -420,11 +455,12 @@ def pack_chunk_args(name: str, mode: int, c: dict, r: dict, offset: int,
 
 
 def _launch_chunk(name: str, mode: int, args: LaunchArgs, with_acl: bool,
-                  with_hr: bool, with_rel: bool) -> torch.Tensor:
+                  with_hr: bool, with_rel: bool, explain: bool = False
+                  ) -> torch.Tensor:
     """One launch of ``csrc/shard_chunk.cu`` in ``mode``, counted under
     the wrapper's ``name`` (``rule_chunk`` or ``set_chunk``)."""
     dev = args.out.device
-    lib = _library("shard_chunk", CHUNK_PTRS, DIMS + CHUNK_DIMS, 4)
+    lib = _library("shard_chunk", CHUNK_PTRS, DIMS + CHUNK_DIMS, 5)
     lib.acs_shard_chunk_smem.restype = ctypes.c_longlong
     lib.acs_shard_chunk_smem.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                          ctypes.c_int]
@@ -441,7 +477,7 @@ def _launch_chunk(name: str, mode: int, args: LaunchArgs, with_acl: bool,
         code = lib.acs_shard_chunk(
             ctypes.addressof(args.ptrs), len(args.ptrs),
             ctypes.addressof(args.dims), len(args.dims), mode, int(with_acl),
-            int(with_hr), int(with_rel), args.threads,
+            int(with_hr), int(with_rel), int(explain), args.threads,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _check_launch(name, lib, code)
@@ -465,55 +501,63 @@ def rule_chunk(c: dict, r: dict, kr_offset: int, kr_total: int,
 
 
 def set_chunk(c: dict, r: dict, s_offset: int, n_model: int, rank: int,
-              with_acl: bool, with_hr: bool, with_rel: bool) -> torch.Tensor:
+              with_acl: bool, with_hr: bool, with_rel: bool, *,
+              explain: bool = False) -> torch.Tensor:
     """Stages A-F of the pod-sharded program on one shard's set slots ->
-    its int32 merge rows [B, W].  CUDA tensors launch
-    ``csrc/shard_chunk.cu`` in its set-chunk mode; CPU tensors run the
-    plain version."""
+    its int32 merge rows [B, W] (with ``explain`` the negated provenance
+    key of the shard's last contributing set after the set key).  CUDA
+    tensors launch ``csrc/shard_chunk.cu`` in its set-chunk mode; CPU
+    tensors run the plain version."""
     if r["r_n_ra"].device.type != "cuda":
         return set_chunk_ref(c, r, s_offset, n_model, rank, with_acl,
-                             with_hr, with_rel)
+                             with_hr, with_rel, explain=explain)
     S, KP, KR = c["rule_valid"].shape
     args = pack_chunk_args("set_chunk", MODE_SET, c, r, s_offset, KR,
-                           n_model, rank)
+                           n_model, rank, explain)
     return _launch_chunk("set_chunk", MODE_SET, args, with_acl, with_hr,
-                         with_rel)
+                         with_rel, explain)
 
 
 def pack_shard_tail(merge: torch.Tensor, n_model: int,
-                    tabs: dict | None):
+                    tabs: dict | None, explain: bool = False,
+                    kr_stride: int = 0):
     """Check and pack one ``shard_tail`` launch: allocates the output ->
-    (output [3, B], pointer array, shape-int array, mode)."""
+    (output [3, B] or [4, B], pointer array, shape-int array, mode)."""
     dev = merge.device
     mode = MODE_SET if tabs is None else MODE_RULE
     S, KP = (0, 0) if tabs is None else tabs["pol_ca"].shape
     B = merge.shape[0]
     if merge.dim() != 2 or merge.shape[1] != merge_width(mode, S, KP,
-                                                         n_model):
+                                                         n_model, explain):
         raise ValueError("shard_tail: the merge rows do not match the "
                          "tables and the model-axis size")
-    out = torch.empty((3, B), dtype=torch.int32, device=dev)
-    src = {"merge": merge, **dict(zip(OUTPUTS, out)), **(tabs or {})}
+    out, out_named = _outputs(B, explain, dev)
+    src = {"merge": merge, **dict(out_named), **(tabs or {})}
     named = [(k, src.get(k)) for k in TAIL_PTRS]
     ptrs, cdims = _c_arrays(_c_ptrs("shard_tail", named, dev),
-                            [B, S, KP, n_model])
+                            [B, S, KP, n_model, kr_stride])
     return out, ptrs, cdims, mode
 
 
-def shard_tail(merge: torch.Tensor, n_model: int, tabs: dict | None = None
+def shard_tail(merge: torch.Tensor, n_model: int, tabs: dict | None = None,
+               *, explain: bool = False, kr_stride: int = 0
                ) -> torch.Tensor:
     """The decisions from the merged merge rows -> int32 [3, B]
-    (decision, cacheable, status).  ``tabs`` (``TAIL_TABLES``) selects the
-    rule-sharded tail, None the pod-sharded one.  CUDA tensors launch
-    ``csrc/shard_tail.cu``; CPU tensors run the plain version."""
+    (decision, cacheable, status; with ``explain`` the provenance code
+    fourth, its rule positions in strides ``(KP, kr_stride)``).  ``tabs``
+    (``TAIL_TABLES``) selects the rule-sharded tail, None the pod-sharded
+    one.  CUDA tensors launch ``csrc/shard_tail.cu``; CPU tensors run the
+    plain version."""
     if merge.device.type != "cuda":
-        return shard_tail_ref(merge, n_model, tabs)
-    out, ptrs, cdims, mode = pack_shard_tail(merge, n_model, tabs)
-    lib = _library("shard_tail", TAIL_PTRS, TAIL_DIMS, 1)
+        return shard_tail_ref(merge, n_model, tabs, explain=explain,
+                              kr_stride=kr_stride)
+    out, ptrs, cdims, mode = pack_shard_tail(merge, n_model, tabs, explain,
+                                             kr_stride)
+    lib = _library("shard_tail", TAIL_PTRS, TAIL_DIMS, 2)
     with torch.cuda.device(merge.device):
         code = lib.acs_shard_tail(
             ctypes.addressof(ptrs), len(ptrs), ctypes.addressof(cdims),
-            len(cdims), mode, TAIL_THREADS[mode],
+            len(cdims), mode, int(explain), TAIL_THREADS[mode],
             torch.cuda.current_stream(merge.device).cuda_stream,
         )
     _check_launch("shard_tail", lib, code)
@@ -521,20 +565,21 @@ def shard_tail(merge: torch.Tensor, n_model: int, tabs: dict | None = None
 
 
 def decide_grouped(inv: dict, cs: dict, g_idx: torch.Tensor, r: dict,
-                   with_acl: bool, with_hr: bool, with_rel: bool
-                   ) -> torch.Tensor:
+                   with_acl: bool, with_hr: bool, with_rel: bool, *,
+                   explain: bool = False) -> torch.Tensor:
     """The dense program per row against its own compacted subtree:
     ``inv`` the group-invariant tables, ``cs`` the varying tables stacked
-    ``[G, ...]``, ``g_idx`` int32 [B] each row's group -> int32 [3, B].
+    ``[G, ...]`` (with ``explain`` also ``rule_orig_flat``), ``g_idx``
+    int32 [B] each row's group -> int32 [3, B] ([4, B] with ``explain``).
     CUDA tensors launch ``csrc/decide_grouped.cu``; CPU tensors run the
     plain version."""
     if g_idx.device.type != "cuda":
         return decide_grouped_ref(inv, cs, g_idx, r, with_acl, with_hr,
-                                  with_rel)
+                                  with_rel, explain=explain)
     if g_idx.dtype != torch.int32 or g_idx.shape[0] != r["r_n_ra"].shape[0]:
         raise ValueError("decide_grouped: g_idx must be int32 [B]")
     args = pack_args({**inv, **cs}, r, extra=(("g_idx", g_idx),),
-                     name="decide_grouped")
+                     name="decide_grouped", explain=explain)
     return _launch_dense("decide_grouped", args, with_acl, with_hr, with_rel)
 
 
@@ -620,9 +665,10 @@ def sig_planes(tabs: dict, inv: dict, pseudo: dict, with_hr: bool,
 
 def pack_sig_decide(inv: dict, cs: dict, planes: dict, slot_g, mega_rows,
                     grid2row, gp_orig, schedule: tuple, needs_pairs: bool,
-                    with_hr: bool, with_rel: bool):
+                    with_hr: bool, with_rel: bool, explain: bool = False):
     """Check and pack one ``sig_decide`` launch: allocates the zeroed
-    output -> (output, pointer array, shape-int array)."""
+    output ([4, b_pad] with ``explain``) -> (output, pointer array,
+    shape-int array)."""
     dev = mega_rows.device
     S, KP, KR = cs["rule_effect"].shape[1:]
     NSLOT, R = grid2row.shape
@@ -650,10 +696,9 @@ def pack_sig_decide(inv: dict, cs: dict, planes: dict, slot_g, mega_rows,
     }
     for dim, col in SIG_ROW_OFFSETS:
         d[dim] = offsets.get(col, -1)
-    out = torch.zeros((3, gp_orig.shape[0]), dtype=torch.int32, device=dev)
+    out, out_named = _outputs(gp_orig.shape[0], explain, dev, zeroed=True)
     src = {**inv, **cs, **planes, "slot_g": slot_g, "mega_rows": mega_rows,
-           "grid2row": grid2row, "gp_orig": gp_orig,
-           **dict(zip(OUTPUTS, out))}
+           "grid2row": grid2row, "gp_orig": gp_orig, **dict(out_named)}
     named = [(k, src.get(k)) for k in SIG_DECIDE_PTRS]
     ptrs, cdims = _c_arrays(_c_ptrs("sig_decide", named, dev),
                             [d[k] for k in SIG_DECIDE_DIMS])
@@ -662,30 +707,32 @@ def pack_sig_decide(inv: dict, cs: dict, planes: dict, slot_g, mega_rows,
 
 def sig_decide(inv: dict, cs: dict, planes: dict, slot_g, mega_rows,
                grid2row, gp_orig, n_rows: int, schedule: tuple,
-               needs_pairs: bool, with_hr: bool, with_rel: bool
-               ) -> torch.Tensor:
+               needs_pairs: bool, with_hr: bool, with_rel: bool, *,
+               explain: bool = False) -> torch.Tensor:
     """Decisions of a packed, slot-laid-out batch on the signature path:
     ``slot_g`` int32 [NSLOT] each slot's group, ``mega_rows`` int32
     [b_pad, W] the packed rows (columns per ``schedule``: (name, width,
     tail) in packing order), ``grid2row`` int32 [NSLOT, R] each grid
     position's source row, ``gp_orig`` int32 [b_pad] each row's grid
     position -> int32 [3, b_pad] in request order, rows past ``n_rows``
-    0.  CUDA tensors launch ``csrc/sig_decide.cu``; CPU tensors run the
-    plain version."""
+    0; with ``explain`` [4, b_pad], the provenance code fourth (``cs``
+    then carries the stacked ``rule_orig_flat``).  CUDA tensors launch
+    ``csrc/sig_decide.cu``; CPU tensors run the plain version."""
     dev = mega_rows.device
     if dev.type != "cuda":
         return sig_decide_ref(inv, cs, planes, slot_g, mega_rows, grid2row,
                               gp_orig, n_rows, schedule, needs_pairs,
-                              with_hr, with_rel)
+                              with_hr, with_rel, explain=explain)
     out, ptrs, cdims = pack_sig_decide(inv, cs, planes, slot_g, mega_rows,
                                        grid2row, gp_orig, schedule,
-                                       needs_pairs, with_hr, with_rel)
-    lib = _library("sig_decide", SIG_DECIDE_PTRS, SIG_DECIDE_DIMS, 2)
+                                       needs_pairs, with_hr, with_rel,
+                                       explain)
+    lib = _library("sig_decide", SIG_DECIDE_PTRS, SIG_DECIDE_DIMS, 3)
     with torch.cuda.device(dev):
         code = lib.acs_sig_decide(
             ctypes.addressof(ptrs), len(ptrs), ctypes.addressof(cdims),
-            len(cdims), int(with_hr), int(with_rel), SIG_DECIDE_THREADS,
-            torch.cuda.current_stream(dev).cuda_stream,
+            len(cdims), int(with_hr), int(with_rel), int(explain),
+            SIG_DECIDE_THREADS, torch.cuda.current_stream(dev).cuda_stream,
         )
     _check_launch("sig_decide", lib, code)
     return out
@@ -767,7 +814,10 @@ def wia_planes(tables: dict, rows, schedule: tuple, rgx_set, pfx_neq
 class DecisionKernel:
     """Compiled-policy decision kernel: the policy tables live on
     ``device`` (``None`` = the CUDA device) and each batch is one call of
-    ``decide_dense``."""
+    ``decide_dense``.  ``explain=True`` adds the provenance code as a
+    fourth output, its positions in ``explain_strides`` = (KP, KR) of the
+    compiled tables (through ``rule_orig_flat`` when the tables carry
+    it)."""
 
     def __init__(self, compiled: CompiledPolicies, device=None,
                  explain: bool = False):
@@ -775,19 +825,21 @@ class DecisionKernel:
             raise ValueError(
                 f"policy tree unsupported by kernel: {compiled.unsupported_reason}"
             )
-        if explain:
-            raise NotImplementedError(
-                "explain output: not ported yet (serving-shell slice)"
-            )
         self.compiled = compiled
         self.device = resolve_device(device)
+        self.explain = bool(explain)
+        self.explain_strides = (compiled.KP, compiled.KR)
+        # explain-off launches pass no keyword: their calls are unchanged
+        self._explain_kw = {"explain": True} if explain else {}
         self.with_hr = tree_needs_hr(compiled.arrays)
         self.with_rel = tree_needs_rel(compiled.arrays)
         self._c = tables_from_numpy(compiled.arrays, self.device,
-                                    keys=TABLE_ARRAYS)
+                                    keys=TABLE_ARRAYS,
+                                    optional=(ORIG_TABLE,))
 
     def evaluate(self, batch: RequestBatch):
-        """Returns (decision, cacheable, status) numpy arrays [B]."""
+        """Returns (decision, cacheable, status) numpy arrays [B], and the
+        provenance codes fourth in explain mode."""
         return self.evaluate_async(batch)()
 
     def evaluate_async(self, batch: RequestBatch):
@@ -804,17 +856,18 @@ class DecisionKernel:
         with_acl = bool((np.asarray(batch.arrays["r_acl_ent"]) >= 0).any())
         b, r = batch_from_numpy(batch, self.device, keys=ROW_ARRAYS)
         return readback(decide_dense(self._c, r, with_acl, self.with_hr,
-                                     self.with_rel), b)
+                                     self.with_rel, **self._explain_kw), b)
 
 
 def readback(out: torch.Tensor, b: int):
-    """Start the copy of a kernel's int32 [3, B] output to the host and
-    return the thunk that waits for it: (decision, cacheable, status)
-    numpy [b] each.  On the card the copy goes to pinned memory behind a
-    CUDA event."""
+    """Start the copy of a kernel's int32 [n_out, B] output to the host
+    and return the thunk that waits for it: (decision, cacheable, status,
+    and in explain mode the provenance code) numpy [b] each.  On the card
+    the copy goes to pinned memory behind a CUDA event."""
+    n_out = out.shape[0]
     if out.device.type == "cpu":
         host = out.numpy()
-        return lambda: tuple(host[i, :b] for i in range(3))
+        return lambda: tuple(host[i, :b] for i in range(n_out))
     host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
     host.copy_(out, non_blocking=True)
     done = torch.cuda.Event()
@@ -823,6 +876,6 @@ def readback(out: torch.Tensor, b: int):
     def materialize():
         done.synchronize()
         arr = host.numpy()
-        return tuple(arr[i, :b] for i in range(3))
+        return tuple(arr[i, :b] for i in range(n_out))
 
     return materialize

@@ -14,6 +14,10 @@ card it exists only as the yardstick the CUDA kernel is held against.
 ``[B, ...]``, the regex matrices ``[W, E]`` and the condition columns
 ``[C, B]``.  Outputs are three int32 ``[B]`` tensors: decision (0
 INDETERMINATE, 1 PERMIT, 2 DENY), cacheable (-1 none, 0/1) and status.
+``explain=True`` appends a fourth, the packed provenance code
+``(flat_pos << 2) | kind`` of ``srv/explain.py``, recovered from the same
+positional selections the decision used (the JAX package's
+``_combine_and_decide`` / ``_combine_and_decide_flat`` recovery).
 """
 
 from __future__ import annotations
@@ -588,9 +592,11 @@ def _no_rules_contrib(c, pol_gate, set_gate):
     )
 
 
-def _per_set_effects(c, contrib_present, contrib_eff, contrib_cach):
+def _per_set_effects(c, contrib_present, contrib_eff, contrib_cach,
+                     explain: bool = False):
     """Stage F: each set's policy contributions [B, S, KP] combined under
-    its combining algorithm -> per-set (effect, cacheable, any) [B, S]."""
+    its combining algorithm -> per-set (effect, cacheable, any) [B, S];
+    ``explain`` adds each set's selected policy slot [B, S]."""
     KP = contrib_present.shape[2]
     kp_pos = torch.arange(KP, device=contrib_present.device)[None, None, :]
     p_first_deny = torch.where(contrib_present & (contrib_eff == 2), kp_pos,
@@ -605,14 +611,19 @@ def _per_set_effects(c, contrib_present, contrib_eff, contrib_cach):
     s_sel_c = s_sel.clamp(0, KP - 1).long()[:, :, None]
     set_eff = torch.gather(contrib_eff, 2, s_sel_c)[:, :, 0]
     set_cach = torch.gather(contrib_cach, 2, s_sel_c)[:, :, 0]
+    if explain:
+        return set_eff, set_cach, set_any, s_sel_c[:, :, 0]
     return set_eff, set_cach, set_any
 
 
-def _combine_sets(c, contrib_present, contrib_eff, contrib_cach):
+def _combine_sets(c, contrib_present, contrib_eff, contrib_cach,
+                  explain: bool = False):
     """Stages F-G before aborts: per-set combination, then last-set-wins
-    -> (decision, cacheable) [B]."""
-    set_eff, set_cach, set_any = _per_set_effects(
-        c, contrib_present, contrib_eff, contrib_cach
+    -> (decision, cacheable) [B]; ``explain`` adds the winning set slot
+    (clamped), whether any set contributed and each set's selected policy
+    slot, the coordinates the provenance is recovered from."""
+    set_eff, set_cach, set_any, *s_sel_c = _per_set_effects(
+        c, contrib_present, contrib_eff, contrib_cach, explain
     )
     S = set_eff.shape[1]
     s_pos = torch.arange(S, device=set_eff.device)[None, :]
@@ -625,13 +636,17 @@ def _combine_sets(c, contrib_present, contrib_eff, contrib_cach):
     cacheable = torch.where(
         have, torch.gather(set_cach, 1, winner_c)[:, 0].to(torch.int32), -1
     )
+    if explain:
+        return decision, cacheable, winner_c[:, 0], have, s_sel_c[0]
     return decision, cacheable
 
 
-def _apply_aborts(decision, cacheable, abort_rule, cond_c, cach_raw):
+def _apply_aborts(decision, cacheable, abort_rule, cond_c, cach_raw,
+                  explain: bool = False):
     """Condition aborts preempt everything, first in flat rule order:
     ``abort_rule`` / ``cond_c`` [B, ...] in flat order, ``cach_raw`` the
-    rules' raw cacheable flags in the same order."""
+    rules' raw cacheable flags in the same order; ``explain`` adds the
+    aborting rule's flat position (clamped) and whether one aborted."""
     B = abort_rule.shape[0]
     n = abort_rule[0].numel()
     flat_order = torch.arange(n, device=abort_rule.device)
@@ -646,15 +661,46 @@ def _apply_aborts(decision, cacheable, abort_rule, cond_c, cach_raw):
                             cacheable).to(torch.int32)
     status = torch.where(has_abort, abort_code.to(torch.int32),
                          200).to(torch.int32)
+    if explain:
+        return decision, cacheable, status, abort_flat[:, 0], has_abort
     return decision, cacheable, status
 
 
+def _wrap32(x):
+    """int64 -> int32 with two's-complement wrap, as JAX's int32 shifts
+    wrap."""
+    return (((x.long() + (1 << 31)) % (1 << 32)) - (1 << 31)).to(torch.int32)
+
+
+def _explain_code(have, no_rules_win, win_flat, rule_pos, has_abort,
+                  abort_orig):
+    """The packed provenance code [B]: the aborting rule (kind 3) over the
+    winning no-rules policy (kind 2) or rule (kind 1), else 0."""
+    code = torch.where(
+        have,
+        torch.where(no_rules_win, (win_flat.long() << 2) | 2,
+                    (rule_pos.long() << 2) | 1),
+        0,
+    )
+    return _wrap32(torch.where(has_abort, (abort_orig.long() << 2) | 3,
+                               code))
+
+
+def _take_rows(x, idx):
+    """Row b's element idx[b] of x [B, ...] (flattened per row) -> [B]."""
+    return torch.gather(x.reshape(x.shape[0], -1), 1,
+                        idx.long()[:, None])[:, 0]
+
+
 def _policy_contributions(c, reached, acl_rule, has_cond, cond_t, cond_a,
-                          pol_gate, set_gate, pol_subject):
+                          pol_gate, set_gate, pol_subject,
+                          explain: bool = False):
     """Stage E alone: each policy's winning-rule contribution [B, S, KP]
     (present, effect, cacheable) and the abort-rule mask [B, S, KP, KR];
     split out, as in the JAX package, so the pod-sharded program can run
-    stages A-F per shard (``ops/shard_ref.set_chunk_ref``)."""
+    stages A-F per shard (``ops/shard_ref.set_chunk_ref``).  ``explain``
+    adds each policy's selected rule slot (clamped) and the no-rules
+    contribution mask [B, S, KP]."""
     scope = set_gate[:, :, None, None] & pol_gate[:, :, :, None]
     abort_rule = reached & has_cond & cond_a & scope
     matches = reached & (~has_cond | cond_t) & ~(has_cond & cond_a) & acl_rule
@@ -683,31 +729,59 @@ def _policy_contributions(c, reached, acl_rule, has_cond, cond_t, cond_a,
     contrib_eff = torch.where(no_rules, c["pol_effect"][None], rule_eff_sel)
     contrib_cach = torch.where(no_rules, c["pol_cacheable"][None],
                                rule_cach_sel)
+    if explain:
+        return (contrib_present, contrib_eff, contrib_cach, abort_rule,
+                sel_c[..., 0], no_rules)
     return contrib_present, contrib_eff, contrib_cach, abort_rule
 
 
 def _combine_and_decide(c, reached, acl_rule, has_cond, cond_t, cond_a,
-                        cond_c, pol_gate, set_gate, pol_subject):
+                        cond_c, pol_gate, set_gate, pol_subject,
+                        explain: bool = False):
     """Stages E-G: rule combination per policy, policy combination per
-    set, last-set-wins and condition aborts in flat rule order."""
-    contrib_present, contrib_eff, contrib_cach, abort_rule = (
+    set, last-set-wins and condition aborts in flat rule order.
+    ``explain`` appends the provenance code; positions map through
+    ``c["rule_orig_flat"]`` when the rule axis was compacted."""
+    contrib_present, contrib_eff, contrib_cach, abort_rule, *sel = (
         _policy_contributions(c, reached, acl_rule, has_cond, cond_t,
-                              cond_a, pol_gate, set_gate, pol_subject))
-    decision, cacheable = _combine_sets(c, contrib_present, contrib_eff,
-                                        contrib_cach)
-    return _apply_aborts(decision, cacheable, abort_rule, cond_c,
-                         c["rule_cacheable_raw"])
+                              cond_a, pol_gate, set_gate, pol_subject,
+                              explain))
+    decision, cacheable, *win = _combine_sets(
+        c, contrib_present, contrib_eff, contrib_cach, explain)
+    out = _apply_aborts(decision, cacheable, abort_rule, cond_c,
+                        c["rule_cacheable_raw"], explain)
+    if not explain:
+        return out
+    decision, cacheable, status, abort_flat, has_abort = out
+    sel_c, no_rules = sel
+    win_s, have, s_sel_c = win
+    KP, KR = sel_c.shape[2], c["rule_effect"].shape[2]
+    win_flat = win_s * KP + _take_rows(s_sel_c, win_s)
+    win_kr = _take_rows(sel_c, win_flat)
+    no_rules_win = _take_rows(no_rules, win_flat)
+    rule_pos = win_flat * KR + win_kr
+    abort_orig = abort_flat
+    orig = c.get("rule_orig_flat")
+    if orig is not None:
+        orig_f = orig.reshape(-1)
+        rule_pos = orig_f[rule_pos.long()]
+        abort_orig = orig_f[abort_flat.long()]
+    return decision, cacheable, status, _explain_code(
+        have, no_rules_win, win_flat, rule_pos, has_abort, abort_orig)
 
 
 def _combine_and_decide_flat(c, reached, acl_rule, has_cond, cond_t, cond_a,
-                             cond_c, pol_gate, set_gate, pol_subject=None):
+                             cond_c, pol_gate, set_gate, pol_subject=None,
+                             explain: bool = False):
     """The flat-rule-axis variant for the signature path: rule inputs
     arrive as [B, S, M] planes (M = KP * KR, flat positions in the
     original (set, policy, rule) order) and each policy's KR window is
     reduced over packed rule keys (``pack_rule_key``), so the winner's
     effect and cacheable bits travel with its position.  Differs from the
     3-D variant only where the JAX package's does: a policy whose
-    combining algorithm is unknown selects key 0, i.e. effect 0."""
+    combining algorithm is unknown selects key 0, i.e. effect 0; and the
+    explain recovery reads the winner's position as ``key >> 3`` (a -1
+    "last" stays -1), clamping only the ``rule_orig_flat`` lookup."""
     S, KP, KR = c["rule_effect"].shape
     M = KP * KR
     B = reached.shape[0]
@@ -747,13 +821,30 @@ def _combine_and_decide_flat(c, reached, acl_rule, has_cond, cond_t, cond_a,
     contrib_eff = torch.where(no_rules, c["pol_effect"][None], rule_eff_sel)
     contrib_cach = torch.where(no_rules, c["pol_cacheable"][None].to(
         torch.int32), rule_cach_sel)
-    decision, cacheable = _combine_sets(c, contrib_present, contrib_eff,
-                                        contrib_cach)
-    return _apply_aborts(decision, cacheable, abort_rule, cond_c,
-                         c["rule_cacheable_raw"])
+    decision, cacheable, *win = _combine_sets(
+        c, contrib_present, contrib_eff, contrib_cach, explain)
+    out = _apply_aborts(decision, cacheable, abort_rule, cond_c,
+                        c["rule_cacheable_raw"], explain)
+    if not explain:
+        return out
+    decision, cacheable, status, abort_flat, has_abort = out
+    win_s, have, s_sel_c = win
+    win_flat = win_s * KP + _take_rows(s_sel_c, win_s)
+    win_m = _take_rows(sel, win_flat) >> 3
+    no_rules_win = _take_rows(no_rules, win_flat)
+    rule_pos = win_s * M + win_m
+    abort_orig = abort_flat
+    orig = c.get("rule_orig_flat")
+    if orig is not None:
+        orig_f = orig.reshape(-1)
+        rule_pos = orig_f[rule_pos.clamp(0, S * M - 1).long()]
+        abort_orig = orig_f[abort_flat.long()]
+    return decision, cacheable, status, _explain_code(
+        have, no_rules_win, win_flat, rule_pos, has_abort, abort_orig)
 
 
-def _evaluate(c, r, with_acl: bool, with_hr: bool, with_rel: bool):
+def _evaluate(c, r, with_acl: bool, with_hr: bool, with_rel: bool,
+              explain: bool = False):
     m = _match_targets(c, r, with_hr, with_rel=with_rel)
     reached, acl_rule, has_cond, cond_t, cond_a, cond_c = _rule_predicates(
         c, r, m, with_acl
@@ -761,7 +852,7 @@ def _evaluate(c, r, with_acl: bool, with_hr: bool, with_rel: bool):
     pol_gate, set_gate, pol_subject = _policy_gates(c, r, m)
     return _combine_and_decide(
         c, reached, acl_rule, has_cond, cond_t, cond_a, cond_c,
-        pol_gate, set_gate, pol_subject,
+        pol_gate, set_gate, pol_subject, explain,
     )
 
 
@@ -793,9 +884,11 @@ def row_chunks(c: dict, r: dict):
 
 
 def decide_dense_ref(c: dict, r: dict, with_acl: bool, with_hr: bool,
-                     with_rel: bool):
+                     with_rel: bool, *, explain: bool = False):
     """The plain version of the dense decision kernel over a whole batch:
-    (decision, cacheable, status) int32 [B], in row chunks."""
-    outs = [_evaluate(c, rc, with_acl, with_hr, with_rel)
+    (decision, cacheable, status) int32 [B], in row chunks, and with
+    ``explain`` the provenance code [B]."""
+    outs = [_evaluate(c, rc, with_acl, with_hr, with_rel, explain)
             for rc in row_chunks(c, r)]
-    return tuple(torch.cat([o[i] for o in outs]) for i in range(3))
+    return tuple(torch.cat([o[i] for o in outs])
+                 for i in range(len(outs[0])))

@@ -43,9 +43,15 @@ while the stacks and planes replicate, as in the JAX package: below
 K4's rows and K3's slots split over the ranks of the axis, each rank
 launches its share, and the outputs merge over the axis group (K4's
 ``[3, rows]`` all-gathered; K3's request-order outputs, zero on the rows
-another rank decides, summed).  Not ported yet, and refused with
-``NotImplementedError`` naming the slice: ``explain=True`` and
-``dynamic_policies`` / ``shared_jits``.
+another rank decides, summed).
+
+``explain=True`` adds the provenance code as a fourth output (the JAX
+kernel's explain mode): the compacted subtrees then record each slot's
+original flat position (``rule_orig_flat``), which K3 and K4 map the
+winning rule through, so the codes decode with the uncompacted strides
+``explain_strides = (KP, KR)``.  Not ported yet, and refused with
+``NotImplementedError`` naming the slice: ``dynamic_policies`` /
+``shared_jits``.
 """
 
 from __future__ import annotations
@@ -67,6 +73,7 @@ from .carry import (
 )
 from .compile import CompiledPolicies
 from .kernel import (
+    ORIG_TABLE,
     DecisionKernel,
     ROW_ARRAYS,
     TABLE_ARRAYS,
@@ -112,7 +119,7 @@ def _is_varying(name: str) -> bool:
     group-invariant policy/set metadata shared across the stack."""
     return (
         name in _RULE_FIELDS
-        or name in ("pol_target", "set_target", "rule_orig_flat")
+        or name in ("pol_target", "set_target", ORIG_TABLE)
         or name.startswith("t_")
     )
 
@@ -158,12 +165,14 @@ def candidate_rows(
     return cand & act_compat
 
 
-def compact_rules(compiled: CompiledPolicies,
-                  row_cand: np.ndarray) -> CompiledPolicies:
+def compact_rules(compiled: CompiledPolicies, row_cand: np.ndarray,
+                  explain: bool = False) -> CompiledPolicies:
     """Left-pack candidate rules along KR (order-preserving) and compact
     the target subtable to the rows the kept rules and all policy/set
     targets reference.  Accepts either package's ``CompiledPolicies`` and
-    returns the same type."""
+    returns the same type.  ``explain=True`` also records
+    ``rule_orig_flat`` [S, KP, KRp]: each compacted slot's original flat
+    rule position ``(s * KP + kp) * KR + kr``."""
     a = compiled.arrays
     cand = a["rule_valid"] & (~a["rule_has_target"] | row_cand[a["rule_target"]])
 
@@ -175,6 +184,11 @@ def compact_rules(compiled: CompiledPolicies,
     for name in _RULE_FIELDS:
         new[name] = np.take_along_axis(a[name], order, axis=2)[:, :, :krp]
     new["rule_valid"] = np.take_along_axis(cand, order, axis=2)[:, :, :krp]
+    if explain:
+        S, KP, KR = a["rule_valid"].shape
+        base = (np.arange(S, dtype=np.int64)[:, None, None] * KP
+                + np.arange(KP, dtype=np.int64)[None, :, None]) * KR
+        new[ORIG_TABLE] = (base + order[:, :, :krp]).astype(np.int32)
 
     needed = set(
         np.unique(new["rule_target"][new["rule_valid"] & new["rule_has_target"]])
@@ -199,7 +213,7 @@ def compact_rules(compiled: CompiledPolicies,
 
 def _pad_sub(arr: np.ndarray, name: str, krp: int, tp: int) -> np.ndarray:
     """Pad one compacted-subtree array to the stack's common KR/T."""
-    if name in _RULE_FIELDS or name == "rule_orig_flat":
+    if name in _RULE_FIELDS or name == ORIG_TABLE:
         width = krp - arr.shape[2]
         if width > 0:
             fill = (
@@ -259,10 +273,6 @@ class PrefilteredKernel:
             raise ValueError(
                 f"policy tree unsupported by kernel: {compiled.unsupported_reason}"
             )
-        if explain:
-            raise NotImplementedError(
-                "explain output: not ported yet (serving-shell slice)"
-            )
         if dynamic_policies or shared_jits is not None:
             raise NotImplementedError(
                 "dynamic_policies / shared_jits (hot delta patching): not "
@@ -271,6 +281,12 @@ class PrefilteredKernel:
         self.compiled = compiled
         self.mesh = mesh
         self.axis = axis
+        self.explain = bool(explain)
+        # compacted slots map back through rule_orig_flat, so the codes
+        # decode with the uncompacted strides
+        self.explain_strides = (compiled.KP, compiled.KR)
+        # explain-off launches pass no keyword: their calls are unchanged
+        self._explain_kw = {"explain": True} if explain else {}
         self.device = mesh.device if mesh is not None else resolve_device(
             device)
         self.cache_size = cache_size
@@ -295,9 +311,11 @@ class PrefilteredKernel:
                 # a configured mesh is honored on every tree size
                 from ..parallel.mesh import ShardedDecisionKernel
 
-                self._dense = ShardedDecisionKernel(compiled, mesh, axis)
+                self._dense = ShardedDecisionKernel(compiled, mesh, axis,
+                                                    explain=self.explain)
             else:
-                self._dense = DecisionKernel(compiled, device=self.device)
+                self._dense = DecisionKernel(compiled, device=self.device,
+                                             explain=self.explain)
         self._c_inv = tables_from_numpy(compiled.arrays, self.device,
                                         keys=INVARIANT_TABLES)
 
@@ -314,7 +332,7 @@ class PrefilteredKernel:
             rows = candidate_rows(
                 self.compiled, ent_ids, ent_cols, op_ids, act_vals, rgx_set
             )
-            sub = compact_rules(self.compiled, rows)
+            sub = compact_rules(self.compiled, rows, explain=self.explain)
             if len(self._subs) >= self.cache_size:
                 self._subs.pop(next(iter(self._subs)))
         else:
@@ -328,15 +346,15 @@ class PrefilteredKernel:
             self._count("prefilter-stack-miss")
             krp = pow2_bucket(max(s.KR for s in subs), floor=4)
             tp = pow2_bucket(max(s.T for s in subs), floor=8)
+            keys_v = VARYING_TABLES + ((ORIG_TABLE,) if self.explain else ())
             padded = [
-                {k: _pad_sub(s.arrays[k], k, krp, tp) for k in VARYING_TABLES}
+                {k: _pad_sub(s.arrays[k], k, krp, tp) for k in keys_v}
                 for s in subs
             ]
             has_role = np.stack([p["t_has_role"] for p in padded])
             n_sub = np.stack([p["t_n_subjects"] for p in padded])
             stack = Stack(
-                tables=stacked_from_numpy(padded, self.device,
-                                          VARYING_TABLES),
+                tables=stacked_from_numpy(padded, self.device, keys_v),
                 needs_pairs=bool((~has_role & (n_sub > 0)).any()),
                 with_hr=any(tree_needs_hr(p) for p in padded),
                 with_rel=any(tree_needs_rel(p) for p in padded),
@@ -418,7 +436,8 @@ class PrefilteredKernel:
     def evaluate_async(self, batch):
         """Host preparation and launch without waiting for the result;
         returns a zero-arg callable that materializes the (decision,
-        cacheable, status) tuple of numpy int32 [B] arrays.  Callers that
+        cacheable, status) tuple of numpy int32 [B] arrays (and the
+        provenance codes fourth in explain mode).  Callers that
         stream batches overlap batch i+1's host grouping and packing with
         batch i's device work."""
         if not self.active:
@@ -585,7 +604,8 @@ class PrefilteredKernel:
                     start = pos
                     seen = 1
         seg_slices.append(row_order[start:])
-        outs = [np.zeros((B,), np.int32) for _ in range(3)]
+        outs = [np.zeros((B,), np.int32)
+                for _ in range(4 if self.explain else 3)]
         for idx in seg_slices:
             sub_batch = type(batch)(
                 B=len(idx),
@@ -698,7 +718,8 @@ class PrefilteredKernel:
                 np.copyto(g2r_own, grid2row_flat[lo:lo + ns_own * R])
                 slot_g, grid2row_flat, gp_orig = slot_own, g2r_own, gp_own
 
-            cs = {k: stack.tables[k] for k in _SIG_C_KEYS}
+            c_keys = _SIG_C_KEYS + ([ORIG_TABLE] if self.explain else [])
+            cs = {k: stack.tables[k] for k in c_keys}
             dev = self.device
             slot_g_d, mega_rows_d, grid2row_d, gp_orig_d = (
                 pool.tensor(buf).to(dev, non_blocking=True)
@@ -708,13 +729,14 @@ class PrefilteredKernel:
                 self._c_inv, cs, bits, slot_g_d, mega_rows_d,
                 grid2row_d.reshape(ns_own, R), gp_orig_d, B, tuple(schedule),
                 stack.needs_pairs, self.needs_hr, self.needs_rel,
+                **self._explain_kw,
             )
             if n_data > 1:
                 from ..parallel.mesh import all_reduce
 
                 out = all_reduce(out, self.mesh, self.axis,
                                  torch.distributed.ReduceOp.SUM)
-            host = take((3, b_pad))
+            host = take((out.shape[0], b_pad))
             pool.tensor(host).copy_(out, non_blocking=True)
             done = None
             if dev.type == "cuda":
@@ -730,7 +752,7 @@ class PrefilteredKernel:
             # output copy: the card has then read every input buffer
             if done is not None:
                 done.synchronize()
-            res = tuple(host[i, :B].copy() for i in range(3))
+            res = tuple(host[i, :B].copy() for i in range(host.shape[0]))
             if leases:
                 pool.release_all(leases)
                 leases.clear()
@@ -757,11 +779,13 @@ class PrefilteredKernel:
             g_idx = _tensor(g_all[index * per:(index + 1) * per],
                             self.device)
             out = decide_grouped(self._c_inv, stack.tables, g_idx, r,
-                                 with_acl, stack.with_hr, stack.with_rel)
+                                 with_acl, stack.with_hr, stack.with_rel,
+                                 **self._explain_kw)
             return readback(all_gather_cols(out, self.mesh, self.axis), b)
         b, r = batch_from_numpy(batch, self.device, keys=ROW_ARRAYS)
         _, _, _, pad_lead = lead_padding(batch)
         g_idx = _tensor(pad_lead(inv.astype(np.int32)), self.device)
         return readback(
             decide_grouped(self._c_inv, stack.tables, g_idx, r, with_acl,
-                           stack.with_hr, stack.with_rel), b)
+                           stack.with_hr, stack.with_rel,
+                           **self._explain_kw), b)

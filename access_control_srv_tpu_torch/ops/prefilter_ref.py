@@ -14,7 +14,10 @@ programs, written over the batched building blocks of ``kernel_ref``:
   row against its own compacted subtree).
 
 ``vmap`` over groups / slots / rows becomes a Python loop over the
-signature groups with the rows of a group batched.  ``PrefilteredKernel``
+signature groups with the rows of a group batched.  K3 and K4 take
+``explain`` as the JAX runners do: a fourth output row, the provenance
+code, whose rule positions map through the stacked ``rule_orig_flat``
+back to the uncompacted tree.  ``PrefilteredKernel``
 runs these for tensors on the CPU; on the card they are only the
 yardstick the CUDA kernels are held against.
 """
@@ -178,9 +181,11 @@ def _rel_planes_pass(r, idx, collect, direct):
     return out.reshape((-1,) + shape)
 
 
-def _sig_rows(c, sg, r, needs_pairs: bool, with_hr: bool, with_rel: bool):
+def _sig_rows(c, sg, r, needs_pairs: bool, with_hr: bool, with_rel: bool,
+              explain: bool = False):
     """Decisions of rows ``r`` (batched [R, ...]) of one group against its
-    tables ``c`` and planes ``sg`` -> three int32 [R]."""
+    tables ``c`` and planes ``sg`` -> three int32 [R] (four with
+    ``explain``)."""
     S, KP, KR = c["rule_effect"].shape
     M = KP * KR
 
@@ -241,7 +246,7 @@ def _sig_rows(c, sg, r, needs_pairs: bool, with_hr: bool, with_rel: bool):
                 | (sg["ss_ex_p"][None] & sl_sub)) & c["set_valid"][None]
     return _combine_and_decide_flat(
         c, reached, acl_rule, has_cond, cond_t, cond_a, cond_c, pol_gate,
-        set_gate, pol_subject=pol_subject,
+        set_gate, pol_subject=pol_subject, explain=explain,
     )
 
 
@@ -268,16 +273,18 @@ def unpack_rows(rows: torch.Tensor, schedule) -> dict:
 
 def sig_decide_ref(inv: dict, cs: dict, planes: dict, slot_g, mega_rows,
                    grid2row, gp_orig, n_rows: int, schedule,
-                   needs_pairs: bool, with_hr: bool, with_rel: bool
-                   ) -> torch.Tensor:
-    """K3's plain version -> int32 [3, b_pad]: every grid position of the
+                   needs_pairs: bool, with_hr: bool, with_rel: bool, *,
+                   explain: bool = False) -> torch.Tensor:
+    """K3's plain version -> int32 [3, b_pad] ([4, b_pad] with
+    ``explain``): every grid position of the
     ``[NSLOT, R]`` slot layout decided against its slot's group, then
     gathered back to request order through ``gp_orig`` for the ``n_rows``
     real rows (padding rows, and rows whose ``gp_orig`` is negative because
     another rank decides their slots, stay 0)."""
     NS, R = grid2row.shape
     grid_rows = mega_rows[grid2row.reshape(-1).long()]  # [NS * R, W]
-    out_flat = torch.zeros((3, NS * R), dtype=torch.int32,
+    n_out = 4 if explain else 3
+    out_flat = torch.zeros((n_out, NS * R), dtype=torch.int32,
                            device=mega_rows.device)
     slot_of = torch.arange(NS * R, device=mega_rows.device) // R
     pos_g = slot_g.long()[slot_of]
@@ -287,8 +294,8 @@ def sig_decide_ref(inv: dict, cs: dict, planes: dict, slot_g, mega_rows,
         sg = {k: v[g] for k, v in planes.items()}
         r = unpack_rows(grid_rows[pos], schedule)
         out_flat[:, pos] = torch.stack(_sig_rows(c, sg, r, needs_pairs,
-                                                 with_hr, with_rel))
-    out = torch.zeros((3, gp_orig.shape[0]), dtype=torch.int32,
+                                                 with_hr, with_rel, explain))
+    out = torch.zeros((n_out, gp_orig.shape[0]), dtype=torch.int32,
                       device=mega_rows.device)
     gp = gp_orig[:n_rows].long()
     rows = (gp >= 0).nonzero().flatten()
@@ -297,12 +304,14 @@ def sig_decide_ref(inv: dict, cs: dict, planes: dict, slot_g, mega_rows,
 
 
 def decide_grouped_ref(inv: dict, cs: dict, g_idx, r: dict, with_acl: bool,
-                       with_hr: bool, with_rel: bool) -> torch.Tensor:
-    """K4's plain version -> int32 [3, B]: the dense program per row
-    against ``inv`` joined with its group's subtree ``cs[g_idx[row]]``,
-    rows of one group batched."""
+                       with_hr: bool, with_rel: bool, *,
+                       explain: bool = False) -> torch.Tensor:
+    """K4's plain version -> int32 [3, B] ([4, B] with ``explain``): the
+    dense program per row against ``inv`` joined with its group's subtree
+    ``cs[g_idx[row]]``, rows of one group batched."""
     B = r["r_n_ra"].shape[0]
-    out = torch.zeros((3, B), dtype=torch.int32, device=g_idx.device)
+    out = torch.zeros((4 if explain else 3, B), dtype=torch.int32,
+                      device=g_idx.device)
     for g in torch.unique(g_idx).tolist():
         rows = (g_idx == g).nonzero().flatten()
         c = {**inv, **{k: v[g] for k, v in cs.items()}}
@@ -314,6 +323,6 @@ def decide_grouped_ref(inv: dict, cs: dict, g_idx, r: dict, with_acl: bool,
                 rr[k] = v[:, rows]
             else:
                 rr[k] = v[rows]
-        out[:, rows] = torch.stack(decide_dense_ref(c, rr, with_acl,
-                                                    with_hr, with_rel))
+        out[:, rows] = torch.stack(decide_dense_ref(
+            c, rr, with_acl, with_hr, with_rel, explain=explain))
     return out

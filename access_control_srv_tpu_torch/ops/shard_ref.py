@@ -20,7 +20,8 @@ Both shard kernels write one int32 **merge row** per request:
   (``pack_rule_key(pos + 1, ...)``, 0 when none) and the policy's gate
   (valid, set gate and policy gate: equal on every shard);
 - ``set_chunk``: the NEGATED key of the shard's last contributing set,
-  ``pack_rule_key(global_set + 1, effect, cacheable)``;
+  ``pack_rule_key(global_set + 1, effect, cacheable)``, and in explain
+  mode the NEGATED provenance key of that set (below);
 
 then ``n_model`` abort slots of three ints: the shard's first aborting rule
 in GLOBAL flat order (``BIG`` when none), its status code and its raw
@@ -29,6 +30,18 @@ other.  The MIN over the shards' rows is therefore exactly what JAX's
 collectives compute: the MIN keys, the MAX last key (negated), and every
 shard's abort slot (an all-gather), from which the tail takes the least
 position.
+
+Explain mode (``explain=True``) appends the fourth output, the provenance
+code of ``srv/explain.py``, with no further collective.  The rule-sharded
+tail recovers it from the merged keys, whose high bits already name the
+winning GLOBAL rule (strides ``(KP, kr_total)``, as the JAX program's).
+The pod-sharded program's JAX version packs the code on the shard that
+owns the winning set and broadcasts it with a second ``pmax``; here each
+shard writes the code of its own last contributing set as a key that
+orders like the set position -- a kind-2 (no-rules policy) code carries
+``flat_pos * KR`` in place of ``flat_pos`` -- so the MAX over shards,
+negated through the same MIN, is the owner's, and the tail divides the
+kind-2 position back by ``KR``.
 """
 
 from __future__ import annotations
@@ -43,6 +56,7 @@ from .kernel_ref import (
     _policy_contributions,
     _policy_gates,
     _rule_predicates,
+    _take_rows,
     row_chunks,
 )
 
@@ -55,9 +69,12 @@ INT_MAX = 2**31 - 1
 MODE_RULE, MODE_SET = 1, 2
 
 
-def merge_width(mode: int, S: int, KP: int, n_model: int) -> int:
+def merge_width(mode: int, S: int, KP: int, n_model: int,
+                explain: bool = False) -> int:
     """Ints per merge row (csrc/decide_core.cuh ``chunk_width``)."""
-    return (S * KP * KEY_COLS if mode == MODE_RULE else 1) + n_model * 3
+    if mode == MODE_RULE:
+        return S * KP * KEY_COLS + n_model * 3
+    return 1 + int(explain) + n_model * 3
 
 
 def _pack(pos, effect, cacheable):
@@ -135,16 +152,18 @@ def rule_chunk_ref(c: dict, r: dict, kr_offset: int, kr_total: int,
         for rc in row_chunks(c, r)])
 
 
-def _set_chunk(c, r, s_offset, n_model, rank, with_acl, with_hr, with_rel):
+def _set_chunk(c, r, s_offset, n_model, rank, with_acl, with_hr, with_rel,
+               explain=False):
     m = _match_targets(c, r, with_hr, with_rel=with_rel)
     reached, acl_rule, has_cond, cond_t, cond_a, cond_c = _rule_predicates(
         c, r, m, with_acl)
     pol_gate, set_gate, pol_subject = _policy_gates(c, r, m)
-    contrib_present, contrib_eff, contrib_cach, abort_rule = (
+    contrib_present, contrib_eff, contrib_cach, abort_rule, *sel = (
         _policy_contributions(c, reached, acl_rule, has_cond, cond_t,
-                              cond_a, pol_gate, set_gate, pol_subject))
-    set_eff, set_cach, set_any = _per_set_effects(
-        c, contrib_present, contrib_eff, contrib_cach)
+                              cond_a, pol_gate, set_gate, pol_subject,
+                              explain))
+    set_eff, set_cach, set_any, *s_sel_c = _per_set_effects(
+        c, contrib_present, contrib_eff, contrib_cach, explain)
 
     # ---- last-set-wins across shards: the local max key, negated
     B, S_l = set_eff.shape
@@ -163,27 +182,51 @@ def _set_chunk(c, r, s_offset, n_model, rank, with_acl, with_hr, with_rel):
     )
     slots = _abort_slots(abort_rule, flat_order, cond_c,
                          c["rule_cacheable_raw"], n_model, rank)
-    return torch.cat([-k_win[:, None], slots], dim=1).to(torch.int32)
+    cols = [-k_win[:, None]]
+    if explain:
+        cols.append(-_set_explain_key(k_set, k_win, s_offset, KP, KR,
+                                      *sel, s_sel_c[0])[:, None])
+    return torch.cat(cols + [slots], dim=1).to(torch.int32)
+
+
+def _set_explain_key(k_set, k_win, s_offset, KP, KR, sel_c, no_rules,
+                     s_sel_c):
+    """The provenance of this shard's last contributing set as a key that
+    orders like the global set position: ``(pos << 2) | kind`` with pos
+    the global flat rule position (kind 1) or ``(s * KP + kp) * KR``
+    (kind 2); 0 when no set of the shard contributed."""
+    win_s = k_set.argmax(dim=1)
+    win_l = win_s * KP + _take_rows(s_sel_c, win_s)
+    win_flat = (s_offset + win_s) * KP + _take_rows(s_sel_c, win_s)
+    no_rules_win = _take_rows(no_rules, win_l)
+    pos = win_flat * KR + torch.where(no_rules_win, 0,
+                                      _take_rows(sel_c, win_l))
+    kind = torch.where(no_rules_win, 2, 1)
+    return torch.where(k_win > 0, (pos << 2) | kind, 0)
 
 
 def set_chunk_ref(c: dict, r: dict, s_offset: int, n_model: int, rank: int,
-                  with_acl: bool, with_hr: bool, with_rel: bool
-                  ) -> torch.Tensor:
+                  with_acl: bool, with_hr: bool, with_rel: bool, *,
+                  explain: bool = False) -> torch.Tensor:
     """Stages A-F of the pod-sharded program on one shard's tables
     (``parallel/pod_shard.slice_shard``), set positions offset by
-    ``s_offset`` -> int32 [B, merge_width(MODE_SET, ...)]."""
+    ``s_offset`` -> int32 [B, merge_width(MODE_SET, ..., explain)]."""
     return torch.cat([
         _set_chunk(c, rc, s_offset, n_model, rank, with_acl, with_hr,
-                   with_rel)
+                   with_rel, explain)
         for rc in row_chunks(c, r)])
 
 
 def shard_tail_ref(merge: torch.Tensor, n_model: int,
-                   tabs: dict | None = None) -> torch.Tensor:
+                   tabs: dict | None = None, *, explain: bool = False,
+                   kr_stride: int = 0) -> torch.Tensor:
     """The decisions from merged rows -> int32 [3, B] (decision,
-    cacheable, status).  ``tabs`` (``pol_ca``, ``pol_effect``,
-    ``pol_cacheable``, ``pol_n_rules``, ``set_ca``) selects the
-    rule-sharded tail; None the pod-sharded one."""
+    cacheable, status; with ``explain`` [4, B], the provenance code
+    last, its rule positions in strides ``(KP, kr_stride)``: the padded
+    ``kr_total`` of the rule-sharded tables, the pod tables' ``KR``).
+    ``tabs`` (``pol_ca``, ``pol_effect``, ``pol_cacheable``,
+    ``pol_n_rules``, ``set_ca``) selects the rule-sharded tail; None the
+    pod-sharded one."""
     B = merge.shape[0]
     m = merge.long()
     if tabs is not None:
@@ -207,16 +250,31 @@ def shard_tail_ref(merge: torch.Tensor, n_model: int,
                                   (sel >> 1) & 3)
         contrib_cach = torch.where(no_rules, tabs["pol_cacheable"][None],
                                    (sel & 1) == 1)
-        decision, cacheable = _combine_sets(tabs, contrib_present,
-                                            contrib_eff, contrib_cach)
+        decision, cacheable, *win = _combine_sets(
+            tabs, contrib_present, contrib_eff, contrib_cach, explain)
         decision, cacheable = decision.long(), cacheable.long()
         slots = m[:, S * KP * KEY_COLS:]
+        if explain:
+            win_s, have, s_sel_c = win
+            win_flat = win_s * KP + _take_rows(s_sel_c, win_s)
+            win_kr = _take_rows(sel, win_flat) >> 3
+            code = torch.where(
+                have,
+                torch.where(_take_rows(no_rules, win_flat),
+                            (win_flat << 2) | 2,
+                            ((win_flat * kr_stride + win_kr) << 2) | 1),
+                0)
     else:
         k_win = -m[:, 0]
         have = k_win > 0
         decision = torch.where(have, (k_win >> 1) & 3, 0)
         cacheable = torch.where(have, k_win & 1, -1)
-        slots = m[:, 1:]
+        slots = m[:, 1 + int(explain):]
+        if explain:
+            key = -m[:, 1]
+            pos = key >> 2
+            code = torch.where((key & 3) == 2,
+                               ((pos // max(kr_stride, 1)) << 2) | 2, key)
     slots = slots.reshape(B, n_model, 3)
     owner = slots[:, :, 0].argmin(dim=1)
     best = torch.gather(slots, 1, owner[:, None, None].expand(B, 1, 3))[:, 0]
@@ -224,4 +282,7 @@ def shard_tail_ref(merge: torch.Tensor, n_model: int,
     decision = torch.where(has_abort, 2, decision)
     cacheable = torch.where(has_abort, best[:, 2] - 1, cacheable)
     status = torch.where(has_abort, best[:, 1], 200)
-    return torch.stack([decision, cacheable, status]).to(torch.int32)
+    outs = [decision, cacheable, status]
+    if explain:
+        outs.append(torch.where(has_abort, (best[:, 0] << 2) | 3, code))
+    return torch.stack(outs).to(torch.int32)

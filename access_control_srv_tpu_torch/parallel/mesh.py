@@ -14,8 +14,9 @@ device (the collectives are then staged through the host explicitly, see
 
 ``ShardedDecisionKernel`` is the data-parallel dense kernel (K6): each
 rank runs ``decide_dense`` (``ops/csrc/decide_dense.cu``) on its row
-slice and the three int32 outputs are all-gathered over the ``data``
-group, so ``materialize()`` returns the whole batch on every rank.
+slice and the three int32 outputs (four in explain mode) are all-gathered
+over the ``data`` group, so ``materialize()`` returns the whole batch on
+every rank.
 
 The JAX module's ``resolve_shard_map`` / ``wrap_shard_map`` are shims over
 JAX versions' ``shard_map`` spellings and have no counterpart here.
@@ -36,6 +37,7 @@ from ..ops.carry import _tensor, pad_cols, pow2_bucket, tables_from_numpy
 from ..ops.compile import CompiledPolicies
 from ..ops.encode import RequestBatch
 from ..ops.kernel import (
+    ORIG_TABLE,
     ROW_ARRAYS,
     TABLE_ARRAYS,
     decide_dense,
@@ -209,7 +211,8 @@ def all_gather_cols(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
 class ShardedDecisionKernel:
     """The dense decision kernel with the batch sharded over the mesh's
     ``axis``: each rank decides its row slice with ``decide_dense`` and the
-    outputs are all-gathered (K6)."""
+    outputs are all-gathered (K6); ``explain=True`` gathers the provenance
+    codes as a fourth row."""
 
     def __init__(self, compiled: CompiledPolicies, mesh: Mesh,
                  axis: str = "data", explain: bool = False):
@@ -217,29 +220,31 @@ class ShardedDecisionKernel:
             raise ValueError(
                 f"policy tree unsupported by kernel: {compiled.unsupported_reason}"
             )
-        if explain:
-            raise NotImplementedError(
-                "explain output: not ported yet (serving-shell slice)"
-            )
         self.compiled = compiled
         self.mesh = mesh
         self.axis = axis
+        self.explain = bool(explain)
+        self.explain_strides = (compiled.KP, compiled.KR)
+        self._explain_kw = {"explain": True} if explain else {}
         self.n_devices = mesh.shape[axis]
         self.device = mesh.device
         self.with_hr = tree_needs_hr(compiled.arrays)
         self.with_rel = tree_needs_rel(compiled.arrays)
         self._c = tables_from_numpy(compiled.arrays, self.device,
-                                    keys=TABLE_ARRAYS)
+                                    keys=TABLE_ARRAYS,
+                                    optional=(ORIG_TABLE,))
 
     def evaluate(self, batch: RequestBatch):
         return self.evaluate_async(batch)()
 
     def evaluate_async(self, batch: RequestBatch):
         """Launch this rank's slice and gather the outputs; returns the
-        thunk that materializes (decision, cacheable, status) numpy [B]
-        for the whole batch."""
+        thunk that materializes (decision, cacheable, status, and the
+        provenance codes in explain mode) numpy [B] for the whole
+        batch."""
         with_acl = bool((np.asarray(batch.arrays["r_acl_ent"]) >= 0).any())
         b, r = row_slice(batch, self.device, ROW_ARRAYS, self.n_devices,
                          self.mesh.coords[self.axis])
-        out = decide_dense(self._c, r, with_acl, self.with_hr, self.with_rel)
+        out = decide_dense(self._c, r, with_acl, self.with_hr, self.with_rel,
+                           **self._explain_kw)
         return readback(all_gather_cols(out, self.mesh, self.axis), b)

@@ -26,6 +26,14 @@ shard_tail.cu``: unpack the winner, apply the first abort), and the
 ``[3, rows]`` outputs all-gather over ``data``.  Only O(n_model) ints per
 request cross ranks.
 
+``explain=True`` adds the provenance code as a fourth output.  The JAX
+program packs it on the shard owning the winning set and broadcasts it
+with a second ``pmax``; here ``set_chunk`` writes each shard's code as a
+key that orders like the global set position into one more merge column
+(``ops/shard_ref.py``), so the one MIN ``all_reduce`` leaves the owner's
+and ``shard_tail`` decodes it, in strides ``explain_strides = (KP,
+KR)``.
+
 The JAX pod path compiles through the delta subsystem's capacity-bucketed
 compile; until that slice is ported the caller hands in a
 ``compile_policies`` compile (decisions are the same, capacities differ).
@@ -179,11 +187,13 @@ class PodShardedKernel:
             raise ValueError(
                 f"policy tree unsupported: {compiled.unsupported_reason}"
             )
-        if explain:
-            raise NotImplementedError(
-                "explain output: not ported yet (serving-shell slice)"
-            )
         self.compiled = compiled
+        self.explain = bool(explain)
+        self.explain_strides = (compiled.KP, compiled.KR)
+        # explain-off launches pass no keyword: their calls are unchanged
+        self._explain_kw = {"explain": True} if explain else {}
+        self._tail_kw = {"explain": True,
+                         "kr_stride": compiled.KR} if explain else {}
         self.mesh = mesh
         self.data_axis = data_axis
         self.model_axis = model_axis
@@ -254,7 +264,8 @@ class PodShardedKernel:
         return PodShardedKernel(
             new_compiled, self.mesh,
             data_axis=self.data_axis, model_axis=self.model_axis,
-            prev_t_cap=self.t_cap, _shards=shards, _applied=applied,
+            prev_t_cap=self.t_cap, explain=self.explain, _shards=shards,
+            _applied=applied,
             _placed=(self._own, self.t_cap, self._c),
         )
 
@@ -292,14 +303,15 @@ class PodShardedKernel:
     def evaluate_async(self, batch: RequestBatch):
         """This rank's rows against its set slots, the merge over
         ``model``, the tail, and the gather over ``data``; returns the
-        thunk that materializes (decision, cacheable, status) numpy [B].
+        thunk that materializes (decision, cacheable, status, and the
+        provenance codes in explain mode) numpy [B].
         Batch and regex-matrix axes pad as in ``RuleShardedKernel``."""
         with_acl = bool((np.asarray(batch.arrays["r_acl_ent"]) >= 0).any())
         b, r = row_slice(batch, self.device, ROW_ARRAYS, self.n_data,
                          self.mesh.coords[self.data_axis])
         merge = set_chunk(self._c, r, self._own.s_lo, self.n_shards,
                           self.mesh.coords[self.model_axis], with_acl,
-                          self.with_hr, self.with_rel)
+                          self.with_hr, self.with_rel, **self._explain_kw)
         merge = all_reduce(merge, self.mesh, self.model_axis)
-        out = shard_tail(merge, self.n_shards)
+        out = shard_tail(merge, self.n_shards, **self._tail_kw)
         return readback(all_gather_cols(out, self.mesh, self.data_axis), b)

@@ -26,6 +26,12 @@ is three steps per batch:
    preemption; then the ``[3, rows]`` outputs are all-gathered over
    ``data``.
 
+``explain=True`` adds the provenance code as a fourth output with no
+extra collective, as the JAX program recovers it: the merged keys' high
+bits already name the winning GLOBAL rule, so only ``shard_tail`` reads
+it out, in strides ``explain_strides = (KP, kr_total)`` (the padded
+global rule extent).
+
 ``partition_rules`` is the JAX package's, byte for byte.  Like the JAX
 kernel this one is not delta-patchable: a mutated tree re-partitions.
 """
@@ -161,11 +167,8 @@ class RuleShardedKernel:
             raise ValueError(
                 f"policy tree unsupported: {compiled.unsupported_reason}"
             )
-        if explain:
-            raise NotImplementedError(
-                "explain output: not ported yet (serving-shell slice)"
-            )
         self.compiled = compiled
+        self.explain = bool(explain)
         self.mesh = mesh
         self.data_axis = data_axis
         self.model_axis = model_axis
@@ -177,6 +180,10 @@ class RuleShardedKernel:
         # rule flat positions use the PADDED global kr extent, not
         # compiled.KR: the abort order spans every shard's padding
         self._kr_total = part.kr_local * self.n_model
+        self.explain_strides = (compiled.KP, self._kr_total)
+        # explain-off launches pass no keyword: their calls are unchanged
+        self._explain_kw = {"explain": True,
+                            "kr_stride": self._kr_total} if explain else {}
         rank = mesh.coords[model_axis]
         self._kr_offset = int(part.kr_offsets[rank])
         self._c = tables_from_numpy(
@@ -191,7 +198,8 @@ class RuleShardedKernel:
     def evaluate_async(self, batch: RequestBatch):
         """This rank's rows against its rule chunk, the merge over
         ``model``, the tail, and the gather over ``data``; returns the
-        thunk that materializes (decision, cacheable, status) numpy [B].
+        thunk that materializes (decision, cacheable, status, and the
+        provenance codes in explain mode) numpy [B].
         The batch pads to ``n_data * pow2_bucket(ceil(B / n_data))`` rows
         and the regex matrices to the entity bucket, as the JAX kernel
         pads them."""
@@ -202,5 +210,5 @@ class RuleShardedKernel:
                            self.n_model, self.mesh.coords[self.model_axis],
                            with_acl, self.with_hr, self.with_rel)
         merge = all_reduce(merge, self.mesh, self.model_axis)
-        out = shard_tail(merge, self.n_model, self._tail)
+        out = shard_tail(merge, self.n_model, self._tail, **self._explain_kw)
         return readback(all_gather_cols(out, self.mesh, self.data_axis), b)

@@ -29,6 +29,17 @@ evaluator's: ``pod_shards`` set -> ``PodShardedKernel`` (the set axis over
 over ``mesh_axis``.  Every rank of the mesh serves the same requests and
 gets the whole batch's responses.
 
+Explain mode (``explain=True``) is the JAX evaluator's: every kernel
+the evaluator builds emits the provenance code as a fourth output, an
+``ExplainDecoder`` (``srv/explain.py``) built at each refresh from the
+same tree snapshot as the compiled tables decodes it, and each response
+carries ``_rule_id`` (the oracle's source: the deciding rule, or the
+no-rules policy) and ``_explain`` (the full dict; on relation-gated rows
+with the tuple-path witnesses under ``"relation"``).  Condition-abort
+rows carry ``_explain`` naming the aborting rule and no ``_rule_id``, as
+the oracle's abort response carries none; oracle rows get the same
+``_explain`` shape from the engine's source stamp.
+
 A refresh recompiles the whole tree (``compile_policies``), the JAX
 evaluator's ``delta_enabled=False`` path; the JAX pod path compiles
 through the delta subsystem's capacity-bucketed compile, which waits for
@@ -36,8 +47,8 @@ the delta slice (capacities differ, decisions do not).  Not ported yet:
 the decision cache (and with it the epoch bump on tuple churn), token /
 HR-scope preparation (token rows are served by the oracle, which
 resolves them itself), delta patching, async compiles, the watchdog,
-telemetry and tracing, explain (with its relation provenance), the
-native wire encoder's relation tables and tenancy.
+telemetry and tracing, the native wire encoder's relation tables and
+tenancy.
 """
 
 from __future__ import annotations
@@ -48,6 +59,11 @@ from typing import Optional
 
 from ..core.candidate_index import CandidateIndex
 from ..core.engine import AccessController
+from ..core.relation_path import (
+    collect_target_instances,
+    relation_paths,
+    request_subject_id,
+)
 from ..models.model import Decision, OperationStatus, Response
 from ..ops import reverse
 from ..ops.compile import DECISION_NAMES, compile_policies
@@ -55,6 +71,7 @@ from ..ops.encode import _CAPS_FLOOR, encode_requests, fits_floor, request_needs
 from ..ops.kernel import resolve_device
 from ..ops.prefilter import PrefilteredKernel
 from ..ops.relation import relation_bits_needed
+from .explain import ExplainDecoder, explain_capacity_ok
 
 # trees with fewer rules skip the candidate index (its build and lookups
 # cost more than the walk it saves)
@@ -66,11 +83,11 @@ class HybridEvaluator:
                  explain: bool = False, mesh=None, mesh_axis: str = "data",
                  model_axis: Optional[str] = None,
                  pod_shards: Optional[int] = None):
-        if explain:
-            raise NotImplementedError(
-                "explain output: not ported yet (serving-shell slice)"
-            )
         self.engine = engine
+        # explain mode (srv/explain.py): the kernels' fourth output,
+        # decoded onto each response
+        self.explain = bool(explain)
+        self._explain_decoder: Optional[ExplainDecoder] = None
         self.mesh = mesh
         self.mesh_axis = mesh_axis
         self.model_axis = model_axis
@@ -116,6 +133,8 @@ class HybridEvaluator:
         kernel = None
         if compiled.supported and compiled.n_rules > 0:
             kernel = self._make_kernel(compiled)
+        decoder = self._make_explain_decoder(compiled, kernel,
+                                             tree_snapshot)
         cand = self._build_candidate_index()
         with self._lock:
             if version >= self._version:  # drop stale compiles
@@ -123,6 +142,7 @@ class HybridEvaluator:
                 self._kernel = kernel
                 self._rq_kernel = None  # lazy: built on first wia batch
                 self._tree_snapshot = tree_snapshot
+                self._explain_decoder = decoder
                 self._cand = cand
 
     def _make_kernel(self, compiled):
@@ -138,6 +158,7 @@ class HybridEvaluator:
                 compiled, self.mesh, data_axis=self.mesh_axis,
                 model_axis=self.model_axis or "model",
                 prev_t_cap=getattr(self._kernel, "t_cap", 0),
+                explain=self.explain,
             )
         if self.model_axis is not None and self.mesh is not None:
             # the rule axis partitions over the model axis
@@ -145,11 +166,24 @@ class HybridEvaluator:
 
             return RuleShardedKernel(compiled, self.mesh,
                                      data_axis=self.mesh_axis,
-                                     model_axis=self.model_axis)
+                                     model_axis=self.model_axis,
+                                     explain=self.explain)
         # keeps per-request work O(matching rules) on large trees and
         # delegates to the dense kernel below MIN_RULES
         return PrefilteredKernel(compiled, device=self.device,
-                                 mesh=self.mesh, axis=self.mesh_axis)
+                                 mesh=self.mesh, axis=self.mesh_axis,
+                                 explain=self.explain)
+
+    def _make_explain_decoder(self, compiled, kernel, tree):
+        """The ExplainDecoder paired with one published kernel, built from
+        the tree snapshot its tables were compiled from; None when explain
+        is off or no kernel serves."""
+        if not self.explain or kernel is None:
+            return None
+        if not explain_capacity_ok(compiled.S, compiled.KP, compiled.KR):
+            raise ValueError("policy tree exceeds the explain code's 30-bit "
+                             "position bound")
+        return ExplainDecoder(tree, kernel.explain_strides)
 
     def shard_identity(self) -> Optional[dict]:
         """Pod-sharding surface: shard count, per-shard fingerprints and
@@ -213,14 +247,79 @@ class HybridEvaluator:
         """Oracle walk, candidate-filtered on large trees (skipped rules
         provably cannot target-match; decisions bit-identical).  One read
         of the (tree, index) pair keeps the identity guard and the index
-        consistent under concurrent swaps."""
+        consistent under concurrent swaps.  In explain mode the response
+        carries the same ``_explain`` shape as kernel rows, looked up from
+        the engine's source stamp."""
         cand = self._cand
         if cand is not None and cand[0] is self.engine.policy_sets:
-            return self.engine.is_allowed(
+            response = self.engine.is_allowed(
                 request,
                 candidate_rules=cand[1].candidates(request, self.engine.urns),
             )
-        return self.engine.is_allowed(request)
+        else:
+            response = self.engine.is_allowed(request)
+        decoder = self._explain_decoder
+        if decoder is not None and getattr(response, "_explain", None) is None:
+            info = decoder.describe_source(getattr(response, "_rule_id", None))
+            if info is not None:
+                response._explain = info
+                self._stamp_relation(info, request)
+        return response
+
+    def _stamp_relation(self, info: dict, request) -> None:
+        """Add the tuple-path witnesses of a relation-gated row to its
+        explain dict (nothing on other rows)."""
+        rel = self._relation_provenance(
+            request, info.get("rule") or info.get("policy"))
+        if rel is not None:
+            info["relation"] = rel
+
+    def _relation_provenance(self, request, source_id):
+        """Tuple-path witnesses for an explain row: when the deciding
+        node's target carries relation-path attributes, the hop list of
+        the live tuple graph that satisfied each (path, instance) pair;
+        None when the row was not relation-gated (no store, no relation
+        attributes, nothing collected)."""
+        store = getattr(self.engine, "relation_store", None)
+        if store is None or source_id is None:
+            return None
+        target = self._node_target(source_id)
+        if target is None:
+            return None
+        urns = self.engine.urns
+        paths = relation_paths(target.subjects, urns)
+        if not paths:
+            return None
+        instances = collect_target_instances(target, request, urns)
+        subject_id = request_subject_id(request)
+        if not instances or subject_id is None:
+            return None
+        witnesses = []
+        for expr in paths:
+            for ns, oid in instances:
+                hops = store.witness(expr, ns, oid, subject_id)
+                if hops is not None:
+                    witnesses.append({"path": expr, "object": f"{ns}:{oid}",
+                                      "tuples": hops})
+        return witnesses or None
+
+    def _node_target(self, source_id):
+        """The target of the tree node ``source_id`` names: the deciding
+        rule first, then the no-rules policy (the precedence of
+        ``ExplainDecoder.describe_source``); None when the id left the
+        tree."""
+        live = [ps for ps in self.engine.policy_sets.values()
+                if ps is not None]
+        pols = [pol for ps in live for pol in ps.combinables.values()
+                if pol is not None]
+        for pol in pols:
+            for rule in pol.combinables.values():
+                if rule is not None and rule.id == source_id:
+                    return rule.target
+        for pol in pols:
+            if pol.id == source_id:
+                return pol.target
+        return None
 
     def what_is_allowed(self, request):
         return self.engine.what_is_allowed(request)
@@ -317,15 +416,22 @@ class HybridEvaluator:
             requests, compiled, self.engine.resource_adapter, caps=caps,
             relation_tables=self._relation_tables(compiled),
         )
+        decoder = self._explain_decoder
         materialize = kernel.evaluate_async(batch)
 
         def finalize():
-            return self._decode_batch(requests, batch, materialize())
+            return self._decode_batch(requests, batch, materialize(),
+                                      decoder)
 
         return finalize
 
-    def _decode_batch(self, requests, batch, outputs) -> list[Response]:
-        decision, cacheable, status = outputs
+    def _decode_batch(self, requests, batch, outputs,
+                      decoder: Optional[ExplainDecoder] = None
+                      ) -> list[Response]:
+        decision, cacheable, status = outputs[:3]
+        # explain mode: the fourth output, decoded per kernel row
+        expl = outputs[3] if decoder is not None and len(outputs) > 3 \
+            else None
         C = batch.cond_true.shape[0]
         responses: list[Optional[Response]] = []
         oracle_rows: list[int] = []
@@ -342,14 +448,21 @@ class HybridEvaluator:
                 }
                 if len(msgs) == 1 and None not in msgs:
                     cach = None if cacheable[b] < 0 else bool(cacheable[b])
-                    responses.append(Response(
+                    resp = Response(
                         decision=Decision.DENY,
                         obligations=[],
                         evaluation_cacheable=cach,
                         operation_status=OperationStatus(
                             code=int(status[b]), message=msgs.pop()
                         ),
-                    ))
+                    )
+                    if expl is not None:
+                        # names the aborting rule; no ``_rule_id``, as the
+                        # oracle's abort response carries none
+                        info = decoder.decode(expl[b])
+                        if info is not None:
+                            resp._explain = info
+                    responses.append(resp)
                     continue
             if not batch.eligible[b] or status[b] != 200:
                 # ineligible rows and ambiguous abort rows: the oracle
@@ -357,12 +470,22 @@ class HybridEvaluator:
                 responses.append(None)
                 continue
             cach = None if cacheable[b] < 0 else bool(cacheable[b])
-            responses.append(Response(
+            resp = Response(
                 decision=DECISION_NAMES[int(decision[b])],
                 obligations=[],
                 evaluation_cacheable=cach,
                 operation_status=OperationStatus(),
-            ))
+            )
+            if expl is not None:
+                info = decoder.decode(expl[b])
+                if info is not None:
+                    resp._explain = info
+                    self._stamp_relation(info, request)
+                source = decoder.source(expl[b])
+                if source is not None:
+                    # the oracle's EffectEvaluation.source stamp
+                    resp._rule_id = source
+            responses.append(resp)
         for slot in oracle_rows:
             # candidate-filtered on large trees
             responses[slot] = self._oracle_is_allowed(requests[slot])

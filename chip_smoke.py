@@ -9,8 +9,10 @@ PyTorch version:
 2. build: the seven CUDA sources (``decide_dense``, ``sig_planes``,
    ``sig_decide``, ``decide_grouped``, ``wia_planes``, ``shard_chunk``
    (the ``rule_chunk`` and ``set_chunk`` kernels), ``shard_tail``), one
-   nvcc each, all started together; ptxas registers, shared memory and
-   spills per kernel;
+   nvcc each, all started together; ptxas registers and spills per kernel
+   instantiation, each explain-off instantiation beside its explain twin
+   (with ``--parent-csrc DIR`` also held against the same kernels built
+   from another tree's sources: equal registers and spills);
 3. dense kernel vs plain: ``decide_dense`` against ``kernel_ref`` on the
    card, exactly equal, on every supported fixture tree (the relation
    fixture without a store: fail-closed), the seed data and the 511-rule
@@ -91,13 +93,39 @@ PyTorch version:
    time and bound on the very arguments the batch gave it (these are the
    K6-K8 rows of the kernel table), with the collective times; then one
    rule flip through ``PodShardedKernel.patched``:
-   one shard re-sliced, the decision changed, no library built;
+   one shard re-sliced, the decision changed, no library built; then the
+   K6 (4, 1), K7 (1, 4) and K8 (1, 4) layouts once more with
+   ``explain=True``, every rank's ``_rule_id`` / ``_explain`` equal to the
+   single-device explain evaluator's;
 16. NCCL at world size 1: the rule- and pod-sharded evaluators at (1, 1)
-   and the merge rows' MIN ``all_reduce`` through NCCL on the card.
+   and the merge rows' MIN ``all_reduce`` through NCCL on the card;
+17. explain variants vs plain: every explain call of ``decide_dense``,
+   ``sig_decide`` and ``decide_grouped`` exactly equal to its plain
+   version (all four outputs) on every supported fixture tree, the
+   511-rule scoped tree and the seed data (ACL / property and signature
+   batches, ``DecisionKernel`` and a forced ``PrefilteredKernel``, whose
+   codes must agree), the 720-rule stress trees with conditions and
+   aborts and with HR, and phase 12's relation variants; sampled codes
+   decoded to the oracle's ``_rule_id``; ``set_chunk`` and both
+   ``shard_tail`` modes in explain mode on the shard-scale tree's 4-way
+   partitions, the merged codes equal to the single device's;
+18. the explain main path, the JAX package's ``explain-overhead``:
+   ``HybridEvaluator(engine, explain=True).is_allowed_batch`` on 8
+   batches of 4,096 ``bench_stress`` rows (numpy seed 7) against the
+   20,000-rule tree, counts set to 0 before the first batch and read
+   after it, every kernel call of that batch held against its plain
+   version, every response against the oracle (decision, status,
+   ``_rule_id``); warm decisions/s; ``PrefilteredKernel`` explain off
+   against on (decisions/s, ``overhead_pct`` beside the JAX package's
+   20% bar, reported and not gated) and ``sig_decide``'s time in both
+   variants beside its bound and plain time; one 16,384-row batch with 16
+   ACL rows through ``decide_grouped``'s explain variant.
 
 Any mismatch or error exits non-zero.  The line before the last is the
 kernel table as one JSON object (K1-K4 carry their ``with_rel`` variant's
-launches and times beside their own, ``decide_dense`` K6's); the last
+launches and times beside their own; ``decide_dense``, ``sig_decide``,
+``decide_grouped``, ``set_chunk`` and ``shard_tail`` (and its ``pod``
+object) their ``explain`` variant's; ``decide_dense`` K6's); the last
 line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero before
 printing any result.  Run from the repository root::
@@ -111,6 +139,7 @@ import copy
 import json
 import os
 import random
+import re
 import shutil
 import subprocess
 import sys
@@ -151,6 +180,7 @@ from access_control_srv_tpu_torch.parallel import mesh as mmod
 from access_control_srv_tpu_torch.parallel import pod_shard, rule_shard
 from access_control_srv_tpu_torch.srv.audit_sweep import AuditSweepManager
 from access_control_srv_tpu_torch.srv.evaluator import HybridEvaluator
+from access_control_srv_tpu_torch.srv.explain import ExplainDecoder
 from access_control_srv_tpu_torch.srv.relations import RelationTupleStore
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -565,6 +595,120 @@ def bench_batch(compiled, base: int, total: int, stress: bool = False
 # ------------------------------------------------------------ measurements
 
 
+def ptxas_entries(log: str) -> dict:
+    """ptxas's report per kernel instantiation in an nvcc log: {kernel
+    name with its template arguments (bools as 0/1, e.g.
+    ``decide_dense_kernel<0,1,0,1>``): (registers, spill stores, spill
+    loads)}."""
+    out: dict = {}
+    name = mangled = None
+    own = False  # the properties line being read is the entry's own
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            own = m.group(1) == mangled
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = re.match(r"_Z\d+(\w+?_kernel)", mangled)
+            args = re.findall(r"L([bi])(\d+)E", mangled)
+            name = (base.group(1) if base else mangled) + (
+                "<" + ",".join(v for _, v in args) + ">" if args else "")
+            out[name] = [0, 0, 0]
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and own:
+            out[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def ptxas_report(csrc: str) -> dict:
+    """Every source of ``SOURCES`` in the directory ``csrc`` built with the
+    port's nvcc flags into a temporary directory, one nvcc each, all
+    started together -> {source: ptxas_entries}; for holding the
+    explain-off instantiations against another tree's sources."""
+    tmp = tempfile.mkdtemp(prefix="acs-ptxas-")
+    try:
+        procs = [(name, subprocess.Popen(
+            [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o",
+             os.path.join(tmp, f"lib{name}.so"),
+             os.path.join(csrc, f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            for name in SOURCES]
+        out = {}
+        for name, proc in procs:
+            so, se = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {csrc}/{name}.cu:\n{se}")
+            out[name] = ptxas_entries(so + se)
+        return out
+    finally:
+        shutil.rmtree(tmp)
+
+
+def explain_off_twin(name: str) -> str:
+    """The name an instantiation had before the explain flag: the last
+    template argument of an explain-capable kernel dropped."""
+    base = name.split("<")[0]
+    if base not in ("decide_dense_kernel", "decide_grouped_kernel",
+                    "shard_chunk_kernel", "shard_tail_kernel",
+                    "sig_decide_kernel"):
+        return name
+    args = name[len(base) + 1:-1].split(",")
+    return base + ("<" + ",".join(args[:-1]) + ">" if len(args) > 1 else "")
+
+
+def phase_ptxas(other_csrc: str | None = None) -> dict:
+    """Phase 2's report: ptxas's registers and spills for every kernel
+    instantiation this process built, each explain-on instantiation beside
+    its explain-off twin.  With ``other_csrc`` (another tree's
+    ``ops/csrc``, e.g. the parent commit's) those sources are built too
+    and every explain-off instantiation is held against the same kernel
+    there: registers and spills must be equal."""
+    mine: dict = {}
+    for name in SOURCES:
+        mine.update(ptxas_entries(cuda_build.BUILD_LOG.get(name, "")))
+    if not mine:
+        log("  ptxas: every library was already built; no report")
+        return mine
+    def explain_on(k: str) -> bool:
+        return explain_off_twin(k) != k and k.endswith(",1>")
+
+    for k in sorted(mine):
+        if explain_on(k):
+            continue
+        regs, st, ld = mine[k]
+        twin = k[:-2] + "1>" if explain_off_twin(k) != k else None
+        on = mine.get(twin) if twin else None
+        log(f"  ptxas {k}: {regs} registers, spill stores {st} B, loads "
+            f"{ld} B" + (f"; explain on {twin}: {on[0]} registers, spill "
+                         f"stores {on[1]} B, loads {on[2]} B" if on else ""))
+    if other_csrc:
+        other: dict = {}
+        for entries in ptxas_report(other_csrc).values():
+            other.update(entries)
+        same, changed = 0, []
+        for k, v in sorted(mine.items()):
+            old = other.get(explain_off_twin(k))
+            if explain_on(k) or old is None:
+                continue
+            if tuple(old) == tuple(v):
+                same += 1
+            else:
+                changed.append((k, old, v))
+        log(f"  ptxas against {other_csrc}: {same} explain-off "
+            f"instantiations with equal registers and spills, "
+            f"{len(changed)} changed: {changed}")
+    return mine
+
+
 def card_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -635,9 +779,10 @@ def bound_ms(c: dict, r: dict, with_rel: bool = False
     return t_ops, "operations", nbytes, ops
 
 
-def dense_plain(c, r, with_acl, with_hr, with_rel):
+def dense_plain(c, r, with_acl, with_hr, with_rel, explain=False):
     """decide_dense's plain version, stacked as the kernel returns it."""
-    return torch.stack(decide_dense_ref(c, r, with_acl, with_hr, with_rel))
+    return torch.stack(decide_dense_ref(c, r, with_acl, with_hr, with_rel,
+                                        explain=explain))
 
 
 def kernel_vs_plain(c, r, flags):
@@ -647,6 +792,11 @@ def kernel_vs_plain(c, r, flags):
     want = dense_plain(c, r, *flags)
     torch.cuda.synchronize()
     return got, want
+
+
+def explain_key(resp):
+    """A response's provenance: ``_rule_id`` and ``_explain``."""
+    return (getattr(resp, "_rule_id", None), getattr(resp, "_explain", None))
 
 
 def response_key(resp):
@@ -1004,12 +1154,16 @@ class KernelCheck:
     the same device tensors; any difference raises.  Records per kernel
     the calls, the largest error and the variants (flag tuples) run, and
     keeps the arguments of each kernel's calls (device tensors, untouched;
-    ``args`` the last, ``calls`` all) for the timing phases."""
+    ``args`` the last, ``calls`` all) for the timing phases.  Explain
+    calls (keyword ``explain=True``) count under the kernel's name too
+    (``explain_calls``, ``explain_err``), and their arguments are kept
+    under ``<name>+explain`` with their keywords in ``kw``."""
 
     def __init__(self, stats: dict, dense: bool = False, names=None):
         self.stats = stats
         self.args: dict[str, tuple] = {}
         self.calls: dict[str, list] = {}
+        self.kw: dict[str, dict] = {}
         self._saved = []
         self._names = names or SIG_KERNELS + (("decide_dense",) if dense
                                               else ())
@@ -1023,11 +1177,13 @@ class KernelCheck:
         return self
 
     def _checked(self, name: str, orig):
-        def checked(*args):
-            self.args[name] = args
-            self.calls.setdefault(name, []).append(args)
-            got = orig(*args)
-            want = PLAIN[name](*args)
+        def checked(*args, **kw):
+            key = name + ("+explain" if kw.get("explain") else "")
+            self.args[key] = args
+            self.calls.setdefault(key, []).append(args)
+            self.kw[key] = kw
+            got = orig(*args, **kw)
+            want = PLAIN[name](*args, **kw)
             torch.cuda.synchronize()
             err = _max_err(got, want)
             st = self.stats.setdefault(name, {"calls": 0, "max_abs_err": 0,
@@ -1036,8 +1192,11 @@ class KernelCheck:
             st["max_abs_err"] = max(st["max_abs_err"], err)
             st["variants"].add(tuple(bool(f) for f in
                                      args[len(args) - N_FLAGS[name]:]))
+            if kw.get("explain"):
+                st["explain_calls"] = st.get("explain_calls", 0) + 1
+                st["explain_err"] = max(st.get("explain_err", 0), err)
             if err != 0:
-                raise AssertionError(f"{name}: kernel != plain "
+                raise AssertionError(f"{key}: kernel != plain "
                                      f"(max abs err {err})")
             return got
 
@@ -2228,14 +2387,27 @@ def bound_tail(merge, tabs, out) -> tuple[float, str, int, int]:
     return _finish_bound(nbytes, B * per_row)
 
 
+def to_kr_stride(code: torch.Tensor, KR: int, kr_total: int
+                 ) -> torch.Tensor:
+    """Provenance codes in strides (KP, KR) re-based to the rule-sharded
+    strides (KP, kr_total): rule and abort positions move, no-rules
+    policy positions do not."""
+    kind, pos = code & 3, code >> 2
+    rebased = ((pos // KR * kr_total + pos % KR) << 2) | kind
+    return torch.where((kind == 1) | (kind == 3), rebased, code)
+
+
 def check_sharded(label: str, compiled, batch, device, n_model: int,
-                  want, stats: dict) -> None:
+                  want, stats: dict, explain: bool = False) -> None:
     """Every shard of an ``n_model``-way rule partition and set partition
     of ``compiled``: each shard kernel and the tail held against their
     plain versions on the same device tensors (exactly equal), the
     shards' merge rows merged with ``amin`` (what the MIN all_reduce
     computes), and the tail's decisions equal to ``want`` (int32 [3, B],
-    the single-device kernel's) on every eligible row."""
+    the single-device kernel's) on every eligible row.  With ``explain``
+    the explain variants (``set_chunk``'s provenance column, both tails'
+    fourth output) and ``want`` [4, B]: K8's codes equal the single
+    device's, K7's once re-based to ``kr_total``."""
     flags = shard_flags(compiled, batch)
     _, r = mmod.row_slice(batch, device, kmod.ROW_ARRAYS, 1, 0)
     el = torch.from_numpy(np.asarray(batch.eligible)).to(device)
@@ -2253,36 +2425,49 @@ def check_sharded(label: str, compiled, batch, device, n_model: int,
         merges.append(got)
     merged = torch.stack(merges).amin(dim=0)
     tabs = tables_from_numpy(compiled.arrays, device, keys=kmod.TAIL_TABLES)
-    out7 = kmod.shard_tail(merged, n_model, tabs)
-    _checked("shard_tail", stats, out7,
-             shard_ref.shard_tail_ref(merged, n_model, tabs))
+    tail7 = {"explain": explain, "kr_stride": kr_total} if explain else {}
+    out7 = kmod.shard_tail(merged, n_model, tabs, **tail7)
+    tag = "+explain" if explain else ""
+    _checked("shard_tail" + tag, stats, out7,
+             shard_ref.shard_tail_ref(merged, n_model, tabs, **tail7))
 
     shards, s_local = pod_shard.partition_sets(compiled, n_model)
     merges = []
+    kw = {"explain": True} if explain else {}
     for d, sh in enumerate(shards):
         cd = tables_from_numpy({k: sh.arrays[k] for k in kmod.TABLE_ARRAYS},
                                device)
         args = (cd, r, sh.s_lo, n_model, d, *flags)
-        got = kmod.set_chunk(*args)
-        _checked("set_chunk", stats, got, shard_ref.set_chunk_ref(*args))
+        got = kmod.set_chunk(*args, **kw)
+        _checked("set_chunk" + tag, stats, got,
+                 shard_ref.set_chunk_ref(*args, **kw))
         merges.append(got)
     merged = torch.stack(merges).amin(dim=0)
-    out8 = kmod.shard_tail(merged, n_model)
-    _checked("shard_tail", stats, out8,
-             shard_ref.shard_tail_ref(merged, n_model))
+    tail8 = {"explain": explain, "kr_stride": compiled.KR} if explain else {}
+    out8 = kmod.shard_tail(merged, n_model, **tail8)
+    _checked("shard_tail" + tag, stats, out8,
+             shard_ref.shard_tail_ref(merged, n_model, **tail8))
 
-    for tag, out in (("rule-sharded", out7), ("pod-sharded", out8)):
-        if not torch.equal(out[:, :n][:, el], want[:, el]):
-            raise AssertionError(f"{label}: {tag} decisions differ from "
+    want7 = want
+    if explain:
+        want7 = torch.cat([want[:3], to_kr_stride(want[3:], compiled.KR,
+                                                  kr_total)])
+    for tag, out, w in (("rule-sharded", out7, want7),
+                        ("pod-sharded", out8, want)):
+        if not torch.equal(out[:, :n][:, el], w[:, el]):
+            raise AssertionError(f"{label}: {tag} outputs differ from "
                                  f"PrefilteredKernel's")
     log(f"  {label}: {n} rows, {n_model} rule shards (KR_local "
         f"{part.kr_local}) and {n_model} set shards (S_local {s_local}): "
-        f"every kernel equal to its plain version, merged decisions equal "
-        f"to PrefilteredKernel's on {int(el.sum())} eligible rows")
+        f"every {'explain ' if explain else ''}kernel equal to its plain "
+        f"version, merged outputs equal to PrefilteredKernel's on "
+        f"{int(el.sum())} eligible rows")
 
 
-def single_device_out(compiled, batch, device) -> torch.Tensor:
-    out = pfmod.PrefilteredKernel(compiled, device=device).evaluate(batch)
+def single_device_out(compiled, batch, device, explain: bool = False
+                      ) -> torch.Tensor:
+    out = pfmod.PrefilteredKernel(compiled, device=device,
+                                  explain=explain).evaluate(batch)
     return torch.from_numpy(np.stack(out)).to(device)
 
 
@@ -2339,7 +2524,8 @@ def _host_ms(fn, iters: int = ITERS) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def layout_stage_times(kernel, calls: dict, check: dict) -> dict:
+def layout_stage_times(kernel, calls: dict, check: dict,
+                       kw_of: dict) -> dict:
     """One rank's stage times for a sharded kernel on the arguments its
     main-path batch gave each kernel (``KernelCheck.calls``): per kernel
     the batch's launches and their plain versions (CUDA events, summed
@@ -2358,30 +2544,36 @@ def layout_stage_times(kernel, calls: dict, check: dict) -> dict:
         names, model_axis = ("set_chunk", "shard_tail"), kernel.model_axis
     else:  # ShardedDecisionKernel
         names, model_axis = ("decide_dense",), None
+    if kernel.explain:  # the explain variants' calls (rule_chunk has none)
+        names = tuple(n if n == "rule_chunk" else n + "+explain"
+                      for n in names)
     data_axis = kernel.axis if model_axis is None else kernel.data_axis
     out: dict = {"kernels": {}}
 
-    def bound(name: str, a: tuple) -> tuple:
-        res = getattr(kmod, name)(*a)
+    def bound(key: str, a: tuple) -> tuple:
+        name, kw = key.split("+")[0], kw_of[key]
+        res = getattr(kmod, name)(*a, **kw)
         if name == "decide_dense":
             return bound_ms(a[0], a[1], a[-1])
         if name == "shard_tail":
             return bound_tail(a[0], a[2] if len(a) > 2 else None, res)
         return bound_chunk(a[0], a[1], a[-3:], res)
 
-    def timed(name: str) -> None:
+    def timed(key: str) -> None:
+        name, kw = key.split("+")[0], kw_of[key]
         launch = getattr(kmod, name)
-        bounds = [bound(name, a) for a in calls[name]]
-        out["kernels"][name] = {
-            "ms": sum(time_ms(lambda a=a: launch(*a)) for a in calls[name]),
-            "plain_ms": sum(time_ms(lambda a=a: PLAIN[name](*a), 1)
-                            for a in calls[name]),
+        bounds = [bound(key, a) for a in calls[key]]
+        out["kernels"][key] = {
+            "ms": sum(time_ms(lambda a=a: launch(*a, **kw))
+                      for a in calls[key]),
+            "plain_ms": sum(time_ms(lambda a=a: PLAIN[name](*a, **kw), 1)
+                            for a in calls[key]),
             "bound_ms": sum(b[0] for b in bounds),
             "bound_by": max(bounds)[1],
             "max_abs_err": check[name]["max_abs_err"],
-            "launches": len(calls[name]),
+            "launches": len(calls[key]),
             "rows": [int(a[0].shape[0] if name == "shard_tail"
-                         else a[1]["r_n_ra"].shape[0]) for a in calls[name]]}
+                         else a[1]["r_n_ra"].shape[0]) for a in calls[key]]}
 
     for turn in range(dist.get_world_size()):
         dist.barrier()
@@ -2390,12 +2582,15 @@ def layout_stage_times(kernel, calls: dict, check: dict) -> dict:
                 timed(name)
     dist.barrier()
     if model_axis is not None:
-        merge = getattr(kmod, names[0])(*calls[names[0]][-1])
+        first = names[0].split("+")[0]
+        merge = getattr(kmod, first)(*calls[names[0]][-1],
+                                     **kw_of[names[0]])
         torch.cuda.synchronize()
         out["merge_bytes"] = int(merge.nbytes)
         out["all_reduce_ms"] = _host_ms(
             lambda: mmod.all_reduce(merge.clone(), mesh, model_axis))
-    res = getattr(kmod, names[-1])(*calls[names[-1]][-1])
+    res = getattr(kmod, names[-1].split("+")[0])(*calls[names[-1]][-1],
+                                                 **kw_of[names[-1]])
     out["gather_ms"] = _host_ms(
         lambda: mmod.all_gather_cols(res, mesh, data_axis))
     return out
@@ -2503,6 +2698,14 @@ def phase15_rank(rank: int, world: int, out_dir: str) -> None:
         want[key] = [response_key(x) for x in
                      single.is_allowed_batch(copy.deepcopy(reqs))]
         del single
+    # the explain layouts' yardstick: the single-device explain evaluator
+    want_explain = {}
+    for key in ("scoped_511", "shard-scale"):
+        eng, reqs = traffic[key]
+        single = HybridEvaluator(eng, device=device, explain=True)
+        want_explain[key] = [explain_key(x) for x in
+                             single.is_allowed_batch(copy.deepcopy(reqs))]
+        del single
     configs = [
         ("K6 mesh (4,1)", "scoped_511", (4, 1), {}),
         ("K3 mesh (4,1)", "shard-scale", (4, 1), {}),
@@ -2515,6 +2718,11 @@ def phase15_rank(rank: int, world: int, out_dir: str) -> None:
          {"model_axis": "model", "pod_shards": 2}),
         ("K8 pod_shards (1,4)", "shard-scale", (1, 4),
          {"model_axis": "model", "pod_shards": 4}),
+        ("explain K6 mesh (4,1)", "scoped_511", (4, 1), {"explain": True}),
+        ("explain K7 model_axis (1,4)", "shard-scale", (1, 4),
+         {"model_axis": "model", "explain": True}),
+        ("explain K8 pod_shards (1,4)", "shard-scale", (1, 4),
+         {"model_axis": "model", "pod_shards": 4, "explain": True}),
     ]
     meshes: dict = {}
     res: dict = {"layouts": {}}
@@ -2534,6 +2742,9 @@ def phase15_rank(rank: int, world: int, out_dir: str) -> None:
         reserved = torch.cuda.memory_reserved(device)
         torch.cuda.empty_cache()
         bad = [i for i, g in enumerate(got) if response_key(g) != want[key][i]]
+        if kw.get("explain"):
+            bad += [i for i, g in enumerate(got)
+                    if explain_key(g) != want_explain[key][i]]
         if bad:
             raise AssertionError(f"{label} rank {rank}: rows {bad[:8]} differ "
                                  f"from the single device")
@@ -2544,14 +2755,14 @@ def phase15_rank(rank: int, world: int, out_dir: str) -> None:
             ev.is_allowed_batch(reqs)
         dt = (time.perf_counter() - t0) / 3
         kernel = ev._kernel
-        if kw:
+        if "model_axis" in kw:
             stage_kernel = kernel
         elif key == "scoped_511":
             stage_kernel = kernel._dense
         else:
             stage_kernel = None
         stages = {} if stage_kernel is None else layout_stage_times(
-            stage_kernel, chk.calls, check)
+            stage_kernel, chk.calls, check, chk.kw)
         res["layouts"][label] = {
             "rows": len(reqs), "kernel": type(kernel).__name__,
             "launches": launches, "collectives": colls,
@@ -2684,27 +2895,360 @@ def phase16(card: str) -> dict:
     return res
 
 
-def sharded_row(p15: dict, name: str, program: str) -> dict:
+def sharded_row(p15: dict, name: str, program: str,
+                explain: bool = False) -> dict:
     """A kernel's numbers on phase 15's main path for ``program`` (K6,
-    K7 or K8): ms, plain ms and bound from the slowest rank's launches of
-    one batch in the program's (4, 1) or (1, 4) layout, the launches and
-    the largest error over all its layouts and ranks."""
+    K7 or K8; with ``explain`` its explain layout and the kernel's
+    explain variant): ms, plain ms and bound from the slowest rank's
+    launches of one batch in the program's (4, 1) or (1, 4) layout, the
+    launches and the largest error over all its layouts and ranks."""
+    prefix = ("explain " if explain else "") + program + " "
+    key = name + ("+explain" if explain else "")
     layouts = {k: v for k, v in p15["layouts"].items()
-               if k.startswith(program + " ")}
+               if k.startswith(prefix)}
     launches = sum(v["launches_all_ranks"].get(name, 0)
                    for v in layouts.values())
     if not launches:
-        raise AssertionError(f"phase 15's {program} layouts launched no "
-                             f"{name}")
+        raise AssertionError(f"phase 15's {prefix.strip()} layouts "
+                             f"launched no {name}")
     err = max(v["max_abs_err_all_ranks"].get(name, 0)
               for v in layouts.values())
     t = next(v for k, v in layouts.items()
-             if k.endswith(("(1,4)", "(4,1)")))["kernels"][name]
+             if k.endswith(("(1,4)", "(4,1)")))["kernels"][key]
     return {"launches": launches, "max_abs_err": err,
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
 
 
-def main() -> int:
+# ----------------------------------------------- explain mode (phases 17-18)
+
+# the JAX package's explain-overhead configuration (bench_all.py
+# bench_explain_overhead): _stress_doc(20_000), one 4,096-row batch of
+# bench_stress traffic at numpy seed 7, evaluated 8 times
+EXPLAIN_RULES = 20_000
+EXPLAIN_ROWS = 4096
+EXPLAIN_BATCHES = 8
+# the ACL batch of phase 18 (decide_grouped's explain variant): phase 7
+# (c)'s shape
+EXPLAIN_ACL_ROWS = 16384
+# the explain recovery each kernel's explain variant replaces (file:line)
+REPLACES_EXPLAIN = {
+    "decide_dense": "access_control_srv_tpu/ops/kernel.py:1165",
+    "sig_decide": "access_control_srv_tpu/ops/kernel.py:920",
+    "decide_grouped": "access_control_srv_tpu/ops/prefilter.py:334",
+    "set_chunk": "access_control_srv_tpu/parallel/pod_shard.py:273",
+    "shard_tail": "access_control_srv_tpu/parallel/rule_shard.py:263",
+}
+EXPLAIN_TAIL_ALSO_REPLACES = "access_control_srv_tpu/parallel/pod_shard.py:273"
+
+
+def explain_sources(engine, strides, requests, out, rows) -> int:
+    """Kernel rows (eligible, status 200) among ``rows``: the decoded
+    provenance source equal to the oracle's ``_rule_id``."""
+    decoder = ExplainDecoder(engine.policy_sets, strides)
+    host = [np.asarray(o) for o in out]
+    n = 0
+    for i in rows:
+        if int(host[2][i]) != 200:
+            continue
+        want = engine.is_allowed(copy.deepcopy(requests[i]))
+        got = decoder.source(int(host[3][i]))
+        if got != getattr(want, "_rule_id", None):
+            raise AssertionError(f"row {i}: explain source {got!r} != "
+                                 f"oracle {getattr(want, '_rule_id', None)!r}")
+        n += 1
+    return n
+
+
+def same_eligible(a, b, eligible, what: str) -> None:
+    for x, y in zip(a, b):
+        if not np.array_equal(np.asarray(x)[eligible],
+                              np.asarray(y)[eligible]):
+            raise AssertionError(f"{what}: outputs differ")
+
+
+def phase_explain_vs_plain(device, stats: dict) -> None:
+    """Phase 17: every explain call of ``decide_dense``, ``sig_decide``
+    and ``decide_grouped`` held exactly against its plain version (all
+    four outputs) on every supported fixture tree, the 511-rule scoped
+    tree and the seed data (``DecisionKernel`` and a forced
+    ``PrefilteredKernel``, ACL / property and signature batches), the
+    720-rule stress tree with conditions and aborts, and the relation
+    variants of phase 12; the dense and signature paths' codes equal on
+    eligible rows and sampled codes decoded to the oracle's ``_rule_id``;
+    then ``set_chunk`` / ``shard_tail`` explain on the shard-scale tree's
+    4-way rule and set partitions."""
+    n_src = 0
+    with KernelCheck(stats, dense=True):
+        for name in tree_names():
+            engine = engine_for(name)
+            compiled = compile_policies(engine.policy_sets, engine.urns)
+            if not compiled.supported or compiled.n_rules == 0:
+                continue
+            rng = random.Random(zlib.crc32(("explain " + name).encode()))
+            stress = name == "scoped_511"
+            dense = kmod.DecisionKernel(compiled, device=device,
+                                        explain=True)
+            forced = pfmod.PrefilteredKernel(compiled, device=device,
+                                             explain=True)
+            forced.active, forced._dense = True, None
+            for reqs in (grid_requests(rng, 192, stress)
+                         + odd_requests(rng, stress),
+                         grid_requests(rng, 128, stress, acl=False,
+                                       props=False)):
+                batch = encode_requests(copy.deepcopy(reqs), compiled)
+                out = dense.evaluate(batch)
+                same_eligible(out, forced.evaluate(batch), batch.eligible,
+                              f"{name}: dense vs signature path")
+                n_src += explain_sources(
+                    engine, dense.explain_strides, reqs, out,
+                    [i for i in range(0, len(reqs), 8)
+                     if batch.eligible[i]])
+            log(f"  {name}: dense and forced signature explain calls equal "
+                f"to their plain versions and to each other")
+        for label, kw in (("stress-720 conditions", {"conditions": True}),
+                          ("stress-720 HR", {"scoped": True})):
+            engine = engine_from_doc(small_stress_doc(**kw))
+            compiled = compile_policies(engine.policy_sets, engine.urns)
+            kern = pfmod.PrefilteredKernel(compiled, device=device,
+                                           explain=True)
+            rng = random.Random(zlib.crc32(("explain " + label).encode()))
+            for reqs in (grid_requests(rng, 384, stress=True, acl=False),
+                         grid_requests(rng, 128, stress=True)):
+                for r in reqs[::5]:  # no subject id: the conditions abort
+                    r.context["subject"].pop("id", None)
+                batch = encode_requests(copy.deepcopy(reqs), compiled)
+                out = kern.evaluate(batch)
+                kinds = sorted(set((out[3][batch.eligible] & 3).tolist()))
+                n_src += explain_sources(engine, kern.explain_strides, reqs,
+                                         out, range(0, len(reqs), 16))
+                log(f"  {label}: {len(reqs)} rows, explain calls equal to "
+                    f"their plain versions; code kinds {kinds}")
+        for label, engine, store, reqs, kw in rel_fixture_cases():
+            compiled = compile_policies(engine.policy_sets, engine.urns)
+            tables = store.tables_for(compiled) if store else None
+            batch = encode_requests(copy.deepcopy(reqs), compiled,
+                                    relation_tables=tables, **kw)
+            dense = kmod.DecisionKernel(compiled, device=device,
+                                        explain=True)
+            forced = pfmod.PrefilteredKernel(compiled, device=device,
+                                             explain=True)
+            forced.active, forced._dense = True, None
+            out = dense.evaluate(batch)
+            same_eligible(out, forced.evaluate(batch), batch.eligible,
+                          f"{label}: dense vs signature path")
+        for scoped in (False, True):
+            engine = engine_from_doc(rel_stress_doc(scoped))
+            compiled = compile_policies(engine.policy_sets, engine.urns)
+            tables = rel_stress_store().tables_for(compiled)
+            kern = pfmod.PrefilteredKernel(compiled, device=device,
+                                           explain=True)
+            for acl in (False, True):
+                reqs = rel_stress_traffic(256, 31 + acl, scoped, acl)
+                kern.evaluate(encode_requests(copy.deepcopy(reqs), compiled,
+                                              relation_tables=tables))
+        log("  relation variants (phase 12's fixture cases, 720 relation "
+            "tree): explain calls equal to their plain versions")
+    for name in ("decide_dense", "sig_decide", "decide_grouped"):
+        st = stats.get(name, {})
+        if not st.get("explain_calls"):
+            raise AssertionError(f"phase 17 never ran {name}'s explain "
+                                 f"variant")
+    engine = shard_scale_engine()
+    compiled = compile_policies(engine.policy_sets, engine.urns)
+    batch = encode_requests(shard_scale_traffic(), compiled)
+    want = single_device_out(compiled, batch, device, explain=True)
+    check_sharded("shard-scale explain", compiled, batch, device, 4, want,
+                  stats, explain=True)
+    log(f"  {n_src} sampled codes decoded to the oracle's _rule_id; max abs "
+        f"err: " + json.dumps({k: stats[k].get("explain_err",
+                                               stats[k]["max_abs_err"])
+                               for k in ("decide_dense", "sig_decide",
+                                         "decide_grouped",
+                                         "set_chunk+explain",
+                                         "shard_tail+explain")}))
+
+
+def bound_explain_sig(args) -> tuple[float, str, int, int]:
+    """``sig_decide``'s bound in explain mode: the explain-off bound's
+    bytes plus the stacked ``rule_orig_flat`` read and the fourth output
+    written; per real row one more policy's rule walk."""
+    _, _, nbytes, ops = bound_sig_decide(args)
+    cs, gp, n_rows = args[1], args[6], args[7]
+    nbytes += int(cs[kmod.ORIG_TABLE].nbytes) + 4 * int(gp.shape[0])
+    KR = int(cs["rule_effect"].shape[3])
+    return _finish_bound(nbytes, ops + n_rows * KR * 12)
+
+
+def pipelined_rate(kernel, batch, iters: int = EXPLAIN_BATCHES) -> float:
+    """Decisions/s of ``iters`` launches of one batch through
+    ``evaluate_async`` with up to three in flight (the JAX bench's depth),
+    after a warm-up batch; host clock."""
+    kernel.evaluate(batch)
+    t0 = time.perf_counter()
+    pending = []
+    for _ in range(iters):
+        if len(pending) >= 3:
+            pending.pop(0)()
+        pending.append(kernel.evaluate_async(batch))
+    for p in pending:
+        p()
+    return batch.B * iters / (time.perf_counter() - t0)
+
+
+def phase_explain_main(device, stats: dict, card: str) -> dict:
+    """Phase 18, the explain main path on the JAX package's
+    ``explain-overhead`` configuration: ``HybridEvaluator(engine,
+    explain=True).is_allowed_batch`` on 8 batches of 4,096
+    ``stress_traffic(seed=7)`` rows against the 20,000-rule tree; counts
+    zeroed before the first batch and read after it, every kernel call of
+    that batch held against its plain version, every response against
+    the oracle (decision, status, ``_rule_id``); warm decisions/s; then
+    explain-off against explain-on on the same tables and batch; then one
+    16,384-row batch with 16 ACL rows (``decide_grouped``'s explain
+    variant)."""
+    out: dict = {}
+    t0 = time.perf_counter()
+    engine = engine_from_doc(stress_doc(EXPLAIN_RULES))
+    evaluator = HybridEvaluator(engine, device=device, explain=True)
+    compiled = evaluator._compiled
+    kern = evaluator._kernel
+    if not (kern.active and kern.explain):
+        raise AssertionError("the 20k tree did not take the explain "
+                             "signature path")
+    log(f"  explain-overhead tree: {compiled.n_rules} rules, S={compiled.S}"
+        f" KP={compiled.KP} KR={compiled.KR} T={compiled.T} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    reqs = stress_traffic(EXPLAIN_ROWS, seed=7)
+    check: dict = {}
+    reset_launches()
+    with KernelCheck(check) as chk:
+        first = evaluator.is_allowed_batch(copy.deepcopy(reqs))
+    launches = dict(kmod.LAUNCHES)
+    if not (launches["sig_planes"] and launches["sig_decide"]
+            and check["sig_decide"].get("explain_calls")):
+        raise AssertionError(f"explain main path launches {launches}")
+    t0 = time.perf_counter()
+    cand = evaluator._cand[1]
+    n_src = 0
+    for i, (resp, req) in enumerate(zip(first, reqs)):
+        want = engine.is_allowed(copy.deepcopy(req),
+                                 candidate_rules=cand.candidates(
+                                     req, engine.urns))
+        got_key = (resp.decision, resp.operation_status.code,
+                   getattr(resp, "_rule_id", None))
+        want_key = (want.decision, want.operation_status.code,
+                    getattr(want, "_rule_id", None))
+        if got_key != want_key:
+            raise AssertionError(f"explain row {i}: {got_key} != oracle "
+                                 f"{want_key}")
+        n_src += got_key[2] is not None
+    oracle_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(EXPLAIN_BATCHES - 1):
+        evaluator.is_allowed_batch(reqs)
+    dt = (time.perf_counter() - t0) / (EXPLAIN_BATCHES - 1)
+    out["first_batch"] = {
+        "launches": launches, "rows": len(reqs), "with_rule_id": n_src,
+        "max_abs_err": {k: v["max_abs_err"] for k, v in check.items()},
+        "oracle_s": oracle_s}
+    out["evaluator"] = {"decisions_per_s": len(reqs) / dt,
+                        "batch_ms": dt * 1e3}
+    log(f"  first batch: launches {launches}; every kernel call equal to "
+        f"its plain version; all {len(reqs)} responses equal to the oracle "
+        f"(decision, status, _rule_id; {n_src} with a _rule_id; "
+        f"{oracle_s:.1f} s of oracle); warm evaluator "
+        f"{len(reqs) / dt:.0f} decisions/s ({dt * 1e3:.3f} ms per batch) "
+        f"on {card}")
+
+    # explain off against on: the same compiled tables and batch
+    batch = encode_requests(reqs, compiled)
+    k_off = pfmod.PrefilteredKernel(compiled, device=device)
+    k_on = pfmod.PrefilteredKernel(compiled, device=device, explain=True)
+    rates = {"off": [], "on": []}
+    for which in ("off", "on", "on", "off"):
+        rates[which].append(pipelined_rate(k_off if which == "off"
+                                           else k_on, batch))
+    off = sum(rates["off"]) / 2
+    on = sum(rates["on"]) / 2
+    args = chk.args["sig_decide+explain"]
+    sig = {
+        "ms": time_ms(lambda: kmod.sig_decide(*args, explain=True)),
+        "ms_explain_off": time_ms(lambda: kmod.sig_decide(*args)),
+        "plain_ms": time_ms(lambda: prefilter_ref.sig_decide_ref(
+            *args, explain=True), 1),
+    }
+    sig["bound_ms"], sig["bound_by"], sig["bytes"], sig["ops"] = \
+        bound_explain_sig(args)
+    sig["launches"] = launches["sig_decide"]
+    out["overhead"] = {"explain_off_dps": rates["off"],
+                       "explain_on_dps": rates["on"],
+                       "overhead_pct": (off / on - 1.0) * 100.0}
+    out["sig_decide"] = sig
+    log(f"  PrefilteredKernel on {card}: explain off {off:.0f} / on "
+        f"{on:.0f} decisions/s (off, on, on, off: "
+        f"{json.dumps(rates)}); overhead_pct "
+        f"{out['overhead']['overhead_pct']:.2f} (the JAX package's bar: "
+        f"< 20, reported, not gated)")
+    log(f"  sig_decide explain on {card}: " + json.dumps(sig))
+    out["steady"] = steady_state(evaluator, reqs)
+    log(f"  explain evaluator stages (ms) on {card}: "
+        + json.dumps(out["steady"]["stages_ms"]))
+
+    # one ACL batch on the same tree: decide_grouped's explain variant
+    reqs_c = stress_traffic(EXPLAIN_ACL_ROWS, seed=7, n_acl=16)
+    acl_rows = [i for i, r in enumerate(reqs_c) if r.context["resources"]]
+    check_c: dict = {}
+    reset_launches()
+    with KernelCheck(check_c) as chk_c:
+        got_c = evaluator.is_allowed_batch(copy.deepcopy(reqs_c))
+    launches_c = dict(kmod.LAUNCHES)
+    if not (launches_c["decide_grouped"]
+            and check_c["decide_grouped"].get("explain_calls")):
+        raise AssertionError(f"explain ACL batch launches {launches_c}")
+    rows = sorted(set(random.Random(3).sample(range(len(reqs_c)), 32))
+                  | set(acl_rows))
+    for i in rows:
+        want = engine.is_allowed(copy.deepcopy(reqs_c[i]))
+        got_key = (response_key(got_c[i]), getattr(got_c[i], "_rule_id",
+                                                   None))
+        want_key = (response_key(want), getattr(want, "_rule_id", None))
+        if got_key != want_key:
+            raise AssertionError(f"explain ACL row {i}: {got_key} != "
+                                 f"{want_key}")
+    g_args = chk_c.args["decide_grouped+explain"]
+    inv, cs, _, r, _, _, with_rel = g_args
+    _, _, nbytes, ops = bound_ms({**inv, **cs}, r, with_rel)
+    # plus the stacked rule_orig_flat read and the fourth output written
+    bms, by, _, _ = _finish_bound(nbytes + int(cs[kmod.ORIG_TABLE].nbytes)
+                                  + 4 * int(r["r_n_ra"].shape[0]), ops)
+    grouped = {
+        "launches": launches_c["decide_grouped"],
+        "ms": time_ms(lambda: kmod.decide_grouped(*g_args, explain=True)),
+        "ms_explain_off": time_ms(lambda: kmod.decide_grouped(*g_args)),
+        "plain_ms": time_ms(lambda: prefilter_ref.decide_grouped_ref(
+            *g_args, explain=True), 1),
+        "bound_ms": bms, "bound_by": by,
+    }
+    out["decide_grouped"] = grouped
+    out["acl_batch"] = {"launches": launches_c, "oracle_rows": len(rows),
+                        "max_abs_err": {k: v["max_abs_err"]
+                                        for k, v in check_c.items()}}
+    log(f"  ACL batch ({len(reqs_c)} rows, 16 ACL rows): launches "
+        f"{launches_c}; "
+        f"every kernel call equal to its plain version; {len(rows)} "
+        f"responses (the ACL rows and 32 sampled) equal to the oracle with "
+        f"_rule_id; decide_grouped explain on {card}: "
+        + json.dumps(grouped))
+    for k, v in list(check.items()) + list(check_c.items()):
+        st = stats.setdefault(k, {"calls": 0, "max_abs_err": 0,
+                                  "variants": set()})
+        st["max_abs_err"] = max(st["max_abs_err"], v["max_abs_err"])
+        st["explain_err"] = max(st.get("explain_err", 0),
+                                v.get("explain_err", 0))
+    return out
+
+
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -2726,10 +3270,10 @@ def main() -> int:
     cuda_build.build(list(SOURCES))
     log(f"  {', '.join(SOURCES)} built in {time.perf_counter() - t0:.1f} s "
         f"(one nvcc each, in parallel)")
-    for name in SOURCES:
-        for line in cuda_build.BUILD_LOG.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+    parent_csrc = None
+    if "--parent-csrc" in argv:
+        parent_csrc = argv[argv.index("--parent-csrc") + 1]
+    phase_ptxas(parent_csrc)
 
     log("phase 3-4: dense kernel vs plain version, kernel vs oracle")
     variants = phase_kernel_vs_plain(device, 1024, stats)
@@ -2794,6 +3338,14 @@ def main() -> int:
     log("phase 16: NCCL, world size 1")
     phase16(card)
 
+    log("phase 17: explain variants vs plain versions (fixtures, 511, "
+        "720, relation, shard-scale partitions)")
+    phase_explain_vs_plain(device, sig_stats)
+
+    log("phase 18: explain main path (explain-overhead: 20,000 rules, "
+        "8 x 4,096 rows)")
+    expl = phase_explain_main(device, sig_stats, card)
+
     log("  relation variants' times (CUDA events, 5 launches after a "
         "warm-up):")
     rel_rows = {"decide_dense": dict(rebac["k1"])}
@@ -2853,7 +3405,38 @@ def main() -> int:
                  "pod": {"replaces": TAIL_ALSO_REPLACES, **sharded_row(
                      p15, "shard_tail", "K8"), "library_ms": None}})
     keys = ("launches", "ms", "plain_ms", "bound_ms", "bound_by")
+    # the explain variants: K3 / K4 on phase 18's main path, K1 on the
+    # explain K6 layout of phase 15, K8's set_chunk and both tails on the
+    # explain K7 / K8 layouts
+    explain_rows = {
+        "decide_dense": sharded_row(p15, "decide_dense", "K6", True),
+        "sig_decide": {**expl["sig_decide"]},
+        "decide_grouped": {**expl["decide_grouped"]},
+        "set_chunk": sharded_row(p15, "set_chunk", "K8", True),
+        "shard_tail": sharded_row(p15, "shard_tail", "K7", True),
+    }
+    for name in ("decide_dense", "sig_decide", "decide_grouped"):
+        explain_rows[name]["max_abs_err"] = max(
+            explain_rows[name].get("max_abs_err", 0),
+            sig_stats[name].get("explain_err", 0))
+    for name in ("set_chunk", "shard_tail"):
+        explain_rows[name]["max_abs_err"] = max(
+            explain_rows[name]["max_abs_err"],
+            sig_stats[name + "+explain"]["max_abs_err"])
+    pod_explain = sharded_row(p15, "shard_tail", "K8", True)
     for r in rows:
+        if r["name"] in explain_rows:
+            t = explain_rows[r["name"]]
+            r["explain"] = {"replaces": REPLACES_EXPLAIN[r["name"]],
+                            "max_abs_err": t["max_abs_err"],
+                            **{k: t[k] for k in keys}, "library_ms": None}
+        if r["name"] == "shard_tail":
+            r["pod"]["explain"] = {
+                "replaces": EXPLAIN_TAIL_ALSO_REPLACES,
+                "max_abs_err": max(pod_explain["max_abs_err"],
+                                   sig_stats["shard_tail+explain"][
+                                       "max_abs_err"]),
+                **{k: pod_explain[k] for k in keys}, "library_ms": None}
         if r["name"] in rel_rows:
             t = rel_rows[r["name"]]
             r["with_rel"] = {
@@ -2868,7 +3451,7 @@ def main() -> int:
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None,
         **({"with_rel": r["with_rel"]} if "with_rel" in r else {}),
-        **{k: r[k] for k in ("k6", "pod") if k in r},
+        **{k: r[k] for k in ("explain", "k6", "pod") if k in r},
     } for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
@@ -2877,4 +3460,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -163,7 +163,7 @@ def emulated(tmp_path_factory):
     lib.acs_decide_dense.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p,
     ]
     lib.acs_decide_dense_smem.restype = ctypes.c_longlong
     lib.acs_decide_dense_smem.argtypes = [
@@ -172,22 +172,24 @@ def emulated(tmp_path_factory):
     return lib
 
 
-def run_emulated(lib, compiled, batch):
-    """(emulated kernel out, plain version out), int32 [3, bucket]."""
+def run_emulated(lib, compiled, batch, explain=False):
+    """(emulated kernel out, plain version out), int32 [3, bucket] (the
+    explain variant: [4, bucket])."""
     c = tables_from_numpy(compiled.arrays, "cpu")
     _, r = batch_from_numpy(batch, "cpu", keys=tkernel.ROW_ARRAYS)
     with_acl = bool((batch.arrays["r_acl_ent"] >= 0).any())
     with_hr = tkernel.tree_needs_hr(compiled.arrays)
     with_rel = tkernel.tree_needs_rel(compiled.arrays)
-    args = tkernel.pack_args(c, r)
+    args = tkernel.pack_args(c, r, explain=explain)
     args.out.fill_(-7)
     code = lib.acs_decide_dense(
         ctypes.addressof(args.ptrs), len(args.ptrs),
         ctypes.addressof(args.dims), len(args.dims), int(with_acl),
-        int(with_hr), int(with_rel), args.threads, None,
+        int(with_hr), int(with_rel), int(explain), args.threads, None,
     )
     assert code == 0
-    want = torch.stack(decide_dense_ref(c, r, with_acl, with_hr, with_rel))
+    want = torch.stack(decide_dense_ref(c, r, with_acl, with_hr, with_rel,
+                                        explain=explain))
     return args.out, want
 
 
@@ -198,8 +200,9 @@ def port_batch(teng, specs):
 
 
 def test_layout_matches_host(emulated):
-    names = (tkernel.TABLE_ARRAYS + tkernel.ROW_ARRAYS
+    names = (tkernel.TABLE_ARRAYS + ("rule_orig_flat",) + tkernel.ROW_ARRAYS
              + tkernel.BATCH_ARRAYS + tkernel.OUTPUTS)
+    assert names == tkernel.DENSE_PTRS and names[-1] == "out_explain"
     assert emulated.acs_decide_dense_layout().decode() == \
         ",".join(names) + ",|" + ",".join(tkernel.DIMS) + ","
 
@@ -228,8 +231,18 @@ def test_argument_count_mismatch_is_refused(emulated):
     ptrs = (ctypes.c_int64 * 3)()
     dims = (ctypes.c_int32 * 3)()
     assert emulated.acs_decide_dense(
-        ctypes.addressof(ptrs), 3, ctypes.addressof(dims), 3, 0, 0, 0, 64,
+        ctypes.addressof(ptrs), 3, ctypes.addressof(dims), 3, 0, 0, 0, 0, 64,
         None) == -1
+    # the explain variant without an explain output is refused
+    _, teng = make_engines("basic_policies.yml")
+    tc, batch = port_batch(teng, spec_grid(n=8))
+    c = tables_from_numpy(tc.arrays, "cpu")
+    _, r = batch_from_numpy(batch, "cpu", keys=tkernel.ROW_ARRAYS)
+    args = tkernel.pack_args(c, r)
+    assert emulated.acs_decide_dense(
+        ctypes.addressof(args.ptrs), len(args.ptrs),
+        ctypes.addressof(args.dims), len(args.dims), 0, 0, 0, 1,
+        args.threads, None) == -1
 
 
 @pytest.mark.parametrize("name", KERNEL_FIXTURES + ["seed_data"])
@@ -400,3 +413,55 @@ def test_relation_stress_tree(emulated, scoped):
     assert tkernel.tree_needs_hr(tc.arrays) == scoped
     got, want = run_emulated(emulated, tc, batch)
     assert torch.equal(got, want)
+
+
+# ------------------------------------------------------------- explain
+
+
+def edge_trees():
+    """(label, compile, batch) of the explain recovery's edge paths: the
+    edge and combining trees of ``test_torch_explain`` with unknown
+    combining algorithms at either level, and the condition-abort tree."""
+    from .test_torch_explain import edge_case, edited
+
+    out = []
+    for label, (doc, specs) in (("edge", edge_case()),
+                                ("combining", combining_case())):
+        _, teng = engines_from_doc(doc)
+        tc, batch = port_batch(teng, specs)
+        for edit in ("none", "set", "policy"):
+            out.append((f"{label}/{edit}",
+                        edited(tc, set_ca=edit == "set",
+                               pol_ca=edit == "policy"), batch))
+    _, teng = engines_from_doc(abort_doc())
+    out.append(("aborts", *port_batch(teng, spec_grid(n=24, seed=29))))
+    return out
+
+
+@pytest.mark.parametrize("name", ["role_scopes.yml", "conditions.yml",
+                                  "acl_policies.yml", "policy_targets.yml",
+                                  "props_multi_rules_entities.yml"])
+def test_explain_fixture_trees(emulated, name):
+    """The explain variant (four outputs) equals the plain version's on
+    fixture trees, with and without ACL pairs."""
+    _, teng = make_engines(name)
+    for acl in (True, False):
+        specs = [s for s in spec_grid(n=32, seed=19)
+                 if acl or not any((res.get("meta") or {}).get("acls")
+                                   for res in s["context"]["resources"])]
+        tc, batch = port_batch(teng, specs)
+        got, want = run_emulated(emulated, tc, batch, explain=True)
+        assert got.shape[0] == 4
+        assert torch.equal(got, want), (name, acl)
+
+
+def test_explain_edge_paths(emulated):
+    """Raw codes where the recovery clips: a winning set whose selected
+    policy did not contribute, unknown algorithms selecting slot 0,
+    no-rules policies and condition aborts."""
+    kinds = set()
+    for label, tc, batch in edge_trees():
+        got, want = run_emulated(emulated, tc, batch, explain=True)
+        assert torch.equal(got, want), label
+        kinds |= set((got[3] & 3).tolist())
+    assert kinds == {0, 1, 2, 3}

@@ -207,9 +207,17 @@ def test_refusals():
     specs = spec_grid(n=16, seed=4)
     tev, _ = compare("scoped_512", specs, engines_512())
     assert isinstance(tev._kernel, PrefilteredKernel) and tev._kernel.active
-    _, teng = make_engines("basic_policies.yml")
-    with pytest.raises(NotImplementedError, match="explain"):
-        HybridEvaluator(teng, device="cpu", explain=True)
+    # explain, refused before the explain slice, is served: every row's
+    # _rule_id equals the JAX evaluator's
+    jeng, teng = make_engines("basic_policies.yml")
+    specs = spec_grid(n=32, seed=8)
+    jev = JaxEvaluator(jeng, delta_enabled=False, explain=True)
+    tev = HybridEvaluator(teng, device="cpu", explain=True)
+    want = jev.is_allowed_batch([build_request(s, jmodels) for s in specs])
+    got = tev.is_allowed_batch([build_request(s, tmodels) for s in specs])
+    assert [getattr(g, "_rule_id", None) for g in got] == \
+        [getattr(w, "_rule_id", None) for w in want]
+    assert any(getattr(g, "_rule_id", None) for g in got)
     # a mesh, refused before the multi-device slice, is served: on a
     # 1-rank mesh the evaluator equals the JAX evaluator on a 1-device
     # mesh (multi-rank meshes: tests/test_torch_mesh.py)

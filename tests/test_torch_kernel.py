@@ -401,15 +401,22 @@ def test_device_none_raises_without_cuda(monkeypatch):
 
 
 def test_refusals():
-    """The explain output stays refused; relation-path trees, refused
-    before the ReBAC slice, are decided, equal to the JAX kernel on a
-    batch packed from a tuple store's tables."""
+    """Nothing the JAX kernel serves is refused any more: the explain
+    output, refused before the explain slice, equals the JAX kernel's
+    (four int32 outputs); relation-path trees, refused before the ReBAC
+    slice, are decided, equal to the JAX kernel on a batch packed from a
+    tuple store's tables."""
     from access_control_srv_tpu.srv.relations import RelationTupleStore
 
-    _, teng = make_engines("basic_policies.yml")
-    tc = tcompile(teng.policy_sets, teng.urns)
-    with pytest.raises(NotImplementedError, match="explain"):
-        DecisionKernel(tc, device="cpu", explain=True)
+    jeng, teng = make_engines("basic_policies.yml")
+    jc = jcompile(jeng.policy_sets, jeng.urns)
+    specs = spec_grid(n=32, seed=3)
+    jb = jencode([build_request(s, jmodels) for s in specs], jc)
+    want = JaxKernel(jc, explain=True).evaluate(jb)
+    got = DecisionKernel(jc, device="cpu", explain=True).evaluate(jb)
+    assert len(got) == 4 and (np.asarray(want[3]) != 0).any()
+    assert_exact(want, got)
+    assert np.array_equal(np.asarray(want[3]), got[3])
     jeng, _ = make_engines("relation_policies.yml")
     rc = jcompile(jeng.policy_sets, jeng.urns)
     assert rc.supported and tkernel.tree_needs_rel(rc.arrays)

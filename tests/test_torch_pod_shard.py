@@ -259,11 +259,22 @@ def test_partition_byte_equal(name, n_shards):
         jshards[-1].fingerprint
 
 
-def test_explain_refused():
+def test_explain_matches_jax_single_rank():
+    """Explain mode, refused before the explain slice: on a 1-rank mesh
+    the four outputs equal the JAX kernel's on a 1-device mesh, and a
+    ``patched`` kernel keeps the flag.  (Multi-rank layouts:
+    tests/test_torch_explain.py.)"""
     from access_control_srv_tpu_torch.parallel import PodShardedKernel
     from access_control_srv_tpu_torch.parallel.mesh import make_mesh2
 
-    _, teng = make_engines("role_scopes.yml")
-    with pytest.raises(NotImplementedError, match="serving-shell"):
-        PodShardedKernel(tcompile(teng.policy_sets, teng.urns),
-                         make_mesh2(1, 1, device="cpu"), explain=True)
+    jeng, _ = make_engines("role_scopes.yml")
+    jc = jcompile(jeng.policy_sets, jeng.urns)
+    batch = jencode([build_request(s, jmodels)
+                     for s in spec_grid(n=32, seed=7)], jc)
+    tk = PodShardedKernel(jc, make_mesh2(1, 1, device="cpu"), explain=True)
+    want = JaxPodSharded(jc, jax_mesh(1, 1), explain=True).evaluate(batch)
+    got = tk.evaluate(batch)
+    assert len(got) == 4
+    for w, g in zip(want, got):
+        assert np.array_equal(np.asarray(w), g)
+    assert tk.patched(jc, [0]).explain

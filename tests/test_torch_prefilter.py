@@ -494,11 +494,18 @@ def test_async_materialize_releases_leases(stress):
 
 def test_refusals(stress):
     doc, entities, actions, compiled = stress
-    for kw, match in ((dict(explain=True), "explain"),
-                      (dict(dynamic_policies=True), "delta"),
+    for kw, match in ((dict(dynamic_policies=True), "delta"),
                       (dict(shared_jits={}), "delta")):
         with pytest.raises(NotImplementedError, match=match):
             PrefilteredKernel(compiled, device="cpu", **kw)
+    # explain, refused before the explain slice, is served: the four
+    # outputs equal the JAX kernel's on the stress tree's signature path
+    batch = jencode(stress_requests(entities, actions, n=40), compiled)
+    want = JaxPrefiltered(compiled, explain=True).evaluate(batch)
+    got = port_kernel(compiled, explain=True).evaluate(batch)
+    assert len(got) == 4
+    for w, g in zip(want, got):
+        assert np.array_equal(np.asarray(w), g)
     # ``mesh`` and ``axis``, refused before the multi-device slice, are
     # served: a 1-rank mesh and an explicit axis equal the JAX kernel on
     # a 1-device mesh (multi-rank meshes: tests/test_torch_mesh.py)

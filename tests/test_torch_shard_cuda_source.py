@@ -30,7 +30,12 @@ from access_control_srv_tpu_torch.ops import shard_ref
 from access_control_srv_tpu_torch.parallel import pod_shard, rule_shard
 from access_control_srv_tpu_torch.parallel.mesh import row_slice
 
-from .test_torch_carryover import build_request, make_engines, spec_grid
+from .test_torch_carryover import (
+    build_request,
+    make_engines,
+    request_spec,
+    spec_grid,
+)
 from .test_torch_cuda_source import build_emulated
 from .test_torch_kernel import engines_from_doc
 from .test_torch_pod_shard import MIXED_SPECS, mixed_ca_doc
@@ -43,7 +48,7 @@ ENTRY = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
 LIBRARY = {"rule_chunk": "shard_chunk", "set_chunk": "shard_chunk",
            "shard_tail": "shard_tail"}
 MODE = {"rule_chunk": tkernel.MODE_RULE, "set_chunk": tkernel.MODE_SET}
-FLAGS = {"shard_chunk": 4, "shard_tail": 1}
+FLAGS = {"shard_chunk": 5, "shard_tail": 2}
 
 
 @pytest.fixture(scope="module")
@@ -63,37 +68,55 @@ def libs(tmp_path_factory):
     return {name: out[lib] for name, lib in LIBRARY.items()}
 
 
-def run_chunk(lib, name, mode, c, r, offset, kr_total, n_model, rank, flags):
+def run_chunk(lib, name, mode, c, r, offset, kr_total, n_model, rank, flags,
+              explain=False):
     args = tkernel.pack_chunk_args(name, mode, c, r, offset, kr_total,
-                                   n_model, rank)
+                                   n_model, rank, explain)
     args.out.fill_(-7)
     code = lib.acs_shard_chunk(
         ctypes.addressof(args.ptrs), len(args.ptrs),
         ctypes.addressof(args.dims), len(args.dims), mode, *map(int, flags),
-        args.threads, None)
+        int(explain), args.threads, None)
     assert code == 0
     return args.out
 
 
-def run_tail(lib, merge, n_model, tabs):
-    out, ptrs, dims, mode = tkernel.pack_shard_tail(merge, n_model, tabs)
+def run_tail(lib, merge, n_model, tabs, explain=False, kr_stride=0):
+    out, ptrs, dims, mode = tkernel.pack_shard_tail(merge, n_model, tabs,
+                                                    explain, kr_stride)
     out.fill_(-7)
     assert lib.acs_shard_tail(ctypes.addressof(ptrs), len(ptrs),
                               ctypes.addressof(dims), len(dims), mode,
-                              tkernel.TAIL_THREADS[mode], None) == 0
+                              int(explain), tkernel.TAIL_THREADS[mode],
+                              None) == 0
     return out
 
 
-def check_tree(libs, compiled, batch, n_model: int) -> torch.Tensor:
+def to_kr_stride(code, KR, kr_total):
+    """Dense provenance codes (strides (KP, KR)) in the rule-sharded
+    strides (KP, kr_total): rule and abort positions re-based, no-rules
+    policy positions as they are."""
+    kind, pos = code & 3, code >> 2
+    rebased = ((pos // KR * kr_total + pos % KR) << 2) | kind
+    return torch.where((kind == 1) | (kind == 3), rebased, code)
+
+
+def check_tree(libs, compiled, batch, n_model: int, explain: bool = False,
+               k7_codes: bool = True) -> torch.Tensor:
     """Both sharded programs on every shard of an ``n_model``-way split:
     each kernel equal to its plain version, the merged decisions equal to
-    the dense plain version's; returns the decisions [3, B]."""
+    the dense plain version's (with ``explain`` the provenance codes too:
+    K8's in the dense strides, K7's re-based to ``kr_total`` unless
+    ``k7_codes`` is off: where the winning policy collected no rule, K7
+    reads slot 0 from its merged key as JAX's rule-sharded program does,
+    the dense program the clipped selection); returns the outputs [3, B]
+    ([4, B])."""
     flags = (bool((batch.arrays["r_acl_ent"] >= 0).any()),
              tkernel.tree_needs_hr(compiled.arrays),
              tkernel.tree_needs_rel(compiled.arrays))
     _, r = row_slice(batch, "cpu", tkernel.ROW_ARRAYS, 1, 0)
     c = tables_from_numpy(compiled.arrays, "cpu", keys=tkernel.TABLE_ARRAYS)
-    dense = torch.stack(decide_dense_ref(c, r, *flags))
+    dense = torch.stack(decide_dense_ref(c, r, *flags, explain=explain))
     el = torch.from_numpy(np.asarray(batch.eligible))
     n = batch.B
 
@@ -112,25 +135,34 @@ def check_tree(libs, compiled, batch, n_model: int) -> torch.Tensor:
         merges.append(got)
     merged = torch.stack(merges).amin(dim=0)
     tabs = {k: c[k] for k in tkernel.TAIL_TABLES}
-    want = shard_ref.shard_tail_ref(merged, n_model, tabs)
-    got7 = run_tail(libs["shard_tail"], merged, n_model, tabs)
+    want = shard_ref.shard_tail_ref(merged, n_model, tabs, explain=explain,
+                                    kr_stride=kr_total)
+    got7 = run_tail(libs["shard_tail"], merged, n_model, tabs, explain,
+                    kr_total)
     assert torch.equal(got7, want)
-    assert torch.equal(got7[:, :n][:, el], dense[:, :n][:, el])
+    want7 = dense.clone()
+    if explain:
+        want7[3] = (to_kr_stride(dense[3], compiled.KR, kr_total)
+                    if k7_codes else got7[3])
+    assert torch.equal(got7[:, :n][:, el], want7[:, :n][:, el])
 
     shards, _ = pod_shard.partition_sets(compiled, n_model)
     merges = []
     for d, sh in enumerate(shards):
         cd = tables_from_numpy({k: sh.arrays[k]
                                 for k in tkernel.TABLE_ARRAYS}, "cpu")
-        want = shard_ref.set_chunk_ref(cd, r, sh.s_lo, n_model, d, *flags)
+        want = shard_ref.set_chunk_ref(cd, r, sh.s_lo, n_model, d, *flags,
+                                       explain=explain)
         got = run_chunk(libs["set_chunk"], "set_chunk", tkernel.MODE_SET,
                         cd, r, sh.s_lo, cd["rule_valid"].shape[2], n_model,
-                        d, flags)
+                        d, flags, explain)
         assert torch.equal(got, want), ("set_chunk", d)
         merges.append(got)
     merged = torch.stack(merges).amin(dim=0)
-    want = shard_ref.shard_tail_ref(merged, n_model)
-    got8 = run_tail(libs["shard_tail"], merged, n_model, None)
+    want = shard_ref.shard_tail_ref(merged, n_model, explain=explain,
+                                    kr_stride=compiled.KR)
+    got8 = run_tail(libs["shard_tail"], merged, n_model, None, explain,
+                    compiled.KR)
     assert torch.equal(got8, want)
     assert torch.equal(got8[:, :n][:, el], dense[:, :n][:, el])
     return got7[:, :n]
@@ -164,6 +196,18 @@ def test_argument_count_mismatch_is_refused(libs, name):
     assert getattr(libs[name], f"acs_{lib}")(
         ctypes.addressof(ptrs), 3, ctypes.addressof(dims), 3, *extra, 64,
         None) == -1
+    if name == "rule_chunk":
+        # the rule-chunk mode has no explain variant
+        _, teng = make_engines("role_scopes.yml")
+        tc, batch = port_batch(teng, spec_grid(n=4, seed=1))
+        _, r = row_slice(batch, "cpu", tkernel.ROW_ARRAYS, 1, 0)
+        c = tables_from_numpy(tc.arrays, "cpu", keys=tkernel.TABLE_ARRAYS)
+        args = tkernel.pack_chunk_args(name, tkernel.MODE_RULE, c, r, 0,
+                                       tc.KR, 1, 0)
+        assert libs[name].acs_shard_chunk(
+            ctypes.addressof(args.ptrs), len(args.ptrs),
+            ctypes.addressof(args.dims), len(args.dims), tkernel.MODE_RULE,
+            0, 0, 0, 1, args.threads, None) == -1
 
 
 @pytest.mark.parametrize("name,n_model", [
@@ -195,3 +239,52 @@ def test_mixed_combining_algorithms(libs, n_model):
     _, teng = engines_from_doc(mixed_ca_doc())
     tc, batch = port_batch(teng, MIXED_SPECS)
     check_tree(libs, tc, batch, n_model)
+
+
+# ------------------------------------------------------------- explain
+
+
+@pytest.mark.parametrize("name,n_model", [
+    ("role_scopes.yml", 4), ("conditions.yml", 2),
+    ("props_multi_rules_entities.yml", 2)])
+def test_explain_fixture_trees(libs, name, n_model):
+    """The explain variants: ``set_chunk``'s provenance column and both
+    tail modes' fourth output equal their plain versions; merged, the
+    codes equal the dense program's."""
+    from .test_explain import fixture_requests
+
+    _, teng = make_engines(name)
+    specs = [request_spec(q) for q in fixture_requests(name, n=8, seed=41)]
+    tc, batch = port_batch(teng, specs)
+    out = check_tree(libs, tc, batch, n_model, explain=True)
+    assert out.shape[0] == 4 and (out[3] != 0).any()
+
+
+def test_explain_aborts_and_mixed_algorithms(libs):
+    """Kind-3 codes from an abort on either shard; the owner shard's code
+    wins across sets of mixed combining algorithms, kind-2 (no-rules)
+    positions scaled through the merge and back."""
+    _, teng = engines_from_doc(two_shard_abort_doc())
+    tc, batch = port_batch(teng, spec_grid(n=16, seed=29))
+    out = check_tree(libs, tc, batch, 2, explain=True)
+    assert 3 in set((out[3] & 3).tolist())
+    _, teng = engines_from_doc(mixed_ca_doc())
+    tc, batch = port_batch(teng, MIXED_SPECS)
+    check_tree(libs, tc, batch, 4, explain=True)
+
+
+def test_explain_edge_trees(libs):
+    """The edge tree of ``test_torch_explain`` (a no-rules policy, a set
+    whose first policy does not contribute) with unknown set algorithms:
+    kind-2 keys scaled by KR in the merge, clipped rule slots."""
+    from .test_torch_explain import edge_case, edited
+
+    doc, specs = edge_case()
+    _, teng = engines_from_doc(doc)
+    tc, batch = port_batch(teng, specs)
+    kinds = set()
+    for edit in ("none", "set"):
+        out = check_tree(libs, edited(tc, set_ca=edit == "set"), batch, 2,
+                         explain=True, k7_codes=edit == "none")
+        kinds |= set((out[3] & 3).tolist())
+    assert {1, 2} <= kinds

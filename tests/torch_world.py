@@ -4,8 +4,8 @@ The tests start an N-rank gloo world on the CPU with the port's
 ``parallel.cluster.launch_local`` and run ``run_job`` in every rank.  A job
 is a pickle the test writes: a list of cases, each a tree (a fixture file
 name or a policy-set document), request specs (``test_torch_carryover.
-request_spec``), optional relation-store operations, the kernel to run and
-its mesh layouts; or, for ``patch`` cases, compiled arrays made by the JAX
+request_spec``), optional relation-store operations, the kernel to run
+(with its keyword arguments, e.g. ``explain``) and its mesh layouts; or, for ``patch`` cases, compiled arrays made by the JAX
 package's delta patcher.  Each rank builds the engine, the compile and the
 batch with the port's own code and runs the port's kernel at every layout;
 every rank writes its outputs (``<out>.<rank>``), so the test checks both
@@ -96,14 +96,19 @@ def batch_from(d: dict) -> RequestBatch:
     return RequestBatch(**d)
 
 
-def _kernel(kind: str, compiled, mesh):
+def _kernel(kind: str, compiled, mesh, **kw):
     if kind == "k6":
-        return ShardedDecisionKernel(compiled, mesh)
+        return ShardedDecisionKernel(compiled, mesh, **kw)
     if kind == "k7":
-        return RuleShardedKernel(compiled, mesh)
+        return RuleShardedKernel(compiled, mesh, **kw)
     if kind == "k8":
-        return PodShardedKernel(compiled, mesh)
-    return PrefilteredKernel(compiled, mesh=mesh)
+        return PodShardedKernel(compiled, mesh, **kw)
+    return PrefilteredKernel(compiled, mesh=mesh, **kw)
+
+
+def explain_key(resp):
+    """A response's provenance: ``_rule_id`` and ``_explain``."""
+    return (getattr(resp, "_rule_id", None), getattr(resp, "_explain", None))
 
 
 def response_key(resp):
@@ -170,9 +175,10 @@ def run_job(rank: int, world: int, job_path: str) -> None:
                 if store is not None:
                     ev.attach_relation_store(store)
                 reqs = [build_request(s) for s in case["specs"]]
+                responses = ev.is_allowed_batch(reqs)
                 results[key] = {
-                    "responses": [response_key(r)
-                                  for r in ev.is_allowed_batch(reqs)],
+                    "responses": [response_key(r) for r in responses],
+                    "explain": [explain_key(r) for r in responses],
                     "kernel": type(ev._kernel).__name__,
                     "identity": ev.shard_identity(),
                 }
@@ -183,8 +189,8 @@ def run_job(rank: int, world: int, job_path: str) -> None:
                 [build_request(s) for s in case["specs"]], compiled,
                 relation_tables=tables)
             before = dict(tmesh.COLLECTIVES)
-            out = _kernel(case["kind"], compiled, mesh(layout)).evaluate(
-                batch)
+            out = _kernel(case["kind"], compiled, mesh(layout),
+                          **case.get("kernel_kw", {})).evaluate(batch)
             results[key] = {
                 "out": tuple(np.asarray(o) for o in out),
                 "eligible": np.asarray(batch.eligible),
@@ -221,4 +227,5 @@ def run_world(tmp_dir, world: int, cases: list, timeout_s: float = 300.0
                     assert np.array_equal(w, g), (rank, key)
             if "responses" in want:
                 assert got["responses"] == want["responses"], (rank, key)
+                assert got["explain"] == want["explain"], (rank, key)
     return ranks
