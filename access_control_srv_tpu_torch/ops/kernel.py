@@ -45,6 +45,7 @@ import torch
 
 from .carry import (
     batch_from_numpy,
+    half_pow2_bucket,
     lead_padding,
     pad_cols,
     pow2_bucket,
@@ -70,12 +71,12 @@ from .shard_ref import (
 )
 
 __all__ = [
-    "BIG", "DecisionKernel", "LAUNCHES", "ORIG_TABLE", "decide_dense",
-    "decide_grouped",
+    "BIG", "DecisionKernel", "LAUNCHES", "ORIG_TABLE", "SlotLayout",
+    "decide_dense", "decide_grouped", "grouped_layout",
     "lead_padding", "pack_rule_key", "pad_cols", "pow2_bucket",
     "resolve_device", "rule_chunk", "set_chunk", "shard_tail", "sig_decide",
-    "sig_planes", "tree_needs_hr", "tree_needs_rel", "unpack_rule_key",
-    "wia_planes",
+    "sig_planes", "slot_layout", "tree_needs_hr", "tree_needs_rel",
+    "unpack_rule_key", "wia_planes",
 ]
 
 # kernel launches per wrapper, counted where the wrapper launches
@@ -218,7 +219,24 @@ SIG_ROW_OFFSETS = (
 SIG_DECIDE_DIMS = (
     "NSLOT", "R", "S", "KP", "KR", "KS", "NR", "NOP", "WROW", "NSUB",
     "NROLE", "NACT", "NRU", "NWORDS", "NRU_REL", "NWORDS_REL", "C",
-) + tuple(o for o, _ in SIG_ROW_OFFSETS) + ("NEEDS_PAIRS",)
+) + tuple(o for o, _ in SIG_ROW_OFFSETS) + ("NEEDS_PAIRS", "RB", "PT")
+# threads per sig_decide block, and how it sizes its blocks: rows of a slot
+# per block, and the shared-memory bytes of a staged rule tile (10 bytes a
+# rule position; a set whose rules exceed them is staged in policy tiles)
+SIG_DECIDE_THREADS = 256
+SIG_STAGE = {"rows": 8, "rules": 64 * 1024}
+
+# the argument order of csrc/decide_grouped.cu: the dense program's
+# pointers, then the slot layout; its shape ints after the dense ones: the
+# slot count and width, rows per block, policies per staged rule tile
+GROUPED_PTRS = DENSE_PTRS + ("slot_g", "grid2row", "gp_orig")
+GROUPED_DIMS = ("NSLOT", "R", "RT", "PT")
+# threads per decide_grouped block, and how it sizes its blocks: rows per
+# block and the shared-memory bytes of their per-row results, and a rule
+# tile's bytes (9 a rule position; a set whose rules exceed them is staged
+# in policy tiles)
+GROUPED_THREADS = 256
+GROUPED_STAGE = {"rows": 16, "row_bytes": 64 * 1024, "rules": 32 * 1024}
 
 _libs: dict = {}
 
@@ -255,15 +273,53 @@ def _library(name: str, ptr_names: tuple, dim_names: tuple, flags: int):
 
 
 def _dense_library(name: str):
-    """``decide_dense`` or ``decide_grouped``: the dense program's
-    layout, plus its shared-memory sizing entry point."""
-    extra = ("g_idx",) if name == "decide_grouped" else ()
-    lib = _library(name, DENSE_PTRS + extra, DIMS, 4)
+    """``decide_dense``: the dense program's layout, plus its
+    shared-memory sizing entry point."""
+    lib = _library(name, DENSE_PTRS, DIMS, 4)
     smem = getattr(lib, f"acs_{name}_smem")
     smem.restype = ctypes.c_longlong
     smem.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     lib.acs_max_smem_optin.restype = ctypes.c_int
     return lib
+
+
+def _grouped_library():
+    """``decide_grouped``: its layout, shared-memory sizing and occupancy
+    entry points."""
+    lib = _library("decide_grouped", GROUPED_PTRS, DIMS + GROUPED_DIMS, 4)
+    lib.acs_decide_grouped_smem.restype = ctypes.c_longlong
+    lib.acs_decide_grouped_smem.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                            ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_int]
+    lib.acs_decide_grouped_occupancy.restype = ctypes.c_int
+    lib.acs_decide_grouped_occupancy.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_int] * 5)
+    lib.acs_max_smem_optin.restype = ctypes.c_int
+    return lib
+
+
+def _sig_library():
+    """``sig_decide``: its layout, shared-memory sizing and occupancy
+    entry points."""
+    lib = _library("sig_decide", SIG_DECIDE_PTRS, SIG_DECIDE_DIMS, 3)
+    lib.acs_sig_decide_smem.restype = ctypes.c_longlong
+    lib.acs_sig_decide_smem.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                        ctypes.c_int]
+    lib.acs_sig_decide_occupancy.restype = ctypes.c_int
+    lib.acs_sig_decide_occupancy.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_int] * 4)
+    lib.acs_max_smem_optin.restype = ctypes.c_int
+    return lib
+
+
+def _check_smem(name: str, lib, smem: int) -> None:
+    """Raises when a launch needs more shared memory per block than the
+    current device allows."""
+    limit = lib.acs_max_smem_optin()
+    if smem < 0 or smem > limit:
+        raise ValueError(f"{name}: the tree needs {smem} bytes of shared "
+                         f"memory per block, the device allows {limit}")
 
 
 def _check_launch(name: str, lib, code: int) -> None:
@@ -361,19 +417,17 @@ def _outputs(n_rows: int, explain: bool, dev, zeroed: bool = False):
                  for i, k in enumerate(OUTPUTS)]
 
 
-def pack_args(c: dict, r: dict, extra: tuple = (),
-              name: str = "decide_dense", explain: bool = False
-              ) -> LaunchArgs:
+def pack_args(c: dict, r: dict, name: str = "decide_dense",
+              explain: bool = False) -> LaunchArgs:
     """Check the tensors (one device, contiguous, int32 or bool, shapes
     within the kernel's limits), allocate the outputs ([4, B] with
     ``explain``) and pack the C arguments of one launch of the dense
-    program; ``extra`` (name, tensor) pairs follow the outputs
-    (``decide_grouped``'s ``g_idx``)."""
+    program."""
     dev = r["r_n_ra"].device
     dims, named = _dense_named(c, r, name)
     out, out_named = _outputs(dims["B"], explain, dev)
     named += out_named
-    ptrs, cdims = _c_arrays(_c_ptrs(name, named + list(extra), dev),
+    ptrs, cdims = _c_arrays(_c_ptrs(name, named, dev),
                             [dims[k] for k in DIMS])
     return LaunchArgs(out=out, ptrs=ptrs, dims=cdims, shape=dims,
                       threads=threads_for(dims["T"]))
@@ -381,8 +435,8 @@ def pack_args(c: dict, r: dict, extra: tuple = (),
 
 def _launch_dense(name: str, args: LaunchArgs, with_acl: bool,
                   with_hr: bool, with_rel: bool) -> torch.Tensor:
-    """One launch of ``decide_dense`` or ``decide_grouped`` (the explain
-    variant when the output has four rows)."""
+    """One launch of ``decide_dense`` (the explain variant when the output
+    has four rows)."""
     dev = args.out.device
     lib = _dense_library(name)
     smem = getattr(lib, f"acs_{name}_smem")(
@@ -564,23 +618,174 @@ def shard_tail(merge: torch.Tensor, n_model: int, tabs: dict | None = None,
     return out
 
 
-def decide_grouped(inv: dict, cs: dict, g_idx: torch.Tensor, r: dict,
-                   with_acl: bool, with_hr: bool, with_rel: bool, *,
+class SlotLayout(NamedTuple):
+    """Rows sorted by group into ``[NSLOT, R]`` slots that each hold one
+    group's rows (the signature path's layout, K3's and K4's): ``slot_g``
+    int32 [NSLOT] each slot's group, ``grid2row`` int32 [NSLOT, R] each
+    grid position's source row (a pad position reads a real row whose
+    ``gp_orig`` is another position, and never stores), ``gp_orig`` int32
+    [rows] each row's grid position."""
+
+    slot_g: torch.Tensor
+    grid2row: torch.Tensor
+    gp_orig: torch.Tensor
+
+
+def slot_layout(inv: np.ndarray, G: int, n_out: int, n_data: int = 1,
+                take=None) -> tuple:
+    """The slot layout of rows ``inv`` (each row's group, of ``G``) as
+    numpy int32 arrays from ``take(shape)`` (default ``np.empty``) ->
+    (slot_g [ns_pad], grid2row [ns_pad * R], gp_orig [n_out], R, nslot,
+    ns_pad).  R derives from the bucketed row and group counts only; the
+    slot count pads to the half-pow2 bucket and to a multiple of
+    ``n_data`` (each rank of a data axis takes an equal share)."""
+    if take is None:
+        def take(shape):
+            return np.empty(shape, np.int32)
+    B = inv.shape[0]
+    gb = pow2_bucket(G, floor=1)
+    R = min(4096, pow2_bucket(max(8, 2 * pow2_bucket(B) // gb), floor=8))
+    # near-unique signature mixes would inflate the slot grid by the R
+    # floor; cap the padded rows at ~4x the bucketed batch
+    R = min(R, max(8, pow2_bucket(4 * pow2_bucket(B) // gb, floor=8)))
+    # a stable sort by group: numpy's radix sort where groups fit 16 bits
+    row_order = np.argsort(inv.astype(np.uint16) if G <= 1 << 16 else inv,
+                           kind="stable")
+    counts = np.bincount(inv, minlength=G)
+    slots_per_g = -(-counts // R)
+    slot_base = np.concatenate(([0], np.cumsum(slots_per_g)))
+    nslot = int(slot_base[-1])
+    ns_pad = half_pow2_bucket(nslot, floor=8)
+    if ns_pad % n_data:
+        ns_pad = -(-ns_pad // n_data) * n_data
+    starts = np.concatenate(([0], np.cumsum(counts)))
+    rk = np.arange(B) - starts[inv[row_order]]
+    grid_pos = ((slot_base[inv[row_order]] + rk // R) * R
+                + rk % R).astype(np.int64)
+    slot_g = take((ns_pad,))
+    slot_g.fill(0)
+    slot_g[:nslot] = np.repeat(np.arange(G, dtype=np.int32), slots_per_g)
+    grid2row = take((ns_pad * R,))
+    grid2row.fill(0)
+    grid2row[grid_pos] = row_order
+    gp_orig = take((n_out,))
+    gp_orig.fill(0)
+    gp_orig[row_order] = grid_pos.astype(np.int32)
+    return slot_g, grid2row, gp_orig, R, nslot, ns_pad
+
+
+def grouped_layout(g_idx: np.ndarray, G: int, device) -> SlotLayout:
+    """``decide_grouped``'s slot layout of every row of ``g_idx`` (each
+    row's group, of ``G``) on ``device``: built in pinned host memory
+    for a card and copied without waiting for the card (the host
+    allocator keeps each buffer until its copy has run)."""
+    g = np.asarray(g_idx, np.int64)
+    pinned = torch.device(device).type == "cuda"
+    host = []
+
+    def take(shape):
+        host.append(torch.empty(shape, dtype=torch.int32,
+                                pin_memory=pinned))
+        return host[-1].numpy()
+
+    _, _, _, R, _, ns_pad = slot_layout(g, G, g.shape[0], take=take)
+    slot_g, grid2row, gp_orig = (t.to(device, non_blocking=True)
+                                 for t in host)
+    return SlotLayout(slot_g, grid2row.view(ns_pad, R), gp_orig)
+
+
+def _grouped_tiles(d: dict, explain: bool, nslot: int, R: int) -> dict:
+    """``decide_grouped``'s block shape ints (``GROUPED_DIMS``) from the
+    shapes and ``GROUPED_STAGE``."""
+    st = GROUPED_STAGE
+    T, S, KP, KR = d["T"], d["S"], d["KP"], d["KR"]
+    per_row = T + S * KP * (4 if explain else 1) + 3 * S + 12
+    RT = max(1, min(R, st["rows"], st["row_bytes"] // per_row))
+    PT = max(1, min(KP, st["rules"] // (9 * KR)))
+    return {"NSLOT": nslot, "R": R, "RT": RT, "PT": PT}
+
+
+def pack_grouped(inv: dict, cs: dict, r: dict, layout: SlotLayout,
+                 explain: bool = False) -> LaunchArgs:
+    """Check and pack one ``decide_grouped`` launch: the dense program's
+    arguments over the stacked tables, then the slot layout and the block
+    shape ints; allocates the outputs ([4, B] with ``explain``)."""
+    c = {**inv, **cs}
+    dev = r["r_n_ra"].device
+    dims, named = _dense_named(c, r, "decide_grouped")
+    out, out_named = _outputs(dims["B"], explain, dev)
+    named += out_named + list(zip(("slot_g", "grid2row", "gp_orig"),
+                                  layout))
+    nslot, R = layout.grid2row.shape
+    if layout.slot_g.shape != (nslot,) or \
+            layout.gp_orig.shape != (dims["B"],):
+        raise ValueError("decide_grouped: the slot layout does not match "
+                         "the rows")
+    dims.update(_grouped_tiles(dims, explain, nslot, R))
+    ptrs, cdims = _c_arrays(_c_ptrs("decide_grouped", named, dev),
+                            [dims[k] for k in DIMS + GROUPED_DIMS])
+    return LaunchArgs(out=out, ptrs=ptrs, dims=cdims, shape=dims,
+                      threads=GROUPED_THREADS)
+
+
+def _grouped_args(inv: dict, cs: dict, g_idx, r: dict,
+                  explain: bool) -> tuple[LaunchArgs, SlotLayout]:
+    """One ``decide_grouped`` launch packed for the card, and the slot
+    layout of the host group array ``g_idx`` that it reads, built and
+    uploaded (the caller holds it until the launch is enqueued)."""
+    if isinstance(g_idx, torch.Tensor) and g_idx.device.type != "cpu":
+        raise ValueError("decide_grouped: g_idx must lie on the host")
+    g = np.asarray(g_idx)
+    if g.dtype != np.int32 or g.shape != (r["r_n_ra"].shape[0],):
+        raise ValueError("decide_grouped: g_idx must be int32 [B]")
+    layout = grouped_layout(g, cs["t_role"].shape[0], r["r_n_ra"].device)
+    return pack_grouped(inv, cs, r, layout, explain), layout
+
+
+def decide_grouped(inv: dict, cs: dict, g_idx, r: dict, with_acl: bool,
+                   with_hr: bool, with_rel: bool, *,
                    explain: bool = False) -> torch.Tensor:
     """The dense program per row against its own compacted subtree:
     ``inv`` the group-invariant tables, ``cs`` the varying tables stacked
     ``[G, ...]`` (with ``explain`` also ``rule_orig_flat``), ``g_idx``
-    int32 [B] each row's group -> int32 [3, B] ([4, B] with ``explain``).
-    CUDA tensors launch ``csrc/decide_grouped.cu``; CPU tensors run the
-    plain version."""
-    if g_idx.device.type != "cuda":
-        return decide_grouped_ref(inv, cs, g_idx, r, with_acl, with_hr,
-                                  with_rel, explain=explain)
-    if g_idx.dtype != torch.int32 or g_idx.shape[0] != r["r_n_ra"].shape[0]:
-        raise ValueError("decide_grouped: g_idx must be int32 [B]")
-    args = pack_args({**inv, **cs}, r, extra=(("g_idx", g_idx),),
-                     name="decide_grouped", explain=explain)
-    return _launch_dense("decide_grouped", args, with_acl, with_hr, with_rel)
+    int32 [B] each row's group, on the host (numpy or a CPU tensor) ->
+    int32 [3, B] ([4, B] with ``explain``).  CUDA tensors launch
+    ``csrc/decide_grouped.cu`` over the rows' slot layout, which the
+    wrapper builds from ``g_idx``; CPU tensors run the plain version."""
+    dev = r["r_n_ra"].device
+    if dev.type != "cuda":
+        return decide_grouped_ref(inv, cs, torch.as_tensor(g_idx,
+                                                           device=dev),
+                                  r, with_acl, with_hr, with_rel,
+                                  explain=explain)
+    # the layout stays referenced until the launch is enqueued
+    args, layout = _grouped_args(inv, cs, g_idx, r, explain)
+    lib = _grouped_library()
+    with torch.cuda.device(dev):
+        _check_smem("decide_grouped", lib, lib.acs_decide_grouped_smem(
+            ctypes.addressof(args.dims), len(args.dims), int(with_acl),
+            int(explain), args.threads))
+        code = lib.acs_decide_grouped(
+            ctypes.addressof(args.ptrs), len(args.ptrs),
+            ctypes.addressof(args.dims), len(args.dims), int(with_acl),
+            int(with_hr), int(with_rel), int(explain), args.threads,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _check_launch("decide_grouped", lib, code)
+    return args.out
+
+
+def decide_grouped_occupancy(inv: dict, cs: dict, g_idx, r: dict,
+                             with_acl: bool, with_hr: bool, with_rel: bool,
+                             *, explain: bool = False) -> int:
+    """Resident ``decide_grouped`` blocks per SM of the variant at one
+    call's shapes (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    args, _ = _grouped_args(inv, cs, g_idx, r, explain)
+    lib = _grouped_library()
+    with torch.cuda.device(r["r_n_ra"].device):
+        return lib.acs_decide_grouped_occupancy(
+            ctypes.addressof(args.dims), len(args.dims), int(with_acl),
+            int(with_hr), int(with_rel), int(explain), args.threads)
 
 
 def pack_sig_planes(tabs: dict, inv: dict, pseudo: dict, with_hr: bool,
@@ -693,6 +898,8 @@ def pack_sig_decide(inv: dict, cs: dict, planes: dict, slot_g, mega_rows,
         "NRU_REL": widths.get("r_rel_runs", 0),
         "NWORDS_REL": widths.get("r_rel_bits", 0),
         "C": widths["cond_true"], "NEEDS_PAIRS": int(needs_pairs),
+        "RB": max(1, min(R, SIG_STAGE["rows"])),
+        "PT": max(1, min(KP, SIG_STAGE["rules"] // (10 * KR))),
     }
     for dim, col in SIG_ROW_OFFSETS:
         d[dim] = offsets.get(col, -1)
@@ -727,8 +934,10 @@ def sig_decide(inv: dict, cs: dict, planes: dict, slot_g, mega_rows,
                                        grid2row, gp_orig, schedule,
                                        needs_pairs, with_hr, with_rel,
                                        explain)
-    lib = _library("sig_decide", SIG_DECIDE_PTRS, SIG_DECIDE_DIMS, 3)
+    lib = _sig_library()
     with torch.cuda.device(dev):
+        _check_smem("sig_decide", lib, lib.acs_sig_decide_smem(
+            ctypes.addressof(cdims), len(cdims), SIG_DECIDE_THREADS))
         code = lib.acs_sig_decide(
             ctypes.addressof(ptrs), len(ptrs), ctypes.addressof(cdims),
             len(cdims), int(with_hr), int(with_rel), int(explain),
@@ -738,8 +947,22 @@ def sig_decide(inv: dict, cs: dict, planes: dict, slot_g, mega_rows,
     return out
 
 
-# threads per sig_decide block: one warp per row of the slot
-SIG_DECIDE_THREADS = 128
+def sig_decide_occupancy(inv: dict, cs: dict, planes: dict, slot_g,
+                         mega_rows, grid2row, gp_orig, n_rows: int,
+                         schedule: tuple, needs_pairs: bool, with_hr: bool,
+                         with_rel: bool, *, explain: bool = False) -> int:
+    """Resident ``sig_decide`` blocks per SM of the variant at one call's
+    shapes (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    _, ptrs, cdims = pack_sig_decide(inv, cs, planes, slot_g, mega_rows,
+                                     grid2row, gp_orig, schedule,
+                                     needs_pairs, with_hr, with_rel, explain)
+    lib = _sig_library()
+    with torch.cuda.device(mega_rows.device):
+        return lib.acs_sig_decide_occupancy(
+            ctypes.addressof(ptrs), len(ptrs), ctypes.addressof(cdims),
+            len(cdims), int(with_hr), int(with_rel), int(explain),
+            SIG_DECIDE_THREADS)
+
 
 # the argument order of csrc/wia_planes.cu
 WIA_PLANES_PTRS = WIA_TABLES + ("rows", "rgx_set", "pfx_neq", "planes")

@@ -82,6 +82,7 @@ from .kernel import (
     resolve_device,
     sig_decide,
     sig_planes,
+    slot_layout,
     tree_needs_hr,
     tree_needs_rel,
 )
@@ -662,44 +663,10 @@ class PrefilteredKernel:
                 mega_rows[B:].fill(0)
 
             # group-dense slot layout: rows sorted by signature, packed
-            # into [NSLOT, R] slots that each share one group; R derives
-            # from the bucketed batch and group counts only
-            gb = pow2_bucket(G, floor=1)
-            R = min(4096, pow2_bucket(
-                max(8, 2 * pow2_bucket(B) // gb), floor=8,
-            ))
-            # near-unique signature mixes would inflate the slot grid by
-            # the R floor; cap the padded rows at ~4x the bucketed batch
-            R = min(R, max(8, pow2_bucket(
-                4 * pow2_bucket(B) // gb, floor=8,
-            )))
-            row_order = np.argsort(inv, kind="stable")
-            counts = np.bincount(inv, minlength=G)
-            slots_per_g = -(-counts // R)
-            slot_base = np.concatenate(([0], np.cumsum(slots_per_g)))
-            nslot = int(slot_base[-1])
-            ns_pad = half_pow2_bucket(nslot, floor=8)
+            # into [NSLOT, R] slots that each share one group
             n_data = 1 if self.mesh is None else self.mesh.shape[self.axis]
-            if ns_pad % n_data:
-                ns_pad = -(-ns_pad // n_data) * n_data
-            starts = np.concatenate(([0], np.cumsum(counts)))
-            rk = np.arange(B) - starts[inv[row_order]]
-            grid_pos = (
-                (slot_base[inv[row_order]] + rk // R) * R + rk % R
-            ).astype(np.int64)
-            slot_g = take((ns_pad,))
-            slot_g.fill(0)
-            slot_g[:nslot] = np.repeat(
-                np.arange(G, dtype=np.int32), slots_per_g
-            )
-            # grid position -> source row (pad positions read row 0 and
-            # are never stored) and original row -> grid position
-            grid2row_flat = take((ns_pad * R,))
-            grid2row_flat.fill(0)
-            grid2row_flat[grid_pos] = row_order
-            gp_orig = take((b_pad,))
-            gp_orig.fill(0)
-            gp_orig[row_order] = grid_pos.astype(np.int32)
+            slot_g, grid2row_flat, gp_orig, R, _, ns_pad = slot_layout(
+                inv, G, b_pad, n_data, take)
 
             ns_own = ns_pad
             if n_data > 1:
@@ -776,16 +743,15 @@ class PrefilteredKernel:
             per = shard_bucket(b, n_data) // n_data
             g_all = np.zeros((per * n_data,), np.int32)
             g_all[:b] = inv
-            g_idx = _tensor(g_all[index * per:(index + 1) * per],
-                            self.device)
-            out = decide_grouped(self._c_inv, stack.tables, g_idx, r,
+            out = decide_grouped(self._c_inv, stack.tables,
+                                 g_all[index * per:(index + 1) * per], r,
                                  with_acl, stack.with_hr, stack.with_rel,
                                  **self._explain_kw)
             return readback(all_gather_cols(out, self.mesh, self.axis), b)
         b, r = batch_from_numpy(batch, self.device, keys=ROW_ARRAYS)
         _, _, _, pad_lead = lead_padding(batch)
-        g_idx = _tensor(pad_lead(inv.astype(np.int32)), self.device)
         return readback(
-            decide_grouped(self._c_inv, stack.tables, g_idx, r, with_acl,
+            decide_grouped(self._c_inv, stack.tables,
+                           pad_lead(inv.astype(np.int32)), r, with_acl,
                            stack.with_hr, stack.with_rel,
                            **self._explain_kw), b)

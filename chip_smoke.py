@@ -12,7 +12,8 @@ PyTorch version:
    nvcc each, all started together; ptxas registers and spills per kernel
    instantiation, each explain-off instantiation beside its explain twin
    (with ``--parent-csrc DIR`` also held against the same kernels built
-   from another tree's sources: equal registers and spills);
+   from another tree's sources: equal registers and spills, except
+   ``sig_decide`` and ``decide_grouped``, listed as changed by design);
 3. dense kernel vs plain: ``decide_dense`` against ``kernel_ref`` on the
    card, exactly equal, on every supported fixture tree (the relation
    fixture without a store: fail-closed), the seed data and the 511-rule
@@ -36,8 +37,11 @@ PyTorch version:
    Every kernel call of the first batch is held against its plain
    version, and a 32-row sample of responses against ``engine.is_allowed``;
 8. times: each kernel at its main path's shapes (CUDA events) beside its
-   plain version and its bound; the evaluators' steady-state decisions/s
-   and stage split; the dense kernel's throughput at 2^18 / 2^16 rows;
+   plain version and its bound (``sig_decide`` and ``decide_grouped``:
+   the median of 5 windows of 100 launches of arguments packed once, with
+   their resident blocks per SM); the evaluators' steady-state
+   decisions/s and stage split; the dense kernel's throughput at 2^18 /
+   2^16 rows;
 9. whatIsAllowed planes vs plain: every ``wia_planes`` call of
    ``ReverseQueryKernel.evaluate`` held exactly against its plain version
    on the fixture trees with grid traffic, the 1,000- and 10,000-rule
@@ -121,6 +125,16 @@ PyTorch version:
    variants beside its bound and plain time; one 16,384-row batch with 16
    ACL rows through ``decide_grouped``'s explain variant.
 
+After phase 18 the K3 / K4 report: each at (a), (b), (c) and explain on
+/ off at phase 18's shapes, through its wrapper (as every kernel is
+timed) and of arguments packed once, beside its bound, the ratio, its
+ptxas numbers and resident blocks per SM, and the time recorded for the
+design before; with ``--parent-csrc DIR`` also the kernels built from
+``DIR`` (the parent tree's ``ops/csrc``, its ``ops/kernel.py`` beside
+it) on the same arguments, timed both ways in the same windows.
+``--quick`` runs phases 1-2, 6-7, 12 and 17-18 and the report only (no
+result lines).
+
 Any mismatch or error exits non-zero.  The line before the last is the
 kernel table as one JSON object (K1-K4 carry their ``with_rel`` variant's
 launches and times beside their own; ``decide_dense``, ``sig_decide``,
@@ -135,7 +149,9 @@ printing any result.  Run from the repository root::
 
 from __future__ import annotations
 
+import atexit
 import copy
+import ctypes
 import json
 import os
 import random
@@ -243,6 +259,25 @@ REBAC_TUPLES = 1_000_000
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_SCALAR_OPS_PER_S = 67e12
 ITERS = 5
+# the kernels this version of the port redesigned (K3, K4): timed through
+# the wrapper as every kernel is, and with STEADY_WINDOWS windows of
+# STEADY_ITERS launches of arguments packed once (time_steady), reported
+# beside their bound, their ptxas numbers, their resident blocks per SM,
+# the parent tree's kernels (--parent-csrc) and the times PERF.md records
+# for the design before (OLD_MS)
+REDESIGNED = ("sig_decide", "decide_grouped")
+STEADY_ITERS, STEADY_WINDOWS = 100, 5
+# their times beside ``ms`` in the kernel table: packed once, and the
+# parent tree's kernel through its wrapper and packed once
+PACKED_KEYS = ("kernel_ms", "parent_ms", "parent_kernel_ms")
+OLD_MS = {
+    ("sig_decide", "a"): "1.054-1.103",
+    ("sig_decide", "b"): "0.589",
+    ("decide_grouped", "c"): "2.509-2.563",
+    ("sig_decide", "explain"): "0.118 / 0.182, explain off 0.090 / 0.163",
+    ("decide_grouped", "explain"): "1.014 / 1.016, explain off 0.651 / "
+                                   "0.689",
+}
 
 
 def log(msg: str) -> None:
@@ -629,28 +664,28 @@ def ptxas_entries(log: str) -> dict:
     return {k: tuple(v) for k, v in out.items()}
 
 
-def ptxas_report(csrc: str) -> dict:
+def ptxas_report(csrc: str, out_dir: str) -> dict:
     """Every source of ``SOURCES`` in the directory ``csrc`` built with the
-    port's nvcc flags into a temporary directory, one nvcc each, all
-    started together -> {source: ptxas_entries}; for holding the
-    explain-off instantiations against another tree's sources."""
-    tmp = tempfile.mkdtemp(prefix="acs-ptxas-")
-    try:
-        procs = [(name, subprocess.Popen(
-            [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o",
-             os.path.join(tmp, f"lib{name}.so"),
-             os.path.join(csrc, f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-            for name in SOURCES]
-        out = {}
-        for name, proc in procs:
-            so, se = proc.communicate()
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {csrc}/{name}.cu:\n{se}")
-            out[name] = ptxas_entries(so + se)
-        return out
-    finally:
-        shutil.rmtree(tmp)
+    port's nvcc flags into ``out_dir`` (``lib<source>.so``), one nvcc
+    each, all started together -> {source: ptxas_entries}; for holding
+    the instantiations against another tree's sources."""
+    procs = [(name, subprocess.Popen(
+        [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o",
+         os.path.join(out_dir, f"lib{name}.so"),
+         os.path.join(csrc, f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for name in SOURCES]
+    out = {}
+    for name, proc in procs:
+        so, se = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {csrc}/{name}.cu:\n{se}")
+        out[name] = ptxas_entries(so + se)
+    return out
+
+
+# the instantiations phase 2 lists as changed by design
+REDESIGNED_PTX = ("sig_decide_kernel", "decide_grouped_kernel")
 
 
 def explain_off_twin(name: str) -> str:
@@ -665,16 +700,24 @@ def explain_off_twin(name: str) -> str:
     return base + ("<" + ",".join(args[:-1]) + ">" if len(args) > 1 else "")
 
 
-def phase_ptxas(other_csrc: str | None = None) -> dict:
+def phase_ptxas(other_csrc: str | None = None,
+                other_dir: str | None = None) -> dict:
     """Phase 2's report: ptxas's registers and spills for every kernel
     instantiation this process built, each explain-on instantiation beside
     its explain-off twin.  With ``other_csrc`` (another tree's
-    ``ops/csrc``, e.g. the parent commit's) those sources are built too
-    and every explain-off instantiation is held against the same kernel
-    there: registers and spills must be equal."""
+    ``ops/csrc``, e.g. the parent commit's) those sources are built too,
+    into ``other_dir``, and every instantiation is held against the same
+    kernel there (explain-off ones against a tree from before the explain
+    flag): equal registers and spills, except the kernels
+    ``REDESIGNED_PTX`` lists as changed by design, which are printed
+    beside their old numbers."""
     mine: dict = {}
     for name in SOURCES:
         mine.update(ptxas_entries(cuda_build.BUILD_LOG.get(name, "")))
+    other: dict = {}
+    if other_csrc:
+        for entries in ptxas_report(other_csrc, other_dir).values():
+            other.update(entries)
     if not mine:
         log("  ptxas: every library was already built; no report")
         return mine
@@ -691,21 +734,31 @@ def phase_ptxas(other_csrc: str | None = None) -> dict:
             f"{ld} B" + (f"; explain on {twin}: {on[0]} registers, spill "
                          f"stores {on[1]} B, loads {on[2]} B" if on else ""))
     if other_csrc:
-        other: dict = {}
-        for entries in ptxas_report(other_csrc).values():
-            other.update(entries)
-        same, changed = 0, []
+        same, changed, by_design = 0, [], []
         for k, v in sorted(mine.items()):
-            old = other.get(explain_off_twin(k))
-            if explain_on(k) or old is None:
+            if k.split("<")[0] in REDESIGNED_PTX:
+                by_design.append((k, other.get(k), v))
+                continue
+            # by name; a tree from before the explain flag has only the
+            # explain-off twins
+            old = other.get(k, other.get(explain_off_twin(k)))
+            if old is None or (explain_on(k) and k not in other):
                 continue
             if tuple(old) == tuple(v):
                 same += 1
             else:
                 changed.append((k, old, v))
-        log(f"  ptxas against {other_csrc}: {same} explain-off "
-            f"instantiations with equal registers and spills, "
-            f"{len(changed)} changed: {changed}")
+        log(f"  ptxas against {other_csrc}: {same} instantiations with "
+            f"equal registers and spills, {len(changed)} changed: "
+            f"{changed}")
+        for k, old, v in by_design:
+            log(f"  ptxas {k} (changed by design): {v[0]} registers, "
+                f"spills {v[1]} / {v[2]} B; before: " + (
+                    f"{old[0]} registers, spills {old[1]} / {old[2]} B"
+                    if old else "none"))
+        if changed:
+            raise AssertionError(f"phase 2: kernels outside "
+                                 f"{REDESIGNED_PTX} changed: {changed}")
     return mine
 
 
@@ -783,6 +836,14 @@ def dense_plain(c, r, with_acl, with_hr, with_rel, explain=False):
     """decide_dense's plain version, stacked as the kernel returns it."""
     return torch.stack(decide_dense_ref(c, r, with_acl, with_hr, with_rel,
                                         explain=explain))
+
+
+def grouped_plain(inv, cs, g_idx, r, *flags, explain=False):
+    """K4's plain version on its wrapper's arguments (the row groups, a
+    host array there, as a tensor beside the rows)."""
+    return prefilter_ref.decide_grouped_ref(
+        inv, cs, torch.as_tensor(g_idx, device=r["r_n_ra"].device), r,
+        *flags, explain=explain)
 
 
 def kernel_vs_plain(c, r, flags):
@@ -1129,7 +1190,7 @@ def _max_err(got, want) -> int:
 PLAIN = {
     "sig_planes": prefilter_ref.sig_planes_ref,
     "sig_decide": prefilter_ref.sig_decide_ref,
-    "decide_grouped": prefilter_ref.decide_grouped_ref,
+    "decide_grouped": grouped_plain,
     "decide_dense": dense_plain,
     "rule_chunk": shard_ref.rule_chunk_ref,
     "set_chunk": shard_ref.set_chunk_ref,
@@ -1394,13 +1455,166 @@ def bound_sig_decide(args) -> tuple[float, str, int, int]:
     return _finish_bound(nbytes, n_rows * per_row)
 
 
+def time_steady(*fns) -> list[float]:
+    """Milliseconds per launch of each of ``fns`` (CUDA events): after a
+    warm-up, STEADY_WINDOWS windows of STEADY_ITERS launches each, the
+    functions taking turns window by window (a, b, b, a, ...), the median
+    window per function."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    per: list[list[float]] = [[] for _ in fns]
+    for w in range(STEADY_WINDOWS):
+        order = range(len(fns)) if w % 2 == 0 else reversed(range(len(fns)))
+        for i in order:
+            start.record()
+            for _ in range(STEADY_ITERS):
+                fns[i]()
+            end.record()
+            end.synchronize()
+            per[i].append(start.elapsed_time(end) / STEADY_ITERS)
+    return [sorted(p)[len(p) // 2] for p in per]
+
+
+def occupancy(name: str, args: tuple, **kw) -> int:
+    """Resident blocks per SM of a redesigned kernel's variant at one
+    call's shapes."""
+    fn = {"sig_decide": kmod.sig_decide_occupancy,
+          "decide_grouped": kmod.decide_grouped_occupancy}[name]
+    return fn(*args, **kw)
+
+
+def parent_args(name: str, args: tuple) -> tuple:
+    """One K3 / K4 call's arguments as the parent tree's wrappers take
+    them (its K4 read each row's group from the card)."""
+    if name != "decide_grouped":
+        return args
+    inv, cs, g_idx, r = args[:4]
+    return (inv, cs, torch.as_tensor(g_idx, device=r["r_n_ra"].device),
+            r) + args[4:]
+
+
+def prepacked(mod, name: str, args: tuple, explain: bool = False):
+    """A K3 / K4 launch on one call's arguments packed once by ``mod``
+    (the port's ``ops.kernel``, or the parent tree's copy of it from
+    ``load_parent``) and launched through its library: what
+    ``time_steady`` times, the kernel without the wrapper's host
+    packing."""
+    a = parent_args(name, args) if mod is not kmod else args
+    if name == "sig_decide":
+        (inv, cs, planes, slot_g, rows, g2r, gp, _, schedule, needs_pairs,
+         with_hr, with_rel) = a
+        out, ptrs, dims = mod.pack_sig_decide(
+            inv, cs, planes, slot_g, rows, g2r, gp, schedule, needs_pairs,
+            with_hr, with_rel, explain)
+        threads = mod.SIG_DECIDE_THREADS
+        flags = (with_hr, with_rel)
+        entry = mod._library("sig_decide", mod.SIG_DECIDE_PTRS,
+                             mod.SIG_DECIDE_DIMS, 3).acs_sig_decide
+    else:
+        inv, cs, g_idx, r, with_acl, with_hr, with_rel = a
+        if mod is kmod:
+            packed, layout = kmod._grouped_args(inv, cs, g_idx, r, explain)
+            a = a + (layout,)
+            entry = kmod._grouped_library().acs_decide_grouped
+        else:
+            packed = mod.pack_args({**inv, **cs}, r,
+                                   extra=(("g_idx", g_idx),),
+                                   name="decide_grouped", explain=explain)
+            entry = mod._dense_library("decide_grouped").acs_decide_grouped
+        out, ptrs, dims, threads = (packed.out, packed.ptrs, packed.dims,
+                                    packed.threads)
+        flags = (with_acl, with_hr, with_rel)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        code = entry(ctypes.addressof(ptrs), len(ptrs),
+                     ctypes.addressof(dims), len(dims),
+                     *(int(f) for f in flags), int(explain), threads,
+                     stream)
+        if code != 0:
+            raise RuntimeError(f"{name} launch: {code}")
+    launch.keep = (a, out)  # what the packed pointers point at
+    return launch
+
+
+# the parent tree's ops.kernel (load_parent), when --parent-csrc names one
+PARENT = None
+
+
+def load_parent(csrc: str, lib_dir: str):
+    """The parent tree's ``ops/kernel.py`` (beside ``csrc``) loaded as a
+    module of the port's ops package, over the port's modules that it
+    imports (unchanged since), with the ``sig_decide`` / ``decide_grouped``
+    libraries phase 2 built from ``csrc`` into ``lib_dir``: its wrappers
+    and packing, to time the old K3 / K4 beside the new on the same
+    arguments."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "access_control_srv_tpu_torch.ops.parent_kernel",
+        os.path.join(os.path.dirname(os.path.abspath(csrc)), "kernel.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    saved = cuda_build.load
+    cuda_build.load = lambda name: ctypes.CDLL(
+        os.path.join(lib_dir, f"lib{name}.so"))
+    try:
+        mod._library("sig_decide", mod.SIG_DECIDE_PTRS,
+                     mod.SIG_DECIDE_DIMS, 3)
+        mod._dense_library("decide_grouped")
+    finally:
+        cuda_build.load = saved
+    return mod
+
+
+def redesigned_times(name: str, args: tuple,
+                     explains: tuple = (False,)) -> dict:
+    """K3 / K4 on one call's arguments, for each explain flag of
+    ``explains`` (keys of the second suffixed ``_explain_off``): ``ms`` the
+    mean of ITERS launches through the wrapper after a warm-up (as every
+    kernel of the kernel table is timed), ``kernel_ms`` the median window
+    of ``time_steady`` over ``prepacked`` launches, and the resident
+    blocks per SM; with ``PARENT`` the parent tree's kernel on the same
+    arguments, ``parent_ms`` through its wrapper and ``parent_kernel_ms``
+    timed window by window in turns with ``kernel_ms``."""
+    wrapper = getattr(kmod, name)
+    mods = [kmod] + ([PARENT] if PARENT is not None else [])
+    out: dict = {}
+    fns, keys = [], []
+    for i, explain in enumerate(explains):
+        sfx = "_explain_off" if i else ""
+        kw = {"explain": True} if explain else {}
+        out["ms" + sfx] = time_ms(lambda: wrapper(*args, **kw))
+        out["blocks_per_sm" + sfx] = occupancy(name, args, **kw)
+        if PARENT is not None:
+            pa = parent_args(name, args)
+            pw = getattr(PARENT, name)
+            out["parent_ms" + sfx] = time_ms(lambda: pw(*pa, **kw))
+        for mod in mods:
+            fns.append(prepacked(mod, name, args, explain))
+            keys.append(("kernel_ms" if mod is kmod else "parent_kernel_ms")
+                        + sfx)
+    out.update(zip(keys, time_steady(*fns)))
+    return out
+
+
 def time_kernel(name: str, args: tuple, plain_iters: int = 1) -> dict:
     """The kernel and its plain version on one call's arguments, CUDA
-    events (the kernel: mean of ITERS launches after a warm-up)."""
+    events (the kernel: mean of ITERS launches through its wrapper after a
+    warm-up; K3 and K4 also as ``redesigned_times`` reads them)."""
     launch = {"sig_planes": kmod.sig_planes, "sig_decide": kmod.sig_decide,
               "decide_grouped": kmod.decide_grouped,
               "decide_dense": kmod.decide_dense}[name]
-    ms = time_ms(lambda: launch(*args))
+    extra = {}
+    if name in REDESIGNED:
+        extra = redesigned_times(name, args)
+        ms = extra.pop("ms")
+        extra["flags"] = [bool(f) for f in args[len(args) - N_FLAGS[name]:]]
+    else:
+        ms = time_ms(lambda: launch(*args))
     plain_ms = time_ms(lambda: PLAIN[name](*args), plain_iters)
     if name == "sig_planes":
         bms, by, nbytes, ops = bound_sig_planes(*args, launch(*args))
@@ -1413,7 +1627,7 @@ def time_kernel(name: str, args: tuple, plain_iters: int = 1) -> dict:
         c, r, _, _, with_rel = args
         bms, by, nbytes, ops = bound_ms(c, r, with_rel)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                bytes=nbytes, ops=ops)
+                bytes=nbytes, ops=ops, **extra)
 
 
 def phase_sig_main(device, stats: dict, card: str) -> dict:
@@ -3172,10 +3386,10 @@ def phase_explain_main(device, stats: dict, card: str) -> dict:
     on = sum(rates["on"]) / 2
     args = chk.args["sig_decide+explain"]
     sig = {
-        "ms": time_ms(lambda: kmod.sig_decide(*args, explain=True)),
-        "ms_explain_off": time_ms(lambda: kmod.sig_decide(*args)),
+        **redesigned_times("sig_decide", args, (True, False)),
         "plain_ms": time_ms(lambda: prefilter_ref.sig_decide_ref(
             *args, explain=True), 1),
+        "flags": [bool(f) for f in args[-2:]],
     }
     sig["bound_ms"], sig["bound_by"], sig["bytes"], sig["ops"] = \
         bound_explain_sig(args)
@@ -3223,11 +3437,11 @@ def phase_explain_main(device, stats: dict, card: str) -> dict:
                                   + 4 * int(r["r_n_ra"].shape[0]), ops)
     grouped = {
         "launches": launches_c["decide_grouped"],
-        "ms": time_ms(lambda: kmod.decide_grouped(*g_args, explain=True)),
-        "ms_explain_off": time_ms(lambda: kmod.decide_grouped(*g_args)),
-        "plain_ms": time_ms(lambda: prefilter_ref.decide_grouped_ref(
-            *g_args, explain=True), 1),
+        **redesigned_times("decide_grouped", g_args, (True, False)),
+        "plain_ms": time_ms(lambda: grouped_plain(*g_args, explain=True),
+                            1),
         "bound_ms": bms, "bound_by": by,
+        "flags": [bool(f) for f in g_args[-3:]],
     }
     out["decide_grouped"] = grouped
     out["acl_batch"] = {"launches": launches_c, "oracle_rows": len(rows),
@@ -3246,6 +3460,54 @@ def phase_explain_main(device, stats: dict, card: str) -> dict:
         st["explain_err"] = max(st.get("explain_err", 0),
                                 v.get("explain_err", 0))
     return out
+
+
+def redesign_report(sig: dict, expl: dict, ptx: dict, card: str) -> None:
+    """K3 and K4 at the main paths' shapes beside their bounds (and the
+    ratio), the parent tree's kernels on the same arguments when
+    ``--parent-csrc`` names one (else the times PERF.md records for the
+    design before), ptxas's registers and spills, and the resident
+    blocks per SM.  Each time twice: through the wrapper (``ms``, as
+    every kernel of the kernel table) and of arguments packed once
+    (``kernel_ms``)."""
+    def ptx_of(name: str, flags: list, explain: bool) -> str:
+        key = (f"{name}_kernel<" + ",".join(str(int(f)) for f in flags)
+               + f",{int(explain)}>")
+        v = ptx.get(key)
+        return (f"{key} {v[0]} registers, spills {v[1]} / {v[2]} B" if v
+                else f"{key} (no ptxas report)")
+
+    def times(t: dict, sfx: str = "") -> str:
+        out = (f"wrapper {t['ms' + sfx]:.4f} ms, packed once "
+               f"{t['kernel_ms' + sfx]:.4f} ms")
+        if "parent_ms" + sfx in t:
+            pw, pk = t["parent_ms" + sfx], t["parent_kernel_ms" + sfx]
+            out += (f"; parent wrapper {pw:.4f} ms "
+                    f"({pw / t['ms' + sfx]:.2f}x), parent packed once "
+                    f"{pk:.4f} ms ({pk / t['kernel_ms' + sfx]:.2f}x)")
+        return out
+
+    for name, cell in (("sig_decide", "a"), ("sig_decide", "b"),
+                       ("decide_grouped", "c")):
+        t = sig[cell][name]
+        log(f"  {name} ({cell}) on {card}: {times(t)}; bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), packed once "
+            f"{t['kernel_ms'] / t['bound_ms']:.1f}x the bound; PERF.md "
+            f"before: {OLD_MS[(name, cell)]} ms; "
+            f"{ptx_of(name, t['flags'], False)}; "
+            f"{t['blocks_per_sm']} blocks per SM")
+    for name in REDESIGNED:
+        t = expl[name]
+        log(f"  {name} explain (phase 18) on {card}: on {times(t)}; off "
+            f"{times(t, '_explain_off')}; on against off packed once "
+            f"{(t['kernel_ms'] / t['kernel_ms_explain_off'] - 1) * 100:+.1f}"
+            f"%, through the wrapper "
+            f"{(t['ms'] / t['ms_explain_off'] - 1) * 100:+.1f}%; bound "
+            f"{t['bound_ms']:.4f} ms; PERF.md before: "
+            f"{OLD_MS[(name, 'explain')]} ms; "
+            f"{ptx_of(name, t['flags'], True)}, {t['blocks_per_sm']} blocks "
+            f"per SM; {ptx_of(name, t['flags'], False)}, "
+            f"{t['blocks_per_sm_explain_off']} blocks per SM")
 
 
 def main(argv: list[str]) -> int:
@@ -3270,26 +3532,47 @@ def main(argv: list[str]) -> int:
     cuda_build.build(list(SOURCES))
     log(f"  {', '.join(SOURCES)} built in {time.perf_counter() - t0:.1f} s "
         f"(one nvcc each, in parallel)")
-    parent_csrc = None
+    parent_csrc = parent_dir = None
     if "--parent-csrc" in argv:
         parent_csrc = argv[argv.index("--parent-csrc") + 1]
-    phase_ptxas(parent_csrc)
+        parent_dir = tempfile.mkdtemp(prefix="acs-parent-")
+        atexit.register(shutil.rmtree, parent_dir, True)
+    ptx = phase_ptxas(parent_csrc, parent_dir)
+    if parent_csrc:
+        # the parent's K3 / K4, timed beside the new on the same arguments
+        global PARENT
+        PARENT = load_parent(parent_csrc, parent_dir)
+    # --quick: the redesigned kernels' phases only (2, 6, 7, 12, 17, 18 and
+    # the report), no kernel table and no result line
+    quick = "--quick" in argv
 
-    log("phase 3-4: dense kernel vs plain version, kernel vs oracle")
-    variants = phase_kernel_vs_plain(device, 1024, stats)
-    for flags, n in sorted(variants.items()):
-        log(f"  variant (with_acl, with_hr, with_rel)={flags}: {n} rows "
-            f"checked")
+    if not quick:
+        log("phase 3-4: dense kernel vs plain version, kernel vs oracle")
+        variants = phase_kernel_vs_plain(device, 1024, stats)
+        for flags, n in sorted(variants.items()):
+            log(f"  variant (with_acl, with_hr, with_rel)={flags}: {n} rows "
+                f"checked")
 
-    log("phase 5: dense main path (HybridEvaluator.is_allowed_batch, "
-        "511 rules)")
-    phase_end_to_end(device, 4096, stats)
+        log("phase 5: dense main path (HybridEvaluator.is_allowed_batch, "
+            "511 rules)")
+        phase_end_to_end(device, 4096, stats)
 
     log("phase 6: signature kernels vs plain versions")
     phase_sig_vs_plain(device, sig_stats)
 
     log("phase 7: signature main paths (100k rules)")
     sig = phase_sig_main(device, sig_stats, card)
+    if quick:
+        log("phase 12: relation variants vs plain versions")
+        phase_rel_vs_plain(device, sig_stats)
+        log("phase 17: explain variants vs plain versions")
+        phase_explain_vs_plain(device, sig_stats)
+        log("phase 18: explain main path")
+        expl = phase_explain_main(device, sig_stats, card)
+        log("K3 / K4 report:")
+        redesign_report(sig, expl, ptx, card)
+        log(f"  quick run: {time.perf_counter() - t_start:.1f} s in all")
+        return 0
 
     log("phase 8: throughput")
     seed = phase_throughput(device, "seed_data", 1 << 18, card)
@@ -3346,6 +3629,12 @@ def main(argv: list[str]) -> int:
         "8 x 4,096 rows)")
     expl = phase_explain_main(device, sig_stats, card)
 
+    log("K3 / K4 report (CUDA events: the mean of "
+        f"{ITERS} launches through the wrapper, and the median of "
+        f"{STEADY_WINDOWS} windows of {STEADY_ITERS} launches of arguments "
+        "packed once):")
+    redesign_report(sig, expl, ptx, card)
+
     log("  relation variants' times (CUDA events, 5 launches after a "
         "warm-up):")
     rel_rows = {"decide_dense": dict(rebac["k1"])}
@@ -3384,6 +3673,7 @@ def main(argv: list[str]) -> int:
             "name": name, "launches": sig[key]["launches"][name],
             "max_abs_err": sig_stats[name]["max_abs_err"],
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            **{k: t[k] for k in PACKED_KEYS if k in t},
         })
     rows.append({
         "name": "wia_planes", "launches": wl["launches"]["wia_planes"],
@@ -3405,6 +3695,8 @@ def main(argv: list[str]) -> int:
                  "pod": {"replaces": TAIL_ALSO_REPLACES, **sharded_row(
                      p15, "shard_tail", "K8"), "library_ms": None}})
     keys = ("launches", "ms", "plain_ms", "bound_ms", "bound_by")
+    extra = ("ms_explain_off",) + PACKED_KEYS + tuple(
+        k + "_explain_off" for k in PACKED_KEYS)
     # the explain variants: K3 / K4 on phase 18's main path, K1 on the
     # explain K6 layout of phase 15, K8's set_chunk and both tails on the
     # explain K7 / K8 layouts
@@ -3429,7 +3721,8 @@ def main(argv: list[str]) -> int:
             t = explain_rows[r["name"]]
             r["explain"] = {"replaces": REPLACES_EXPLAIN[r["name"]],
                             "max_abs_err": t["max_abs_err"],
-                            **{k: t[k] for k in keys}, "library_ms": None}
+                            **{k: t[k] for k in keys}, "library_ms": None,
+                            **{k: t[k] for k in extra if k in t}}
         if r["name"] == "shard_tail":
             r["pod"]["explain"] = {
                 "replaces": EXPLAIN_TAIL_ALSO_REPLACES,
@@ -3442,7 +3735,8 @@ def main(argv: list[str]) -> int:
             r["with_rel"] = {
                 "replaces": REPLACES_REL[r["name"]],
                 "max_abs_err": sig_stats[r["name"]]["max_abs_err"],
-                **{k: t[k] for k in keys}, "library_ms": None}
+                **{k: t[k] for k in keys}, "library_ms": None,
+                **{k: t[k] for k in PACKED_KEYS if k in t}}
     print(json.dumps({"kernels": [{
         "name": r["name"], "route": "cuda",
         "source": CSRC + SOURCE[r["name"]] + ".cu",
@@ -3450,6 +3744,7 @@ def main(argv: list[str]) -> int:
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None,
+        **{k: r[k] for k in PACKED_KEYS if k in r},
         **({"with_rel": r["with_rel"]} if "with_rel" in r else {}),
         **{k: r[k] for k in ("explain", "k6", "pod") if k in r},
     } for r in rows]}))

@@ -3,10 +3,12 @@
 The test suite runs without nvcc or a card, so ``ops/csrc/decide_dense.cu``
 is compiled as C++ with g++ against a small stand-in for ``cuda_runtime.h``
 that runs each thread block with one ``std::thread`` per CUDA thread
-(``std::barrier`` for ``__syncthreads`` and for the warp shuffles, real
-atomics for ``atomicMin``/``atomicMax``).  The launch arguments are packed
-by the port's own ``pack_args``, and the outputs must equal the plain
-PyTorch version exactly.  This checks the kernel's logic and its argument
+(``std::barrier`` for ``__syncthreads``, ``__syncwarp`` and the warp
+shuffles and ballots, real atomics for ``atomicMin`` / ``atomicMax`` /
+``atomicAdd``).  The launch arguments are
+packed by the port's own ``pack_args``, and the outputs must equal the
+plain PyTorch version exactly; each intrinsic of the stand-in has a test
+of its own semantics here.  This checks the kernel's logic and its argument
 layout; that nvcc accepts it for ``sm_90a`` and the timing are checked on
 the card by ``chip_smoke.py``.
 """
@@ -61,6 +63,7 @@ using std::min;
 #define __forceinline__ inline
 #define __shared__
 #define __align__(x)
+#define __launch_bounds__(...)
 struct dim3 { unsigned x, y, z; };
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim;
@@ -68,6 +71,7 @@ inline unsigned char* g_smem;
 inline std::barrier<>* g_block;
 inline std::vector<std::unique_ptr<std::barrier<>>> g_warps;
 inline unsigned g_lanes[64][32];
+inline unsigned long long g_lanes64[64][32];
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
@@ -80,14 +84,47 @@ inline unsigned shfl_xor(unsigned v, int o) {
   g_warps[w]->arrive_and_wait();
   return r;
 }
+inline unsigned long long shfl_xor64(unsigned long long v, int o) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  g_lanes64[w][l] = v;
+  g_warps[w]->arrive_and_wait();
+  const unsigned long long r = g_lanes64[w][l ^ o];
+  g_warps[w]->arrive_and_wait();
+  return r;
+}
 inline int __shfl_xor_sync(unsigned, int v, int o) { return (int)shfl_xor((unsigned)v, o); }
 inline unsigned __shfl_xor_sync(unsigned, unsigned v, int o) { return shfl_xor(v, o); }
+inline long long __shfl_xor_sync(unsigned, long long v, int o) {
+  return (long long)shfl_xor64((unsigned long long)v, o);
+}
+inline unsigned long long __shfl_xor_sync(unsigned, unsigned long long v, int o) {
+  return shfl_xor64(v, o);
+}
+// every lane of the warp takes part (as the kernels call it, with the full
+// mask); bits outside `mask` read 0
+inline unsigned __ballot_sync(unsigned mask, int pred) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  g_lanes[w][l] = pred != 0;
+  g_warps[w]->arrive_and_wait();
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i) r |= g_lanes[w][i] << i;
+  g_warps[w]->arrive_and_wait();
+  return r & mask;
+}
+// every lane of the warp arrives (as the kernels call it, unmasked);
+// writes before it are visible to the warp's lanes after it
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  g_warps[threadIdx.x / 32]->arrive_and_wait();
+}
+inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int __clz(int x) { return x == 0 ? 32 : __builtin_clz((unsigned)x); }
 inline void __syncthreads() { g_block->arrive_and_wait(); }
 inline int atomicMin(int* p, int v) {
   int o = __atomic_load_n(p, __ATOMIC_SEQ_CST);
   while (v < o && !__atomic_compare_exchange_n(p, &o, v, false, __ATOMIC_SEQ_CST, __ATOMIC_SEQ_CST)) {}
   return o;
 }
+inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
 inline int atomicMax(int* p, int v) {
   int o = __atomic_load_n(p, __ATOMIC_SEQ_CST);
   while (v > o && !__atomic_compare_exchange_n(p, &o, v, false, __ATOMIC_SEQ_CST, __ATOMIC_SEQ_CST)) {}
@@ -98,6 +135,16 @@ inline cudaError_t cudaGetLastError() { return 0; }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = 232448; return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
+// blocks of `threads` threads and `smem` bytes that fit the stand-in's SM
+// (2,048 threads, 232,448 bytes of shared memory)
+template <class K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int threads,
+                                                          size_t smem) {
+  int by_threads = 2048 / threads;
+  int by_smem = smem ? (int)(232448 / smem) : by_threads;
+  *n = std::min(by_threads, by_smem);
+  return 0;
+}
 template <class K, class A>
 void emulate_launch(K kernel, int grid, int threads, size_t smem, const A& a) {
   if (grid <= 0) return;
@@ -127,14 +174,17 @@ LAUNCH = re.compile(r"kernel<<<(.+?), (.+?), (.+?), stream>>>\((\w+)\);")
 SHARED = "extern __shared__ __align__(16) unsigned char smem[];"
 
 
-def build_emulated(name: str, out_dir) -> ctypes.CDLL:
-    """``csrc/<name>.cu`` (with every ``csrc/*.cuh`` it may include) built
-    with g++ against the threaded stand-in: the one launch line becomes an
-    ``emulate_launch`` call, the dynamic shared memory a pointer into the
-    emulator's per-block buffer."""
+def build_emulated(name: str, out_dir, src: str | None = None
+                   ) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` (or the source text ``src``, with every
+    ``csrc/*.cuh`` it may include) built with g++ against the threaded
+    stand-in: the one launch line becomes an ``emulate_launch`` call, the
+    dynamic shared memory a pointer into the emulator's per-block
+    buffer."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the CUDA source as C++")
-    src = (CSRC / f"{name}.cu").read_text()
+    if src is None:
+        src = (CSRC / f"{name}.cu").read_text()
     assert len(LAUNCH.findall(src)) == 1 and src.count(SHARED) <= 1
     src = LAUNCH.sub(
         r"(void)stream; emulate_launch(kernel, \1, \2, \3, \4);", src
@@ -465,3 +515,124 @@ def test_explain_edge_paths(emulated):
         assert torch.equal(got, want), label
         kinds |= set((got[3] & 3).tolist())
     assert kinds == {0, 1, 2, 3}
+
+
+# ------------------------------------------------- the stand-in itself
+
+PROBE = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+
+struct ProbeArgs { int32_t* out; };
+#define PROBE_INTS 9
+
+// PROBE_INTS ints per thread: ballot (full mask, partial mask), a 64-bit
+// xor shuffle (high, low word), __ffs, __clz, after __syncwarp the value
+// the next lane of the warp wrote, and a shared atomicAdd's total and
+// returned ticket
+__global__ void __launch_bounds__(64, 1) probe_kernel(const ProbeArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31;
+  int32_t* o = a.out + tid * PROBE_INTS;
+  o[0] = (int)__ballot_sync(0xffffffffu, lane % 3 == 0);
+  o[1] = (int)__ballot_sync(0x0000ffffu, 1);
+  const long long v = ((long long)lane << 40) | (0x1000 + lane);
+  const long long w = __shfl_xor_sync(0xffffffffu, v, 5);
+  o[2] = (int)(w >> 40);
+  o[3] = (int)(w & 0xffffffff);
+  o[4] = __ffs(lane << 3);
+  o[5] = __clz(lane);
+  int32_t* sh = reinterpret_cast<int32_t*>(smem);
+  sh[tid] = 7 * tid;
+  __syncwarp();
+  o[6] = sh[(tid & ~31) + ((lane + 1) & 31)];
+  int32_t* counter = sh + 100;
+  if (tid == 0) *counter = 0;
+  __syncthreads();
+  const int ticket = atomicAdd(counter, tid % 3);
+  __syncthreads();
+  o[7] = *counter;
+  o[8] = ticket;
+}
+
+extern "C" int run_probe(int32_t* out, int* occupancy) {
+  ProbeArgs args{out};
+  cudaStream_t stream = nullptr;
+  auto kernel = probe_kernel;
+  kernel<<<1, 64, 4096, stream>>>(args);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel, 256,
+                                                65536);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def probe(tmp_path_factory):
+    """The probe kernel through the stand-in -> (out [64, PROBE_INTS],
+    occupancy)."""
+    lib = build_emulated("probe", tmp_path_factory.mktemp("probe_emu"),
+                         src=PROBE)
+    out = torch.zeros((64, 9), dtype=torch.int32)
+    occ = ctypes.c_int(0)
+    lib.run_probe.restype = ctypes.c_int
+    assert lib.run_probe(ctypes.c_void_p(out.data_ptr()),
+                         ctypes.byref(occ)) == 0
+    return out, occ.value
+
+
+def _signed(x: int) -> int:
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
+def test_standin_ballot(probe):
+    """__ballot_sync: bit l set where lane l's predicate holds; bits
+    outside the mask read 0."""
+    out = probe[0]
+    want = sum(1 << lane for lane in range(0, 32, 3))
+    assert out[:, 0].tolist() == [_signed(want)] * 64
+    assert out[:, 1].tolist() == [0xFFFF] * 64
+
+
+def test_standin_shfl_xor_64(probe):
+    """The 64-bit __shfl_xor_sync reads lane ``l ^ o``'s whole value."""
+    out = probe[0]
+    lanes = [t % 32 for t in range(64)]
+    assert out[:, 2].tolist() == [lane ^ 5 for lane in lanes]
+    assert out[:, 3].tolist() == [0x1000 + (lane ^ 5) for lane in lanes]
+
+
+def test_standin_ffs_clz(probe):
+    """__ffs: 1-based lowest set bit, 0 for 0; __clz: leading zeros, 32
+    for 0."""
+    out = probe[0]
+    for t in range(64):
+        lane = t % 32
+        x = lane << 3
+        assert out[t, 4] == ((x & -x).bit_length() if x else 0)
+        assert out[t, 5] == 32 - lane.bit_length()
+
+
+def test_standin_syncwarp(probe):
+    """__syncwarp: a lane's shared-memory write before it is read by the
+    warp's other lanes after it."""
+    out = probe[0]
+    want = [7 * ((t & ~31) + ((t % 32 + 1) % 32)) for t in range(64)]
+    assert out[:, 6].tolist() == want
+
+
+def test_standin_atomic_add(probe):
+    """atomicAdd on shared memory: the old value back, every thread's
+    addend in the total, distinct tickets where the addend is not 0."""
+    out = probe[0]
+    adds = [t % 3 for t in range(64)]
+    assert out[:, 7].tolist() == [sum(adds)] * 64
+    tickets = [int(v) for v, a in zip(out[:, 8].tolist(), adds) if a]
+    assert len(set(tickets)) == len(tickets)
+    assert all(0 <= v <= sum(adds) - 1 for v in tickets)
+
+
+def test_standin_occupancy(probe):
+    """The occupancy stub: blocks of 256 threads and 64 KB that fit the
+    stand-in's SM (2,048 threads, 232,448 bytes)."""
+    assert probe[1] == min(2048 // 256, 232448 // 65536)

@@ -16,6 +16,7 @@ card by ``chip_smoke.py``.
 import ctypes
 import random
 
+import numpy as np
 import pytest
 import torch
 
@@ -30,7 +31,14 @@ from .test_kernel_differential import grid_requests
 from .test_sig_kernel import _sig_requests, _sig_tree
 from .test_torch_carryover import build_request, request_spec
 from .test_torch_cuda_source import build_emulated
-from .test_torch_kernel import combining_case
+from .test_torch_kernel import (
+    BUCKET,
+    ORG,
+    URNS,
+    acl_heavy_specs,
+    combining_case,
+    jax_build_request,
+)
 from .test_torch_prefilter import engine_of, hr_requests, stress_requests
 from .test_prefilter import _stress_doc
 from .utils import make_engine
@@ -50,17 +58,32 @@ def libs(tmp_path_factory):
         entry.argtypes = ENTRY + [ctypes.c_int] * (flags + 1) + [
             ctypes.c_void_p]
         out[name] = lib
-    out["decide_grouped"].acs_decide_grouped_smem.restype = ctypes.c_longlong
-    out["decide_grouped"].acs_decide_grouped_smem.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    grouped = out["decide_grouped"]
+    grouped.acs_decide_grouped_smem.restype = ctypes.c_longlong
+    grouped.acs_decide_grouped_smem.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int]
+    grouped.acs_decide_grouped_occupancy.restype = ctypes.c_int
+    grouped.acs_decide_grouped_occupancy.argtypes = [
+        ctypes.c_void_p, ctypes.c_int] + [ctypes.c_int] * 5
+    sig = out["sig_decide"]
+    sig.acs_sig_decide_smem.restype = ctypes.c_longlong
+    sig.acs_sig_decide_smem.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                        ctypes.c_int]
+    sig.acs_sig_decide_occupancy.restype = ctypes.c_int
+    sig.acs_sig_decide_occupancy.argtypes = ENTRY + [ctypes.c_int] * 4
     return out
 
 
 def _snapshot(x):
     """A copy of a recorded argument: the packed rows and slot maps live
-    in pooled staging buffers that the next batch overwrites."""
+    in pooled staging buffers that the next batch overwrites (a host
+    array, K4's row groups, copied into a tensor as the plain versions
+    take it)."""
     if isinstance(x, torch.Tensor):
         return x.clone()
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(x.copy())
     if isinstance(x, dict):
         return {k: _snapshot(v) for k, v in x.items()}
     return x
@@ -78,11 +101,51 @@ def record(monkeypatch):
         def wrapped(*args, _orig=orig, _name=name, **kw):
             out = _orig(*args, **kw)
             calls.append((_name, tuple(_snapshot(a) for a in args)
-                           + (kw.get("explain", False),), out))
+                          + (kw.get("explain", False),), out))
             return out
 
         monkeypatch.setattr(tprefilter, name, wrapped)
     return calls
+
+
+def replay_grouped(lib, args, want):
+    """One ``decide_grouped`` call through the emulated kernel, over the
+    slot layout of its rows, held against ``want``."""
+    inv, cs, g_idx, r, with_acl, with_hr, with_rel, explain = args
+    layout = tkernel.grouped_layout(np.asarray(g_idx),
+                                    cs["t_role"].shape[0], "cpu")
+    packed = tkernel.pack_grouped(inv, cs, r, layout, explain)
+    packed.out.fill_(-7)
+    smem = lib.acs_decide_grouped_smem(
+        ctypes.addressof(packed.dims), len(packed.dims), int(with_acl),
+        int(explain), packed.threads)
+    assert 0 < smem <= 232448
+    code = lib.acs_decide_grouped(
+        ctypes.addressof(packed.ptrs), len(packed.ptrs),
+        ctypes.addressof(packed.dims), len(packed.dims),
+        int(with_acl), int(with_hr), int(with_rel), int(explain),
+        packed.threads, None)
+    assert code == 0
+    assert torch.equal(packed.out, want)
+    return packed.shape
+
+
+def replay_sig(lib, args, want):
+    """One ``sig_decide`` call through the emulated kernel, held against
+    ``want``."""
+    (inv, cs, planes, slot_g, rows, g2r, gp, n_rows, schedule,
+     needs_pairs, with_hr, with_rel, explain) = args
+    got, ptrs, dims = tkernel.pack_sig_decide(
+        inv, cs, planes, slot_g, rows, g2r, gp, schedule,
+        needs_pairs, with_hr, with_rel, explain)
+    assert 0 < lib.acs_sig_decide_smem(ctypes.addressof(dims), len(dims),
+                                       tkernel.SIG_DECIDE_THREADS) <= 232448
+    code = lib.acs_sig_decide(
+        ctypes.addressof(ptrs), len(ptrs), ctypes.addressof(dims),
+        len(dims), int(with_hr), int(with_rel), int(explain),
+        tkernel.SIG_DECIDE_THREADS, None)
+    assert code == 0
+    assert torch.equal(got, want)
 
 
 def replay(libs, calls):
@@ -104,31 +167,9 @@ def replay(libs, calls):
             for k in got:
                 assert torch.equal(got[k], want[k]), k
         elif name == "sig_decide":
-            (inv, cs, planes, slot_g, rows, g2r, gp, n_rows, schedule,
-             needs_pairs, with_hr, with_rel, explain) = args
-            got, ptrs, dims = tkernel.pack_sig_decide(
-                inv, cs, planes, slot_g, rows, g2r, gp, schedule,
-                needs_pairs, with_hr, with_rel, explain)
-            code = lib.acs_sig_decide(
-                ctypes.addressof(ptrs), len(ptrs), ctypes.addressof(dims),
-                len(dims), int(with_hr), int(with_rel), int(explain),
-                tkernel.SIG_DECIDE_THREADS, None)
-            assert code == 0
-            assert torch.equal(got, want)
+            replay_sig(lib, args, want)
         else:
-            inv, cs, g_idx, r, with_acl, with_hr, with_rel, explain = args
-            packed = tkernel.pack_args({**inv, **cs}, r,
-                                       extra=(("g_idx", g_idx),),
-                                       name="decide_grouped",
-                                       explain=explain)
-            packed.out.fill_(-7)
-            code = lib.acs_decide_grouped(
-                ctypes.addressof(packed.ptrs), len(packed.ptrs),
-                ctypes.addressof(packed.dims), len(packed.dims),
-                int(with_acl), int(with_hr), int(with_rel), int(explain),
-                packed.threads, None)
-            assert code == 0
-            assert torch.equal(packed.out, want)
+            replay_grouped(lib, args, want)
         seen.add(name)
     return seen
 
@@ -149,7 +190,9 @@ def test_layouts_match_host(libs):
         "sig_decide": (tkernel.SIG_DECIDE_PTRS, tkernel.SIG_DECIDE_DIMS),
         "decide_grouped": (tkernel.TABLE_ARRAYS + ("rule_orig_flat",)
                            + tkernel.ROW_ARRAYS + tkernel.BATCH_ARRAYS
-                           + tkernel.OUTPUTS + ("g_idx",), tkernel.DIMS),
+                           + tkernel.OUTPUTS
+                           + ("slot_g", "grid2row", "gp_orig"),
+                           tkernel.DIMS + ("NSLOT", "R", "RT", "PT")),
     }
     assert "rule_orig_flat" in tkernel.SIG_DECIDE_PTRS
     assert tkernel.OUTPUTS[-1] == "out_explain"
@@ -377,3 +420,606 @@ def test_explain_stress_tree(libs, monkeypatch):
     assert replay(libs, calls) == {"sig_planes", "sig_decide"}
     codes = torch.cat([out[3] for n, _, out in calls if n == "sig_decide"])
     assert set((codes & 3).tolist()) >= {0, 1}
+
+
+# --------------------------------------------- the redesigned K3 and K4
+
+
+def stacked_grouped(compiled, batch, g_rows, explain=False, seed=0):
+    """``decide_grouped``'s arguments for a port-encoded ``batch`` over G
+    stacked copies of the port compile's dense tables (group g > 0 with a
+    seeded share of its rules invalidated, so groups differ; with
+    ``explain`` a seeded permutation as each group's ``rule_orig_flat``),
+    rows assigned to groups by ``g_rows`` -> (args without the explain
+    flag, the flag)."""
+    from access_control_srv_tpu_torch.ops.carry import (
+        batch_from_numpy,
+        tables_from_numpy,
+    )
+    from access_control_srv_tpu_torch.ops.prefilter import (
+        INVARIANT_TABLES,
+        VARYING_TABLES,
+    )
+
+    c = tables_from_numpy(compiled.arrays, "cpu")
+    _, r = batch_from_numpy(batch, "cpu", keys=tkernel.ROW_ARRAYS)
+    B = r["r_n_ra"].shape[0]
+    g_idx = torch.tensor((list(g_rows) * B)[:B], dtype=torch.int32)
+    G = int(g_idx.max()) + 1
+    rng = np.random.default_rng(seed)
+    cs = {}
+    for k in VARYING_TABLES:
+        reps = [c[k].clone() for _ in range(G)]
+        if k == "rule_valid":
+            for t in reps[1:]:
+                t &= torch.from_numpy(rng.random(tuple(t.shape)) < 0.7)
+        cs[k] = torch.stack(reps)
+    if explain:
+        S, KP, KR = c["rule_valid"].shape
+        cs[tkernel.ORIG_TABLE] = torch.stack([torch.from_numpy(
+            rng.permutation(S * KP * KR).astype(np.int32)).reshape(
+                S, KP, KR) for _ in range(G)])
+    inv = {k: c[k] for k in INVARIANT_TABLES}
+    flags = (bool((batch.arrays["r_acl_ent"] >= 0).any()),
+             tkernel.tree_needs_hr(compiled.arrays),
+             tkernel.tree_needs_rel(compiled.arrays))
+    return (inv, cs, g_idx, r) + flags, explain
+
+
+def grouped_vs_plain(libs, args, explain):
+    """The emulated K4 against its plain version on ``args`` -> the block
+    shape ints of the launch."""
+    from access_control_srv_tpu_torch.ops.prefilter_ref import (
+        decide_grouped_ref,
+    )
+
+    want = decide_grouped_ref(*args, explain=explain)
+    return replay_grouped(libs["decide_grouped"], args + (explain,), want)
+
+
+def with_rule_width(d: dict, kr: int) -> dict:
+    """The rule-axis tables of ``d`` (``rule_*``, ``rl_*`` and
+    ``rule_orig_flat``, [G, S, KP, KR, ...]) at ``kr`` slots: cut, or
+    widened by repeating each policy's rules (so every 32-wide chunk of a
+    wide policy holds real rules); other entries as they are."""
+    out = dict(d)
+    for k, t in d.items():
+        if k.startswith("rule_") or k.startswith("rl_"):
+            idx = torch.arange(kr) % t.shape[3]
+            out[k] = t[:, :, :, idx].contiguous()
+    return out
+
+
+def stress_hits(seed: int, n: int, acl: bool = True, no_id: int = 3):
+    """``n`` requests that hit chip_smoke's 720-rule stress tree (its 23
+    roles, 16 entities, 4 actions; every ``no_id``-th row without a
+    subject id, which aborts the conditioned rules), a quarter of them with
+    ACL instances when ``acl`` (the verifyACL create / read paths)."""
+    import chip_smoke
+
+    rng = random.Random(seed)
+    out = []
+    for i in range(n):
+        kw = {}
+        if acl and rng.random() < 0.25:
+            kw = dict(acl_indicatory_entity=chip_smoke.ORG,
+                      acl_instances=rng.sample(chip_smoke.OWNERS,
+                                               rng.randint(1, 3)))
+        req = chip_smoke.build_request(
+            subject_id=rng.choice(["u1", "ada", "ben"]),
+            subject_role=f"role-{rng.randrange(23)}",
+            role_scoping_entity=chip_smoke.ORG,
+            role_scoping_instance=rng.choice(chip_smoke.OWNERS),
+            resource_type=chip_smoke.STRESS_ENTITIES[rng.randrange(16)],
+            resource_id="id-0",
+            action_type=chip_smoke.ACTIONS[rng.randrange(4)],
+            owner_indicatory_entity=chip_smoke.ORG,
+            owner_instance=rng.choice(chip_smoke.OWNERS), **kw)
+        if i % no_id == 0:
+            req.context["subject"].pop("id", None)
+        out.append(req)
+    return out
+
+
+def acl_batch(n, seed, specs=None):
+    """A port compile of acl_policies.yml and ``n`` rows of ACL-heavy
+    traffic (or the request specs ``specs``), about half of them carrying
+    ACL instances."""
+    from access_control_srv_tpu_torch import models as tmodels
+    from access_control_srv_tpu_torch.ops import (
+        compile_policies,
+        encode_requests,
+    )
+
+    from .test_torch_carryover import make_engines
+
+    _, teng = make_engines("acl_policies.yml")
+    tc = compile_policies(teng.policy_sets, teng.urns)
+    if specs is None:
+        specs = acl_heavy_specs(random.Random(seed), n)
+    batch = encode_requests([build_request(s, tmodels) for s in specs], tc)
+    return tc, batch
+
+
+def acl_instances(specs) -> list:
+    """Whether each request spec carries ACL instances."""
+    _, batch = acl_batch(0, 0, specs)
+    return ((batch.arrays["r_acl_inst"] >= 0)
+            .reshape(len(specs), -1).any(1).tolist())
+
+
+def test_grouped_slot_edges(libs, monkeypatch):
+    """K4 over its slot layout: a group whose rows span several slots
+    (each split over blocks of 3 rows), pad positions in the last slot of
+    every group, a one-row group, and rows with and without ACL
+    instances in one launch, explain off and on."""
+    monkeypatch.setitem(tkernel.GROUPED_STAGE, "rows", 3)
+    tc, batch = acl_batch(64, 5)
+    inst = (batch.arrays["r_acl_inst"] >= 0).reshape(64, -1).any(1)
+    assert 0 < inst.sum() < 64
+    g_rows = [0] * 50 + [1] + [2] * 5 + [3] * 5 + [4] * 3
+    for explain in (False, True):
+        args, flag = stacked_grouped(tc, batch, g_rows, explain)
+        assert args[4]  # the ACL variant
+        layout = tkernel.grouped_layout(np.asarray(args[2]), 5, "cpu")
+        real = layout.gp_orig[layout.grid2row.reshape(-1).long()] == \
+            torch.arange(layout.grid2row.numel())
+        assert int((layout.slot_g == 0).sum()) >= 3  # 50 rows, R = 16
+        assert not bool(real.all())  # pad positions
+        shape = grouped_vs_plain(libs, args, flag)
+        assert shape["RT"] == 3 and shape["R"] == 16
+    # blocks of ACL-instance rows only: each row's own masks
+    monkeypatch.setitem(tkernel.GROUPED_STAGE, "rows", 16)
+    specs = [s for s in acl_heavy_specs(random.Random(8), 160)]
+    rows = [s for s, has in zip(specs, acl_instances(specs)) if has][:32]
+    tc, batch = acl_batch(0, 0, rows)
+    args, flag = stacked_grouped(tc, batch, [0], False)
+    grouped_vs_plain(libs, args, flag)
+
+
+def test_grouped_rounds_and_rule_tiles(libs, monkeypatch):
+    """The stress tree (hundreds of targets, many policies) with the rule
+    arrays staged one policy at a time, with and without explain: rows x
+    targets span several rounds of the stages A-C work list."""
+    from access_control_srv_tpu_torch import models as tmodels
+    from access_control_srv_tpu_torch.ops import (
+        compile_policies,
+        encode_requests,
+    )
+
+    import chip_smoke
+
+    from .test_torch_kernel import engines_from_doc
+
+    monkeypatch.setitem(tkernel.GROUPED_STAGE, "rules", 1)
+    _, teng = engines_from_doc(chip_smoke.small_stress_doc(conditions=True))
+    tc = compile_policies(teng.policy_sets, teng.urns)
+    batch = encode_requests([build_request(request_spec(r), tmodels)
+                             for r in stress_hits(4, 12)], tc)
+    for explain in (False, True):
+        args, flag = stacked_grouped(tc, batch, [0, 1, 1, 0], explain)
+        shape = grouped_vs_plain(libs, args, flag)
+        assert shape["PT"] == 1 and shape["T"] * 8 > 4096
+    from access_control_srv_tpu_torch.ops.prefilter_ref import (
+        decide_grouped_ref,
+    )
+    assert set(decide_grouped_ref(*args)[0].tolist()) == {0, 1, 2}
+    # one group: 16 rows x 720 targets, three rounds
+    args, flag = stacked_grouped(tc, batch, [0], False)
+    shape = grouped_vs_plain(libs, args, flag)
+    assert shape["RT"] >= 16 and 16 * shape["T"] > 2 * 4096
+
+
+@pytest.mark.parametrize("name", ["policy_set_targets.yml", "edge",
+                                  "combining"])
+def test_grouped_sets_and_edges(libs, name):
+    """S > 1 (three policy sets, last-set-wins across them) and the
+    explain recovery's edges (rule-less policies, unknown combining
+    algorithms at either level: slot 0 selected, the rule slot clipped)
+    through K4, each group's rule_orig_flat a permutation."""
+    from access_control_srv_tpu_torch import models as tmodels
+    from access_control_srv_tpu_torch.ops import (
+        compile_policies,
+        encode_requests,
+    )
+    from access_control_srv_tpu_torch.ops.prefilter_ref import (
+        decide_grouped_ref,
+    )
+
+    from .test_torch_carryover import make_engines, spec_grid
+    from .test_torch_explain import edge_case, edited
+    from .test_torch_kernel import engines_from_doc
+
+    if name == "policy_set_targets.yml":
+        _, teng = make_engines(name)
+        specs = spec_grid(n=24, seed=31)
+    else:
+        doc, specs = edge_case() if name == "edge" else combining_case()
+        _, teng = engines_from_doc(doc)
+    base = compile_policies(teng.policy_sets, teng.urns)
+    batch = encode_requests([build_request(s, tmodels) for s in specs], base)
+    kinds = set()
+    for edit in ("none", "set", "policy"):
+        tc = edited(base, set_ca=edit == "set", pol_ca=edit == "policy")
+        args, flag = stacked_grouped(tc, batch, [0, 1, 2], True, seed=3)
+        grouped_vs_plain(libs, args, flag)
+        kinds |= set((decide_grouped_ref(*args, explain=True)[3] & 3)
+                     .tolist())
+    assert {"policy_set_targets.yml": base.S == 3, "edge": kinds >= {1, 2},
+            "combining": kinds >= {0, 1}}[name]
+
+
+@pytest.mark.parametrize("kr", [1, 5, 16, 33])
+def test_rule_widths(libs, monkeypatch, kr):
+    """K3 and K4 at KR of 1 (32 policies per warp step), 5 (segments that
+    do not divide the warp), 16 and 33 (two 32-wide chunks per policy):
+    the recorded calls of a stress batch with ACL rows, their rule axes
+    cut or widened with repeated rules, explain off and on, each against
+    its plain version on the same arguments."""
+    from access_control_srv_tpu_torch.ops.prefilter_ref import (
+        decide_grouped_ref,
+        sig_decide_ref,
+    )
+
+    import chip_smoke
+
+    engine = engine_of(chip_smoke.small_stress_doc(conditions=True))
+    compiled = jcompile(engine.policy_sets, engine.urns)
+    requests = stress_hits(9, 8) + stress_hits(10, 8, acl=False)
+    calls = record(monkeypatch)
+    jreqs = [build_request(request_spec(r), jmodels) for r in requests]
+    for part in (jreqs[:8], jreqs[8:]):
+        run(compiled, part, force=False)
+        run(compiled, part, force=False, explain=True)
+    seen = set()
+    decisions = set()
+    for name, args, _ in calls:
+        if name == "sig_planes":
+            continue
+        explain = args[-1]
+        if name == "sig_decide":
+            a = (args[0], with_rule_width(args[1], kr),
+                 with_rule_width(args[2], kr)) + args[3:-1]
+            want = sig_decide_ref(*a, explain=explain)
+            replay_sig(libs["sig_decide"], a + (explain,), want)
+        else:
+            a = (args[0], with_rule_width(args[1], kr)) + args[2:-1]
+            want = decide_grouped_ref(*a, explain=explain)
+            replay_grouped(libs["decide_grouped"], a + (explain,), want)
+        seen.add((name, explain))
+        decisions |= {(name, d) for d in want[0].tolist()}
+    assert seen == {(n, e) for n in ("sig_decide", "decide_grouped")
+                    for e in (False, True)}
+    for name in ("sig_decide", "decide_grouped"):
+        assert len({d for n, d in decisions if n == name}) >= 2
+
+
+def test_sig_tiled_and_sets(libs, monkeypatch):
+    """K3 with its rule positions staged one policy at a time and blocks
+    of 3 rows (a slot split over blocks), on the stress tree and on a
+    fixture of three policy sets forced onto the signature machinery,
+    explain off and on."""
+    import chip_smoke
+
+    monkeypatch.setitem(tkernel.SIG_STAGE, "rules", 1)
+    monkeypatch.setitem(tkernel.SIG_STAGE, "rows", 3)
+    calls = record(monkeypatch)
+    engine = engine_of(chip_smoke.small_stress_doc(conditions=True))
+    compiled = jcompile(engine.policy_sets, engine.urns)
+    run(compiled, [build_request(request_spec(r), jmodels)
+                   for r in stress_hits(6, 12, acl=False)], force=False,
+        explain=True)
+    engine = make_engine("policy_set_targets.yml")
+    sets = jcompile(engine.policy_sets, engine.urns)
+    assert sets.S == 3
+    specs = [r for r in grid_requests(n=24, seed=12)]
+    batch = jencode(specs, sets)
+    plain_rows = [r for r, a, p in zip(
+        specs, (batch.arrays["r_acl_ent"] >= 0).any(1),
+        batch.arrays["r_has_props"]) if not a and not p]
+    run(sets, plain_rows)
+    run(sets, plain_rows, explain=True)
+    assert replay(libs, calls) == {"sig_planes", "sig_decide"}
+    assert {args[2]["rl_ex"].shape[1] for n, args, _ in calls
+            if n == "sig_decide"} >= {3}
+    assert {d for n, _, out in calls if n == "sig_decide"
+            for d in out[0].tolist()} >= {1, 2}
+
+
+def test_occupancy_exports(libs, monkeypatch):
+    """Both libraries export the resident blocks per SM of a variant
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; the stand-in's
+    SM holds 2,048 threads and 232,448 bytes)."""
+    tc, batch = acl_batch(16, 2)
+    args, _ = stacked_grouped(tc, batch, [0, 1])
+    layout = tkernel.grouped_layout(np.asarray(args[2]), 2, "cpu")
+    packed = tkernel.pack_grouped(args[0], args[1], args[3], layout)
+    blocks = libs["decide_grouped"].acs_decide_grouped_occupancy(
+        ctypes.addressof(packed.dims), len(packed.dims), 1, 0, 0, 0,
+        packed.threads)
+    smem = libs["decide_grouped"].acs_decide_grouped_smem(
+        ctypes.addressof(packed.dims), len(packed.dims), 1, 0,
+        packed.threads)
+    assert blocks == min(2048 // packed.threads, 232448 // smem)
+    calls = record(monkeypatch)
+    engine = make_engine("basic_policies.yml")
+    compiled = jcompile(engine.policy_sets, engine.urns)
+    run(compiled, grid_requests(n=16, seed=4, acl=False, props=False)
+        if False else [r for r in grid_requests(n=16, seed=4)])
+    for name, a, _ in calls:
+        if name != "sig_decide":
+            continue
+        _, ptrs, dims = tkernel.pack_sig_decide(*a[:7], *a[8:12])
+        smem = libs["sig_decide"].acs_sig_decide_smem(
+            ctypes.addressof(dims), len(dims), tkernel.SIG_DECIDE_THREADS)
+        assert libs["sig_decide"].acs_sig_decide_occupancy(
+            ctypes.addressof(ptrs), len(ptrs), ctypes.addressof(dims),
+            len(dims), 0, 0, 0, tkernel.SIG_DECIDE_THREADS) == min(
+                2048 // tkernel.SIG_DECIDE_THREADS, 232448 // smem)
+
+
+def randomized(d: dict, rng, spec: dict) -> dict:
+    """``d`` with the entries named in ``spec`` replaced by seeded random
+    contents of the same shape and dtype: ("bool", p) draws True with
+    probability p, ("int", lo, hi) integers in [lo, hi), ("choice", xs) from
+    xs."""
+    out = dict(d)
+    for k, how in spec.items():
+        if k not in d or d[k] is None:
+            continue
+        shape, dtype = tuple(d[k].shape), d[k].dtype
+        if how[0] == "bool":
+            a = rng.random(shape) < how[1]
+        elif how[0] == "int":
+            a = rng.integers(how[1], how[2], size=shape)
+        else:
+            a = rng.choice(np.asarray(how[1]), size=shape)
+        out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+    return out
+
+
+# valid ranges of the policy and rule tables and the set algorithms
+# (unknown combining algorithms included; effects 0-2; one rule in four
+# with a condition below C); the set gates stay the tree's, since one set
+# gated off would decide nothing
+def table_spec(C: int) -> dict:
+    return {
+        "set_ca": ("choice", [0, 1, 2, 5]), "pol_valid": ("bool", 0.85),
+        "pol_ca": ("choice", [0, 1, 2, 2, 5]), "pol_effect": ("int", 0, 3),
+        "pol_cacheable": ("bool", 0.5), "pol_has_target": ("bool", 0.6),
+        "pol_has_subjects": ("bool", 0.5), "pol_n_rules": ("choice", [0, 3]),
+        "pol_eff_ctx": ("int", 1, 3), "rule_valid": ("bool", 0.8),
+        "rule_effect": ("int", 0, 3), "rule_cacheable_raw": ("bool", 0.5),
+        "rule_cacheable_eff": ("bool", 0.5),
+        "rule_has_target": ("bool", 0.8),
+        "rule_cond": ("choice", [-1, -1, -1] + [min(c, C - 1) for c in
+                                                 range(max(C, 1))]
+                      if C else [-1]),
+    }
+
+
+def random_call(name: str, args: tuple, kr: int, rng) -> tuple:
+    """A recorded K3 / K4 call (its explain flag last) with the rule axis
+    at ``kr`` slots and seeded random tables (``table_spec``; K3 also its
+    planes and packed rows, with subject pairs on) -> the kernel's
+    arguments without the flag."""
+    if name == "decide_grouped":
+        inv, cs, g_idx, r = args[:4]
+        spec = table_spec(r["cond_true"].shape[0])
+        return (randomized(inv, rng, spec),
+                randomized(with_rule_width(cs, kr), rng, spec), g_idx,
+                r) + args[4:7]
+    (inv, cs, planes, slot_g, rows, g2r, gp, n_rows, schedule, _, with_hr,
+     with_rel, _) = args
+    C = dict((k, w) for k, w, _ in schedule)["cond_true"]
+    spec = table_spec(C)
+    planes = randomized(with_rule_width(planes, kr), rng, {
+        **{k: ("bool", 0.7) for k in planes if planes[k].dtype == torch.bool},
+        **{k: ("int", 0, 4) for k in ("rl_role", "pl_role", "sl_role")},
+        **{k: ("int", 0, 2) for k in ("rl_n_sub", "pl_n_sub", "sl_n_sub")},
+        **{k: ("int", -1, 3) for k in planes
+           if k.endswith("_sub_ids") or k.endswith("_sub_vals")},
+    })
+    rows = rows.clone()
+    off = 0
+    for col, w, _ in schedule:
+        lo, hi = {"r_roles": (-1, 4), "r_sub_ids": (-1, 3),
+                  "r_sub_vals": (-1, 3), "r_n_entity_attrs": (1, 3),
+                  "r_n_ra": (0, 2), "r_acl_short": (0, 3),
+                  "cond_true": (0, 2), "cond_code": (400, 403),
+                  }.get(col, (None, None))
+        if col == "cond_abort":
+            rows[:, off:off + w] = torch.from_numpy(
+                (rng.random((rows.shape[0], w)) < 0.05).astype(np.int32))
+        elif lo is not None:
+            rows[:, off:off + w] = torch.from_numpy(
+                rng.integers(lo, hi, (rows.shape[0], w)).astype(np.int32))
+        off += w
+    return (randomized(inv, rng, spec),
+            randomized(with_rule_width(cs, kr), rng, spec), planes, slot_g,
+            rows, g2r, gp, n_rows, schedule, True, with_hr, with_rel)
+
+
+@pytest.mark.parametrize("kr", [5, 16, 33])
+def test_random_tables(libs, monkeypatch, kr):
+    """K3 and K4 against their plain versions on recorded calls whose
+    rule and policy tables and set algorithms (and K3's planes and packed
+    rows) are replaced by seeded random contents in their valid ranges,
+    the rule axis at ``kr`` slots and policies staged three at a time:
+    every combining algorithm (unknown ones too), rule-less policies,
+    aborts anywhere in a policy's window, windows across bitset words,
+    subject pairs, explain off and on."""
+    from access_control_srv_tpu_torch.ops.prefilter_ref import (
+        decide_grouped_ref,
+        sig_decide_ref,
+    )
+
+    import chip_smoke
+
+    monkeypatch.setitem(tkernel.SIG_STAGE, "rules", 10 * 3 * kr)
+    monkeypatch.setitem(tkernel.GROUPED_STAGE, "rules", 9 * 3 * kr)
+    engine = engine_of(chip_smoke.small_stress_doc(conditions=True))
+    compiled = jcompile(engine.policy_sets, engine.urns)
+    calls = record(monkeypatch)
+    jreqs = [build_request(request_spec(r), jmodels)
+             for r in stress_hits(11, 16) + stress_hits(12, 16, acl=False)]
+    run(compiled, jreqs[:16], force=False, explain=True)
+    run(compiled, jreqs[16:], force=False, explain=True)
+    rng = np.random.default_rng(kr)
+    kinds = set()
+    for name, args, _ in calls:
+        if name == "sig_planes" or not args[-1]:
+            continue
+        # every draw is held against the plain version; draws go on until
+        # the call's rows show rule-decided and aborted codes (at most 6)
+        for _ in range(6):
+            a = random_call(name, args, kr, rng)
+            for explain in (False, True):
+                if name == "sig_decide":
+                    want = sig_decide_ref(*a, explain=explain)
+                    replay_sig(libs["sig_decide"], a + (explain,), want)
+                else:
+                    want = decide_grouped_ref(*a, explain=explain)
+                    replay_grouped(libs["decide_grouped"], a + (explain,),
+                                   want)
+            got = {(name, c & 3) for c in want[3].tolist()}
+            kinds |= got
+            if {(name, 1), (name, 3)} <= got:
+                break
+    assert kinds >= {(n, k) for n in ("sig_decide", "decide_grouped")
+                     for k in (1, 3)}
+
+
+def test_grouped_acl_rows_own_masks(libs):
+    """K4 blocks of 16 rows that all carry ACL instances, one subject and
+    action to every 8 rows with 8 distinct instance sets between them, so
+    that rows of a block decide differently by their instances alone:
+    each row's target bits come from its own instance masks, explain off
+    and on."""
+    from access_control_srv_tpu_torch.ops.prefilter_ref import (
+        decide_grouped_ref,
+    )
+
+    sets = [["Org1"], ["OrgX"], ["Org1", "Org2"], ["otherOrg"], ["Org2"],
+            ["SuperOrg1"], ["Org3", "OrgX"], ["Org1", "OrgX"]]
+    specs = [request_spec(jax_build_request(
+        subject_id="Alice", subject_role=role, role_scoping_entity=ORG,
+        role_scoping_instance="Org1", resource_type=BUCKET,
+        resource_id="res-1", action_type=URNS[act],
+        owner_indicatory_entity=ORG, owner_instance="Org1",
+        acl_indicatory_entity=ORG, acl_instances=inst))
+        for role in ("Admin", "SimpleUser")
+        for act in ("create", "modify", "read") for inst in sets]
+    assert all(acl_instances(specs))
+    tc, batch = acl_batch(0, 0, specs)
+    for explain in (False, True):
+        args, flag = stacked_grouped(tc, batch, [0], explain)
+        shape = grouped_vs_plain(libs, args, flag)
+        assert shape["RT"] == 16
+    dec = decide_grouped_ref(*args)[0].reshape(-1, 16)
+    assert all(len(set(b.tolist())) == 2 for b in dec[:3])
+
+
+@pytest.mark.parametrize("slots", [(32,), (0, 32)])
+def test_second_rule_chunk(libs, monkeypatch, slots):
+    """K3 and K4 at KR 33 on recorded calls with seeded random tables,
+    every policy's valid rules cut to ``slots`` (slot 32 alone in the
+    second 32-wide chunk, or slots 0 and 32) and ``rule_orig_flat`` the
+    identity: rows decided by slot 32 where it is the first rule the
+    policy's algorithm selects (found at its own position in the second
+    chunk), aborting at slot 32, and decided by slot 0 where slot 32
+    would be selected too (a later chunk's rule never taken over the
+    first chunk's), explain off and on."""
+    import chip_smoke
+
+    engine = engine_of(chip_smoke.small_stress_doc(conditions=True))
+    compiled = jcompile(engine.policy_sets, engine.urns)
+    calls = record(monkeypatch)
+    jreqs = [build_request(request_spec(r), jmodels)
+             for r in stress_hits(11, 16) + stress_hits(12, 16, acl=False)]
+    run(compiled, jreqs[:16], force=False, explain=True)
+    run(compiled, jreqs[16:], force=False, explain=True)
+    rng = np.random.default_rng(33)
+    # (kind, slot, slot 0 selectable, slot 32 selectable); None where
+    # slot 0 is not valid or the code is an abort
+    wanted = ({(1, 32, None, True), (3, 32, None, None)} if slots == (32,)
+              else {(1, 32, False, True), (1, 0, True, True)})
+    seen = set()
+    for name, args, _ in calls:
+        if name == "sig_planes" or not args[-1]:
+            continue
+        # draws go on until the call's rows show the wanted codes (at
+        # most 6), every draw held against the plain version
+        got = set()
+        for _ in range(6):
+            got |= second_chunk_draw(libs, name, random_call(
+                name, args, 33, rng), slots, rng)
+            if wanted <= got:
+                break
+        seen |= {(name,) + t for t in got}
+    assert seen >= {(n,) + t for n in ("sig_decide", "decide_grouped")
+                    for t in wanted}
+
+
+def second_chunk_draw(libs, name: str, a: tuple, slots: tuple,
+                      rng) -> set:
+    """One K3 / K4 call ``a`` at KR 33 with only the rule ``slots`` valid
+    and ``rule_orig_flat`` the identity (every policy valid and with
+    rules, the set algorithms known), held against its plain version
+    explain off and on.  Slot 32's effect is the one its policy's
+    algorithm selects (deny- / permit-overrides), slot 0's drawn per
+    policy -> (kind, slot, slot 0 selectable, slot 32 selectable) of its
+    rule-decided and aborted codes."""
+    from access_control_srv_tpu_torch.ops.prefilter_ref import (
+        decide_grouped_ref,
+        sig_decide_ref,
+    )
+
+    # every policy valid and with rules, and the set algorithms known, so
+    # that the policies' selected rules decide
+    set_ca = a[0]["set_ca"]
+    inv = {**a[0], "pol_valid": torch.ones_like(a[0]["pol_valid"]),
+           "pol_n_rules": torch.full_like(a[0]["pol_n_rules"], 3),
+           "set_ca": torch.where(set_ca > 2, torch.ones_like(set_ca),
+                                 set_ca)}
+    cs = dict(a[1])
+    kept = torch.zeros(33, dtype=torch.bool)
+    kept[list(slots)] = True
+    cs["rule_valid"] = kept.expand(cs["rule_valid"].shape).contiguous()
+    ca = inv["pol_ca"].long()
+    e32 = torch.from_numpy(rng.integers(1, 3, tuple(ca.shape)))
+    e0 = torch.from_numpy(rng.integers(1, 3, tuple(ca.shape)))
+    e32 = torch.where(ca == 0, 2, torch.where(ca == 1, 1, e32))
+    if slots == (32,):
+        e0 = 3 - e32
+    eff = cs["rule_effect"].clone()
+    eff[..., 0] = e0.to(eff.dtype)
+    eff[..., 32] = e32.to(eff.dtype)
+    cs["rule_effect"] = eff
+    G, S, KP = eff.shape[:3]
+    cs[tkernel.ORIG_TABLE] = torch.arange(
+        S * KP * 33, dtype=torch.int32).reshape(S, KP, 33).expand(
+            G, S, KP, 33).contiguous()
+    a = (inv, cs) + a[2:]
+    for explain in (False, True):
+        if name == "sig_decide":
+            want = sig_decide_ref(*a, explain=explain)
+            replay_sig(libs["sig_decide"], a + (explain,), want)
+        else:
+            want = decide_grouped_ref(*a, explain=explain)
+            replay_grouped(libs["decide_grouped"], a + (explain,), want)
+
+    def selectable(e, p):
+        c = int(ca.flatten()[p])
+        return c == 2 or (c, int(e.flatten()[p])) in ((0, 2), (1, 1))
+
+    out = set()
+    for c in want[3].tolist():
+        pos, kind = c >> 2, c & 3
+        if kind == 3:
+            out.add((3, pos % 33, None, None))
+        elif kind == 1:
+            p = pos // 33
+            out.add((1, pos % 33, selectable(e0, p) if 0 in slots else None,
+                     selectable(e32, p)))
+    return out
