@@ -1,23 +1,15 @@
 // Device code shared by the port's decision kernels (sm_90a).
 //
-// decide_dense.cu (the dense kernel), decide_grouped.cu (the same per-row
-// program over per-row compacted subtrees), sig_planes.cu (stage A per
+// rows_core.cuh (the rows program of decide_dense.cu, decide_grouped.cu and
+// shard_chunk.cu's set mode), sig_decide.cu, sig_planes.cu (stage A per
 // resource signature), wia_planes.cu (the whatIsAllowed planes per
-// representative row), shard_chunk.cu (the sharded programs' per-shard
-// halves) and shard_tail.cu (their merge tail) include this header.  It
+// representative row), shard_chunk.cu (the rule-chunk shard program) and
+// shard_tail.cu (the sharded programs' merge tail) include this header.  It
 // holds the argument list of the dense program, its per-target stages A-C,
-// and the per-row stages D (`stage_gates`), E (`scan_rules`), F
-// (`stage_sets`) and G (`row_program`), written once.  The plain PyTorch
-// versions they are held against: ops/kernel_ref.py, ops/prefilter_ref.py
-// and ops/shard_ref.py.
-//
-// Explain mode (the EXPLAIN template flag of row_program) adds a fourth
-// output per row, the provenance code (flat_pos << 2) | kind of
-// srv/explain.py: after stage F one warp re-derives the winning set's
-// selected policy from its contribution bytes and re-runs stage E's scan for
-// that one policy, the same selection by construction, so no per-policy
-// selection is kept in shared memory.  Explain-off instantiations run the
-// code they ran before the flag.
+// the per-row stages D (`stage_gates`), E (`scan_rules`) and F
+// (`stage_sets`), and the rule-chunk row program (`row_program`), written
+// once.  The plain PyTorch versions they are held against:
+// ops/kernel_ref.py, ops/prefilter_ref.py and ops/shard_ref.py.
 
 #pragma once
 
@@ -140,14 +132,14 @@ enum : uint8_t {
 };
 
 struct SmemLayout {
-  size_t elig, same, scal, tbits, setinfo, contrib, setres, total;
+  size_t elig, same, scal, tbits, setinfo, total;
 };
 
 __host__ __device__ inline size_t align_up(size_t x, size_t a) {
   return (x + a - 1) / a * a;
 }
 
-// dynamic shared memory layout of `decide_row`; the host sizes the launch
+// dynamic shared memory layout of `row_program`; the host sizes the launch
 // with the same function the kernel carves the buffer with
 __host__ __device__ inline SmemLayout smem_layout(const Args& a,
                                                   bool with_acl) {
@@ -162,10 +154,6 @@ __host__ __device__ inline SmemLayout smem_layout(const Args& a,
   l.tbits = off;  // uint8 [T]
   off += a.T;
   l.setinfo = off;  // uint8 [S]: exact | eval_deny << 1 | set_gate << 2
-  off += a.S;
-  l.contrib = off;  // uint8 [S * KP]: present | eff << 1 | cach << 3
-  off += (size_t)a.S * a.KP;
-  l.setres = off;  // uint8 [S]: eff | cach << 2
   off += a.S;
   l.total = align_up(off, 16);
   return l;
@@ -586,10 +574,10 @@ __device__ __forceinline__ int select_pos(int ca, int first_deny,
   return 0;
 }
 
-// the row programs built from the stages below: the dense decision (K1,
-// also decide_grouped), the rule-chunk shard program (K7: stages A-E on
-// one rule chunk, packed keys out) and the set-chunk shard program (K8:
-// stages A-F on one set chunk, the last-set key out)
+// the row programs: the dense decision (K1, rows_core.cuh), the
+// rule-chunk shard program (K7, row_program below: stages A-E on one rule
+// chunk, packed keys out) and the set-chunk shard program (K8,
+// rows_core.cuh: stages A-F on one set chunk, the last-set key out)
 enum RowMode { ROW_DENSE = 0, ROW_RULE_CHUNK = 1, ROW_SET_CHUNK = 2 };
 
 // packed-key columns per (set, policy) in a rule chunk's merge row:
@@ -824,22 +812,6 @@ __device__ PolicyScan scan_rules(const Args& a, int b, int p,
   return r;
 }
 
-// policy p's contribution byte (present | eff << 1 | cach << 3): the rule
-// the combining algorithm selects, or the policy's own effect when it has
-// no rules
-__device__ __forceinline__ uint8_t policy_contrib(const Args& a, int p,
-                                                  const PolicyScan& r) {
-  const int sel = select_pos(a.pol_ca[p], r.first_deny, r.first_permit,
-                             r.first, r.last);
-  const int sel_c = min(max(sel, 0), a.KR - 1);
-  const bool no_rules = r.gate && a.pol_n_rules[p] == 0 && a.pol_effect[p] > 0;
-  const bool present = no_rules || r.last >= 0;
-  const int eff = no_rules ? a.pol_effect[p] : a.rule_effect[p * a.KR + sel_c];
-  const bool cach = no_rules ? a.pol_cacheable[p]
-                             : a.rule_cacheable_eff[p * a.KR + sel_c];
-  return (present ? 1 : 0) | ((eff & 3) << 1) | (cach ? 8 : 0);
-}
-
 // set s's policy slot the combining algorithm selects over the
 // contribution bytes (clamped to [0, KP)), run by one warp: every lane
 // returns it; *any tells whether some policy contributed
@@ -893,30 +865,6 @@ __device__ __forceinline__ int explain_code(int pos, int kind) {
   return (int)(((uint32_t)pos << 2) | (uint32_t)kind);
 }
 
-// the winning set s's deciding policy and rule, run by one warp (every
-// lane returns the same): its policy p, the rule slot its combining
-// algorithm selects (clamped to [0, KR)) and whether the policy's own
-// effect decided (no rules)
-struct ExplainPick {
-  int p, kr;
-  bool no_rules;
-};
-
-__device__ ExplainPick explain_pick(const Args& a, int b, int s,
-                                    const uint8_t* tbits,
-                                    const uint8_t* setinfo,
-                                    const uint8_t* contrib) {
-  bool any;
-  ExplainPick out;
-  out.p = s * a.KP + set_pick(a.set_ca[s], s, a.KP, contrib, &any);
-  const PolicyScan r = scan_rules(a, b, out.p, tbits, setinfo);
-  const int sel = select_pos(a.pol_ca[out.p], r.first_deny, r.first_permit,
-                             r.first, r.last);
-  out.kr = min(max(sel, 0), a.KR - 1);
-  out.no_rules = r.gate && a.pol_n_rules[out.p] == 0 && a.pol_effect[out.p] > 0;
-  return out;
-}
-
 // one abort slot per model shard into a merge row: this shard's triple in
 // its own slot, INT_MAX elsewhere
 __device__ __forceinline__ void write_abort_slots(int32_t* slots, int n_model,
@@ -930,23 +878,18 @@ __device__ __forceinline__ void write_abort_slots(int32_t* slots, int n_model,
   }
 }
 
-// one row program for request row b, run by one thread block over the
-// tables in `a`; `smem` is the block's dynamic shared memory, laid out by
-// smem_layout.  ROW_DENSE writes the decision outputs (and with EXPLAIN the
-// provenance code, rule positions mapped through rule_orig_flat when the
-// rule axis was compacted); the shard modes write row b of `ch.merge`
-// (chunk_width ints; EXPLAIN only in ROW_SET_CHUNK, where the shard's own
-// provenance rides as a key that orders like the global set position: a
-// no-rules policy's position is scaled by KR, which the tail undoes)
-template <int MODE, bool WITH_ACL, bool WITH_HR, bool WITH_REL, bool EXPLAIN>
+// the rule-chunk row program (K7) for request row b, run by one thread
+// block over one rule shard's tables in `a`; `smem` is the block's dynamic
+// shared memory, laid out by smem_layout.  Writes row b of `ch.merge`
+// (chunk_width ints): per (set, policy) the packed keys of stage E at
+// GLOBAL rule positions, then the abort slots
+template <bool WITH_ACL, bool WITH_HR, bool WITH_REL>
 __device__ void row_program(const Args& a, int b, unsigned char* smem,
                             const Chunk& ch) {
   const SmemLayout L = smem_layout(a, WITH_ACL);
   int32_t* scal = reinterpret_cast<int32_t*>(smem + L.scal);
   const uint8_t* tbits = smem + L.tbits;
   const uint8_t* setinfo = smem + L.setinfo;
-  uint8_t* contrib = smem + L.contrib;
-  uint8_t* setres = smem + L.setres;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -958,118 +901,42 @@ __device__ void row_program(const Args& a, int b, unsigned char* smem,
 
   // ---- stage E: rule combination per policy (one warp per policy)
   const int n_pol = a.S * a.KP;
-  int32_t* row = nullptr;
-  if (MODE != ROW_DENSE)
-    row = ch.merge +
-          (size_t)b * chunk_width(MODE, a.S, a.KP, ch.N_MODEL, EXPLAIN);
+  int32_t* row = ch.merge + (size_t)b * chunk_width(ROW_RULE_CHUNK, a.S, a.KP,
+                                                    ch.N_MODEL, false);
   for (int p = warp; p < n_pol; p += nwarps) {
     const PolicyScan r = scan_rules(a, b, p, tbits, setinfo);
     if (lane != 0) continue;
     if (r.abort_pos < ACS_BIG) atomicMin(&scal[0], r.abort_pos);
-    if (MODE == ROW_RULE_CHUNK) {
-      // GLOBAL rule positions packed with the rule's (effect, cacheable)
-      int32_t* k = row + p * KEY_COLS;
-      const int base = p * a.KR;
-      auto key = [&](int kr, int shift) {
-        return ((ch.OFFSET + kr + shift) << 3) |
-               (a.rule_effect[base + kr] << 1) |
-               (a.rule_cacheable_eff[base + kr] ? 1 : 0);
-      };
-      k[0] = r.first_deny < ACS_BIG ? key(r.first_deny, 0) : ACS_BIGKEY;
-      k[1] = r.first_permit < ACS_BIG ? key(r.first_permit, 0) : ACS_BIGKEY;
-      k[2] = r.first < ACS_BIG ? key(r.first, 0) : ACS_BIGKEY;
-      k[3] = r.last >= 0 ? -key(r.last, 1) : 0;
-      k[4] = r.gate ? 1 : 0;
-    } else {
-      contrib[p] = policy_contrib(a, p, r);
-    }
+    // GLOBAL rule positions packed with the rule's (effect, cacheable)
+    int32_t* k = row + p * KEY_COLS;
+    const int base = p * a.KR;
+    auto key = [&](int kr, int shift) {
+      return ((ch.OFFSET + kr + shift) << 3) |
+             (a.rule_effect[base + kr] << 1) |
+             (a.rule_cacheable_eff[base + kr] ? 1 : 0);
+    };
+    k[0] = r.first_deny < ACS_BIG ? key(r.first_deny, 0) : ACS_BIGKEY;
+    k[1] = r.first_permit < ACS_BIG ? key(r.first_permit, 0) : ACS_BIGKEY;
+    k[2] = r.first < ACS_BIG ? key(r.first, 0) : ACS_BIGKEY;
+    k[3] = r.last >= 0 ? -key(r.last, 1) : 0;
+    k[4] = r.gate ? 1 : 0;
   }
   __syncthreads();
 
-  // ---- stage F (not in a rule chunk: its policies are partial)
-  if (MODE != ROW_RULE_CHUNK)
-    stage_sets(a.set_ca, a.S, a.KP, contrib, setres, &scal[1]);
-
-  // ---- explain: the winning set's deciding policy and rule (warp 0)
-  ExplainPick pick = {0, 0, false};
-  if (EXPLAIN && warp == 0 && scal[1] >= 0)
-    pick = explain_pick(a, b, scal[1], tbits, setinfo, contrib);
-
-  // ---- stage G
+  // ---- the abort slots (no stage F: a rule chunk's policies are partial),
+  // the abort position in GLOBAL flat rule order
   if (tid != 0) return;
-  const int winner = scal[1];
   const int abort_pos = scal[0];
   const bool aborted = abort_pos < ACS_BIG;
-  const int code = aborted
-      ? a.cond_code[(size_t)a.rule_cond[abort_pos] * a.CSTRIDE + b] : 0;
-  const int cach_raw = aborted && a.rule_cacheable_raw[abort_pos] ? 1 : 0;
-  if (MODE == ROW_DENSE) {
-    // last-set-wins, then condition aborts preempt everything
-    int decision = 0, cacheable = -1, status = 200;
-    if (winner >= 0) {
-      decision = setres[winner] & 3;
-      cacheable = (setres[winner] >> 2) & 1;
-    }
-    if (aborted) {
-      decision = 2;
-      cacheable = cach_raw;
-      status = code;
-    }
-    a.out_decision[b] = decision;
-    a.out_cacheable[b] = cacheable;
-    a.out_status[b] = status;
-    if (EXPLAIN) {
-      const int32_t* orig = a.rule_orig_flat;
-      const int q = pick.p * a.KR + pick.kr;
-      int code = 0;
-      if (winner >= 0)
-        code = pick.no_rules ? explain_code(pick.p, 2)
-                             : explain_code(orig ? orig[q] : q, 1);
-      if (aborted) code = explain_code(orig ? orig[abort_pos] : abort_pos, 3);
-      a.out_explain[b] = code;
-    }
-    return;
-  }
-  // the shard modes: the abort position in GLOBAL flat rule order
-  int gpos = ACS_BIG;
+  int gpos = ACS_BIG, code = 0, cach1 = 0;
   if (aborted) {
-    if (MODE == ROW_RULE_CHUNK) {
-      const int pk = abort_pos / a.KR, kr = abort_pos % a.KR;
-      gpos = pk * ch.KR_TOTAL + ch.OFFSET + kr;
-    } else {
-      gpos = ch.OFFSET * a.KP * a.KR + abort_pos;
-    }
+    const int pk = abort_pos / a.KR, kr = abort_pos % a.KR;
+    gpos = pk * ch.KR_TOTAL + ch.OFFSET + kr;
+    code = a.cond_code[(size_t)a.rule_cond[abort_pos] * a.CSTRIDE + b];
+    cach1 = (a.rule_cacheable_raw[abort_pos] ? 1 : 0) + 1;
   }
-  int32_t* slots =
-      row + (MODE == ROW_RULE_CHUNK ? n_pol * KEY_COLS : 1 + (EXPLAIN ? 1 : 0));
-  write_abort_slots(slots, ch.N_MODEL, ch.RANK, gpos, aborted ? code : 0,
-                    aborted ? cach_raw + 1 : 0);
-  if (MODE == ROW_SET_CHUNK && EXPLAIN) {
-    // this shard's provenance key, negated (0 when no set contributed)
-    int key = 0;
-    if (winner >= 0) {
-      const int pos = (ch.OFFSET * a.KP + pick.p) * a.KR +
-                      (pick.no_rules ? 0 : pick.kr);
-      key = explain_code(pos, pick.no_rules ? 2 : 1);
-    }
-    row[1] = -key;
-  }
-  if (MODE == ROW_SET_CHUNK) {
-    // last-set-wins across shards: the negated key of this shard's last
-    // contributing set at its GLOBAL position + 1
-    int k = 0;
-    if (winner >= 0)
-      k = ((ch.OFFSET + winner + 1) << 3) | ((setres[winner] & 3) << 1) |
-          ((setres[winner] >> 2) & 1);
-    row[0] = -k;
-  }
-}
-
-// the dense program (decide_dense.cu, decide_grouped.cu)
-template <bool WITH_ACL, bool WITH_HR, bool WITH_REL, bool EXPLAIN>
-__device__ void decide_row(const Args& a, int b, unsigned char* smem) {
-  row_program<ROW_DENSE, WITH_ACL, WITH_HR, WITH_REL, EXPLAIN>(a, b, smem,
-                                                               Chunk{});
+  write_abort_slots(row + n_pol * KEY_COLS, ch.N_MODEL, ch.RANK, gpos, code,
+                    cach1);
 }
 
 // a launch's N variant flags as template arguments: Launch<Fs...>::run

@@ -56,9 +56,12 @@
 // compacted slot's original flat position, group-varying like the rule
 // arrays) maps it back to the uncompacted tree, as the JAX runner's recovery
 // does.  The host chooses the with_rel variant from the stacked subtrees (as
-// the JAX runner keys on tree_needs_rel(stacked)).
+// the JAX runner keys on tree_needs_rel(stacked)).  The stage helpers it
+// shares with the rows program of decide_dense.cu and shard_chunk.cu
+// (grouped_target_bits, acl_masks, gates, stage_rules, bit_window,
+// sets_stage) live in rows_core.cuh.
 
-#include "decide_core.cuh"
+#include "rows_core.cuh"
 
 // K4's shape ints after the dense ones: the slot count and width, rows per
 // block, policies per staged rule tile
@@ -80,18 +83,6 @@ static const int kNumGrDims = 0 GR_DIMS(ACS_COUNT);
 #define GR_THREADS 256
 // resident blocks per SM the register allocation is held to
 #define GR_MIN_BLOCKS 2
-// (row, target) pairs per round of stages A-C: the pairs of a round that
-// need the stage-A components go to a work list of this many entries
-#define GR_ROUND 4096
-
-// bytes of one staged rule record: target, condition, flag byte
-#define GR_RULE_BYTES 9
-// bitset words over `p` staged rule positions (one spare past the last)
-__host__ __device__ inline int gr_words(int p) { return (p + 31) / 32 + 1; }
-// flag byte of a rule record
-enum : uint8_t { GF_VALID = 1, GF_CACH = 8 };
-#define GF_EFF(fl) (((fl) >> 1) & 3)
-
 struct GrSmem {
   size_t rows, inst, scal, tbits, setinfo, setres, setkp, contrib, wbits,
       work, rroles, rsub, ract, rmode, elig, same, region, total;
@@ -172,133 +163,6 @@ __device__ __forceinline__ Args group_view(const Args& a, int g) {
   if (a.rule_orig_flat != nullptr) v.rule_orig_flat += rules;
   return v;
 }
-
-// stages A-C for target row t (row b): decide_core.cuh's target_bits, but
-// the stage-A components (entity runs, operations, properties) are folded
-// only where they can change the bits: under a passing subject and action
-// test, or for the collection state an HR or relation-path check reads.
-// Elsewhere the four match bits are 0 either way, so a target whose role
-// the row lacks costs a few compares.
-template <bool WITH_ACL, bool WITH_HR, bool WITH_REL>
-__device__ uint8_t grouped_target_bits(const Args& a, int b, int t,
-                                       const uint64_t* elig,
-                                       const uint64_t* same) {
-  // ---- subject matching
-  const int n_subjects = a.t_n_subjects[t];
-  bool sub_ok = true;
-  if (n_subjects != 0) {
-    if (a.t_has_role[t]) {
-      const int role = a.t_role[t];
-      const int32_t* roles = a.r_roles + (size_t)b * a.NROLE;
-      sub_ok = false;
-      for (int j = 0; j < a.NROLE; ++j)
-        if (roles[j] >= 0 && roles[j] == role) sub_ok = true;
-    } else {
-      sub_ok = pairs_subset(a.t_sub_ids + t * a.KS, a.t_sub_vals + t * a.KS,
-                            a.KS, a.r_sub_ids + (size_t)b * a.NSUB,
-                            a.r_sub_vals + (size_t)b * a.NSUB, a.NSUB);
-    }
-  }
-  const bool need_hr = WITH_HR && n_subjects != 0 && a.t_has_scoping[t];
-  const int rel_idx = WITH_REL ? a.t_rel_idx[t] : -1;
-  const bool need_collect = need_hr || rel_idx >= 0;
-  uint8_t bits = 0;
-  TargetComp comp;
-  comp.collect = 0;
-  comp.op_hit = 0;
-  if (need_collect ||
-      (sub_ok && pairs_subset(a.t_act_ids + t * a.KA, a.t_act_vals + t * a.KA,
-                              a.KA, a.r_act_ids + (size_t)b * a.NACT,
-                              a.r_act_vals + (size_t)b * a.NACT, a.NACT))) {
-    comp = target_components(a, b, t, need_collect);
-    if (sub_ok && (comp.bits & TC_ACT))
-      bits = comp.bits & (TB_EX_P | TB_EX_D | TB_RG_P | TB_RG_D);
-  }
-
-  // ---- stage B: HR scopes from the host-packed owner bitplanes
-  bool hr = true;
-  if (need_hr) {
-    const bool ctx_ok = a.r_ctx_present[b] && a.r_n_ra[b] > 0;
-    hr = ctx_ok && !hr_bad(a.r_own_bits + (size_t)b * a.NWORDS,
-                           a.r_own_runs + (size_t)b * a.NRU, a.NRU, a.NOP,
-                           a.NR, a.t_rs_idx[t], a.t_hr_check[t],
-                           comp.collect, comp.op_hit);
-  }
-  if (hr && rel_idx >= 0) {
-    hr = !hr_bad(a.r_rel_bits + (size_t)b * a.NWORDS_REL,
-                 a.r_rel_runs + (size_t)b * a.NRU_REL, a.NRU_REL, 0, a.NR,
-                 rel_idx, !a.t_rel_direct[t], comp.collect, 0);
-  }
-  if (hr) bits |= TB_HR;
-
-  // ---- stage B2: verifyACL
-  const int acl_short = a.r_acl_short[b];
-  bool acl;
-  if (a.t_skip_acl[t] || acl_short == 1) {
-    acl = true;
-  } else if (acl_short != 0 || a.r_n_ra[b] <= 0) {
-    acl = false;
-  } else {
-    const int32_t* k = a.acl_consts;
-    const int id0 = a.r_act_ids[(size_t)b * a.NACT];
-    const int val0 = a.r_act_vals[(size_t)b * a.NACT];
-    const bool is_action = id0 == k[2];
-    const bool create = is_action && val0 == k[3];
-    const bool rmd = is_action && (val0 == k[4] || val0 == k[5] || val0 == k[6]);
-    if (!WITH_ACL) {
-      acl = create || rmd;
-    } else if (create) {
-      acl = acl_create(a, b, t, elig, same);
-    } else if (rmd) {
-      acl = acl_rmd(a, b, t);
-    } else {
-      acl = false;
-    }
-  }
-  if (acl) bits |= TB_ACL;
-  return bits;
-}
-
-// the verifyACL masks of row b (its instances' eligibility per HR role and
-// their value equality), by the block
-__device__ void acl_masks(const Args& a, int b, uint64_t* elig,
-                          uint64_t* same) {
-  const int32_t* insts = a.r_acl_inst + (size_t)b * a.NACLE * a.NACLI;
-  const int32_t* hr_roles = a.r_hr_roles + (size_t)b * a.NHRR;
-  const int32_t* ahr = a.r_acl_hr + (size_t)b * a.NHR * 2;
-  for (int x = threadIdx.x; x < a.NACLE * a.NHRR; x += blockDim.x) {
-    const int e = x / a.NHRR, h = x % a.NHRR;
-    const int role = hr_roles[h];
-    uint64_t m = 0;
-    for (int i = 0; i < a.NACLI; ++i) {
-      const int inst = insts[e * a.NACLI + i];
-      if (inst < 0) continue;
-      for (int q = 0; q < a.NHR; ++q) {
-        if (ahr[q * 2 + 1] >= 0 && ahr[q * 2 + 1] == inst && ahr[q * 2] == role) {
-          m |= 1ull << i;
-          break;
-        }
-      }
-    }
-    elig[x] = m;
-  }
-  for (int x = threadIdx.x; x < a.NACLE * a.NACLI; x += blockDim.x) {
-    const int e = x / a.NACLI;
-    const int inst = insts[x];
-    uint64_t m = 0;
-    for (int j = 0; j < a.NACLI; ++j) {
-      const int other = insts[e * a.NACLI + j];
-      if (other >= 0 && other == inst) m |= 1ull << j;
-    }
-    same[x] = m;
-  }
-}
-
-// the verifyACL outcome of a row's light pairs: always (short path or a
-// CRUD action without instance masks to read), only where the target skips
-// ACL, or the per-target create / read-modify-delete scan (the pair goes to
-// the work list unless the target skips ACL)
-enum : uint8_t { GM_TRUE = 0, GM_SKIP = 1, GM_SCAN = 2 };
 
 // stages A-C for the block's n rows over the group's T targets.  Rounds of
 // at most GR_ROUND (row, target) pairs, consecutive threads on consecutive
@@ -386,97 +250,6 @@ __device__ void targets_stage(const Args& v, const int32_t* rows, int n,
       __syncthreads();
     }
   }
-}
-
-// stage D for (row b, set s) by one warp -> the row's setinfo[s]
-__device__ void gates(const Args& v, int b, int s, const uint8_t* tbits,
-                      uint8_t* setinfo) {
-  const int lane = threadIdx.x & 31;
-  const int32_t* rev = v.r_ent_vals + (size_t)b * v.NR;
-  const uint8_t* rvalid = v.r_ent_valid + (size_t)b * v.NR;
-  const bool multi = v.r_n_entity_attrs[b] > 1;
-  int first_kp = ACS_BIG, last_valid = -1;
-  uint32_t multi_hit = 0;
-  for (int kp = lane; kp < v.KP; kp += 32) {
-    const int p = s * v.KP + kp;
-    if (!v.pol_valid[p]) continue;
-    last_valid = kp;
-    const uint8_t tb = tbits[v.pol_target[p]];
-    const bool ctx_deny = v.pol_eff_ctx[p] == 2;
-    if (v.pol_has_target[p] && (tb & (ctx_deny ? TB_EX_D : TB_EX_P)))
-      first_kp = min(first_kp, kp);
-    if (multi && !(v.pol_effect[p] == 1 && v.pol_has_props[p])) {
-      for (int j = 0; j < v.NR; ++j) {
-        if (!rvalid[j]) continue;
-        for (int k = 0; k < v.KE; ++k) {
-          const int pe = v.pol_ent_vals[p * v.KE + k];
-          if (pe >= 0 && pe == rev[j]) multi_hit |= 1u << j;
-        }
-      }
-    }
-  }
-  first_kp = warp_min(first_kp);
-  last_valid = warp_max(last_valid);
-  multi_hit = warp_or(multi_hit);
-  if (lane != 0) return;
-  const bool exact0 = first_kp < ACS_BIG;
-  const int src = exact0 ? min(max(first_kp, 0), v.KP - 1)
-                         : min(max(last_valid, 0), v.KP - 1);
-  const int eval_eff = v.pol_eff_ctx[s * v.KP + src];
-  bool multi_gate = true;
-  if (multi) {
-    uint32_t valid_mask = 0;
-    for (int j = 0; j < v.NR; ++j)
-      if (rvalid[j]) valid_mask |= 1u << j;
-    multi_gate = (valid_mask & ~multi_hit) == 0;
-  }
-  const bool exact = exact0 && multi_gate;
-  const bool set_gate = (!v.set_has_target[s] ||
-                         (tbits[v.set_target[s]] & TB_EX_P)) &&
-                        v.set_valid[s];
-  setinfo[s] = (exact ? 1 : 0) | (eval_eff == 2 ? 2 : 0) | (set_gate ? 4 : 0);
-}
-
-// the block stages the rule arrays of policies [kp0, kp0 + npt) of set s:
-// the records, then the DENY, PERMIT and valid bitsets (one ballot per
-// word each)
-__device__ void stage_rules(const Args& v, int s, int kp0, int npt,
-                            int words, int32_t* rtgt, int32_t* rcond,
-                            uint8_t* rfl, uint32_t* sb) {
-  const size_t base = ((size_t)s * v.KP + kp0) * v.KR;
-  const int P = npt * v.KR;
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    const size_t q = base + i;
-    rtgt[i] = v.rule_has_target[q] ? v.rule_target[q] : -1;
-    rcond[i] = v.rule_cond[q];
-    rfl[i] = (uint8_t)((v.rule_valid[q] ? GF_VALID : 0) |
-                       ((v.rule_effect[q] & 3) << 1) |
-                       (v.rule_cacheable_eff[q] ? GF_CACH : 0));
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  for (int w = threadIdx.x >> 5; w < words; w += blockDim.x >> 5) {
-    const int i = w * 32 + lane;
-    const uint8_t fl = i < P ? rfl[i] : 0;
-    const uint32_t e2 = __ballot_sync(0xffffffffu, GF_EFF(fl) == 2);
-    const uint32_t e1 = __ballot_sync(0xffffffffu, GF_EFF(fl) == 1);
-    const uint32_t valid = __ballot_sync(0xffffffffu, fl & GF_VALID);
-    if (lane == 0) {
-      sb[w] = e2;
-      sb[words + w] = e1;
-      sb[2 * words + w] = valid;
-    }
-  }
-}
-
-// bits [start, start + n) (n <= 32) of a bitset, bit 0 first; the word
-// past the last position is readable (a spare)
-__device__ __forceinline__ uint32_t bit_window(const uint32_t* words,
-                                               int start, int n) {
-  const int w = start >> 5, o = start & 31;
-  uint32_t v = words[w] >> o;
-  if (o != 0 && o + n > 32) v |= words[w + 1] << (32 - o);
-  return n == 32 ? v : (v & ((1u << n) - 1u));
 }
 
 // stage E for row j (request row b) over one staged tile, by one warp:
@@ -584,37 +357,6 @@ __device__ void rules_row(const Args& v, int j, int b, int s, int kp0,
   abort_pos = warp_min(abort_pos);
   if (lane == 0) scal[j * 2] = min(scal[j * 2], abort_pos);
   __syncwarp();  // the row bitsets are read before the next row's writes
-}
-
-// stage F for (row j, set s) by one warp: the policy slot the set's
-// algorithm selects over the contribution bytes -> setres (and with EXPLAIN
-// the slot), the last contributing set by atomicMax
-template <class CT>
-__device__ void sets_stage(const Args& v, int j, int s, const CT* contrib,
-                           uint8_t* setres, int32_t* setkp, int32_t* scal) {
-  const int lane = threadIdx.x & 31;
-  const CT* c = contrib + (size_t)j * v.S * v.KP + (size_t)s * v.KP;
-  int first_deny = ACS_BIG, first_permit = ACS_BIG, first = ACS_BIG, last = -1;
-  for (int kp = lane; kp < v.KP; kp += 32) {
-    const int c8 = c[kp] & 0xff;
-    if (!(c8 & 1)) continue;
-    const int eff = (c8 >> 1) & 3;
-    first = min(first, kp);
-    last = max(last, kp);
-    if (eff == 2) first_deny = min(first_deny, kp);
-    if (eff == 1) first_permit = min(first_permit, kp);
-  }
-  first_deny = warp_min(first_deny);
-  first_permit = warp_min(first_permit);
-  first = warp_min(first);
-  last = warp_max(last);
-  if (lane != 0 || last < 0) return;
-  const int kp = min(max(select_pos(v.set_ca[s], first_deny, first_permit,
-                                    first, last), 0), v.KP - 1);
-  const int c8 = c[kp] & 0xff;
-  setres[j * v.S + s] = ((c8 >> 1) & 3) | (((c8 >> 3) & 1) << 2);
-  if (setkp != nullptr) setkp[j * v.S + s] = kp;
-  atomicMax(&scal[j * 2 + 1], s);
 }
 
 template <bool WITH_ACL, bool WITH_HR, bool WITH_REL, bool EXPLAIN>

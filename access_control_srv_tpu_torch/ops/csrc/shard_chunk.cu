@@ -18,7 +18,7 @@
 // (rule_chunk, set_chunk); the plain PyTorch versions it is held against:
 // ops/shard_ref.py rule_chunk_ref, set_chunk_ref.
 //
-// Per request row (one thread block), one merge row per request:
+// One merge row per request:
 //   - rule_chunk, against this shard's compacted tables (the rule axis cut
 //     to KR_local = KR_TOTAL / N_MODEL columns, the target subtable to the
 //     rows those rules and every policy/set target reference): stages A-D
@@ -48,53 +48,128 @@
 // What bounds it on an H100: the int32 compares of stages A-C over the
 // shard's target rows.  chip_smoke.py computes the bound from the main
 // path's own launch and measures the kernel there (PERF.md section 6 has
-// the readings on an H100 80GB HBM3 at 700 W); both sit far above the
-// bound, as the dense kernel does.  Design: the dense kernel's stage
-// functions, unchanged (one thread per target row, one warp per policy
-// with lanes over the rules and warp-shuffle min/max), so a rule shard
-// costs what the dense kernel costs on a quarter of the rules and a set
-// shard what it costs on its own sets (a set shard holds whole sets, so
-// the shards' work is as uneven as the sets are); only the stage after E
-// (rule_chunk) or F (set_chunk) differs.  In explain mode set_chunk also
-// writes the negated provenance key of the shard's last contributing set
-// after its set key (decide_core.cuh row_program); the MIN merge then
-// leaves the owner's, with no second collective.  The mode and with_acl /
-// with_hr / with_rel (and for set_chunk explain) are template parameters
-// (24 variants).  The kernel allocates nothing.
+// the readings on an H100 80GB HBM3 at 700 W).  Design: rule_chunk runs
+// the rule-chunk row program of decide_core.cuh (one block per row, one
+// thread per target row, one warp per policy with lanes over the rules), so
+// a rule shard costs what that program costs on a quarter of
+// the rules.
+// set_chunk (set_chunk_kernel) runs the rows program of rows_core.cuh in
+// ROW_SET_CHUNK mode (one block per RT rows, stages A-C over (row, target)
+// pairs with the fold only where subject and action match, stage E as a
+// bitset scan) on the shard's live target rows: the host hands it prefix
+// views, up to the shard's t_live, of the tables padded to the sticky
+// bucket (parallel/pod_shard.py), so the pad rows no index reaches are not
+// scanned.  A set shard holds whole sets, so the shards' work is as uneven
+// as the sets are.  In explain mode set_chunk also writes the negated
+// provenance key of the shard's last contributing set after its set key;
+// the MIN merge then leaves the owner's, with no second collective.
+// with_acl / with_hr / with_rel (and for set_chunk explain) are template
+// parameters (8 + 16 variants).  The kernels allocate nothing.
 
-#include "decide_core.cuh"
+#include "rows_core.cuh"
 
-template <int MODE, bool WITH_ACL, bool WITH_HR, bool WITH_REL, bool EXPLAIN>
-__global__ void shard_chunk_kernel(const ChunkArgs ca) {
+// the block's dynamic shared memory (one declaration for both kernels)
+__device__ __forceinline__ unsigned char* dyn_smem() {
   extern __shared__ __align__(16) unsigned char smem[];
-  row_program<MODE, WITH_ACL, WITH_HR, WITH_REL, EXPLAIN>(ca.a, blockIdx.x,
-                                                          smem, ca.ch);
+  return smem;
 }
 
-// one launch in MODE of the variant (with_acl, with_hr, with_rel,
+// rule_chunk (MODE ROW_RULE_CHUNK, no explain variant): one block per
+// request row
+template <int MODE, bool WITH_ACL, bool WITH_HR, bool WITH_REL, bool EXPLAIN>
+__global__ void shard_chunk_kernel(const ChunkArgs ca) {
+  static_assert(MODE == ROW_RULE_CHUNK && !EXPLAIN, "rule_chunk only");
+  row_program<WITH_ACL, WITH_HR, WITH_REL>(ca.a, blockIdx.x, dyn_smem(),
+                                           ca.ch);
+}
+
+// set_chunk: one block per RT request rows
+template <bool WITH_ACL, bool WITH_HR, bool WITH_REL, bool EXPLAIN>
+__global__ void __launch_bounds__(RW_THREADS, RW_MIN_BLOCKS)
+    set_chunk_kernel(const RowsArgs ra) {
+  rows_program<ROW_SET_CHUNK, WITH_ACL, WITH_HR, WITH_REL, EXPLAIN>(
+      ra, dyn_smem());
+}
+
+// the shared-memory opt-in each variant of either kernel has had
+template <bool... F>
+OptIn rule_opt_in;
+template <bool... F>
+OptIn set_opt_in;
+
+// one launch of `kernel` over `grid` blocks (the shared-memory opt-in set
+// first where `smem` needs more than `seen` records)
+template <class K, class A>
+static int launch(K kernel, int grid, const A& args, size_t smem,
+                  int threads, cudaStream_t stream, OptIn& seen) {
+  cudaError_t err = opt_in(kernel, smem, seen);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, threads, smem, stream>>>(args);
+  return (int)cudaGetLastError();
+}
+
+// one rule_chunk launch of the variant (with_acl, with_hr, with_rel,
 // explain); the rule-chunk mode has no explain variant
-template <int MODE>
-struct ChunkLaunch {
-  template <bool... F>
-  struct Variant {
-    static int run(const ChunkArgs& ca, size_t smem, int threads,
-                   cudaStream_t stream) {
-      constexpr bool flags[] = {F...};
-      if constexpr (MODE == ROW_RULE_CHUNK && flags[3]) {
-        return -1;
-      } else {
-        auto kernel = shard_chunk_kernel<MODE, F...>;
-        if (smem > 48 * 1024) {
-          cudaError_t err = cudaFuncSetAttribute(
-              kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-          if (err != cudaSuccess) return (int)err;
-        }
-        kernel<<<ca.a.B, threads, smem, stream>>>(ca);
-        return (int)cudaGetLastError();
-      }
+template <bool... F>
+struct RuleLaunch {
+  static int run(const ChunkArgs& ca, size_t smem, int threads,
+                 cudaStream_t stream) {
+    constexpr bool flags[] = {F...};
+    if constexpr (flags[3]) {
+      return -1;
+    } else {
+      return launch(shard_chunk_kernel<ROW_RULE_CHUNK, F...>, ca.a.B, ca,
+                    smem, threads, stream, rule_opt_in<F...>);
     }
-  };
+  }
 };
+
+// one set_chunk launch of the variant
+template <bool... F>
+struct SetLaunch {
+  static int run(const RowsArgs& ra, size_t smem, int threads,
+                 cudaStream_t stream) {
+    return launch(set_chunk_kernel<F...>, rows_grid(ra), ra, smem, threads,
+                  stream, set_opt_in<F...>);
+  }
+};
+
+// resident set_chunk blocks per SM of the variant at this shared memory
+// size
+template <bool... F>
+struct SetOccupancy {
+  static int run(size_t smem, int threads, int* blocks) {
+    auto kernel = set_chunk_kernel<F...>;
+    cudaError_t err = opt_in(kernel, smem, set_opt_in<F...>);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, kernel, threads, smem);
+  }
+};
+
+// the shape ints: the dense ones, ACS_CHUNK_DIMS, then RW_DIMS (read by
+// set_chunk only)
+static const int kNumShardDims = kNumDims + kNumChunkDims + kNumRwDims;
+
+// fills `ra` (its Args, Chunk and block shape) from the host's arrays;
+// false when the counts differ from this build's or the tile is zero
+static bool fill_shard(RowsArgs* ra, const int64_t* ptrs, int n_ptrs,
+                       const int32_t* dims, int n_dims) {
+  ChunkArgs ca;
+  if (n_dims != kNumShardDims ||
+      !fill_chunk_args(&ca, ptrs, n_ptrs, dims, n_dims - kNumRwDims))
+    return false;
+  ra->a = ca.a;
+  ra->ch = ca.ch;
+  return fill_rows_tile(ra, dims, n_dims);
+}
+
+// dynamic shared memory bytes of a launch in `mode`
+static size_t shard_smem(const RowsArgs& ra, int mode, bool with_acl,
+                         bool explain) {
+  return mode == ROW_RULE_CHUNK ? smem_layout(ra.a, with_acl).total
+                                : rw_smem(ra.a, ra.rt, with_acl, explain).total;
+}
 
 extern "C" {
 
@@ -102,40 +177,58 @@ extern "C" {
 // dense list, whose three outputs are passed null, then the merge buffer)
 const char* acs_shard_chunk_layout() {
   return ACS_PTRS(ACS_NAME) "merge,|" ACS_DIMS(ACS_DIM_NAME)
-      ACS_CHUNK_DIMS(ACS_DIM_NAME);
+      ACS_CHUNK_DIMS(ACS_DIM_NAME) RW_DIMS(ACS_DIM_NAME);
 }
 
-// dynamic shared memory bytes a launch needs (-1 on an argument mismatch);
-// the same in both modes
-long long acs_shard_chunk_smem(const int32_t* dims, int n_dims,
-                               int with_acl) {
-  Args a = {};
-  if (n_dims != kNumDims + kNumChunkDims || !fill_dims(&a, dims, kNumDims))
+// dynamic shared memory bytes a launch in `mode` needs (-1 on an argument
+// mismatch)
+long long acs_shard_chunk_smem(const int32_t* dims, int n_dims, int mode,
+                               int with_acl, int explain) {
+  RowsArgs ra = {};
+  if (n_dims != kNumShardDims || !fill_dims(&ra.a, dims, kNumDims) ||
+      !fill_rows_tile(&ra, dims, n_dims))
     return -1;
-  return (long long)smem_layout(a, with_acl != 0).total;
+  return (long long)shard_smem(ra, mode, with_acl != 0, explain != 0);
 }
 
-// launches the kernel on `stream` in `mode` (1: rule_chunk, 2: set_chunk;
-// explain only in set_chunk mode, where the merge row carries one more
-// column); returns cudaGetLastError() after the launch, or -1 when the
+// launches the kernel of `mode` (1: rule_chunk, 2: set_chunk; explain only
+// in set_chunk mode, where the merge row carries one more column) on
+// `stream`; returns cudaGetLastError() after the launch, or -1 when the
 // argument counts, the mode or the explain flag do not match this build
 int acs_shard_chunk(const int64_t* ptrs, int n_ptrs, const int32_t* dims,
                     int n_dims, int mode, int with_acl, int with_hr,
                     int with_rel, int explain, int threads, void* stream) {
-  ChunkArgs ca;
-  if (!fill_chunk_args(&ca, ptrs, n_ptrs, dims, n_dims)) return -1;
+  RowsArgs ra = {};
+  if (!fill_shard(&ra, ptrs, n_ptrs, dims, n_dims)) return -1;
   if (mode != ROW_RULE_CHUNK && mode != ROW_SET_CHUNK) return -1;
   if (explain && mode != ROW_SET_CHUNK) return -1;
-  if (ca.a.B == 0) return 0;
-  const size_t smem = smem_layout(ca.a, with_acl != 0).total;
+  if (ra.a.B == 0) return 0;
+  const size_t smem = shard_smem(ra, mode, with_acl != 0, explain != 0);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const bool flags[4] = {with_acl != 0, with_hr != 0, with_rel != 0,
                          explain != 0};
   if (mode == ROW_RULE_CHUNK)
-    return dispatch_flags<4, ChunkLaunch<ROW_RULE_CHUNK>::Variant>(
-        flags, ca, smem, threads, s);
-  return dispatch_flags<4, ChunkLaunch<ROW_SET_CHUNK>::Variant>(
-      flags, ca, smem, threads, s);
+    return dispatch_flags<4, RuleLaunch>(flags, ChunkArgs{ra.a, ra.ch}, smem,
+                                         threads, s);
+  return dispatch_flags<4, SetLaunch>(flags, ra, smem, threads, s);
+}
+
+// resident set_chunk blocks per SM of a variant at these shapes
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), -1 on a mismatch
+int acs_shard_chunk_occupancy(const int32_t* dims, int n_dims, int with_acl,
+                              int with_hr, int with_rel, int explain,
+                              int threads) {
+  RowsArgs ra = {};
+  if (n_dims != kNumShardDims || !fill_dims(&ra.a, dims, kNumDims) ||
+      !fill_rows_tile(&ra, dims, n_dims))
+    return -1;
+  const size_t smem = rw_smem(ra.a, ra.rt, with_acl != 0, explain != 0).total;
+  int blocks = 0;
+  const bool flags[4] = {with_acl != 0, with_hr != 0, with_rel != 0,
+                         explain != 0};
+  const int err = dispatch_flags<4, SetOccupancy>(flags, smem, threads,
+                                                  &blocks);
+  return err != 0 ? -1 : blocks;
 }
 
 }  // extern "C"

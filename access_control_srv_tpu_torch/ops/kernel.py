@@ -4,8 +4,10 @@
 ``evaluate_async`` returning a materialize thunk, the pow2 batch bucket and
 the ACL / no-ACL dispatch on the batch's content).  Its device work is one
 call of ``decide_dense``: on CUDA tensors that launches the hand-written
-kernel ``ops/csrc/decide_dense.cu``; on CPU tensors it runs the plain
-PyTorch version ``ops/kernel_ref.decide_dense_ref``.  A build or launch
+kernel ``ops/csrc/decide_dense.cu`` (the rows program of
+``csrc/rows_core.cuh``, one block per ``RT`` rows, ``rows_tiles``); on CPU
+tensors it runs the plain PyTorch version
+``ops/kernel_ref.decide_dense_ref``.  A build or launch
 failure on the card raises; nothing gives way to the plain version there.
 
 The signature path's three kernels (``ops/prefilter.PrefilteredKernel``)
@@ -17,7 +19,8 @@ are wrapped here the same way: ``sig_planes`` (``csrc/sig_planes.cu``),
 (``csrc/wia_planes.cu``, plain version ``ops/reverse_ref.py``).  The
 sharded programs' kernels (``parallel/rule_shard.py``,
 ``parallel/pod_shard.py``) are ``rule_chunk`` and ``set_chunk`` (the two
-modes of ``csrc/shard_chunk.cu``) and ``shard_tail``
+modes of ``csrc/shard_chunk.cu``; ``set_chunk`` runs the rows program on
+a pod shard's live target rows) and ``shard_tail``
 (``csrc/shard_tail.cu``), with plain versions in ``ops/shard_ref.py``.
 Every wrapper checks its library's argument layout string when it loads
 and counts its launches in ``LAUNCHES``.
@@ -64,6 +67,7 @@ from .reverse_ref import PLANE_KEYS, WIA_ROWS, WIA_TABLES, wia_planes_ref
 from .shard_ref import (
     MODE_RULE,
     MODE_SET,
+    live_rows,
     merge_width,
     rule_chunk_ref,
     set_chunk_ref,
@@ -74,9 +78,9 @@ __all__ = [
     "BIG", "DecisionKernel", "LAUNCHES", "ORIG_TABLE", "SlotLayout",
     "decide_dense", "decide_grouped", "grouped_layout",
     "lead_padding", "pack_rule_key", "pad_cols", "pow2_bucket",
-    "resolve_device", "rule_chunk", "set_chunk", "shard_tail", "sig_decide",
-    "sig_planes", "slot_layout", "tree_needs_hr", "tree_needs_rel",
-    "unpack_rule_key", "wia_planes",
+    "resolve_device", "rows_tiles", "rule_chunk", "set_chunk", "shard_tail",
+    "sig_decide", "sig_planes", "slot_layout", "tree_needs_hr",
+    "tree_needs_rel", "unpack_rule_key", "wia_planes",
 ]
 
 # kernel launches per wrapper, counted where the wrapper launches
@@ -238,14 +242,55 @@ GROUPED_DIMS = ("NSLOT", "R", "RT", "PT")
 GROUPED_THREADS = 256
 GROUPED_STAGE = {"rows": 16, "row_bytes": 64 * 1024, "rules": 32 * 1024}
 
+# the block shape of the rows program (csrc/rows_core.cuh: decide_dense and
+# set_chunk) after its other shape ints: request rows per block, policies
+# per staged rule tile
+ROWS_DIMS = ("RT", "PT")
+# threads per rows-program block, and how it sizes its blocks
+# (``rows_tiles``): at most ``rows`` rows per block, fewer where the batch
+# would give the card under ``blocks_per_sm`` blocks per SM, and a block's
+# shared memory within ``block_bytes`` (two blocks fit an H100 SM); a rule
+# tile's bytes (9 a rule position; a set whose rules exceed them is staged
+# in policy tiles)
+ROWS_STAGE = {"threads": 256, "rows": 16, "blocks_per_sm": 2,
+              "block_bytes": 112 * 1024, "rules": 16 * 1024}
+# the SM count the tiles are sized for where the tensors lie on the CPU
+# (the g++ stand-in of the tests): an H100's
+HOST_SM_COUNT = 132
+
 _libs: dict = {}
+_sm_counts: dict = {}
+# the block shapes rows_tiles has sized, by library, shapes and rule
+_tiles: dict = {}
+
+_VP, _INT = ctypes.c_void_p, ctypes.c_int
+# the shared-memory sizing and occupancy entry points of the libraries
+# that have them, typed once when the library loads: name -> {entry:
+# (restype, argtypes)}
+_SIZING = {
+    "decide_dense": {
+        "acs_decide_dense_smem": (ctypes.c_longlong, [_VP] + [_INT] * 3),
+        "acs_decide_dense_occupancy": (_INT, [_VP] + [_INT] * 6),
+        "acs_rows_tile": (_INT, [_VP, _INT, _INT, _VP, _VP])},
+    "shard_chunk": {
+        "acs_shard_chunk_smem": (ctypes.c_longlong, [_VP] + [_INT] * 4),
+        "acs_shard_chunk_occupancy": (_INT, [_VP] + [_INT] * 6),
+        "acs_rows_tile": (_INT, [_VP, _INT, _INT, _VP, _VP])},
+    "decide_grouped": {
+        "acs_decide_grouped_smem": (ctypes.c_longlong, [_VP] + [_INT] * 4),
+        "acs_decide_grouped_occupancy": (_INT, [_VP] + [_INT] * 6)},
+    "sig_decide": {
+        "acs_sig_decide_smem": (ctypes.c_longlong, [_VP] + [_INT] * 2),
+        "acs_sig_decide_occupancy": (_INT, [_VP, _INT, _VP] + [_INT] * 5)},
+}
 
 
 def _library(name: str, ptr_names: tuple, dim_names: tuple, flags: int):
     """The loaded library of ``csrc/<name>.cu`` (built first if needed),
     its entry point typed as (ptrs, n_ptrs, dims, n_dims, ``flags`` ints,
-    threads, stream) and its argument layout checked against the host's
-    (``ptr,...,|dim,...,``)."""
+    threads, stream), its ``_SIZING`` entry points and the device's
+    shared-memory limit typed, and its argument layout checked against
+    the host's (``ptr,...,|dim,...,``)."""
     lib = _libs.get(name)
     if lib is None:
         from . import cuda_build
@@ -259,6 +304,10 @@ def _library(name: str, ptr_names: tuple, dim_names: tuple, flags: int):
             [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
             + [ctypes.c_int] * (flags + 1) + [ctypes.c_void_p]
         )
+        for fn, (restype, argtypes) in _SIZING.get(name, {}).items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+        lib.acs_max_smem_optin.restype = ctypes.c_int
         lib.acs_cuda_error_string.restype = ctypes.c_char_p
         lib.acs_cuda_error_string.argtypes = [ctypes.c_int]
         want = ",".join(ptr_names) + ",|" + ",".join(dim_names) + ","
@@ -272,45 +321,25 @@ def _library(name: str, ptr_names: tuple, dim_names: tuple, flags: int):
     return lib
 
 
-def _dense_library(name: str):
-    """``decide_dense``: the dense program's layout, plus its
-    shared-memory sizing entry point."""
-    lib = _library(name, DENSE_PTRS, DIMS, 4)
-    smem = getattr(lib, f"acs_{name}_smem")
-    smem.restype = ctypes.c_longlong
-    smem.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-    lib.acs_max_smem_optin.restype = ctypes.c_int
-    return lib
+def _dense_library():
+    """``decide_dense``: the dense program's layout and the block shape."""
+    return _library("decide_dense", DENSE_PTRS, DIMS + ROWS_DIMS, 4)
+
+
+def _chunk_library():
+    """``shard_chunk`` (``rule_chunk`` and ``set_chunk``)."""
+    return _library("shard_chunk", CHUNK_PTRS,
+                    DIMS + CHUNK_DIMS + ROWS_DIMS, 5)
 
 
 def _grouped_library():
-    """``decide_grouped``: its layout, shared-memory sizing and occupancy
-    entry points."""
-    lib = _library("decide_grouped", GROUPED_PTRS, DIMS + GROUPED_DIMS, 4)
-    lib.acs_decide_grouped_smem.restype = ctypes.c_longlong
-    lib.acs_decide_grouped_smem.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                            ctypes.c_int, ctypes.c_int,
-                                            ctypes.c_int]
-    lib.acs_decide_grouped_occupancy.restype = ctypes.c_int
-    lib.acs_decide_grouped_occupancy.argtypes = (
-        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_int] * 5)
-    lib.acs_max_smem_optin.restype = ctypes.c_int
-    return lib
+    """``decide_grouped``."""
+    return _library("decide_grouped", GROUPED_PTRS, DIMS + GROUPED_DIMS, 4)
 
 
 def _sig_library():
-    """``sig_decide``: its layout, shared-memory sizing and occupancy
-    entry points."""
-    lib = _library("sig_decide", SIG_DECIDE_PTRS, SIG_DECIDE_DIMS, 3)
-    lib.acs_sig_decide_smem.restype = ctypes.c_longlong
-    lib.acs_sig_decide_smem.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                        ctypes.c_int]
-    lib.acs_sig_decide_occupancy.restype = ctypes.c_int
-    lib.acs_sig_decide_occupancy.argtypes = (
-        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-        + [ctypes.c_int] * 4)
-    lib.acs_max_smem_optin.restype = ctypes.c_int
-    return lib
+    """``sig_decide``."""
+    return _library("sig_decide", SIG_DECIDE_PTRS, SIG_DECIDE_DIMS, 3)
 
 
 def _check_smem(name: str, lib, smem: int) -> None:
@@ -357,6 +386,45 @@ def _dims(c: dict, r: dict) -> dict[str, int]:
 def threads_for(T: int) -> int:
     """Threads per block: one warp per 32 target rows, 64 to 256."""
     return min(256, max(64, -(-T // 32) * 32))
+
+
+def _sm_count(dev) -> int:
+    """The SM count of ``dev`` (``HOST_SM_COUNT`` for the CPU)."""
+    dev = torch.device(dev)
+    if dev.type != "cuda":
+        return HOST_SM_COUNT
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]
+
+
+def rows_tiles(lib, d: dict, explain: bool, n_sm: int) -> dict:
+    """The rows program's block shape ints (``ROWS_DIMS``) for the shapes
+    ``d``, as ``lib`` (a library built from ``csrc/rows_core.cuh``,
+    ``acs_rows_tile``) sizes them under ``ROWS_STAGE`` for ``n_sm`` SMs:
+    ``PT`` policies per rule tile within ``rules`` bytes; ``RT`` rows per
+    block, the fewest that keep the batch at most ``blocks_per_sm``
+    blocks per SM, capped by ``rows`` and by the block's shared memory
+    within ``block_bytes`` (a batch of fewer rows than that many blocks
+    takes one row per block).  Cached per shapes and rule."""
+    st = ROWS_STAGE
+    stage = (n_sm, st["rows"], st["blocks_per_sm"], st["block_bytes"],
+             st["rules"])
+    vals = [d[k] for k in DIMS]
+    key = (lib._name, explain, stage, *vals)
+    tile = _tiles.get(key)
+    if tile is None:
+        out = (ctypes.c_int32 * 2)()
+        if lib.acs_rows_tile((ctypes.c_int32 * len(vals))(*vals), len(vals),
+                             int(explain), (ctypes.c_int32 * 5)(*stage),
+                             out) != 0:
+            raise RuntimeError("acs_rows_tile: argument count mismatch")
+        if len(_tiles) >= 4096:
+            _tiles.clear()
+        tile = _tiles[key] = {"RT": out[0], "PT": out[1]}
+    return tile
 
 
 class LaunchArgs(NamedTuple):
@@ -417,44 +485,43 @@ def _outputs(n_rows: int, explain: bool, dev, zeroed: bool = False):
                  for i, k in enumerate(OUTPUTS)]
 
 
-def pack_args(c: dict, r: dict, name: str = "decide_dense",
-              explain: bool = False) -> LaunchArgs:
+def pack_args(c: dict, r: dict, explain: bool = False,
+              lib=None) -> LaunchArgs:
     """Check the tensors (one device, contiguous, int32 or bool, shapes
     within the kernel's limits), allocate the outputs ([4, B] with
     ``explain``) and pack the C arguments of one launch of the dense
-    program."""
+    program (its shape ints, then the block shape of ``rows_tiles``, as
+    ``lib``, by default ``decide_dense``'s library, sizes it)."""
     dev = r["r_n_ra"].device
-    dims, named = _dense_named(c, r, name)
+    dims, named = _dense_named(c, r, "decide_dense")
+    dims.update(rows_tiles(lib or _dense_library(), dims, explain,
+                           _sm_count(dev)))
     out, out_named = _outputs(dims["B"], explain, dev)
     named += out_named
-    ptrs, cdims = _c_arrays(_c_ptrs(name, named, dev),
-                            [dims[k] for k in DIMS])
+    ptrs, cdims = _c_arrays(_c_ptrs("decide_dense", named, dev),
+                            [dims[k] for k in DIMS + ROWS_DIMS])
     return LaunchArgs(out=out, ptrs=ptrs, dims=cdims, shape=dims,
-                      threads=threads_for(dims["T"]))
+                      threads=ROWS_STAGE["threads"])
 
 
-def _launch_dense(name: str, args: LaunchArgs, with_acl: bool,
-                  with_hr: bool, with_rel: bool) -> torch.Tensor:
+def _launch_dense(args: LaunchArgs, with_acl: bool, with_hr: bool,
+                  with_rel: bool) -> torch.Tensor:
     """One launch of ``decide_dense`` (the explain variant when the output
     has four rows)."""
     dev = args.out.device
-    lib = _dense_library(name)
-    smem = getattr(lib, f"acs_{name}_smem")(
-        ctypes.addressof(args.dims), len(args.dims), int(with_acl))
+    lib = _dense_library()
+    explain = int(args.out.shape[0] == 4)
     with torch.cuda.device(dev):
-        limit = lib.acs_max_smem_optin()
-        if smem > limit:
-            raise ValueError(
-                f"{name}: the tree needs {smem} bytes of shared memory "
-                f"per block, the device allows {limit}"
-            )
-        code = getattr(lib, f"acs_{name}")(
+        _check_smem("decide_dense", lib, lib.acs_decide_dense_smem(
+            ctypes.addressof(args.dims), len(args.dims), int(with_acl),
+            explain))
+        code = lib.acs_decide_dense(
             ctypes.addressof(args.ptrs), len(args.ptrs),
             ctypes.addressof(args.dims), len(args.dims), int(with_acl),
-            int(with_hr), int(with_rel), int(args.out.shape[0] == 4),
-            args.threads, torch.cuda.current_stream(dev).cuda_stream,
+            int(with_hr), int(with_rel), explain, args.threads,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
-    _check_launch(name, lib, code)
+    _check_launch("decide_dense", lib, code)
     return args.out
 
 
@@ -464,16 +531,27 @@ def decide_dense(c: dict, r: dict, with_acl: bool, with_hr: bool,
     cacheable, status; ``explain`` appends the provenance code).  CUDA
     tensors launch the kernel; CPU tensors run the plain version."""
     if r["r_n_ra"].device.type == "cuda":
-        return _launch_dense("decide_dense",
-                             pack_args(c, r, explain=explain), with_acl,
+        return _launch_dense(pack_args(c, r, explain=explain), with_acl,
                              with_hr, with_rel)
     return torch.stack(decide_dense_ref(c, r, with_acl, with_hr, with_rel,
                                         explain=explain))
 
 
+def decide_dense_occupancy(c: dict, r: dict, with_acl: bool, with_hr: bool,
+                           with_rel: bool, *, explain: bool = False) -> int:
+    """Resident ``decide_dense`` blocks per SM of the variant at one
+    call's shapes (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    args = pack_args(c, r, explain=explain)
+    with torch.cuda.device(r["r_n_ra"].device):
+        return _dense_library().acs_decide_dense_occupancy(
+            ctypes.addressof(args.dims), len(args.dims), int(with_acl),
+            int(with_hr), int(with_rel), int(explain), args.threads)
+
+
 # the shard programs' shape ints after the dense ones (csrc/decide_core.cuh
-# ACS_CHUNK_DIMS); their pointers are the dense list, whose outputs are
-# passed null, then the merge buffer
+# ACS_CHUNK_DIMS, then ROWS_DIMS, which only set_chunk reads); their
+# pointers are the dense list, whose outputs are passed null, then the
+# merge buffer
 CHUNK_DIMS = ("N_MODEL", "RANK", "OFFSET", "KR_TOTAL")
 CHUNK_PTRS = DENSE_PTRS + ("merge",)
 # the merge tail's tables (the rule-sharded mode) and argument order; KR
@@ -490,22 +568,30 @@ TAIL_THREADS = {MODE_RULE: 128, MODE_SET: 32}
 
 def pack_chunk_args(name: str, mode: int, c: dict, r: dict, offset: int,
                     kr_total: int, n_model: int, rank: int,
-                    explain: bool = False) -> LaunchArgs:
+                    explain: bool = False, lib=None) -> LaunchArgs:
     """Check and pack one launch of a shard program (``rule_chunk`` mode
     ``MODE_RULE``, ``set_chunk`` mode ``MODE_SET``, the latter's merge
-    row one column wider with ``explain``): allocates its merge rows
-    [B, W] as the launch's ``out``."""
+    row one column wider with ``explain``, its block shape from
+    ``rows_tiles`` as ``lib``, by default ``shard_chunk``'s library,
+    sizes it): allocates its merge rows [B, W] as the launch's ``out``."""
     dev = r["r_n_ra"].device
     dims, named = _dense_named(c, r, name)
     dims.update(N_MODEL=n_model, RANK=rank, OFFSET=offset, KR_TOTAL=kr_total)
+    if mode == MODE_SET:
+        dims.update(rows_tiles(lib or _chunk_library(), dims, explain,
+                               _sm_count(dev)))
+        threads = ROWS_STAGE["threads"]
+    else:
+        dims.update(RT=1, PT=1)
+        threads = threads_for(dims["T"])
     out = torch.empty((dims["B"], merge_width(mode, dims["S"], dims["KP"],
                                               n_model, explain)),
                       dtype=torch.int32, device=dev)
     named += [(k, None) for k in OUTPUTS] + [("merge", out)]
     ptrs, cdims = _c_arrays(_c_ptrs(name, named, dev),
-                            [dims[k] for k in DIMS + CHUNK_DIMS])
+                            [dims[k] for k in DIMS + CHUNK_DIMS + ROWS_DIMS])
     return LaunchArgs(out=out, ptrs=ptrs, dims=cdims, shape=dims,
-                      threads=threads_for(dims["T"]))
+                      threads=threads)
 
 
 def _launch_chunk(name: str, mode: int, args: LaunchArgs, with_acl: bool,
@@ -514,20 +600,11 @@ def _launch_chunk(name: str, mode: int, args: LaunchArgs, with_acl: bool,
     """One launch of ``csrc/shard_chunk.cu`` in ``mode``, counted under
     the wrapper's ``name`` (``rule_chunk`` or ``set_chunk``)."""
     dev = args.out.device
-    lib = _library("shard_chunk", CHUNK_PTRS, DIMS + CHUNK_DIMS, 5)
-    lib.acs_shard_chunk_smem.restype = ctypes.c_longlong
-    lib.acs_shard_chunk_smem.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                         ctypes.c_int]
-    lib.acs_max_smem_optin.restype = ctypes.c_int
-    smem = lib.acs_shard_chunk_smem(ctypes.addressof(args.dims),
-                                    len(args.dims), int(with_acl))
+    lib = _chunk_library()
     with torch.cuda.device(dev):
-        limit = lib.acs_max_smem_optin()
-        if smem > limit:
-            raise ValueError(
-                f"{name}: the shard needs {smem} bytes of shared memory "
-                f"per block, the device allows {limit}"
-            )
+        _check_smem(name, lib, lib.acs_shard_chunk_smem(
+            ctypes.addressof(args.dims), len(args.dims), mode,
+            int(with_acl), int(explain)))
         code = lib.acs_shard_chunk(
             ctypes.addressof(args.ptrs), len(args.ptrs),
             ctypes.addressof(args.dims), len(args.dims), mode, int(with_acl),
@@ -556,20 +633,40 @@ def rule_chunk(c: dict, r: dict, kr_offset: int, kr_total: int,
 
 def set_chunk(c: dict, r: dict, s_offset: int, n_model: int, rank: int,
               with_acl: bool, with_hr: bool, with_rel: bool, *,
-              explain: bool = False) -> torch.Tensor:
+              explain: bool = False, t_live: int | None = None
+              ) -> torch.Tensor:
     """Stages A-F of the pod-sharded program on one shard's set slots ->
     its int32 merge rows [B, W] (with ``explain`` the negated provenance
-    key of the shard's last contributing set after the set key).  CUDA
-    tensors launch ``csrc/shard_chunk.cu`` in its set-chunk mode; CPU
-    tensors run the plain version."""
+    key of the shard's last contributing set after the set key).
+    ``t_live`` cuts the target table to the rows below it (a shard's
+    table padded past its live rows with rows no index reaches: the
+    result is the same).  CUDA tensors launch ``csrc/shard_chunk.cu`` in
+    its set-chunk mode; CPU tensors run the plain version."""
     if r["r_n_ra"].device.type != "cuda":
         return set_chunk_ref(c, r, s_offset, n_model, rank, with_acl,
-                             with_hr, with_rel, explain=explain)
+                             with_hr, with_rel, explain=explain,
+                             t_live=t_live)
+    c = live_rows(c, t_live)
     S, KP, KR = c["rule_valid"].shape
     args = pack_chunk_args("set_chunk", MODE_SET, c, r, s_offset, KR,
                            n_model, rank, explain)
     return _launch_chunk("set_chunk", MODE_SET, args, with_acl, with_hr,
                          with_rel, explain)
+
+
+def set_chunk_occupancy(c: dict, r: dict, s_offset: int, n_model: int,
+                        rank: int, with_acl: bool, with_hr: bool,
+                        with_rel: bool, *, explain: bool = False,
+                        t_live: int | None = None) -> int:
+    """Resident ``set_chunk`` blocks per SM of the variant at one call's
+    shapes (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    c = live_rows(c, t_live)
+    args = pack_chunk_args("set_chunk", MODE_SET, c, r, s_offset,
+                           c["rule_valid"].shape[2], n_model, rank, explain)
+    with torch.cuda.device(r["r_n_ra"].device):
+        return _chunk_library().acs_shard_chunk_occupancy(
+            ctypes.addressof(args.dims), len(args.dims), int(with_acl),
+            int(with_hr), int(with_rel), int(explain), args.threads)
 
 
 def pack_shard_tail(merge: torch.Tensor, n_model: int,

@@ -205,12 +205,24 @@ def _set_explain_key(k_set, k_win, s_offset, KP, KR, sel_c, no_rules,
     return torch.where(k_win > 0, (pos << 2) | kind, 0)
 
 
+def live_rows(c: dict, t_live: int | None) -> dict:
+    """``c`` with every target-table field (``t_*``) cut to its first
+    ``t_live`` rows: prefix views, no copies (``c`` itself for None or
+    tables already cut, whose fields share one row count)."""
+    if t_live is None or c["t_role"].shape[0] == t_live:
+        return c
+    return {k: v[:t_live] if k.startswith("t_") else v for k, v in c.items()}
+
+
 def set_chunk_ref(c: dict, r: dict, s_offset: int, n_model: int, rank: int,
                   with_acl: bool, with_hr: bool, with_rel: bool, *,
-                  explain: bool = False) -> torch.Tensor:
+                  explain: bool = False, t_live: int | None = None
+                  ) -> torch.Tensor:
     """Stages A-F of the pod-sharded program on one shard's tables
     (``parallel/pod_shard.slice_shard``), set positions offset by
-    ``s_offset`` -> int32 [B, merge_width(MODE_SET, ..., explain)]."""
+    ``s_offset`` -> int32 [B, merge_width(MODE_SET, ..., explain)].
+    ``t_live`` cuts the target table to its live rows (``live_rows``)."""
+    c = live_rows(c, t_live)
     return torch.cat([
         _set_chunk(c, rc, s_offset, n_model, rank, with_acl, with_hr,
                    with_rel, explain)

@@ -20,7 +20,8 @@ runs inside one shard.  The JAX package merges across the ``model`` axis
 with a ``pmax`` over packed last-set keys and a ``pmin`` / owner ``pmax``
 for condition aborts inside one jitted ``shard_map``; here each batch is
 ``set_chunk`` (``ops/csrc/shard_chunk.cu``: stages A-F on this rank's set
-slots, the negated last-set key and this shard's abort slot), one MIN
+slots and its shard's live target rows, the negated last-set key and this
+shard's abort slot), one MIN
 ``all_reduce`` over ``model``, then ``shard_tail`` (``ops/csrc/
 shard_tail.cu``: unpack the winner, apply the first abort), and the
 ``[3, rows]`` outputs all-gather over ``data``.  Only O(n_model) ints per
@@ -59,6 +60,7 @@ from ..ops.kernel import (
     tree_needs_hr,
     tree_needs_rel,
 )
+from ..ops.shard_ref import live_rows
 from .mesh import Mesh, all_gather_cols, all_reduce, row_slice
 from .rule_shard import _T_FIELDS
 
@@ -226,8 +228,9 @@ class PodShardedKernel:
     def _place(self, placed: tuple | None) -> None:
         """This rank's shard on its device, its target subtable padded to
         the sticky bucket by repeating row 0 (inert: no live index reaches
-        the pads).  ``placed`` (shard tables, t_cap, device tensors) is
-        reused when this rank's shard and the bucket did not change."""
+        the pads, and ``set_chunk`` scans only the first ``t_live`` rows).
+        ``placed`` (shard tables, t_cap, device tensors) is reused when
+        this rank's shard and the bucket did not change."""
         own = self.shards[self.mesh.coords[self.model_axis]]
         if placed is not None and placed[0] is own and placed[1] == self.t_cap:
             self._c = placed[2]
@@ -241,6 +244,8 @@ class PodShardedKernel:
                 arrays[name] = v
             self._c = tables_from_numpy(arrays, self.device)
         self._own = own
+        # the live rows' prefix views, cut once per placement
+        self._live = live_rows(self._c, own.t_live)
 
     # ------------------------------------------------------- shard-local patch
     def patched(self, new_compiled: CompiledPolicies,
@@ -309,9 +314,10 @@ class PodShardedKernel:
         with_acl = bool((np.asarray(batch.arrays["r_acl_ent"]) >= 0).any())
         b, r = row_slice(batch, self.device, ROW_ARRAYS, self.n_data,
                          self.mesh.coords[self.data_axis])
-        merge = set_chunk(self._c, r, self._own.s_lo, self.n_shards,
+        merge = set_chunk(self._live, r, self._own.s_lo, self.n_shards,
                           self.mesh.coords[self.model_axis], with_acl,
-                          self.with_hr, self.with_rel, **self._explain_kw)
+                          self.with_hr, self.with_rel, t_live=self._own.t_live,
+                          **self._explain_kw)
         merge = all_reduce(merge, self.mesh, self.model_axis)
         out = shard_tail(merge, self.n_shards, **self._tail_kw)
         return readback(all_gather_cols(out, self.mesh, self.data_axis), b)

@@ -13,7 +13,8 @@ PyTorch version:
    instantiation, each explain-off instantiation beside its explain twin
    (with ``--parent-csrc DIR`` also held against the same kernels built
    from another tree's sources: equal registers and spills, except
-   ``sig_decide`` and ``decide_grouped``, listed as changed by design);
+   ``sig_decide``, ``decide_grouped``, ``decide_dense`` and ``set_chunk``,
+   listed as changed by design);
 3. dense kernel vs plain: ``decide_dense`` against ``kernel_ref`` on the
    card, exactly equal, on every supported fixture tree (the relation
    fixture without a store: fail-closed), the seed data and the 511-rule
@@ -129,11 +130,18 @@ After phase 18 the K3 / K4 report: each at (a), (b), (c) and explain on
 / off at phase 18's shapes, through its wrapper (as every kernel is
 timed) and of arguments packed once, beside its bound, the ratio, its
 ptxas numbers and resident blocks per SM, and the time recorded for the
-design before; with ``--parent-csrc DIR`` also the kernels built from
-``DIR`` (the parent tree's ``ops/csrc``, its ``ops/kernel.py`` beside
-it) on the same arguments, timed both ways in the same windows.
-``--quick`` runs phases 1-2, 6-7, 12 and 17-18 and the report only (no
-result lines).
+design before.  Then the K1 / K6 / K8 report, the rows program at
+its main-path calls (K1 at ``scoped_511``'s 4,096 rows, rank 0's 512- and
+8-row K6 launches at mesh (4,1), ``rebac-serve``'s ``with_rel`` launch,
+``set_chunk`` on the shard-scale stress shard at pod (1,4) and (2,2),
+rebuilt in this process), each call held against its plain version,
+explain on and off where the cell has both, its bound (``set_chunk``'s
+over the live rows) beside the yardstick of the design before, and the
+wrapper's host steps.  With ``--parent-csrc DIR`` both reports also time the kernels
+built from ``DIR`` (the parent tree's ``ops/csrc``, its ``ops/kernel.py``
+beside it) on the same arguments, both ways in the same windows.
+``--quick`` runs phases 1-2, 5 and 13, the K1 / K6 / K8 report, then
+phases 6-7, 12 and 17-18 and the K3 / K4 report only (no result lines).
 
 Any mismatch or error exits non-zero.  The line before the last is the
 kernel table as one JSON object (K1-K4 carry their ``with_rel`` variant's
@@ -181,7 +189,7 @@ from access_control_srv_tpu_torch.ops import prefilter as pfmod
 from access_control_srv_tpu_torch.ops import prefilter_ref
 from access_control_srv_tpu_torch.ops import reverse as rmod
 from access_control_srv_tpu_torch.ops import reverse_ref
-from access_control_srv_tpu_torch.ops import shard_ref
+from access_control_srv_tpu_torch.ops import kernel_ref, shard_ref
 from access_control_srv_tpu_torch.ops.carry import batch_from_numpy, tables_from_numpy
 from access_control_srv_tpu_torch.ops.encode import (
     _CAPS_FLOOR,
@@ -259,13 +267,14 @@ REBAC_TUPLES = 1_000_000
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_SCALAR_OPS_PER_S = 67e12
 ITERS = 5
-# the kernels this version of the port redesigned (K3, K4): timed through
-# the wrapper as every kernel is, and with STEADY_WINDOWS windows of
-# STEADY_ITERS launches of arguments packed once (time_steady), reported
-# beside their bound, their ptxas numbers, their resident blocks per SM,
-# the parent tree's kernels (--parent-csrc) and the times PERF.md records
-# for the design before (OLD_MS)
-REDESIGNED = ("sig_decide", "decide_grouped")
+# the kernels the port redesigned (K3, K4; K1 / K6 decide_dense and K8
+# set_chunk, the rows program): timed through the wrapper as every kernel
+# is, and with STEADY_WINDOWS windows of STEADY_ITERS launches of
+# arguments packed once (time_steady), reported beside their bound, their
+# ptxas numbers, their resident blocks per SM, the parent tree's kernels
+# (--parent-csrc) and the times PERF.md records for the design before
+# (OLD_MS)
+REDESIGNED = ("sig_decide", "decide_grouped", "decide_dense", "set_chunk")
 STEADY_ITERS, STEADY_WINDOWS = 100, 5
 # their times beside ``ms`` in the kernel table: packed once, and the
 # parent tree's kernel through its wrapper and packed once
@@ -277,6 +286,15 @@ OLD_MS = {
     ("sig_decide", "explain"): "0.118 / 0.182, explain off 0.090 / 0.163",
     ("decide_grouped", "explain"): "1.014 / 1.016, explain off 0.651 / "
                                    "0.689",
+    ("decide_dense", "scoped_511"): "0.223-0.249",
+    ("decide_dense", "K6 (4,1)"): "0.340-0.395 for both launches, the "
+                                  "8-row one alone 0.254",
+    ("decide_dense", "rebac-serve"): "0.099-0.117",
+    ("decide_dense", "explain"): "explain K6 (4,1) 0.320 / 0.396 for both "
+                                 "launches",
+    ("set_chunk", "(1,4)"): "1.142-1.165",
+    ("set_chunk", "(2,2)"): "0.657-0.662",
+    ("set_chunk", "explain"): "1.128 / 1.169 at (1,4)",
 }
 
 
@@ -684,8 +702,20 @@ def ptxas_report(csrc: str, out_dir: str) -> dict:
     return out
 
 
-# the instantiations phase 2 lists as changed by design
-REDESIGNED_PTX = ("sig_decide_kernel", "decide_grouped_kernel")
+# the instantiations phase 2 lists as changed by design (set_chunk_kernel
+# was shard_chunk_kernel<2, ...> in trees before it: set_chunk's own
+# kernel of shard_chunk.cu, whose shard_chunk_kernel<1, ...> is
+# rule_chunk's and keeps its numbers)
+REDESIGNED_PTX = ("sig_decide_kernel", "decide_grouped_kernel",
+                  "decide_dense_kernel", "set_chunk_kernel")
+
+
+def former_name(name: str) -> str:
+    """An instantiation's name in a tree before the set-mode kernel had
+    its own name."""
+    if not name.startswith("set_chunk_kernel<"):
+        return name
+    return "shard_chunk_kernel<2," + name[len("set_chunk_kernel<"):]
 
 
 def explain_off_twin(name: str) -> str:
@@ -693,8 +723,8 @@ def explain_off_twin(name: str) -> str:
     template argument of an explain-capable kernel dropped."""
     base = name.split("<")[0]
     if base not in ("decide_dense_kernel", "decide_grouped_kernel",
-                    "shard_chunk_kernel", "shard_tail_kernel",
-                    "sig_decide_kernel"):
+                    "shard_chunk_kernel", "set_chunk_kernel",
+                    "shard_tail_kernel", "sig_decide_kernel"):
         return name
     args = name[len(base) + 1:-1].split(",")
     return base + ("<" + ",".join(args[:-1]) + ">" if len(args) > 1 else "")
@@ -737,7 +767,8 @@ def phase_ptxas(other_csrc: str | None = None,
         same, changed, by_design = 0, [], []
         for k, v in sorted(mine.items()):
             if k.split("<")[0] in REDESIGNED_PTX:
-                by_design.append((k, other.get(k), v))
+                by_design.append((k, other.get(k, other.get(former_name(k))),
+                                  v))
                 continue
             # by name; a tree from before the explain flag has only the
             # explain-off twins
@@ -800,13 +831,30 @@ REL_TABLES = ("t_rel_idx", "t_rel_direct")
 REL_ROWS = ("r_rel_runs", "r_rel_bits")
 
 
-def bound_ms(c: dict, r: dict, with_rel: bool = False
-             ) -> tuple[float, str, int, int]:
+def passing_pairs(c: dict, r: dict) -> int:
+    """The (row, target) pairs whose subject and action tests pass: the
+    only pairs whose stage-A fold a call needs (the plain version's own
+    tests, a row chunk at a time)."""
+    n = 0
+    for rc in kernel_ref.row_chunks(c, r):
+        ok = kernel_ref._subject_ok(c, rc) & kernel_ref._pairs_subset(
+            c["t_act_ids"], c["t_act_vals"], rc["r_act_ids"],
+            rc["r_act_vals"])
+        n += int(ok.sum())
+    return n
+
+
+def bound_ms(c: dict, r: dict, with_rel: bool = False,
+             every_pair: bool = False) -> tuple[float, str, int, int]:
     """The least time the card could take for one call: the larger of the
     bytes the kernel must move (every input once, outputs once) over the
-    HBM rate and the int32 compare/logic operations of its loops at these
-    shapes over the scalar peak.  The relation arrays count only for the
-    with_rel variant (three operations per target row and relation run:
+    HBM rate and the int32 compare/logic operations it needs at these
+    shapes over the scalar peak: per (row, target) pair the subject and
+    action test, the rest of the stage-A fold only for the pairs that
+    pass it (``passing_pairs``; ``every_pair``: for every pair, the
+    yardstick of the design before the rows program and the only count
+    for stacked group tables), per row every rule and policy.  The relation arrays count only for the
+    with_rel variant (three operations per folded pair and relation run:
     the run test, the collect bit, the closure bit).  Returns (ms,
     bound_by, bytes, ops)."""
     d = kmod._dims(c, r)
@@ -815,21 +863,17 @@ def bound_ms(c: dict, r: dict, with_rel: bool = False
     nbytes += sum(int(r[k].nbytes) for k in kmod.ROW_ARRAYS + kmod.BATCH_ARRAYS
                   if k not in skip)
     nbytes += 3 * 4 * d["B"]
-    per_target = (
-        d["KS"] * d["NSUB"] + d["NROLE"] + d["KA"] * d["NACT"]
-        + 3 * d["KE"] * d["NR"] + d["KO"] * d["NOP"]
-        + d["NP"] * (d["KE"] + 2 * d["KPR"]) + 4 * d["NR"] + 16
-        + (3 * d["NRU_REL"] if with_rel else 0)
-    )
+    test = d["KS"] * d["NSUB"] + d["NROLE"] + d["KA"] * d["NACT"]
+    fold = (3 * d["KE"] * d["NR"] + d["KO"] * d["NOP"]
+            + d["NP"] * (d["KE"] + 2 * d["KPR"]) + 4 * d["NR"] + 16
+            + (3 * d["NRU_REL"] if with_rel else 0))
+    pairs = d["B"] * d["T"]
+    folded = pairs if every_pair else passing_pairs(c, r)
     per_rule, per_policy = 12, 16 + d["KE"] * d["NR"]
-    per_row = (d["T"] * per_target + d["S"] * d["KP"] * d["KR"] * per_rule
-               + d["S"] * d["KP"] * per_policy)
-    ops = d["B"] * per_row
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_SCALAR_OPS_PER_S * 1e3
-    if t_bytes >= t_ops:
-        return t_bytes, "bytes", nbytes, ops
-    return t_ops, "operations", nbytes, ops
+    ops = (pairs * test + folded * fold
+           + d["B"] * (d["S"] * d["KP"] * d["KR"] * per_rule
+                       + d["S"] * d["KP"] * per_policy))
+    return _finish_bound(nbytes, ops)
 
 
 def dense_plain(c, r, with_acl, with_hr, with_rel, explain=False):
@@ -971,7 +1015,8 @@ def phase_end_to_end(device, n_rows: int, stats: dict):
     bms, by, nbytes, ops = bound_ms(c, r)
     stats["main"] = dict(launches=launches, ms=ms, plain_ms=plain_ms,
                          bound_ms=bms, bound_by=by, rows=int(r["r_n_ra"].shape[0]),
-                         bytes=nbytes, ops=ops)
+                         bytes=nbytes, ops=ops, args=(c, r) + flags,
+                         yardstick_ms=bound_ms(c, r, every_pair=True)[0])
     # end-to-end evaluator throughput (host clock; each call ends in a
     # device sync inside materialize)
     evaluator.is_allowed_batch(reqs)
@@ -1482,61 +1527,79 @@ def occupancy(name: str, args: tuple, **kw) -> int:
     """Resident blocks per SM of a redesigned kernel's variant at one
     call's shapes."""
     fn = {"sig_decide": kmod.sig_decide_occupancy,
-          "decide_grouped": kmod.decide_grouped_occupancy}[name]
+          "decide_grouped": kmod.decide_grouped_occupancy,
+          "decide_dense": kmod.decide_dense_occupancy,
+          "set_chunk": kmod.set_chunk_occupancy}[name]
     return fn(*args, **kw)
 
 
-def parent_args(name: str, args: tuple) -> tuple:
-    """One K3 / K4 call's arguments as the parent tree's wrappers take
-    them (its K4 read each row's group from the card)."""
-    if name != "decide_grouped":
-        return args
-    inv, cs, g_idx, r = args[:4]
-    return (inv, cs, torch.as_tensor(g_idx, device=r["r_n_ra"].device),
-            r) + args[4:]
+def library_of(mod, name: str):
+    """A redesigned kernel's loaded library in ``mod`` (the port's
+    ``ops.kernel``, or the parent tree's copy of it from
+    ``load_parent``, whose dense library loader takes the source name
+    and whose shard library has no loader of its own)."""
+    if name == "sig_decide":
+        return mod._sig_library()
+    if name == "decide_grouped":
+        return mod._grouped_library()
+    if mod is kmod:
+        return (kmod._dense_library() if name == "decide_dense"
+                else kmod._chunk_library())
+    if name == "decide_dense":
+        return mod._dense_library("decide_dense")
+    return mod._library("shard_chunk", mod.CHUNK_PTRS,
+                        mod.DIMS + mod.CHUNK_DIMS, 5)
 
 
-def prepacked(mod, name: str, args: tuple, explain: bool = False):
-    """A K3 / K4 launch on one call's arguments packed once by ``mod``
-    (the port's ``ops.kernel``, or the parent tree's copy of it from
-    ``load_parent``) and launched through its library: what
-    ``time_steady`` times, the kernel without the wrapper's host
-    packing."""
-    a = parent_args(name, args) if mod is not kmod else args
+def prepacked(mod, name: str, args: tuple, explain: bool = False,
+              kw: dict | None = None, live: bool | None = None):
+    """A redesigned kernel's launch on one call's arguments packed once
+    by ``mod`` (the port's ``ops.kernel``, or the parent tree's copy of
+    it from ``load_parent``) and launched through its library: what
+    ``time_steady`` times, the kernel without the wrapper's host packing.
+    ``set_chunk`` takes ``kw["t_live"]``: the port's kernel runs on the
+    live target rows, the parent's on the whole table unless ``live``."""
+    kw = kw or {}
+    flags = tuple(bool(f) for f in args[len(args) - N_FLAGS[name]:])
+    pre: tuple = ()
+    keep: tuple = ()
     if name == "sig_decide":
         (inv, cs, planes, slot_g, rows, g2r, gp, _, schedule, needs_pairs,
-         with_hr, with_rel) = a
+         with_hr, with_rel) = args
         out, ptrs, dims = mod.pack_sig_decide(
             inv, cs, planes, slot_g, rows, g2r, gp, schedule, needs_pairs,
             with_hr, with_rel, explain)
         threads = mod.SIG_DECIDE_THREADS
-        flags = (with_hr, with_rel)
-        entry = mod._library("sig_decide", mod.SIG_DECIDE_PTRS,
-                             mod.SIG_DECIDE_DIMS, 3).acs_sig_decide
     else:
-        inv, cs, g_idx, r, with_acl, with_hr, with_rel = a
-        if mod is kmod:
-            packed, layout = kmod._grouped_args(inv, cs, g_idx, r, explain)
-            a = a + (layout,)
-            entry = kmod._grouped_library().acs_decide_grouped
+        if name == "decide_grouped":
+            packed, layout = mod._grouped_args(*args[:4], explain)
+            keep = (layout,)
+        elif name == "decide_dense":
+            packed = mod.pack_args(args[0], args[1], explain=explain)
         else:
-            packed = mod.pack_args({**inv, **cs}, r,
-                                   extra=(("g_idx", g_idx),),
-                                   name="decide_grouped", explain=explain)
-            entry = mod._dense_library("decide_grouped").acs_decide_grouped
+            c, r, s_offset, n_model, rank = args[:5]
+            if live if live is not None else mod is kmod:
+                c = shard_ref.live_rows(c, kw.get("t_live"))
+            packed = mod.pack_chunk_args(
+                "set_chunk", shard_ref.MODE_SET, c, r, s_offset,
+                c["rule_valid"].shape[2], n_model, rank, explain)
+            pre = (shard_ref.MODE_SET,)
+            keep = (c,)
         out, ptrs, dims, threads = (packed.out, packed.ptrs, packed.dims,
                                     packed.threads)
-        flags = (with_acl, with_hr, with_rel)
+    entry = getattr(library_of(mod, name), "acs_" + (
+        "shard_chunk" if name == "set_chunk" else name))
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
         code = entry(ctypes.addressof(ptrs), len(ptrs),
-                     ctypes.addressof(dims), len(dims),
+                     ctypes.addressof(dims), len(dims), *pre,
                      *(int(f) for f in flags), int(explain), threads,
                      stream)
         if code != 0:
             raise RuntimeError(f"{name} launch: {code}")
-    launch.keep = (a, out)  # what the packed pointers point at
+    launch.keep = (args, out) + keep  # what the packed pointers point at
+    launch.dims = dims
     return launch
 
 
@@ -1547,10 +1610,9 @@ PARENT = None
 def load_parent(csrc: str, lib_dir: str):
     """The parent tree's ``ops/kernel.py`` (beside ``csrc``) loaded as a
     module of the port's ops package, over the port's modules that it
-    imports (unchanged since), with the ``sig_decide`` / ``decide_grouped``
-    libraries phase 2 built from ``csrc`` into ``lib_dir``: its wrappers
-    and packing, to time the old K3 / K4 beside the new on the same
-    arguments."""
+    imports, with the libraries of the redesigned kernels phase 2 built
+    from ``csrc`` into ``lib_dir``: its wrappers and packing, to time the
+    parent's kernels beside the new on the same arguments."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
@@ -1562,41 +1624,61 @@ def load_parent(csrc: str, lib_dir: str):
     cuda_build.load = lambda name: ctypes.CDLL(
         os.path.join(lib_dir, f"lib{name}.so"))
     try:
-        mod._library("sig_decide", mod.SIG_DECIDE_PTRS,
-                     mod.SIG_DECIDE_DIMS, 3)
-        mod._dense_library("decide_grouped")
+        for name in REDESIGNED:
+            library_of(mod, name)
     finally:
         cuda_build.load = saved
     return mod
 
 
-def redesigned_times(name: str, args: tuple,
-                     explains: tuple = (False,)) -> dict:
-    """K3 / K4 on one call's arguments, for each explain flag of
-    ``explains`` (keys of the second suffixed ``_explain_off``): ``ms`` the
-    mean of ITERS launches through the wrapper after a warm-up (as every
-    kernel of the kernel table is timed), ``kernel_ms`` the median window
-    of ``time_steady`` over ``prepacked`` launches, and the resident
-    blocks per SM; with ``PARENT`` the parent tree's kernel on the same
-    arguments, ``parent_ms`` through its wrapper and ``parent_kernel_ms``
-    timed window by window in turns with ``kernel_ms``."""
+def redesigned_times(name: str, args: tuple, explains: tuple = (False,),
+                     kw: dict | None = None) -> dict:
+    """A redesigned kernel on one call's arguments (and keywords ``kw``:
+    ``set_chunk``'s ``t_live``), for each explain flag of ``explains``
+    (keys of the second suffixed ``_explain_off``): ``ms`` the mean of
+    ITERS launches through the wrapper after a warm-up (as every kernel
+    of the kernel table is timed), ``kernel_ms`` the median window of
+    ``time_steady`` over ``prepacked`` launches, and the resident blocks
+    per SM; with ``PARENT`` the parent tree's kernel on the same
+    arguments (for ``set_chunk`` the whole padded table, as the parent's
+    main path gave it), ``parent_ms`` through its wrapper and
+    ``parent_kernel_ms`` timed window by window in turns with
+    ``kernel_ms`` (and ``parent_live_kernel_ms``: the parent's
+    ``set_chunk`` on the live rows)."""
     wrapper = getattr(kmod, name)
-    mods = [kmod] + ([PARENT] if PARENT is not None else [])
+    kw = kw or {}
     out: dict = {}
     fns, keys = [], []
+    new_args = args
+    if "t_live" in kw:  # as PodShardedKernel passes them: cut once
+        new_args = (shard_ref.live_rows(args[0], kw["t_live"]),) + args[1:]
     for i, explain in enumerate(explains):
         sfx = "_explain_off" if i else ""
-        kw = {"explain": True} if explain else {}
-        out["ms" + sfx] = time_ms(lambda: wrapper(*args, **kw))
-        out["blocks_per_sm" + sfx] = occupancy(name, args, **kw)
+        ekw = {**kw, **({"explain": True} if explain else {})}
+        out["ms" + sfx] = time_ms(lambda: wrapper(*new_args, **ekw))
+        out["blocks_per_sm" + sfx] = occupancy(name, args, **ekw)
+        fns.append(prepacked(kmod, name, args, explain, kw))
+        keys.append("kernel_ms" + sfx)
+        if PARENT is None:
+            continue
+        pw = getattr(PARENT, name)
+        pkw = {k: v for k, v in ekw.items() if k != "t_live"}
+        out["parent_ms" + sfx] = time_ms(lambda: pw(*args, **pkw))
+        fns.append(prepacked(PARENT, name, args, explain, kw))
+        keys.append("parent_kernel_ms" + sfx)
+        if name == "set_chunk":
+            fns.append(prepacked(PARENT, name, args, explain, kw, live=True))
+            keys.append("parent_live_kernel_ms" + sfx)
+    if name in ("decide_dense", "set_chunk"):
+        # the wrappers too, in turns with the parent's (explain off)
+        ekw = {**kw, **({"explain": True} if explains[-1] else {})}
+        fns.append(lambda: wrapper(*new_args, **ekw))
+        keys.append("wrapper_steady_ms")
         if PARENT is not None:
-            pa = parent_args(name, args)
             pw = getattr(PARENT, name)
-            out["parent_ms" + sfx] = time_ms(lambda: pw(*pa, **kw))
-        for mod in mods:
-            fns.append(prepacked(mod, name, args, explain))
-            keys.append(("kernel_ms" if mod is kmod else "parent_kernel_ms")
-                        + sfx)
+            pkw = {k: v for k, v in ekw.items() if k != "t_live"}
+            fns.append(lambda: pw(*args, **pkw))
+            keys.append("parent_wrapper_steady_ms")
     out.update(zip(keys, time_steady(*fns)))
     return out
 
@@ -1622,7 +1704,8 @@ def time_kernel(name: str, args: tuple, plain_iters: int = 1) -> dict:
         bms, by, nbytes, ops = bound_sig_decide(args)
     elif name == "decide_grouped":
         inv, cs, _, r, _, _, with_rel = args
-        bms, by, nbytes, ops = bound_ms({**inv, **cs}, r, with_rel)
+        bms, by, nbytes, ops = bound_ms({**inv, **cs}, r, with_rel,
+                                        every_pair=True)
     else:
         c, r, _, _, with_rel = args
         bms, by, nbytes, ops = bound_ms(c, r, with_rel)
@@ -1672,6 +1755,7 @@ def phase_sig_main(device, stats: dict, card: str) -> dict:
     out["c"] = {"launches": launches,
                 "decide_grouped": time_kernel("decide_grouped",
                                               c_args["decide_grouped"])}
+    out["c_args"] = c_args["decide_grouped"]
     # the tree (host objects only) stays for phase 9's K5 check
     out["tree_100k"] = (engine, evaluator._compiled,
                         evaluator._tree_snapshot)
@@ -2522,11 +2606,13 @@ def phase_rebac(device, stats: dict, card: str, n_tuples: int,
         "stages_ms": stages, "decisions": decisions, "launches": launches,
         "k1": k1, "churn": {"decisions": seen, "ttv_ms": ttv_ms,
                             "launches": churn_launches},
+        "k1_args": args,
     }
     log(f"  rebac-serve on {card}: {out['decisions_per_s']:.0f} decisions/s "
         f"warm ({out['batch_ms']:.3f} ms per {batch_rows}), stages (ms) "
         f"{json.dumps(stages)}")
-    log(f"  decide_dense with_rel on {card}: {json.dumps(k1)}")
+    log(f"  decide_dense with_rel on {card}: "
+        + json.dumps({k: v for k, v in k1.items() if k != "flags"}))
     log(f"  churn: decisions {seen}, time to visibility {ttv_ms} ms, "
         f"launches {churn_launches}, no new build, compiled version "
         f"{version} unchanged")
@@ -2579,10 +2665,11 @@ def _checked(name: str, stats: dict, got, want) -> None:
         raise AssertionError(f"{name}: kernel != plain (max abs err {err})")
 
 
-def bound_chunk(c, r, flags, out) -> tuple[float, str, int, int]:
+def bound_chunk(c, r, flags, out, every_pair: bool = False
+                ) -> tuple[float, str, int, int]:
     """A shard kernel's bound: the dense bound's inputs and operations at
     the shard's shapes, with its merge rows as the output."""
-    _, _, nbytes, ops = bound_ms(c, r, flags[2])
+    _, _, nbytes, ops = bound_ms(c, r, flags[2], every_pair)
     return _finish_bound(nbytes - 12 * int(r["r_n_ra"].shape[0])
                          + int(out.nbytes), ops)
 
@@ -2764,19 +2851,29 @@ def layout_stage_times(kernel, calls: dict, check: dict,
     data_axis = kernel.axis if model_axis is None else kernel.data_axis
     out: dict = {"kernels": {}}
 
-    def bound(key: str, a: tuple) -> tuple:
+    def bound(key: str, a: tuple, every_pair: bool = False) -> tuple:
+        """The call's bound (set_chunk: over the live target rows), or
+        with ``every_pair`` the yardstick of the design before (the
+        stage-A fold on every pair of the whole table)."""
         name, kw = key.split("+")[0], kw_of[key]
         res = getattr(kmod, name)(*a, **kw)
         if name == "decide_dense":
-            return bound_ms(a[0], a[1], a[-1])
+            return bound_ms(a[0], a[1], a[-1], every_pair)
         if name == "shard_tail":
             return bound_tail(a[0], a[2] if len(a) > 2 else None, res)
-        return bound_chunk(a[0], a[1], a[-3:], res)
+        # set_chunk's yardstick over the kernel's whole padded table
+        c = kernel._c if every_pair else shard_ref.live_rows(
+            a[0], kw.get("t_live"))
+        return bound_chunk(c, a[1], a[-3:], res, every_pair)
 
     def timed(key: str) -> None:
         name, kw = key.split("+")[0], kw_of[key]
         launch = getattr(kmod, name)
         bounds = [bound(key, a) for a in calls[key]]
+        live = {}
+        if name in ("decide_dense", "set_chunk"):
+            live["yardstick_ms"] = sum(bound(key, a, True)[0]
+                                       for a in calls[key])
         out["kernels"][key] = {
             "ms": sum(time_ms(lambda a=a: launch(*a, **kw))
                       for a in calls[key]),
@@ -2786,6 +2883,7 @@ def layout_stage_times(kernel, calls: dict, check: dict,
             "bound_by": max(bounds)[1],
             "max_abs_err": check[name]["max_abs_err"],
             "launches": len(calls[key]),
+            **live,
             "rows": [int(a[0].shape[0] if name == "shard_tail"
                          else a[1]["r_n_ra"].shape[0]) for a in calls[key]]}
 
@@ -3085,7 +3183,8 @@ def phase16_rank(rank: int, world: int, out_dir: str) -> None:
                             caps=dict(_CAPS_FLOOR))
     _, r = row_slice(batch, device, kmod.ROW_ARRAYS, 1, 0)
     merge = kmod.set_chunk(k._c, r, k._own.s_lo, 1, 0,
-                           *shard_flags(ev._compiled, batch))
+                           *shard_flags(ev._compiled, batch),
+                           t_live=k._own.t_live)
     res["nccl_all_reduce_ms"] = _host_ms(
         lambda: dist.all_reduce(merge, op=dist.ReduceOp.MIN))
     res["merge_bytes"] = int(merge.nbytes)
@@ -3130,7 +3229,8 @@ def sharded_row(p15: dict, name: str, program: str,
     t = next(v for k, v in layouts.items()
              if k.endswith(("(1,4)", "(4,1)")))["kernels"][key]
     return {"launches": launches, "max_abs_err": err,
-            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "yardstick_ms") if k in t}}
 
 
 # ----------------------------------------------- explain mode (phases 17-18)
@@ -3431,7 +3531,8 @@ def phase_explain_main(device, stats: dict, card: str) -> dict:
                                  f"{want_key}")
     g_args = chk_c.args["decide_grouped+explain"]
     inv, cs, _, r, _, _, with_rel = g_args
-    _, _, nbytes, ops = bound_ms({**inv, **cs}, r, with_rel)
+    _, _, nbytes, ops = bound_ms({**inv, **cs}, r, with_rel,
+                                 every_pair=True)
     # plus the stacked rule_orig_flat read and the fourth output written
     bms, by, _, _ = _finish_bound(nbytes + int(cs[kmod.ORIG_TABLE].nbytes)
                                   + 4 * int(r["r_n_ra"].shape[0]), ops)
@@ -3496,7 +3597,7 @@ def redesign_report(sig: dict, expl: dict, ptx: dict, card: str) -> None:
             f"before: {OLD_MS[(name, cell)]} ms; "
             f"{ptx_of(name, t['flags'], False)}; "
             f"{t['blocks_per_sm']} blocks per SM")
-    for name in REDESIGNED:
+    for name in ("sig_decide", "decide_grouped"):
         t = expl[name]
         log(f"  {name} explain (phase 18) on {card}: on {times(t)}; off "
             f"{times(t, '_explain_off')}; on against off packed once "
@@ -3508,6 +3609,200 @@ def redesign_report(sig: dict, expl: dict, ptx: dict, card: str) -> None:
             f"{ptx_of(name, t['flags'], True)}, {t['blocks_per_sm']} blocks "
             f"per SM; {ptx_of(name, t['flags'], False)}, "
             f"{t['blocks_per_sm_explain_off']} blocks per SM")
+
+
+# -------------------------------------- the rows program (K1, K6 and K8)
+
+
+def evaluator_batches(compiled, engine, requests) -> list:
+    """The batches ``HybridEvaluator.is_allowed_batch`` encodes for
+    ``requests``: the floor-fitting rows at the floor caps, then the rest
+    at batch-max caps (one batch when either part is empty)."""
+    reqs = copy.deepcopy(requests)
+    wide = [not fits_floor(request_needs(r, compiled.urns)) for r in reqs]
+    parts = [(reqs, None)]
+    if len(reqs) >= 8 and 0 < sum(wide) < len(reqs):
+        parts = [([r for r, w in zip(reqs, wide) if not w],
+                  dict(_CAPS_FLOOR)),
+                 ([r for r, w in zip(reqs, wide) if w], None)]
+    return [encode_requests(rows, compiled, engine.resource_adapter,
+                            caps=caps) for rows, caps in parts]
+
+
+def k6_calls(device) -> list:
+    """Rank 0's ``decide_dense`` calls at mesh (4, 1) on phase 15's
+    ``scoped_511`` traffic, rebuilt in this process: its 512-row slice
+    of the floor batch and its 8-row slice of the wide rows."""
+    engine = engine_for("scoped_511")
+    compiled = compile_policies(engine.policy_sets, engine.urns)
+    c = tables_from_numpy(compiled.arrays, device, keys=kmod.TABLE_ARRAYS)
+    reqs = grid_requests(random.Random(5), SHARD_ROWS, stress=True)
+    out = []
+    for batch in evaluator_batches(compiled, engine, reqs):
+        _, r = mmod.row_slice(batch, device, kmod.ROW_ARRAYS, 4, 0)
+        out.append((c, r) + shard_flags(compiled, batch))
+    return out
+
+
+def pod_call(device, n_data: int, n_model: int) -> tuple:
+    """The ``set_chunk`` call of the shard-scale tree's stress shard (the
+    one with the most live target rows) at pod layout (n_data, n_model),
+    data coordinate 0, rebuilt in this process: ``PodShardedKernel`` on
+    a mesh without collectives at that shard's coordinates -> (args,
+    keywords, the shard's t_live and the kernel's t_cap)."""
+    engine = shard_scale_engine()
+    compiled = compile_policies(engine.policy_sets, engine.urns)
+    shards, _ = pod_shard.partition_sets(compiled, n_model)
+    d = max(range(n_model), key=lambda i: shards[i].t_live)
+    mesh = mmod.Mesh(axis_names=("data", "model"),
+                     shape={"data": n_data, "model": n_model},
+                     coords={"data": 0, "model": d},
+                     groups={"data": None, "model": None}, backend=None,
+                     device=device)
+    kern = pod_shard.PodShardedKernel(compiled, mesh)
+    (batch,) = evaluator_batches(compiled, engine, shard_scale_traffic())
+    _, r = mmod.row_slice(batch, device, kmod.ROW_ARRAYS, n_data, 0)
+    args = (kern._c, r, kern._own.s_lo, n_model, d) + shard_flags(compiled,
+                                                                  batch)
+    return args, {"t_live": kern._own.t_live}, kern.t_cap
+
+
+def rows_cases(device, stats: dict, rebac: dict) -> dict:
+    """The main-path calls of the rows program, by cell: (kernel, args,
+    keywords, explain flags to time)."""
+    cases = {"scoped_511": ("decide_dense", stats["main"]["args"], {},
+                            (True, False))}
+    for args, label in zip(k6_calls(device), ("K6 (4,1) 512 rows",
+                                              "K6 (4,1) 8 rows")):
+        cases[label] = ("decide_dense", args, {}, (False,))
+    cases["rebac-serve"] = ("decide_dense", rebac["k1_args"], {}, (False,))
+    for layout in ((1, 4), (2, 2)):
+        args, kw, t_cap = pod_call(device, *layout)
+        cases[f"set_chunk {layout}".replace(" ", "")] = (
+            "set_chunk", args, kw, (True, False))
+        log(f"  set_chunk {layout}: stress shard {args[4]}, "
+            f"{int(args[1]['r_n_ra'].shape[0])} rows, t_live "
+            f"{kw['t_live']} of t_cap {t_cap}")
+    return cases
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Mean host microseconds of ``fn`` over ``n`` calls (host clock),
+    after one warm-up call."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def host_steps(name: str, args: tuple, kw: dict) -> dict:
+    """The rows-program wrapper's host steps on one call's arguments, in
+    microseconds: the whole packing (``pack``; set_chunk's of the live
+    rows' views, which ``PodShardedKernel`` cuts once per placement),
+    with ``PARENT`` the parent's packing of the same call
+    (``parent_pack``, its set_chunk on the whole table as its wrapper
+    did), and the steps the rows program added: ``rows_tiles`` (cached
+    per shapes), ``sm_count`` and set_chunk's ``live_rows`` (the cut,
+    once per placement, and on the views it is handed per call)."""
+    c, r = args[0], args[1]
+    dev = r["r_n_ra"].device
+
+    def pack(mod, table):
+        if name == "decide_dense":
+            return mod.pack_args(table, r)
+        return mod.pack_chunk_args(
+            "set_chunk", shard_ref.MODE_SET, table, r, args[2],
+            table["rule_valid"].shape[2], args[3], args[4])
+
+    if name == "decide_dense":
+        out = {"pack": host_us(lambda: pack(kmod, c))}
+        lib = kmod._dense_library()
+    else:
+        live = shard_ref.live_rows(c, kw["t_live"])
+        out = {"pack": host_us(lambda: pack(kmod, live)),
+               "live_rows": host_us(
+                   lambda: shard_ref.live_rows(c, kw["t_live"])),
+               "live_rows_per_call": host_us(
+                   lambda: shard_ref.live_rows(live, kw["t_live"]))}
+        lib = kmod._chunk_library()
+    if PARENT is not None:
+        out["parent_pack"] = host_us(lambda: pack(PARENT, c))
+    shape = pack(kmod, c if name == "decide_dense" else shard_ref.live_rows(
+        c, kw["t_live"])).shape
+    out["rows_tiles"] = host_us(
+        lambda: kmod.rows_tiles(lib, shape, False, kmod._sm_count(dev)))
+    out["sm_count"] = host_us(lambda: kmod._sm_count(dev))
+    return out
+
+
+def rows_report(cases: dict, ptx: dict, card: str, stats: dict) -> dict:
+    """The rows program's report: each main-path call of ``cases`` held
+    against its plain version (each explain flag), then through the
+    wrapper and packed once (with ``--parent-csrc`` beside the parent's
+    kernel on the same arguments, both ways), explain on and off where
+    the cell has both, its plain version's time, bound (``set_chunk``:
+    over the live target rows) beside the yardstick of the design before
+    (the stage-A fold on every pair of the whole table), the wrapper's
+    host steps (``host_steps``), ptxas numbers, blocks per SM and block
+    shape; returns the times by cell."""
+    out = {}
+    for cell, (name, args, kw, explains) in cases.items():
+        for e in explains:
+            ekw = {**kw, "explain": True} if e else kw
+            _checked(name + ("+explain" if e else ""), stats,
+                     getattr(kmod, name)(*args, **ekw),
+                     PLAIN[name](*args, **ekw))
+        t = redesigned_times(name, args, explains, kw)
+        ekw = {**kw, "explain": True} if explains[0] else kw
+        t["plain_ms"] = time_ms(lambda: PLAIN[name](*args, **ekw), 1)
+        if name == "decide_dense":
+            t["bound_ms"], t["bound_by"], _, t["ops"] = bound_ms(
+                args[0], args[1], args[-1])
+            t["yardstick_ms"], _, _, t["ops_yardstick"] = bound_ms(
+                args[0], args[1], args[-1], every_pair=True)
+            shape = kmod.pack_args(args[0], args[1]).shape
+        else:
+            res = kmod.set_chunk(*args, **kw)
+            live = shard_ref.live_rows(args[0], kw["t_live"])
+            t["bound_ms"], t["bound_by"], _, t["ops"] = bound_chunk(
+                live, args[1], args[-3:], res)
+            t["yardstick_ms"], _, _, t["ops_yardstick"] = bound_chunk(
+                args[0], args[1], args[-3:], res, every_pair=True)
+            shape = kmod.pack_chunk_args(
+                "set_chunk", shard_ref.MODE_SET, live, args[1], args[2],
+                args[0]["rule_valid"].shape[2], args[3], args[4]).shape
+        t.update(rows=shape["B"], T=shape["T"], RT=shape["RT"],
+                 PT=shape["PT"], flags=[bool(f) for f in args[-3:]],
+                 host_us=host_steps(name, args, kw))
+        flags = ",".join(str(int(f)) for f in args[-3:])
+        kname = "decide_dense_kernel" if name == "decide_dense" \
+            else "set_chunk_kernel"
+        t["ptxas"] = {e: ptx.get(f"{kname}<{flags},{int(e)}>")
+                      for e in explains}
+        out[cell] = t
+        log(f"  {name} {cell} on {card}: " + json.dumps(t))
+        for i, e in enumerate(explains):
+            sfx = "_explain_off" if i else ""
+            line = (f"    explain {'on' if e else 'off'}: wrapper "
+                    f"{t['ms' + sfx]:.4f} ms, packed once "
+                    f"{t['kernel_ms' + sfx]:.4f} ms")
+            if "parent_kernel_ms" + sfx in t:
+                pk = t["parent_kernel_ms" + sfx]
+                line += (f"; parent wrapper {t['parent_ms' + sfx]:.4f} ms, "
+                         f"packed once {pk:.4f} ms "
+                         f"({pk / t['kernel_ms' + sfx]:.2f}x)")
+            log(f"{line}; PERF.md before: {old_ms(name, cell, e)} ms")
+    return out
+
+
+def old_ms(name: str, cell: str, explain: bool) -> str:
+    """The time PERF.md records for a rows-program cell's design before."""
+    if explain:
+        return OLD_MS[(name, "explain")]
+    if cell.startswith("K6"):
+        return OLD_MS[(name, "K6 (4,1)")]
+    return OLD_MS[(name, cell.replace("set_chunk", ""))]
 
 
 def main(argv: list[str]) -> int:
@@ -3542,9 +3837,17 @@ def main(argv: list[str]) -> int:
         # the parent's K3 / K4, timed beside the new on the same arguments
         global PARENT
         PARENT = load_parent(parent_csrc, parent_dir)
-    # --quick: the redesigned kernels' phases only (2, 6, 7, 12, 17, 18 and
-    # the report), no kernel table and no result line
+    # --quick: the redesigned kernels' phases only (2, 5, 13 and the rows
+    # program's report, then 6, 7, 12, 17, 18 and the K3 / K4 report), no
+    # kernel table and no result line
     quick = "--quick" in argv
+    if quick:
+        log("phase 5: dense main path")
+        phase_end_to_end(device, 4096, stats)
+        log("phase 13: ReBAC main path")
+        rebac = phase_rebac(device, sig_stats, card, REBAC_TUPLES)
+        log("K1 / K6 / K8 report (the rows program):")
+        rows_report(rows_cases(device, stats, rebac), ptx, card, sig_stats)
 
     if not quick:
         log("phase 3-4: dense kernel vs plain version, kernel vs oracle")
@@ -3564,7 +3867,7 @@ def main(argv: list[str]) -> int:
     sig = phase_sig_main(device, sig_stats, card)
     if quick:
         log("phase 12: relation variants vs plain versions")
-        phase_rel_vs_plain(device, sig_stats)
+        rel = phase_rel_vs_plain(device, sig_stats)
         log("phase 17: explain variants vs plain versions")
         phase_explain_vs_plain(device, sig_stats)
         log("phase 18: explain main path")
@@ -3634,6 +3937,9 @@ def main(argv: list[str]) -> int:
         f"{STEADY_WINDOWS} windows of {STEADY_ITERS} launches of arguments "
         "packed once):")
     redesign_report(sig, expl, ptx, card)
+    log("K1 / K6 / K8 report (the rows program; CUDA events as above):")
+    rows_t = rows_report(rows_cases(device, stats, rebac), ptx, card,
+                         sig_stats)
 
     log("  relation variants' times (CUDA events, 5 launches after a "
         "warm-up):")
@@ -3664,7 +3970,7 @@ def main(argv: list[str]) -> int:
         "name": "decide_dense", "launches": main_stats["launches"],
         "max_abs_err": stats["max_abs_err"], **{
             k: main_stats[k] for k in ("ms", "plain_ms", "bound_ms",
-                                       "bound_by")},
+                                       "bound_by", "yardstick_ms")},
     }]
     for name, key in (("sig_planes", "a"), ("sig_decide", "a"),
                       ("decide_grouped", "c")):
@@ -3690,6 +3996,12 @@ def main(argv: list[str]) -> int:
                                                       "K7")})
     rows.append({"name": "set_chunk", **sharded_row(p15, "set_chunk",
                                                      "K8")})
+    # K1's and K8's packed-once times (explain off): the rows report's
+    # scoped_511 and (1,4) cells
+    for r, cell in ((rows[0], "scoped_511"), (rows[-1], "set_chunk(1,4)")):
+        t = rows_t[cell]
+        r.update({k: t[k + "_explain_off"] for k in PACKED_KEYS
+                  if k + "_explain_off" in t})
     rows.append({"name": "shard_tail", **sharded_row(p15, "shard_tail",
                                                       "K7"),
                  "pod": {"replaces": TAIL_ALSO_REPLACES, **sharded_row(
@@ -3744,7 +4056,7 @@ def main(argv: list[str]) -> int:
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None,
-        **{k: r[k] for k in PACKED_KEYS if k in r},
+        **{k: r[k] for k in PACKED_KEYS + ("yardstick_ms",) if k in r},
         **({"with_rel": r["with_rel"]} if "with_rel" in r else {}),
         **{k: r[k] for k in ("explain", "k6", "pod") if k in r},
     } for r in rows]}))

@@ -5,10 +5,11 @@ is compiled as C++ with g++ against a small stand-in for ``cuda_runtime.h``
 that runs each thread block with one ``std::thread`` per CUDA thread
 (``std::barrier`` for ``__syncthreads``, ``__syncwarp`` and the warp
 shuffles and ballots, real atomics for ``atomicMin`` / ``atomicMax`` /
-``atomicAdd``).  The launch arguments are
+``atomicAdd`` / ``atomicOr``).  The launch arguments are
 packed by the port's own ``pack_args``, and the outputs must equal the
 plain PyTorch version exactly; each intrinsic of the stand-in has a test
-of its own semantics here.  This checks the kernel's logic and its argument
+of its own semantics here.  The rows program runs with 64-thread blocks
+of 3 rows (``rows_stage``) unless a test asks for another block shape.  This checks the kernel's logic and its argument
 layout; that nvcc accepts it for ``sm_90a`` and the timing are checked on
 the card by ``chip_smoke.py``.
 """
@@ -125,6 +126,9 @@ inline int atomicMin(int* p, int v) {
   return o;
 }
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline unsigned atomicOr(unsigned* p, unsigned v) { return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST); }
+struct uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return {x, y, z, w}; }
 inline int atomicMax(int* p, int v) {
   int o = __atomic_load_n(p, __ATOMIC_SEQ_CST);
   while (v > o && !__atomic_compare_exchange_n(p, &o, v, false, __ATOMIC_SEQ_CST, __ATOMIC_SEQ_CST)) {}
@@ -169,6 +173,9 @@ void emulate_launch(K kernel, int grid, int threads, size_t smem, const A& a) {
   }
 }
 """
+
+# the port's rows-program block shape, before any test changes it
+ROWS_STAGE = dict(tkernel.ROWS_STAGE)
 
 LAUNCH = re.compile(r"kernel<<<(.+?), (.+?), (.+?), stream>>>\((\w+)\);")
 SHARED = "extern __shared__ __align__(16) unsigned char smem[];"
@@ -217,9 +224,28 @@ def emulated(tmp_path_factory):
     ]
     lib.acs_decide_dense_smem.restype = ctypes.c_longlong
     lib.acs_decide_dense_smem.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ]
+    lib.acs_decide_dense_occupancy.restype = ctypes.c_int
+    lib.acs_decide_dense_occupancy.argtypes = [
+        ctypes.c_void_p, ctypes.c_int] + [ctypes.c_int] * 5
     return lib
+
+
+def set_rows_stage(monkeypatch, rows: int, threads: int = 64) -> None:
+    """Blocks of ``rows`` request rows (wherever a batch has that many)
+    and ``threads`` threads for the rows program on the stand-in."""
+    monkeypatch.setitem(tkernel.ROWS_STAGE, "threads", threads)
+    monkeypatch.setitem(tkernel.ROWS_STAGE, "rows", rows)
+    monkeypatch.setattr(tkernel, "HOST_SM_COUNT", 1)
+
+
+@pytest.fixture(autouse=True)
+def rows_stage(monkeypatch):
+    """Two warps and three rows per block: multi-row blocks, a block
+    shape that does not divide the pow2 batches, and every per-warp loop
+    strided."""
+    set_rows_stage(monkeypatch, 3)
 
 
 def run_emulated(lib, compiled, batch, explain=False):
@@ -230,7 +256,7 @@ def run_emulated(lib, compiled, batch, explain=False):
     with_acl = bool((batch.arrays["r_acl_ent"] >= 0).any())
     with_hr = tkernel.tree_needs_hr(compiled.arrays)
     with_rel = tkernel.tree_needs_rel(compiled.arrays)
-    args = tkernel.pack_args(c, r, explain=explain)
+    args = tkernel.pack_args(c, r, explain=explain, lib=lib)
     args.out.fill_(-7)
     code = lib.acs_decide_dense(
         ctypes.addressof(args.ptrs), len(args.ptrs),
@@ -254,27 +280,50 @@ def test_layout_matches_host(emulated):
              + tkernel.BATCH_ARRAYS + tkernel.OUTPUTS)
     assert names == tkernel.DENSE_PTRS and names[-1] == "out_explain"
     assert emulated.acs_decide_dense_layout().decode() == \
-        ",".join(names) + ",|" + ",".join(tkernel.DIMS) + ","
+        ",".join(names) + ",|" + ",".join(tkernel.DIMS + tkernel.ROWS_DIMS) \
+        + ","
 
 
 def test_shared_memory_layout(emulated):
-    """The ACL variant adds the per-row eligibility and equality masks
-    (8 bytes each) to the per-target, per-set and per-policy bytes."""
+    """Per block: each row's staged fields, abort and winner slots, tile
+    bitsets, set and policy bytes (4 per policy in explain mode, and the
+    picked policy per set) and target bits, its role and action masks,
+    the work list, the mask of the rows' roles, and the rule tile (three
+    bitsets, 9 bytes a rule position); the ACL variant adds each row's
+    eligibility and equality masks (8 bytes each)."""
     _, teng = make_engines("acl_policies.yml")
     tc, batch = port_batch(teng, spec_grid(n=16))
     c = tables_from_numpy(tc.arrays, "cpu")
     _, r = batch_from_numpy(batch, "cpu", keys=tkernel.ROW_ARRAYS)
-    args = tkernel.pack_args(c, r)
-    d = args.shape
+    for explain in (False, True):
+        args = tkernel.pack_args(c, r, explain=explain, lib=emulated)
+        d = args.shape
+        assert (d["RT"], d["PT"]) == (3, d["KP"])
 
-    def smem(with_acl):
-        return emulated.acs_decide_dense_smem(
-            ctypes.addressof(args.dims), len(args.dims), with_acl)
+        def smem(with_acl):
+            return emulated.acs_decide_dense_smem(
+                ctypes.addressof(args.dims), len(args.dims), with_acl,
+                int(explain))
 
-    base = 8 + d["T"] + 2 * d["S"] + d["S"] * d["KP"]
-    assert smem(0) == -(-base // 16) * 16
-    acl = 8 * d["NACLE"] * (d["NHRR"] + d["NACLI"])
-    assert smem(1) == -(-(base + acl) // 16) * 16
+        def up(x, k=16):
+            return -(-x // k) * k
+
+        words = -(-(d["PT"] * d["KR"]) // 32) + 1
+        sets = d["RT"] * d["S"]
+        head = 8 * d["RT"] + 8 * d["RT"] * words + 4 + 4 * 2048
+        head = up(head, 4) + 128 + 8 * d["RT"] + 4 * d["RT"] * (
+            d["NROLE"] + 2 * d["NSUB"] + 2 * d["NACT"])
+        head += (4 * sets + 4 * sets * d["KP"] if explain
+                 else sets * d["KP"])
+        head = up(head + d["RT"] + 2 * sets) + up(d["RT"] * d["T"])
+        tile = 12 * words + 9 * d["PT"] * d["KR"]
+
+        def total(acl):
+            return up(up(head + acl) + tile)
+
+        assert smem(0) == total(0)
+        assert smem(1) == total(8 * d["RT"] * d["NACLE"]
+                                * (d["NHRR"] + d["NACLI"]))
 
 
 def test_argument_count_mismatch_is_refused(emulated):
@@ -288,10 +337,15 @@ def test_argument_count_mismatch_is_refused(emulated):
     tc, batch = port_batch(teng, spec_grid(n=8))
     c = tables_from_numpy(tc.arrays, "cpu")
     _, r = batch_from_numpy(batch, "cpu", keys=tkernel.ROW_ARRAYS)
-    args = tkernel.pack_args(c, r)
+    args = tkernel.pack_args(c, r, lib=emulated)
     assert emulated.acs_decide_dense(
         ctypes.addressof(args.ptrs), len(args.ptrs),
         ctypes.addressof(args.dims), len(args.dims), 0, 0, 0, 1,
+        args.threads, None) == -1
+    # and the shape ints without the block shape
+    assert emulated.acs_decide_dense(
+        ctypes.addressof(args.ptrs), len(args.ptrs),
+        ctypes.addressof(args.dims), len(args.dims) - 2, 0, 0, 0, 0,
         args.threads, None) == -1
 
 
@@ -367,8 +421,8 @@ def test_owner_bitplane_boundaries(emulated, n_roles):
 
 
 def test_scoped_511_tree(emulated):
-    """The main path's tree: 511 target rows over 256-thread blocks, one
-    policy of 511 rules (lanes stride over the rule axis)."""
+    """The main path's tree: 511 target rows, one policy of 511 rules (a
+    16-word window read by one thread per row)."""
     _, teng = make_engines("scoped_511")
     tc, batch = port_batch(teng, spec_grid(n=12, seed=23))
     assert tc.KR == 511
@@ -465,6 +519,202 @@ def test_relation_stress_tree(emulated, scoped):
     assert torch.equal(got, want)
 
 
+# ------------------------------------------------- block shapes, windows
+
+DO3 = "urn:oasis:names:tc:xacml:3.0:rule-combining-algorithm:deny-overrides"
+PO3 = "urn:oasis:names:tc:xacml:3.0:rule-combining-algorithm:permit-overrides"
+FA3 = "urn:oasis:names:tc:xacml:3.0:rule-combining-algorithm:first-applicable"
+
+
+def window_doc(n_policies: int, kr: int) -> dict:
+    """``n_policies`` policies of ``kr`` rules over two sets (deny-overrides,
+    first-applicable), the policies' algorithms cycling deny-overrides /
+    permit-overrides / first-applicable: each policy's rules are a window
+    of ``kr`` bits in the flat rule order, across 32-bit words unless
+    ``kr`` divides 32.  Rules over 4 roles, 3 entities and 4 actions
+    (every third one DENY; the role-1 rules on the first entity with a
+    condition that aborts for requests without a subject id), so most
+    policies of a request collect a few rules."""
+    import chip_smoke
+
+    cas = [DO3, PO3, FA3]
+    sets = [[], []]
+    rid = 0
+    for p in range(n_policies):
+        rules = []
+        for _ in range(kr):
+            rule = {
+                "id": f"r{rid}",
+                "target": {
+                    "subjects": [{"id": chip_smoke.URNS["role"],
+                                  "value": f"role-{rid % 4}"}],
+                    "resources": [{"id": chip_smoke.URNS["entity"],
+                                   "value": chip_smoke.STRESS_ENTITIES[
+                                       (rid // 4) % 3]}],
+                    "actions": [{"id": chip_smoke.URNS["actionID"],
+                                 "value": chip_smoke.ACTIONS[
+                                     (rid // 12) % 4]}],
+                },
+                "effect": "PERMIT" if rid % 3 else "DENY",
+                "evaluation_cacheable": bool(rid % 2),
+            }
+            if rid % 4 == 1 and (rid // 4) % 3 == 0:
+                rule["condition"] = "context.subject.id.startswith('u')"
+            rules.append(rule)
+            rid += 1
+        sets[p % 2].append({"id": f"p{p}", "combining_algorithm": cas[p % 3],
+                            "rules": rules})
+    return {"policy_sets": [
+        {"id": f"s{k}", "combining_algorithm": (DO3, FA3)[k],
+         "policies": pols} for k, pols in enumerate(sets) if pols]}
+
+
+def window_specs(seed: int, n: int) -> list:
+    """``n`` request specs over the roles, entities and actions of
+    ``window_doc`` (one role in five and one entity in four outside it),
+    every fourth with ACL instances, every third without a subject id (and
+    every sixth of those role-1 on the first entity: they abort)."""
+    import chip_smoke
+
+    rng = random.Random(seed)
+    out = []
+    for i in range(n):
+        kw = {}
+        if i % 4 == 1:
+            kw = dict(acl_indicatory_entity=chip_smoke.ORG,
+                      acl_instances=rng.sample(chip_smoke.OWNERS,
+                                               rng.randint(1, 3)))
+        role, ent = rng.randrange(5), rng.randrange(4)
+        if i % 6 == 0:
+            role, ent = 1, 0
+        req = chip_smoke.build_request(
+            subject_id=rng.choice(["u1", "ada"]),
+            subject_role=f"role-{role}",
+            role_scoping_entity=chip_smoke.ORG,
+            role_scoping_instance=rng.choice(chip_smoke.OWNERS),
+            resource_type=chip_smoke.STRESS_ENTITIES[ent],
+            resource_id="id-0",
+            action_type=chip_smoke.ACTIONS[rng.randrange(4)],
+            owner_indicatory_entity=chip_smoke.ORG,
+            owner_instance=rng.choice(chip_smoke.OWNERS), **kw)
+        if i % 3 == 0:
+            req.context["subject"].pop("id", None)
+        out.append(request_spec(req))
+    return out
+
+
+def window_batch(n_policies: int, kr: int, n: int, seed: int):
+    """(port compile, batch) of ``window_doc`` with ``window_specs``."""
+    _, teng = engines_from_doc(window_doc(n_policies, kr))
+    return port_batch(teng, window_specs(seed, n))
+
+
+@pytest.mark.parametrize("kr", [5, 33, 511])
+def test_rule_windows(emulated, kr):
+    """Several policies of KR 5, 33 and 511 rules in two sets: every
+    policy's first selected, last collected and first aborting rule read
+    from its window of the row's bitsets, windows crossing words, explain
+    off and on; ACL and non-ACL rows in the same blocks."""
+    n_policies = {5: 9, 33: 5, 511: 2}[kr]
+    tc, batch = window_batch(n_policies, kr, 24, seed=kr)
+    assert (tc.KR, tc.S) == (kr, 2)
+    inst = (batch.arrays["r_acl_inst"] >= 0).reshape(batch.B, -1).any(1)
+    assert 0 < inst[:24].sum() < 24
+    for explain in (False, True):
+        got, want = run_emulated(emulated, tc, batch, explain=explain)
+        assert torch.equal(got, want), explain
+    assert set(want[0, :24].tolist()) >= {1, 2}
+    assert (want[2, :24] != 200).any()
+    if explain:
+        assert {1, 3} <= set((want[3, :24] & 3).tolist())
+
+
+@pytest.mark.parametrize("rt", [1, 2, 5, 16])
+def test_rows_per_block(emulated, monkeypatch, rt):
+    """Blocks of 1, 2, 5 (not a divisor of the 32-row batch: a short last
+    block) and 16 rows, 64 threads (fewer warps than rows) and 256:
+    every row's outputs its own, explain off and on."""
+    tc, batch = window_batch(5, 33, 30, seed=rt)
+    for threads in (64, 256):
+        set_rows_stage(monkeypatch, rt, threads)
+        for explain in (False, True):
+            got, want = run_emulated(emulated, tc, batch, explain=explain)
+            assert torch.equal(got, want), (threads, explain)
+    c = tables_from_numpy(tc.arrays, "cpu")
+    _, r = batch_from_numpy(batch, "cpu", keys=tkernel.ROW_ARRAYS)
+    shape = tkernel.pack_args(c, r, lib=emulated).shape
+    assert shape["RT"] == rt and (shape["B"] % rt != 0) == (rt == 5)
+
+
+def test_work_list_overflow(emulated, monkeypatch):
+    """A tree whose rules target resources only (no subject, no action):
+    every (row, target) pair of a 16-row block needs the fold, more pairs
+    than the work list holds, so the pairs past it fold where they are
+    found; explain off and on."""
+    import chip_smoke
+
+    set_rows_stage(monkeypatch, 16)
+    policies = [{"id": f"p{p}", "combining_algorithm": (DO3, PO3, FA3)[p],
+                 "rules": [{"id": f"r{p}_{q}", "target": {"resources": [
+                     {"id": chip_smoke.URNS["entity"],
+                      "value": chip_smoke.STRESS_ENTITIES[q % 3]}]},
+                            "effect": "PERMIT" if q % 3 else "DENY"}
+                           for q in range(60)]}
+                for p in range(3)]
+    _, teng = engines_from_doc({"policy_sets": [
+        {"id": "s0", "combining_algorithm": DO3, "policies": policies}]})
+    tc, batch = port_batch(teng, window_specs(3, 32))
+    assert tc.T * 16 > 2048
+    for explain in (False, True):
+        got, want = run_emulated(emulated, tc, batch, explain=explain)
+        assert torch.equal(got, want), explain
+    assert set(want[0, :32].tolist()) >= {1, 2}
+
+
+def test_rows_follow_the_batch(emulated, monkeypatch):
+    """``rows_tiles`` at the port's block shape: one row per block until
+    the batch gives every SM ``blocks_per_sm`` blocks, then more rows per
+    block up to ``rows``, and no more than the block's shared bytes (the
+    library's own ``acs_decide_dense_smem``, ACL variant) allow."""
+    monkeypatch.setattr(tkernel, "ROWS_STAGE", dict(ROWS_STAGE))
+    st = tkernel.ROWS_STAGE
+    _, teng = make_engines("acl_policies.yml")
+    tc, batch = port_batch(teng, spec_grid(n=16))
+    c = tables_from_numpy(tc.arrays, "cpu")
+    _, r = batch_from_numpy(batch, "cpu", keys=tkernel.ROW_ARRAYS)
+    base = {**tkernel._dims(c, r), "T": 511, "S": 1, "KP": 1, "KR": 511,
+            "NROLE": 4, "NSUB": 2, "NACT": 2, "NACLE": 4, "NACLI": 8,
+            "NHRR": 8}
+
+    def tile(d):
+        return tkernel.rows_tiles(emulated, d, False, 132)
+
+    def smem(d, rt, pt):
+        vals = [d[k] for k in tkernel.DIMS] + [rt, pt]
+        return emulated.acs_decide_dense_smem(
+            (ctypes.c_int32 * len(vals))(*vals), len(vals), 1, 0)
+
+    fill = st["blocks_per_sm"] * 132
+    tiles = {B: tile({**base, "B": B})["RT"]
+             for B in (8, 512, fill, fill + 1, 4096, 1 << 16)}
+    assert tiles == {8: 1, 512: 2, fill: 1, fill + 1: 2, 4096: 16,
+                     1 << 16: st["rows"]}
+    # K8's stress shard: 8,001 live target rows, 20 policies of 400 rules
+    shard = {**base, "B": 2048, "T": 8001, "KP": 20, "KR": 400}
+    got = tile(shard)
+    assert got["PT"] == st["rules"] // (9 * 400) == 4
+    assert got["RT"] == 8
+    assert smem(shard, 8, 4) <= st["block_bytes"]
+    # a wider table: as many rows as the block's bytes hold
+    wide = {**shard, "T": 20000}
+    got = tile(wide)
+    assert 1 < got["RT"] < 8
+    assert smem(wide, got["RT"], 4) <= st["block_bytes"] \
+        < smem(wide, got["RT"] + 1, 4)
+    # cached: the same shapes give the same tile without a second call
+    assert tile(wide) is got
+
+
 # ------------------------------------------------------------- explain
 
 
@@ -524,12 +774,13 @@ PROBE = r"""
 #include <cuda_runtime.h>
 
 struct ProbeArgs { int32_t* out; };
-#define PROBE_INTS 9
+#define PROBE_INTS 11
 
 // PROBE_INTS ints per thread: ballot (full mask, partial mask), a 64-bit
 // xor shuffle (high, low word), __ffs, __clz, after __syncwarp the value
-// the next lane of the warp wrote, and a shared atomicAdd's total and
-// returned ticket
+// the next lane of the warp wrote, a shared atomicAdd's total and
+// returned ticket, a shared atomicOr's result, and the word a uint4 store
+// of make_uint4 left at the thread's index
 __global__ void __launch_bounds__(64, 1) probe_kernel(const ProbeArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31;
@@ -550,9 +801,17 @@ __global__ void __launch_bounds__(64, 1) probe_kernel(const ProbeArgs a) {
   if (tid == 0) *counter = 0;
   __syncthreads();
   const int ticket = atomicAdd(counter, tid % 3);
+  uint32_t* bits = reinterpret_cast<uint32_t*>(sh + 104);
+  if (tid < 2) bits[tid] = 0;
   __syncthreads();
   o[7] = *counter;
   o[8] = ticket;
+  atomicOr(&bits[tid & 1], 1u << (tid >> 1));
+  uint4* quads = reinterpret_cast<uint4*>(sh + 112);
+  quads[tid] = make_uint4(tid, tid + 1, tid + 2, tid + 3);
+  __syncthreads();
+  o[9] = (int)bits[tid & 1];
+  o[10] = reinterpret_cast<int32_t*>(quads)[tid];
 }
 
 extern "C" int run_probe(int32_t* out, int* occupancy) {
@@ -573,7 +832,7 @@ def probe(tmp_path_factory):
     occupancy)."""
     lib = build_emulated("probe", tmp_path_factory.mktemp("probe_emu"),
                          src=PROBE)
-    out = torch.zeros((64, 9), dtype=torch.int32)
+    out = torch.zeros((64, 11), dtype=torch.int32)
     occ = ctypes.c_int(0)
     lib.run_probe.restype = ctypes.c_int
     assert lib.run_probe(ctypes.c_void_p(out.data_ptr()),
@@ -630,6 +889,18 @@ def test_standin_atomic_add(probe):
     tickets = [int(v) for v, a in zip(out[:, 8].tolist(), adds) if a]
     assert len(set(tickets)) == len(tickets)
     assert all(0 <= v <= sum(adds) - 1 for v in tickets)
+
+
+def test_standin_atomic_or(probe):
+    """atomicOr on shared memory: every thread's bit in the word."""
+    out = probe[0]
+    assert out[:, 9].tolist() == [-1] * 64
+
+
+def test_standin_uint4(probe):
+    """``uint4`` stores of ``make_uint4``: four words each, in order."""
+    out = probe[0]
+    assert out[:, 10].tolist() == [t // 4 + t % 4 for t in range(64)]
 
 
 def test_standin_occupancy(probe):
