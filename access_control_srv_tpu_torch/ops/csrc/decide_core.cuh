@@ -1,15 +1,18 @@
 // Device code shared by the port's decision kernels (sm_90a).
 //
-// rows_core.cuh (the rows program of decide_dense.cu, decide_grouped.cu and
-// shard_chunk.cu's set mode), sig_decide.cu, sig_planes.cu (stage A per
-// resource signature), wia_planes.cu (the whatIsAllowed planes per
-// representative row), shard_chunk.cu (the rule-chunk shard program) and
+// rows_core.cuh (the rows program, which decide_dense.cu and both modes of
+// shard_chunk.cu run, and the stage helpers decide_grouped.cu shares),
+// sig_decide.cu, sig_planes.cu (stage A per resource signature),
+// wia_planes.cu (the whatIsAllowed planes per representative row) and
 // shard_tail.cu (the sharded programs' merge tail) include this header.  It
-// holds the argument list of the dense program, its per-target stages A-C,
-// the per-row stages D (`stage_gates`), E (`scan_rules`) and F
-// (`stage_sets`), and the rule-chunk row program (`row_program`), written
-// once.  The plain PyTorch versions they are held against:
-// ops/kernel_ref.py, ops/prefilter_ref.py and ops/shard_ref.py.
+// holds the argument list of the dense program and of the shard programs
+// (Chunk, chunk_width), the stage-A components (`target_components`), the
+// HR and relation-path fold (`hr_bad`), the verifyACL branches
+// (`acl_rmd`, `acl_create`), the combining-algorithm selection
+// (`select_pos`), the provenance code and the abort slots, written once;
+// the programs themselves live in rows_core.cuh and the kernels' sources.
+// The plain PyTorch versions they are held against: ops/kernel_ref.py,
+// ops/prefilter_ref.py and ops/shard_ref.py.
 
 #pragma once
 
@@ -131,32 +134,8 @@ enum : uint8_t {
   TR_ENT_EX = 1, TR_OPM = 2, TR_FINAL_RG = 4, TR_ANY_RG = 8
 };
 
-struct SmemLayout {
-  size_t elig, same, scal, tbits, setinfo, total;
-};
-
 __host__ __device__ inline size_t align_up(size_t x, size_t a) {
   return (x + a - 1) / a * a;
-}
-
-// dynamic shared memory layout of `row_program`; the host sizes the launch
-// with the same function the kernel carves the buffer with
-__host__ __device__ inline SmemLayout smem_layout(const Args& a,
-                                                  bool with_acl) {
-  SmemLayout l;
-  size_t off = 0;
-  l.elig = off;  // uint64 [NACLE * NHRR]: bit i = instance i eligible
-  if (with_acl) off += sizeof(uint64_t) * a.NACLE * a.NHRR;
-  l.same = off;  // uint64 [NACLE * NACLI]: bit j = instance j equals i
-  if (with_acl) off += sizeof(uint64_t) * a.NACLE * a.NACLI;
-  l.scal = off;  // int32 [2]: abort position, winning set
-  off += sizeof(int32_t) * 2;
-  l.tbits = off;  // uint8 [T]
-  off += a.T;
-  l.setinfo = off;  // uint8 [S]: exact | eval_deny << 1 | set_gate << 2
-  off += a.S;
-  l.total = align_up(off, 16);
-  return l;
 }
 
 __device__ __forceinline__ int warp_min(int v) {
@@ -487,82 +466,6 @@ __device__ __forceinline__ bool hr_bad(const int32_t* words,
   return false;
 }
 
-// stages A-C for target row t: the six match bits; TB_HR carries the HR
-// check ANDed with the relation-path fold, as hr_pass does in the JAX
-// program
-template <bool WITH_ACL, bool WITH_HR, bool WITH_REL>
-__device__ uint8_t target_bits(const Args& a, int b, int t,
-                               const uint64_t* elig, const uint64_t* same) {
-  // ---- subject matching
-  const int n_subjects = a.t_n_subjects[t];
-  bool sub_ok = true;
-  if (n_subjects != 0) {
-    if (a.t_has_role[t]) {
-      const int role = a.t_role[t];
-      const int32_t* roles = a.r_roles + (size_t)b * a.NROLE;
-      sub_ok = false;
-      for (int j = 0; j < a.NROLE; ++j)
-        if (roles[j] >= 0 && roles[j] == role) sub_ok = true;
-    } else {
-      sub_ok = pairs_subset(a.t_sub_ids + t * a.KS, a.t_sub_vals + t * a.KS,
-                            a.KS, a.r_sub_ids + (size_t)b * a.NSUB,
-                            a.r_sub_vals + (size_t)b * a.NSUB, a.NSUB);
-    }
-  }
-  const bool need_hr = WITH_HR && n_subjects != 0 && a.t_has_scoping[t];
-  // the relation fold has no subject or scoping term: every row with a
-  // relation-path requirement needs the collection state
-  const int rel_idx = WITH_REL ? a.t_rel_idx[t] : -1;
-  const TargetComp comp = target_components(a, b, t, need_hr || rel_idx >= 0);
-  const bool base = sub_ok && (comp.bits & TC_ACT);
-
-  uint8_t bits = 0;
-  if (base) bits = comp.bits & (TB_EX_P | TB_EX_D | TB_RG_P | TB_RG_D);
-
-  // ---- stage B: HR scopes from the host-packed owner bitplanes
-  bool hr = true;
-  if (need_hr) {
-    const bool ctx_ok = a.r_ctx_present[b] && a.r_n_ra[b] > 0;
-    hr = ctx_ok && !hr_bad(a.r_own_bits + (size_t)b * a.NWORDS,
-                           a.r_own_runs + (size_t)b * a.NRU, a.NRU, a.NOP,
-                           a.NR, a.t_rs_idx[t], a.t_hr_check[t],
-                           comp.collect, comp.op_hit);
-  }
-  if (hr && rel_idx >= 0) {
-    hr = !hr_bad(a.r_rel_bits + (size_t)b * a.NWORDS_REL,
-                 a.r_rel_runs + (size_t)b * a.NRU_REL, a.NRU_REL, 0, a.NR,
-                 rel_idx, !a.t_rel_direct[t], comp.collect, 0);
-  }
-  if (hr) bits |= TB_HR;
-
-  // ---- stage B2: verifyACL
-  const int acl_short = a.r_acl_short[b];
-  bool acl;
-  if (a.t_skip_acl[t] || acl_short == 1) {
-    acl = true;
-  } else if (acl_short != 0 || a.r_n_ra[b] <= 0) {
-    acl = false;
-  } else {
-    const int32_t* k = a.acl_consts;
-    const int id0 = a.r_act_ids[(size_t)b * a.NACT];
-    const int val0 = a.r_act_vals[(size_t)b * a.NACT];
-    const bool is_action = id0 == k[2];
-    const bool create = is_action && val0 == k[3];
-    const bool rmd = is_action && (val0 == k[4] || val0 == k[5] || val0 == k[6]);
-    if (!WITH_ACL) {
-      acl = create || rmd;
-    } else if (create) {
-      acl = acl_create(a, b, t, elig, same);
-    } else if (rmd) {
-      acl = acl_rmd(a, b, t);
-    } else {
-      acl = false;
-    }
-  }
-  if (acl) bits |= TB_ACL;
-  return bits;
-}
-
 // combining-algorithm selection over positions: 0 deny-overrides,
 // 1 permit-overrides, 2 first-applicable, anything else 0
 __device__ __forceinline__ int select_pos(int ca, int first_deny,
@@ -574,10 +477,11 @@ __device__ __forceinline__ int select_pos(int ca, int first_deny,
   return 0;
 }
 
-// the row programs: the dense decision (K1, rows_core.cuh), the
-// rule-chunk shard program (K7, row_program below: stages A-E on one rule
-// chunk, packed keys out) and the set-chunk shard program (K8,
-// rows_core.cuh: stages A-F on one set chunk, the last-set key out)
+// the modes of the rows program (rows_core.cuh): the dense decision (K1),
+// the rule-chunk shard program (K7: stages A-E on one rule chunk, packed
+// keys out) and the set-chunk shard program (K8: stages A-F on one set
+// chunk, the last-set key out); shard_tail.cu takes the two shard modes
+// as its modes
 enum RowMode { ROW_DENSE = 0, ROW_RULE_CHUNK = 1, ROW_SET_CHUNK = 2 };
 
 // packed-key columns per (set, policy) in a rule chunk's merge row:
@@ -634,230 +538,6 @@ static bool fill_chunk_args(ChunkArgs* ca, const int64_t* ptrs, int n_ptrs,
   return true;
 }
 
-// stages A-C for request row b: the per-row verifyACL pieces, then one
-// thread per target row writes its six match bits to shared memory
-template <bool WITH_ACL, bool WITH_HR, bool WITH_REL>
-__device__ void stage_targets(const Args& a, int b, const SmemLayout& L,
-                              unsigned char* smem) {
-  uint64_t* elig = reinterpret_cast<uint64_t*>(smem + L.elig);
-  uint64_t* same = reinterpret_cast<uint64_t*>(smem + L.same);
-  int32_t* scal = reinterpret_cast<int32_t*>(smem + L.scal);
-  uint8_t* tbits = smem + L.tbits;
-  const int tid = threadIdx.x;
-
-  if (tid == 0) {
-    scal[0] = ACS_BIG;  // first aborting rule, flat position
-    scal[1] = -1;       // last set with a contribution
-  }
-  if (WITH_ACL) {
-    // target-independent verifyACL pieces of this row
-    const int32_t* insts = a.r_acl_inst + (size_t)b * a.NACLE * a.NACLI;
-    const int32_t* hr_roles = a.r_hr_roles + (size_t)b * a.NHRR;
-    const int32_t* ahr = a.r_acl_hr + (size_t)b * a.NHR * 2;
-    for (int x = tid; x < a.NACLE * a.NHRR; x += blockDim.x) {
-      const int e = x / a.NHRR, h = x % a.NHRR;
-      const int role = hr_roles[h];
-      uint64_t m = 0;
-      for (int i = 0; i < a.NACLI; ++i) {
-        const int inst = insts[e * a.NACLI + i];
-        if (inst < 0) continue;
-        for (int q = 0; q < a.NHR; ++q) {
-          if (ahr[q * 2 + 1] >= 0 && ahr[q * 2 + 1] == inst && ahr[q * 2] == role) {
-            m |= 1ull << i;
-            break;
-          }
-        }
-      }
-      elig[x] = m;
-    }
-    for (int x = tid; x < a.NACLE * a.NACLI; x += blockDim.x) {
-      const int e = x / a.NACLI, i = x % a.NACLI;
-      const int inst = insts[x];
-      uint64_t m = 0;
-      for (int j = 0; j < a.NACLI; ++j) {
-        const int other = insts[e * a.NACLI + j];
-        if (other >= 0 && other == inst) m |= 1ull << j;
-      }
-      same[x] = m;
-    }
-    __syncthreads();
-  }
-
-  for (int t = tid; t < a.T; t += blockDim.x)
-    tbits[t] = target_bits<WITH_ACL, WITH_HR, WITH_REL>(a, b, t, elig, same);
-  __syncthreads();
-}
-
-// stage D: policy gates per set (one warp per set) -> setinfo
-__device__ void stage_gates(const Args& a, int b, const SmemLayout& L,
-                            unsigned char* smem) {
-  const uint8_t* tbits = smem + L.tbits;
-  uint8_t* setinfo = smem + L.setinfo;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int32_t* rev = a.r_ent_vals + (size_t)b * a.NR;
-  const uint8_t* rvalid = a.r_ent_valid + (size_t)b * a.NR;
-  const bool multi = a.r_n_entity_attrs[b] > 1;
-  for (int s = warp; s < a.S; s += nwarps) {
-    int first_kp = ACS_BIG, last_valid = -1;
-    uint32_t multi_hit = 0;
-    for (int kp = lane; kp < a.KP; kp += 32) {
-      const int p = s * a.KP + kp;
-      const bool pv = a.pol_valid[p];
-      if (!pv) continue;
-      last_valid = kp;
-      const uint8_t tb = tbits[a.pol_target[p]];
-      const bool ctx_deny = a.pol_eff_ctx[p] == 2;
-      if (a.pol_has_target[p] && (tb & (ctx_deny ? TB_EX_D : TB_EX_P)))
-        first_kp = min(first_kp, kp);
-      if (multi && !(a.pol_effect[p] == 1 && a.pol_has_props[p])) {
-        for (int j = 0; j < a.NR; ++j) {
-          if (!rvalid[j]) continue;
-          for (int k = 0; k < a.KE; ++k) {
-            const int pe = a.pol_ent_vals[p * a.KE + k];
-            if (pe >= 0 && pe == rev[j]) multi_hit |= 1u << j;
-          }
-        }
-      }
-    }
-    first_kp = warp_min(first_kp);
-    last_valid = warp_max(last_valid);
-    multi_hit = warp_or(multi_hit);
-    if (lane == 0) {
-      const bool exact0 = first_kp < ACS_BIG;
-      const int src = exact0 ? min(max(first_kp, 0), a.KP - 1)
-                             : min(max(last_valid, 0), a.KP - 1);
-      const int eval_eff = a.pol_eff_ctx[s * a.KP + src];
-      bool multi_gate = true;
-      if (multi) {
-        uint32_t valid_mask = 0;
-        for (int j = 0; j < a.NR; ++j)
-          if (rvalid[j]) valid_mask |= 1u << j;
-        multi_gate = (valid_mask & ~multi_hit) == 0;
-      }
-      const bool exact = exact0 && multi_gate;
-      const bool set_gate = (!a.set_has_target[s] ||
-                             (tbits[a.set_target[s]] & TB_EX_P)) &&
-                            a.set_valid[s];
-      setinfo[s] = (exact ? 1 : 0) | (eval_eff == 2 ? 2 : 0) | (set_gate ? 4 : 0);
-    }
-  }
-  __syncthreads();
-}
-
-// stage E for policy p, run by one warp: positional first-DENY /
-// first-PERMIT / first / last collected rule (kr) and the first aborting
-// rule (local flat position), warp-reduced so every lane holds them
-struct PolicyScan {
-  int first_deny, first_permit, first, last, abort_pos;
-  bool gate;  // valid, set gate and policy gate (the no-rules premise)
-};
-
-__device__ PolicyScan scan_rules(const Args& a, int b, int p,
-                                 const uint8_t* tbits,
-                                 const uint8_t* setinfo) {
-  const int lane = threadIdx.x & 31;
-  const int s = p / a.KP;
-  const uint8_t si = setinfo[s];
-  const bool exact = si & 1, eval_deny = si & 2, set_gate = si & 4;
-  const bool pv = a.pol_valid[p];
-  const uint8_t tb = tbits[a.pol_target[p]];
-  const uint8_t tm = exact ? (eval_deny ? TB_EX_D : TB_EX_P)
-                           : (eval_deny ? TB_RG_D : TB_RG_P);
-  const bool pol_gate = (!a.pol_has_target[p] || (tb & tm)) && pv;
-  const bool pol_subject = !a.pol_has_subjects[p] || (tb & TB_HR);
-  const bool scope = set_gate && pol_gate;
-  PolicyScan r;
-  r.first_deny = ACS_BIG;
-  r.first_permit = ACS_BIG;
-  r.first = ACS_BIG;
-  r.last = -1;
-  r.abort_pos = ACS_BIG;
-  r.gate = pv && set_gate && pol_gate;
-  if (scope) {
-    for (int kr = lane; kr < a.KR; kr += 32) {
-      const int q = p * a.KR + kr;
-      if (!a.rule_valid[q]) continue;
-      const bool has_t = a.rule_has_target[q];
-      const uint8_t tr = has_t ? tbits[a.rule_target[q]] : 0xff;
-      const int eff = a.rule_effect[q];
-      const bool deny = eff == 2;
-      const bool tm_rule = (tr & (deny ? TB_EX_D : TB_EX_P)) ||
-                           (tr & (deny ? TB_RG_D : TB_RG_P));
-      if (!tm_rule || !(tr & TB_HR)) continue;  // not reached
-      const int ci = a.rule_cond[q];
-      bool ct = true, cab = false;
-      if (ci >= 0 && a.C > 0) {
-        ct = a.cond_true[(size_t)ci * a.CSTRIDE + b];
-        cab = a.cond_abort[(size_t)ci * a.CSTRIDE + b];
-      }
-      if (ci >= 0 && cab) {
-        r.abort_pos = min(r.abort_pos, q);
-        continue;
-      }
-      if ((ci < 0 || ct) && (tr & TB_ACL) && pol_subject) {
-        r.first = min(r.first, kr);
-        r.last = max(r.last, kr);
-        if (eff == 2) r.first_deny = min(r.first_deny, kr);
-        if (eff == 1) r.first_permit = min(r.first_permit, kr);
-      }
-    }
-  }
-  r.first_deny = warp_min(r.first_deny);
-  r.first_permit = warp_min(r.first_permit);
-  r.first = warp_min(r.first);
-  r.last = warp_max(r.last);
-  r.abort_pos = warp_min(r.abort_pos);
-  return r;
-}
-
-// set s's policy slot the combining algorithm selects over the
-// contribution bytes (clamped to [0, KP)), run by one warp: every lane
-// returns it; *any tells whether some policy contributed
-__device__ __forceinline__ int set_pick(int ca, int s, int KP,
-                                        const uint8_t* contrib, bool* any) {
-  const int lane = threadIdx.x & 31;
-  int first_deny = ACS_BIG, first_permit = ACS_BIG, first = ACS_BIG, last = -1;
-  for (int kp = lane; kp < KP; kp += 32) {
-    const uint8_t c8 = contrib[s * KP + kp];
-    if (!(c8 & 1)) continue;
-    const int eff = (c8 >> 1) & 3;
-    first = min(first, kp);
-    last = max(last, kp);
-    if (eff == 2) first_deny = min(first_deny, kp);
-    if (eff == 1) first_permit = min(first_permit, kp);
-  }
-  first_deny = warp_min(first_deny);
-  first_permit = warp_min(first_permit);
-  first = warp_min(first);
-  last = warp_max(last);
-  *any = last >= 0;
-  const int sel = select_pos(ca, first_deny, first_permit, first, last);
-  return min(max(sel, 0), KP - 1);
-}
-
-// stage F: policy combination per set (one warp per set) over the
-// contribution bytes -> setres[s] (eff | cach << 2) of every set with a
-// contribution, and the last such set by atomicMax on *winner
-__device__ void stage_sets(const int32_t* set_ca, int S, int KP,
-                           const uint8_t* contrib, uint8_t* setres,
-                           int32_t* winner) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int s = warp; s < S; s += nwarps) {
-    bool any;
-    const int kp = set_pick(set_ca[s], s, KP, contrib, &any);
-    if (lane == 0 && any) {
-      const uint8_t c8 = contrib[s * KP + kp];
-      setres[s] = ((c8 >> 1) & 3) | (((c8 >> 3) & 1) << 2);
-      atomicMax(winner, s);
-    }
-  }
-  __syncthreads();
-}
-
 // the provenance code's fields: (pos << 2) | kind with pos non-negative
 // below 2^28 on trees that pass explain_capacity_ok; the shift runs
 // unsigned so a wrapped position wraps as JAX's int32 shift does
@@ -876,67 +556,6 @@ __device__ __forceinline__ void write_abort_slots(int32_t* slots, int n_model,
     slots[d * 3 + 1] = own ? code : ACS_INT_MAX;
     slots[d * 3 + 2] = own ? cach1 : ACS_INT_MAX;
   }
-}
-
-// the rule-chunk row program (K7) for request row b, run by one thread
-// block over one rule shard's tables in `a`; `smem` is the block's dynamic
-// shared memory, laid out by smem_layout.  Writes row b of `ch.merge`
-// (chunk_width ints): per (set, policy) the packed keys of stage E at
-// GLOBAL rule positions, then the abort slots
-template <bool WITH_ACL, bool WITH_HR, bool WITH_REL>
-__device__ void row_program(const Args& a, int b, unsigned char* smem,
-                            const Chunk& ch) {
-  const SmemLayout L = smem_layout(a, WITH_ACL);
-  int32_t* scal = reinterpret_cast<int32_t*>(smem + L.scal);
-  const uint8_t* tbits = smem + L.tbits;
-  const uint8_t* setinfo = smem + L.setinfo;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-
-  // ---- stages A-C, then D
-  stage_targets<WITH_ACL, WITH_HR, WITH_REL>(a, b, L, smem);
-  stage_gates(a, b, L, smem);
-
-  // ---- stage E: rule combination per policy (one warp per policy)
-  const int n_pol = a.S * a.KP;
-  int32_t* row = ch.merge + (size_t)b * chunk_width(ROW_RULE_CHUNK, a.S, a.KP,
-                                                    ch.N_MODEL, false);
-  for (int p = warp; p < n_pol; p += nwarps) {
-    const PolicyScan r = scan_rules(a, b, p, tbits, setinfo);
-    if (lane != 0) continue;
-    if (r.abort_pos < ACS_BIG) atomicMin(&scal[0], r.abort_pos);
-    // GLOBAL rule positions packed with the rule's (effect, cacheable)
-    int32_t* k = row + p * KEY_COLS;
-    const int base = p * a.KR;
-    auto key = [&](int kr, int shift) {
-      return ((ch.OFFSET + kr + shift) << 3) |
-             (a.rule_effect[base + kr] << 1) |
-             (a.rule_cacheable_eff[base + kr] ? 1 : 0);
-    };
-    k[0] = r.first_deny < ACS_BIG ? key(r.first_deny, 0) : ACS_BIGKEY;
-    k[1] = r.first_permit < ACS_BIG ? key(r.first_permit, 0) : ACS_BIGKEY;
-    k[2] = r.first < ACS_BIG ? key(r.first, 0) : ACS_BIGKEY;
-    k[3] = r.last >= 0 ? -key(r.last, 1) : 0;
-    k[4] = r.gate ? 1 : 0;
-  }
-  __syncthreads();
-
-  // ---- the abort slots (no stage F: a rule chunk's policies are partial),
-  // the abort position in GLOBAL flat rule order
-  if (tid != 0) return;
-  const int abort_pos = scal[0];
-  const bool aborted = abort_pos < ACS_BIG;
-  int gpos = ACS_BIG, code = 0, cach1 = 0;
-  if (aborted) {
-    const int pk = abort_pos / a.KR, kr = abort_pos % a.KR;
-    gpos = pk * ch.KR_TOTAL + ch.OFFSET + kr;
-    code = a.cond_code[(size_t)a.rule_cond[abort_pos] * a.CSTRIDE + b];
-    cach1 = (a.rule_cacheable_raw[abort_pos] ? 1 : 0) + 1;
-  }
-  write_abort_slots(row + n_pol * KEY_COLS, ch.N_MODEL, ch.RANK, gpos, code,
-                    cach1);
 }
 
 // a launch's N variant flags as template arguments: Launch<Fs...>::run

@@ -95,7 +95,8 @@ long long acs_decide_dense_smem(const int32_t* dims, int n_dims, int with_acl,
                                 int explain) {
   RowsArgs ra = {};
   if (!fill_dense_dims(&ra, dims, n_dims)) return -1;
-  return (long long)rw_smem(ra.a, ra.rt, with_acl != 0, explain != 0).total;
+  return (long long)rw_smem(ra.a, ra.rt, ROW_DENSE, with_acl != 0,
+                            explain != 0).total;
 }
 
 // launches the kernel on `stream`; returns cudaGetLastError() after the
@@ -111,7 +112,8 @@ int acs_decide_dense(const int64_t* ptrs, int n_ptrs, const int32_t* dims,
     return -1;
   if (explain && ra.a.out_explain == nullptr) return -1;
   if (ra.a.B == 0) return 0;
-  const size_t smem = rw_smem(ra.a, ra.rt, with_acl != 0, explain != 0).total;
+  const size_t smem =
+      rw_smem(ra.a, ra.rt, ROW_DENSE, with_acl != 0, explain != 0).total;
   const bool flags[4] = {with_acl != 0, with_hr != 0, with_rel != 0,
                          explain != 0};
   return dispatch_flags<4, DenseLaunch>(
@@ -125,7 +127,8 @@ int acs_decide_dense_occupancy(const int32_t* dims, int n_dims, int with_acl,
                                int threads) {
   RowsArgs ra = {};
   if (!fill_dense_dims(&ra, dims, n_dims)) return -1;
-  const size_t smem = rw_smem(ra.a, ra.rt, with_acl != 0, explain != 0).total;
+  const size_t smem =
+      rw_smem(ra.a, ra.rt, ROW_DENSE, with_acl != 0, explain != 0).total;
   int blocks = 0;
   const bool flags[4] = {with_acl != 0, with_hr != 0, with_rel != 0,
                          explain != 0};

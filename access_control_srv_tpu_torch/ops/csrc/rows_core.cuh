@@ -1,13 +1,14 @@
 // Device code of the rows program for Hopper (sm_90a): one thread block
 // per RT request rows against one set of tables shared by every row.
 //
-// decide_dense.cu (K1, and K6 on each rank's row slice) and the set mode
-// of shard_chunk.cu (K8's `set_chunk`) run it; decide_grouped.cu (K4)
-// shares its stage helpers (the first half of this file, written for K4:
-// the folded per-target program, the ACL masks, stage D per (row, set),
-// the staged rule tiles and bit windows of stage E, stage F per (row,
-// set)).  The plain PyTorch versions the programs are held against:
-// ops/kernel_ref.py decide_dense_ref and ops/shard_ref.py set_chunk_ref.
+// decide_dense.cu (K1, and K6 on each rank's row slice) and both modes of
+// shard_chunk.cu (K7's `rule_chunk`, K8's `set_chunk`) run it;
+// decide_grouped.cu (K4) shares its stage helpers (the first half of this
+// file, written for K4: the folded per-target program, the ACL masks,
+// stage D per (row, set), the staged rule tiles and bit windows of stage
+// E, stage F per (row, set)).  The plain PyTorch versions the programs are
+// held against: ops/kernel_ref.py decide_dense_ref and ops/shard_ref.py
+// rule_chunk_ref and set_chunk_ref.
 //
 // What bounds it: integer compares.  Every row meets every target row of
 // the table (a thousand at K8's shard shapes) and every rule position,
@@ -51,6 +52,11 @@
 //   Stage G: one thread per row: the decision outputs (ROW_DENSE) or the
 //     merge row of a set chunk (ROW_SET_CHUNK: the negated last-set key,
 //     in explain mode the negated provenance key, the abort slots).
+// ROW_RULE_CHUNK (a rule shard's chunk: its policies are partial, so no
+// set can be combined here) runs stages A-E as above, but the threads over
+// (row, policy) pairs write each policy's five packed keys straight into
+// the row's merge row (rows_rule_keys), and stage G writes only the abort
+// slots: no contribution bytes, no stage F.
 // Explain mode reads the winning set's policy and that policy's selected
 // rule from what stages E and F kept; nothing is walked twice.
 
@@ -72,9 +78,10 @@ __host__ __device__ inline int gr_words(int p) { return (p + 31) / 32 + 1; }
 enum : uint8_t { GF_VALID = 1, GF_CACH = 8 };
 #define GF_EFF(fl) (((fl) >> 1) & 3)
 
-// stages A-C for target row t (row b): decide_core.cuh's target_bits, but
-// the stage-A components (entity runs, operations, properties) are folded
-// only where they can change the bits: under a passing subject and action
+// stages A-C for target row t (row b): the six match bits (TB_*; TB_HR
+// carries the HR check ANDed with the relation-path fold), with the
+// stage-A components (entity runs, operations, properties) folded only
+// where they can change the bits: under a passing subject and action
 // test, or for the collection state an HR or relation-path check reads.
 // Elsewhere the four match bits are 0 either way, so a target whose role
 // the row lacks costs a few compares.
@@ -357,10 +364,14 @@ struct RwSmem {
 // entries of the stages A-C work list
 #define RW_WORK 2048
 
-// dynamic shared memory layout of one block; the host sizes the launch
-// with the same function the kernel carves the buffer with
+// dynamic shared memory layout of one block in `mode`; the host sizes the
+// launch with the same function the kernel carves the buffer with.  The
+// rule-chunk mode writes stage E's keys to the merge rows: it has no
+// contribution or set-result region.
 __host__ __device__ inline RwSmem rw_smem(const Args& a, const RowsTile& rt,
-                                          bool with_acl, bool explain) {
+                                          int mode, bool with_acl,
+                                          bool explain) {
+  const bool keys = mode == ROW_RULE_CHUNK;
   const size_t RT = rt.RT, sets = (size_t)rt.RT * a.S;
   RwSmem l;
   l.words = gr_words(rt.PT * a.KR);
@@ -384,13 +395,13 @@ __host__ __device__ inline RwSmem rw_smem(const Args& a, const RowsTile& rt,
   l.setkp = off;  // int32 [RT * S]: each set's picked policy (explain)
   if (explain) off += sizeof(int32_t) * sets;
   l.contrib = off;  // [RT * S * KP]: uint8, int32 with the rule in explain
-  off += (explain ? 4 : 1) * sets * a.KP;
+  if (!keys) off += (explain ? 4 : 1) * sets * a.KP;
   l.inst = off;  // uint8 [RT]: the row carries an ACL instance
   off += RT;
   l.setinfo = off;  // uint8 [RT * S]: exact | eval_deny << 1 | gate << 2
   off += sets;
   l.setres = off;  // uint8 [RT * S]: eff | cach << 2
-  off += sets;
+  if (!keys) off += sets;
   off = align_up(off, 16);
   l.tbits = off;  // uint8 [RT * T], padded to 16 bytes
   off += align_up(RT * a.T, 16);
@@ -415,9 +426,10 @@ __device__ __forceinline__ bool pair_in(int id, int v, const int32_t* q,
 }
 
 // target row t's subject and action tests against one row's staged roles,
-// subject pairs (ids, then values) and action pairs: target_bits' sub_ok
-// and act_ok, without which no match bit is set.  The target's subject
-// count, role flag, role and first action pair come in registers.
+// subject pairs (ids, then values) and action pairs: grouped_target_bits'
+// sub_ok and action test, without which no match bit is set.  The
+// target's subject count, role flag, role and first action pair come in
+// registers.
 __device__ __forceinline__ bool subject_action_ok(const Args& a, int t, int tn,
                                                   bool by_role, int role,
                                                   int act0, int val0,
@@ -699,6 +711,73 @@ __device__ void rows_policies(const Args& a, int n, int s, int kp0, int npt,
   }
 }
 
+// stage E's second half in the rule-chunk mode (K7): threads over (row,
+// policy) pairs of the tile (policies kp0 ... kp0 + npt - 1 of set s) read
+// the policy's window of KR bits and write its five keys into the row's
+// merge row: the first-DENY and first-PERMIT collected rule (the collected
+// window ANDed with the tile's DENY / PERMIT bitset, whatever the policy's
+// algorithm), the first and the negated last collected rule, each at its
+// GLOBAL position OFFSET + kr packed with the rule's effect and cacheable
+// bit (ACS_BIGKEY / 0 when none), and the policy's gate; the first aborting
+// rule in scope folds into the row's abort position (local flat order,
+// mapped to the global one in stage G)
+__device__ void rows_rule_keys(const Args& a, const Chunk& ch, int b0, int n,
+                               int s, int kp0, int npt, int words,
+                               const uint8_t* rfl, const uint32_t* sb,
+                               const uint8_t* tbits, const uint8_t* setinfo,
+                               const uint32_t* bits, int32_t* scal) {
+  const int KR = a.KR;
+  const int width = chunk_width(ROW_RULE_CHUNK, a.S, a.KP, ch.N_MODEL, false);
+  for (int x = threadIdx.x; x < n * npt; x += blockDim.x) {
+    const int j = x / npt, kpl = x - j * npt;
+    const uint32_t* coll = bits + (size_t)j * 2 * words;
+    const uint32_t* abt = coll + words;
+    const uint8_t* tb = tbits + (size_t)j * a.T;
+    const uint8_t si = setinfo[j * a.S + s];
+    const bool exact = si & 1, eval_deny = si & 2, set_gate = si & 4;
+    const uint8_t tm = exact ? (eval_deny ? TB_EX_D : TB_EX_P)
+                             : (eval_deny ? TB_RG_D : TB_RG_P);
+    const int p = s * a.KP + kp0 + kpl;
+    const bool pv = a.pol_valid[p];
+    const uint8_t pt = tb[a.pol_target[p]];
+    const bool pol_gate = (!a.pol_has_target[p] || (pt & tm)) && pv;
+    const bool pol_subject = !a.pol_has_subjects[p] || (pt & TB_HR);
+    int first_deny = ACS_BIG, first_permit = ACS_BIG, first = ACS_BIG;
+    int last = -1;
+    if (set_gate && pol_gate) {
+      int abort_kr = ACS_BIG;
+      for (int c0 = 0; c0 < KR; c0 += 32) {
+        const int m = min(32, KR - c0), at = kpl * KR + c0;
+        const uint32_t am = bit_window(abt, at, m);
+        if (am != 0 && abort_kr == ACS_BIG) abort_kr = c0 + __ffs((int)am) - 1;
+        const uint32_t cm = pol_subject ? bit_window(coll, at, m) : 0u;
+        if (cm == 0) continue;
+        const uint32_t dm = cm & bit_window(sb, at, m);
+        const uint32_t pm = cm & bit_window(sb + words, at, m);
+        if (dm != 0 && first_deny == ACS_BIG)
+          first_deny = c0 + __ffs((int)dm) - 1;
+        if (pm != 0 && first_permit == ACS_BIG)
+          first_permit = c0 + __ffs((int)pm) - 1;
+        if (first == ACS_BIG) first = c0 + __ffs((int)cm) - 1;
+        last = c0 + 31 - __clz((int)cm);
+      }
+      if (abort_kr < ACS_BIG) atomicMin(&scal[j * 2], p * KR + abort_kr);
+    }
+    // GLOBAL rule positions packed with the rule's (effect, cacheable)
+    auto key = [&](int kr, int shift) {
+      const uint8_t fl = rfl[kpl * KR + kr];
+      return ((ch.OFFSET + kr + shift) << 3) | (GF_EFF(fl) << 1) |
+             ((fl & GF_CACH) ? 1 : 0);
+    };
+    int32_t* k = ch.merge + (size_t)(b0 + j) * width + (size_t)p * KEY_COLS;
+    k[0] = first_deny < ACS_BIG ? key(first_deny, 0) : ACS_BIGKEY;
+    k[1] = first_permit < ACS_BIG ? key(first_permit, 0) : ACS_BIGKEY;
+    k[2] = first < ACS_BIG ? key(first, 0) : ACS_BIGKEY;
+    k[3] = last >= 0 ? -key(last, 1) : 0;
+    k[4] = pv && set_gate && pol_gate ? 1 : 0;
+  }
+}
+
 // stage G for row j (request row b): the decision outputs (ROW_DENSE; with
 // EXPLAIN the provenance code, rule positions mapped through
 // rule_orig_flat when the rule axis was compacted) or the row's merge row
@@ -716,6 +795,18 @@ __device__ void rows_outputs(const Args& a, const Chunk& ch, int j, int b,
   const int code = aborted
       ? a.cond_code[(size_t)a.rule_cond[abort_pos] * a.CSTRIDE + b] : 0;
   const int cach_raw = aborted && a.rule_cacheable_raw[abort_pos] ? 1 : 0;
+  if constexpr (MODE == ROW_RULE_CHUNK) {
+    // only the abort slots (the keys are written): the local flat
+    // position (pk, kr) at pk * KR_TOTAL + OFFSET + kr in the padded
+    // global rule extent
+    const int pk = abort_pos / a.KR, kr = abort_pos - pk * a.KR;
+    int32_t* row = ch.merge + (size_t)b * chunk_width(ROW_RULE_CHUNK, a.S,
+                                                      a.KP, ch.N_MODEL, false);
+    write_abort_slots(row + a.S * a.KP * KEY_COLS, ch.N_MODEL, ch.RANK,
+                      aborted ? pk * ch.KR_TOTAL + ch.OFFSET + kr : ACS_BIG,
+                      code, aborted ? cach_raw + 1 : 0);
+    return;
+  }
   const uint8_t sr = winner >= 0 ? setres[j * a.S + winner] : 0;
   // the winning set's selected policy p, its rule slot kr, and whether
   // the policy's own effect decided (no rules)
@@ -769,13 +860,15 @@ __device__ void rows_outputs(const Args& a, const Chunk& ch, int j, int b,
                     aborted ? code : 0, aborted ? cach_raw + 1 : 0);
 }
 
-// the rows program for the block's RT rows: ROW_DENSE (decide_dense.cu) or
-// ROW_SET_CHUNK (shard_chunk.cu's set mode); `smem` is the block's dynamic
-// shared memory, laid out by rw_smem
+// the rows program for the block's RT rows: ROW_DENSE (decide_dense.cu),
+// ROW_RULE_CHUNK or ROW_SET_CHUNK (shard_chunk.cu's two modes); `smem` is
+// the block's dynamic shared memory, laid out by rw_smem
 template <int MODE, bool WITH_ACL, bool WITH_HR, bool WITH_REL, bool EXPLAIN>
 __device__ void rows_program(const RowsArgs& ra, unsigned char* smem) {
+  static_assert(MODE != ROW_RULE_CHUNK || !EXPLAIN,
+                "the rule-chunk mode has no explain variant");
   const Args& a = ra.a;
-  const RwSmem L = rw_smem(a, ra.rt, WITH_ACL, EXPLAIN);
+  const RwSmem L = rw_smem(a, ra.rt, MODE, WITH_ACL, EXPLAIN);
   int32_t* scal = reinterpret_cast<int32_t*>(smem + L.scal);
   uint8_t* inst = smem + L.inst;
   const uint8_t* tbits = smem + L.tbits;
@@ -856,23 +949,29 @@ __device__ void rows_program(const RowsArgs& ra, unsigned char* smem) {
       rows_rule_bits(a, b0, n, npt * a.KR, words, rtgt, rcond, rfl, sb,
                      tbits, bits);
       __syncthreads();
-      rows_policies<EXPLAIN>(a, n, s, kp0, npt, words, rfl, sb, tbits,
-                             setinfo, bits, contrib, scal);
+      if constexpr (MODE == ROW_RULE_CHUNK)
+        rows_rule_keys(a, ra.ch, b0, n, s, kp0, npt, words, rfl, sb, tbits,
+                       setinfo, bits, scal);
+      else
+        rows_policies<EXPLAIN>(a, n, s, kp0, npt, words, rfl, sb, tbits,
+                               setinfo, bits, contrib, scal);
       __syncthreads();
     }
   }
 
-  // ---- stage F
-  for (int x = warp; x < n * a.S; x += nwarps) {
-    const int j = x / a.S, s = x - j * a.S;
-    if (EXPLAIN)
-      sets_stage(a, j, s, reinterpret_cast<const int32_t*>(contrib), setres,
-                 setkp, scal);
-    else
-      sets_stage(a, j, s, reinterpret_cast<const uint8_t*>(contrib), setres,
-                 nullptr, scal);
+  // ---- stage F (none in the rule-chunk mode: its policies are partial)
+  if constexpr (MODE != ROW_RULE_CHUNK) {
+    for (int x = warp; x < n * a.S; x += nwarps) {
+      const int j = x / a.S, s = x - j * a.S;
+      if (EXPLAIN)
+        sets_stage(a, j, s, reinterpret_cast<const int32_t*>(contrib),
+                   setres, setkp, scal);
+      else
+        sets_stage(a, j, s, reinterpret_cast<const uint8_t*>(contrib),
+                   setres, nullptr, scal);
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   // ---- stage G: one thread per row
   for (int j = tid; j < n; j += blockDim.x)
@@ -895,23 +994,25 @@ static bool fill_rows_tile(RowsArgs* ra, const int32_t* dims, int n_dims) {
   return ra->rt.RT > 0 && ra->rt.PT > 0;
 }
 
-// the block shape of a launch at the shapes in `a` (a.B rows), from the
-// host's sizing rule `stage` (SM count, most rows per block, blocks per SM
-// to fill, a block's shared bytes, a rule tile's bytes): PT policies per
-// rule tile within its bytes; RT the fewest rows per block that keep the
-// batch at most `blocks per SM` blocks on every SM, at most `most rows`,
-// and fewer while the block's shared memory (rw_smem, sized for the ACL
-// variant) passes its bytes
+// the block shape of a launch in `mode` at the shapes in `a` (a.B rows),
+// from the host's sizing rule `stage` (SM count, most rows per block,
+// blocks per SM to fill, a block's shared bytes, a rule tile's bytes): PT
+// policies per rule tile within its bytes; RT the fewest rows per block
+// that keep the batch at most `blocks per SM` blocks on every SM, at most
+// `most rows`, and fewer while the block's shared memory (rw_smem, sized
+// for the ACL variant) passes its bytes
 enum { RS_SMS, RS_ROWS, RS_FILL, RS_BLOCK_BYTES, RS_RULE_BYTES, RS_N };
 
-static RowsTile rows_tile(const Args& a, bool explain, const int32_t* stage) {
+static RowsTile rows_tile(const Args& a, int mode, bool explain,
+                          const int32_t* stage) {
   RowsTile rt;
   const long long per_tile = (long long)GR_RULE_BYTES * max(a.KR, 1);
   rt.PT = (int)max(1LL, min((long long)a.KP, stage[RS_RULE_BYTES] / per_tile));
   const int blocks = max(1, stage[RS_FILL] * stage[RS_SMS]);
   rt.RT = max(1, min(stage[RS_ROWS], (a.B + blocks - 1) / blocks));
   while (rt.RT > 1 &&
-         rw_smem(a, rt, true, explain).total > (size_t)stage[RS_BLOCK_BYTES])
+         rw_smem(a, rt, mode, true, explain).total >
+             (size_t)stage[RS_BLOCK_BYTES])
     --rt.RT;
   return rt;
 }
@@ -944,14 +1045,16 @@ static cudaError_t opt_in(K kernel, size_t smem, OptIn& seen) {
 
 extern "C" {
 
-// the block shape ints (RW_DIMS) of a launch at the program's shape ints
-// `dims` (the dense program's) under the sizing rule `stage` (RS_N ints),
-// into `out`; -1 on a count mismatch
-int acs_rows_tile(const int32_t* dims, int n_dims, int explain,
+// the block shape ints (RW_DIMS) of a launch in `mode` (RowMode) at the
+// program's shape ints `dims` (the dense program's) under the sizing rule
+// `stage` (RS_N ints), into `out`; -1 on a count mismatch or an unknown
+// mode
+int acs_rows_tile(const int32_t* dims, int n_dims, int mode, int explain,
                   const int32_t* stage, int32_t* out) {
   Args a = {};
-  if (!fill_dims(&a, dims, n_dims)) return -1;
-  const RowsTile rt = rows_tile(a, explain != 0, stage);
+  if (!fill_dims(&a, dims, n_dims) || mode < ROW_DENSE || mode > ROW_SET_CHUNK)
+    return -1;
+  const RowsTile rt = rows_tile(a, mode, explain != 0, stage);
   out[0] = rt.RT;
   out[1] = rt.PT;
   return 0;

@@ -22,7 +22,7 @@
 //   - rule_chunk, against this shard's compacted tables (the rule axis cut
 //     to KR_local = KR_TOTAL / N_MODEL columns, the target subtable to the
 //     rows those rules and every policy/set target reference): stages A-D
-//     as in the dense kernel (decide_core.cuh), then stage E on the local
+//     as in the dense kernel (rows_core.cuh), then stage E on the local
 //     rule chunk with GLOBAL rule positions (OFFSET + kr).  Per (set,
 //     policy) five int32: the first-DENY, first-PERMIT and first collected
 //     rule keys (pos << 3 | effect << 1 | cacheable, 2e9 when none), the
@@ -48,21 +48,28 @@
 // What bounds it on an H100: the int32 compares of stages A-C over the
 // shard's target rows.  chip_smoke.py computes the bound from the main
 // path's own launch and measures the kernel there (PERF.md section 6 has
-// the readings on an H100 80GB HBM3 at 700 W).  Design: rule_chunk runs
-// the rule-chunk row program of decide_core.cuh (one block per row, one
-// thread per target row, one warp per policy with lanes over the rules), so
-// a rule shard costs what that program costs on a quarter of
-// the rules.
-// set_chunk (set_chunk_kernel) runs the rows program of rows_core.cuh in
-// ROW_SET_CHUNK mode (one block per RT rows, stages A-C over (row, target)
-// pairs with the fold only where subject and action match, stage E as a
-// bitset scan) on the shard's live target rows: the host hands it prefix
-// views, up to the shard's t_live, of the tables padded to the sticky
-// bucket (parallel/pod_shard.py), so the pad rows no index reaches are not
-// scanned.  A set shard holds whole sets, so the shards' work is as uneven
-// as the sets are.  In explain mode set_chunk also writes the negated
-// provenance key of the shard's last contributing set after its set key;
-// the MIN merge then leaves the owner's, with no second collective.
+// the readings on an H100 80GB HBM3 at 700 W).  Design: both kernels run
+// the rows program of rows_core.cuh (one block per RT rows, the rows'
+// fields staged in shared memory, stages A-C over (row, target) pairs with
+// the fold only where subject and action match, targets whose role no row
+// of the block has dropped with one test, stage E as a bitset scan that
+// reads each rule record once for all of a block's rows):
+//   - rule_chunk_kernel in ROW_RULE_CHUNK mode on the shard's compacted
+//     tables: the threads over (row, policy) pairs write the five keys of
+//     each policy straight into the merge row, stage G the abort slots;
+//     no stage F (a rule chunk's policies are partial) and no explain
+//     variant (shard_tail.cu recovers the provenance from the merged
+//     keys).  The design before it (one block per row, every (row,
+//     target) pair folded, one warp per policy reading every rule record
+//     once per row) ran 46x its bound;
+//   - set_chunk_kernel in ROW_SET_CHUNK mode on the shard's live target
+//     rows: the host hands it prefix views, up to the shard's t_live, of
+//     the tables padded to the sticky bucket (parallel/pod_shard.py), so
+//     the pad rows no index reaches are not scanned.  A set shard holds
+//     whole sets, so the shards' work is as uneven as the sets are.  In
+//     explain mode it also writes the negated provenance key of the
+//     shard's last contributing set after its set key; the MIN merge then
+//     leaves the owner's, with no second collective.
 // with_acl / with_hr / with_rel (and for set_chunk explain) are template
 // parameters (8 + 16 variants).  The kernels allocate nothing.
 
@@ -74,13 +81,12 @@ __device__ __forceinline__ unsigned char* dyn_smem() {
   return smem;
 }
 
-// rule_chunk (MODE ROW_RULE_CHUNK, no explain variant): one block per
-// request row
-template <int MODE, bool WITH_ACL, bool WITH_HR, bool WITH_REL, bool EXPLAIN>
-__global__ void shard_chunk_kernel(const ChunkArgs ca) {
-  static_assert(MODE == ROW_RULE_CHUNK && !EXPLAIN, "rule_chunk only");
-  row_program<WITH_ACL, WITH_HR, WITH_REL>(ca.a, blockIdx.x, dyn_smem(),
-                                           ca.ch);
+// rule_chunk: one block per RT request rows
+template <bool WITH_ACL, bool WITH_HR, bool WITH_REL>
+__global__ void __launch_bounds__(RW_THREADS, RW_MIN_BLOCKS)
+    rule_chunk_kernel(const RowsArgs ra) {
+  rows_program<ROW_RULE_CHUNK, WITH_ACL, WITH_HR, WITH_REL, false>(
+      ra, dyn_smem());
 }
 
 // set_chunk: one block per RT request rows
@@ -97,78 +103,83 @@ OptIn rule_opt_in;
 template <bool... F>
 OptIn set_opt_in;
 
-// one launch of `kernel` over `grid` blocks (the shared-memory opt-in set
-// first where `smem` needs more than `seen` records)
-template <class K, class A>
-static int launch(K kernel, int grid, const A& args, size_t smem,
-                  int threads, cudaStream_t stream, OptIn& seen) {
+// one launch of `kernel` over the rows program's grid (the shared-memory
+// opt-in set first where `smem` needs more than `seen` records)
+template <class K>
+static int launch(K kernel, const RowsArgs& ra, size_t smem, int threads,
+                  cudaStream_t stream, OptIn& seen) {
   cudaError_t err = opt_in(kernel, smem, seen);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, threads, smem, stream>>>(args);
+  kernel<<<rows_grid(ra), threads, smem, stream>>>(ra);
   return (int)cudaGetLastError();
 }
 
-// one rule_chunk launch of the variant (with_acl, with_hr, with_rel,
-// explain); the rule-chunk mode has no explain variant
+// resident blocks per SM of `kernel` at this shared memory size
+template <class K>
+static int occupancy(K kernel, size_t smem, int threads, int* blocks,
+                     OptIn& seen) {
+  cudaError_t err = opt_in(kernel, smem, seen);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                            threads, smem);
+}
+
+// one rule_chunk launch of the variant (with_acl, with_hr, with_rel)
 template <bool... F>
 struct RuleLaunch {
-  static int run(const ChunkArgs& ca, size_t smem, int threads,
+  static int run(const RowsArgs& ra, size_t smem, int threads,
                  cudaStream_t stream) {
-    constexpr bool flags[] = {F...};
-    if constexpr (flags[3]) {
-      return -1;
-    } else {
-      return launch(shard_chunk_kernel<ROW_RULE_CHUNK, F...>, ca.a.B, ca,
-                    smem, threads, stream, rule_opt_in<F...>);
-    }
+    return launch(rule_chunk_kernel<F...>, ra, smem, threads, stream,
+                  rule_opt_in<F...>);
   }
 };
 
-// one set_chunk launch of the variant
+// one set_chunk launch of the variant (with_acl, with_hr, with_rel,
+// explain)
 template <bool... F>
 struct SetLaunch {
   static int run(const RowsArgs& ra, size_t smem, int threads,
                  cudaStream_t stream) {
-    return launch(set_chunk_kernel<F...>, rows_grid(ra), ra, smem, threads,
-                  stream, set_opt_in<F...>);
+    return launch(set_chunk_kernel<F...>, ra, smem, threads, stream,
+                  set_opt_in<F...>);
   }
 };
 
-// resident set_chunk blocks per SM of the variant at this shared memory
-// size
+// resident blocks per SM of a variant of either kernel
+template <bool... F>
+struct RuleOccupancy {
+  static int run(size_t smem, int threads, int* blocks) {
+    return occupancy(rule_chunk_kernel<F...>, smem, threads, blocks,
+                     rule_opt_in<F...>);
+  }
+};
 template <bool... F>
 struct SetOccupancy {
   static int run(size_t smem, int threads, int* blocks) {
-    auto kernel = set_chunk_kernel<F...>;
-    cudaError_t err = opt_in(kernel, smem, set_opt_in<F...>);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, kernel, threads, smem);
+    return occupancy(set_chunk_kernel<F...>, smem, threads, blocks,
+                     set_opt_in<F...>);
   }
 };
 
-// the shape ints: the dense ones, ACS_CHUNK_DIMS, then RW_DIMS (read by
-// set_chunk only)
+// the shape ints: the dense ones, ACS_CHUNK_DIMS, then RW_DIMS
 static const int kNumShardDims = kNumDims + kNumChunkDims + kNumRwDims;
 
-// fills `ra` (its Args, Chunk and block shape) from the host's arrays;
-// false when the counts differ from this build's or the tile is zero
-static bool fill_shard(RowsArgs* ra, const int64_t* ptrs, int n_ptrs,
-                       const int32_t* dims, int n_dims) {
-  ChunkArgs ca;
-  if (n_dims != kNumShardDims ||
-      !fill_chunk_args(&ca, ptrs, n_ptrs, dims, n_dims - kNumRwDims))
-    return false;
-  ra->a = ca.a;
-  ra->ch = ca.ch;
-  return fill_rows_tile(ra, dims, n_dims);
+// fills the shape ints of `ra` (its Args' and block shape); false when the
+// count differs from this build's, the tile is zero, or `mode` and
+// `explain` name no kernel (explain only in set_chunk mode, where the
+// merge row carries one more column)
+static bool fill_shard_dims(RowsArgs* ra, const int32_t* dims, int n_dims,
+                            int mode, int explain) {
+  if (mode != ROW_RULE_CHUNK && mode != ROW_SET_CHUNK) return false;
+  if (explain && mode != ROW_SET_CHUNK) return false;
+  return n_dims == kNumShardDims && fill_dims(&ra->a, dims, kNumDims) &&
+         fill_rows_tile(ra, dims, n_dims);
 }
 
 // dynamic shared memory bytes of a launch in `mode`
-static size_t shard_smem(const RowsArgs& ra, int mode, bool with_acl,
-                         bool explain) {
-  return mode == ROW_RULE_CHUNK ? smem_layout(ra.a, with_acl).total
-                                : rw_smem(ra.a, ra.rt, with_acl, explain).total;
+static size_t shard_smem(const RowsArgs& ra, int mode, int with_acl,
+                         int explain) {
+  return rw_smem(ra.a, ra.rt, mode, with_acl != 0, explain != 0).total;
 }
 
 extern "C" {
@@ -185,49 +196,48 @@ const char* acs_shard_chunk_layout() {
 long long acs_shard_chunk_smem(const int32_t* dims, int n_dims, int mode,
                                int with_acl, int explain) {
   RowsArgs ra = {};
-  if (n_dims != kNumShardDims || !fill_dims(&ra.a, dims, kNumDims) ||
-      !fill_rows_tile(&ra, dims, n_dims))
-    return -1;
-  return (long long)shard_smem(ra, mode, with_acl != 0, explain != 0);
+  if (!fill_shard_dims(&ra, dims, n_dims, mode, explain)) return -1;
+  return (long long)shard_smem(ra, mode, with_acl, explain);
 }
 
-// launches the kernel of `mode` (1: rule_chunk, 2: set_chunk; explain only
-// in set_chunk mode, where the merge row carries one more column) on
+// launches the kernel of `mode` (1: rule_chunk, 2: set_chunk) on
 // `stream`; returns cudaGetLastError() after the launch, or -1 when the
 // argument counts, the mode or the explain flag do not match this build
 int acs_shard_chunk(const int64_t* ptrs, int n_ptrs, const int32_t* dims,
                     int n_dims, int mode, int with_acl, int with_hr,
                     int with_rel, int explain, int threads, void* stream) {
   RowsArgs ra = {};
-  if (!fill_shard(&ra, ptrs, n_ptrs, dims, n_dims)) return -1;
-  if (mode != ROW_RULE_CHUNK && mode != ROW_SET_CHUNK) return -1;
-  if (explain && mode != ROW_SET_CHUNK) return -1;
+  ChunkArgs ca;
+  if (!fill_shard_dims(&ra, dims, n_dims, mode, explain) ||
+      !fill_chunk_args(&ca, ptrs, n_ptrs, dims, n_dims - kNumRwDims))
+    return -1;
+  ra.a = ca.a;
+  ra.ch = ca.ch;
   if (ra.a.B == 0) return 0;
-  const size_t smem = shard_smem(ra, mode, with_acl != 0, explain != 0);
+  const size_t smem = shard_smem(ra, mode, with_acl, explain);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const bool flags[4] = {with_acl != 0, with_hr != 0, with_rel != 0,
                          explain != 0};
   if (mode == ROW_RULE_CHUNK)
-    return dispatch_flags<4, RuleLaunch>(flags, ChunkArgs{ra.a, ra.ch}, smem,
-                                         threads, s);
+    return dispatch_flags<3, RuleLaunch>(flags, ra, smem, threads, s);
   return dispatch_flags<4, SetLaunch>(flags, ra, smem, threads, s);
 }
 
-// resident set_chunk blocks per SM of a variant at these shapes
+// resident blocks per SM of a variant of `mode`'s kernel at these shapes
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), -1 on a mismatch
-int acs_shard_chunk_occupancy(const int32_t* dims, int n_dims, int with_acl,
-                              int with_hr, int with_rel, int explain,
-                              int threads) {
+int acs_shard_chunk_occupancy(const int32_t* dims, int n_dims, int mode,
+                              int with_acl, int with_hr, int with_rel,
+                              int explain, int threads) {
   RowsArgs ra = {};
-  if (n_dims != kNumShardDims || !fill_dims(&ra.a, dims, kNumDims) ||
-      !fill_rows_tile(&ra, dims, n_dims))
-    return -1;
-  const size_t smem = rw_smem(ra.a, ra.rt, with_acl != 0, explain != 0).total;
+  if (!fill_shard_dims(&ra, dims, n_dims, mode, explain)) return -1;
+  const size_t smem = shard_smem(ra, mode, with_acl, explain);
   int blocks = 0;
   const bool flags[4] = {with_acl != 0, with_hr != 0, with_rel != 0,
                          explain != 0};
-  const int err = dispatch_flags<4, SetOccupancy>(flags, smem, threads,
-                                                  &blocks);
+  const int err =
+      mode == ROW_RULE_CHUNK
+          ? dispatch_flags<3, RuleOccupancy>(flags, smem, threads, &blocks)
+          : dispatch_flags<4, SetOccupancy>(flags, smem, threads, &blocks);
   return err != 0 ? -1 : blocks;
 }
 

@@ -18,8 +18,8 @@
 //     the policy's combining algorithm picks (first-DENY / first-PERMIT
 //     falling back to the last key - 8, first-applicable; an unknown
 //     algorithm selects key 0), the gate column adds the no-rules
-//     contributions, then stage F (decide_core.cuh stage_sets, one warp
-//     per set) and last-set-wins;
+//     contributions, then stage F (the combining algorithm over each set's
+//     contributions, select_pos) and last-set-wins;
 //   ROW_SET_CHUNK (K8): the merged (negated) last-set key unpacks to the
 //     decision and cacheable bit.
 // Both then take the first aborting rule over the N_MODEL slots (the
@@ -28,22 +28,32 @@
 // decision, cacheable (-1 none), status; with EXPLAIN (a template
 // parameter, the host's `explain`) a fourth, the provenance code of
 // srv/explain.py, with rule positions in strides (KP, KR): in K7 mode the
-// winning set's selected policy is re-derived by one warp and its merged
-// selection key names the GLOBAL rule (KR the padded kr_total), as the JAX
-// program's recovery does with no extra collective; in K8 mode the merged
-// provenance key is the owning shard's (its no-rules positions scaled by
-// KR, which is divided back out here); an abort names the aborting rule.
+// merged selection key of the winning set's selected policy names the
+// GLOBAL rule (KR the padded kr_total), as the JAX program's recovery does
+// with no extra collective; in K8 mode the merged provenance key is the
+// owning shard's (its no-rules positions scaled by KR, which is divided
+// back out here); an abort names the aborting rule.
 //
 // What bounds it: bytes, each merge row read once and three int32
 // written (well under a microsecond at 3.35 TB/s for the shard-scale
 // batches); the work per row is a few hundred integer operations.
-// chip_smoke.py times it on the main path's own launches (PERF.md section
-// 6, H100 80GB HBM3 at 700 W): thousands of small blocks, so launch and
-// latency, not bytes, set its time.
-// Design: one thread block per row; in K7 mode threads stride over the
-// S * KP policies to build the contribution bytes in shared memory, in K8
-// mode one thread per block does the whole row.  The kernel allocates
-// nothing.
+// chip_smoke.py times it on the main path's own launches and alone, beside
+// an empty kernel over the same grid (acs_shard_tail_floor): the launch,
+// not the bytes, sets its time (PERF.md section 6, H100 80GB HBM3 at 700
+// W).
+// Design: several rows per block, each row's work in registers (no shared
+// memory, no barrier).  K8 mode: one thread per row.  K7 mode: one warp
+// per row; the warp walks the sets from the last down and stops at the
+// first that has a contribution (last-set-wins: no earlier set can
+// decide).  Per set the lanes stride over its policies, each lane reading
+// one policy's merged keys (neighbouring lanes on neighbouring keys) and
+// building its contribution in registers; three ballots per 32 policies
+// give the contributing, DENY and PERMIT policies, from which every lane
+// reads the set's first-DENY / first-PERMIT / first / last policy and
+// select_pos picks the policy.  The design before it (one block per row,
+// one busy thread in K8 mode, a shared-memory byte per policy and one warp
+// per set in K7 mode) was launch-bound at 100-150x its bound.  The kernel
+// allocates nothing.
 
 #include "decide_core.cuh"
 
@@ -64,11 +74,14 @@ struct TailArgs {
 static const int kNumTailPtrs = 0 TAIL_PTRS(ACS_COUNT);
 static const int kNumTailDims = 0 TAIL_DIMS(ACS_COUNT);
 
-// dynamic shared memory of one block: the winning set (int32), the
-// contribution bytes [S * KP] and the per-set results [S] (K7 mode only)
-__host__ __device__ inline size_t tail_smem(const TailArgs& t, int mode) {
-  if (mode != ROW_RULE_CHUNK) return 0;
-  return align_up(sizeof(int32_t) + (size_t)t.S * t.KP + t.S, 16);
+// threads per block the library launches each mode with (K8: as many rows
+// per block; K7: a row per warp)
+#define TAIL_THREADS_K7 256
+#define TAIL_THREADS_K8 128
+
+// request rows one block of `threads` threads takes in `mode`
+__host__ __device__ inline int tail_rows(int mode, int threads) {
+  return mode == ROW_RULE_CHUNK ? threads / 32 : threads;
 }
 
 // policy p's selected merged key (the combining algorithm's pick, 0 when
@@ -102,62 +115,24 @@ __device__ __forceinline__ uint8_t merged_contrib(const TailArgs& t,
   return (present ? 1 : 0) | ((eff & 3) << 1) | (cach ? 8 : 0);
 }
 
-template <int MODE, bool EXPLAIN>
-__global__ void shard_tail_kernel(const TailArgs t) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int32_t* row =
-      t.merge + (size_t)b * chunk_width(MODE, t.S, t.KP, t.N_MODEL, EXPLAIN);
-  int decision = 0, cacheable = -1, status = 200, code = 0;
-  if (MODE == ROW_RULE_CHUNK) {
-    int32_t* winner = reinterpret_cast<int32_t*>(smem);
-    uint8_t* contrib = smem + sizeof(int32_t);
-    uint8_t* setres = contrib + (size_t)t.S * t.KP;
-    if (tid == 0) *winner = -1;
-    for (int p = tid; p < t.S * t.KP; p += blockDim.x)
-      contrib[p] = merged_contrib(t, row + p * KEY_COLS, p);
-    __syncthreads();
-    stage_sets(t.set_ca, t.S, t.KP, contrib, setres, winner);
-    const int s = *winner;
-    if (EXPLAIN && tid < 32 && s >= 0) {
-      // the winning set's selected policy (warp 0), then its merged key:
-      // the GLOBAL rule position rides in the key's high bits
-      bool any, no_rules;
-      const int p = s * t.KP + set_pick(t.set_ca[s], s, t.KP, contrib, &any);
-      const int sel = merged_sel(t, row + p * KEY_COLS, p, &any, &no_rules);
-      code = no_rules ? explain_code(p, 2)
-                      : explain_code(p * t.KR + (sel >> 3), 1);
-    }
-    if (tid != 0) return;
-    if (s >= 0) {
-      decision = setres[s] & 3;
-      cacheable = (setres[s] >> 2) & 1;
-    }
-  } else {
-    if (tid != 0) return;
-    const int k_win = -row[0];
-    if (k_win > 0) {
-      decision = (k_win >> 1) & 3;
-      cacheable = k_win & 1;
-    }
-    if (EXPLAIN) {
-      // the owner's key: a no-rules position scaled by KR comes back
-      const int key = -row[1];
-      code = (key & 3) == 2 ? explain_code((key >> 2) / max(t.KR, 1), 2) : key;
-    }
-  }
-  // condition aborts: the least global flat position over the shards'
-  // slots preempts everything
-  const int32_t* slots =
-      row + (MODE == ROW_RULE_CHUNK ? t.S * t.KP * KEY_COLS : 1 + (EXPLAIN ? 1 : 0));
+// row b's outputs once condition aborts are applied: the least global flat
+// position over the N_MODEL abort slots preempts everything (DENY, its
+// cacheable, its status code, with EXPLAIN its kind-3 code)
+template <bool EXPLAIN>
+__device__ __forceinline__ void tail_outputs(const TailArgs& t, int b,
+                                             const int32_t* slots,
+                                             int decision, int cacheable,
+                                             int code) {
   int best = ACS_INT_MAX, owner = 0;
+  // unrolled so that the slots' loads are in flight together
+#pragma unroll 4
   for (int d = 0; d < t.N_MODEL; ++d) {
     if (slots[d * 3] < best) {
       best = slots[d * 3];
       owner = d;
     }
   }
+  int status = 200;
   if (best < ACS_BIG) {
     decision = 2;
     cacheable = slots[owner * 3 + 2] - 1;
@@ -170,12 +145,112 @@ __global__ void shard_tail_kernel(const TailArgs t) {
   if (EXPLAIN) t.out_explain[b] = code;
 }
 
+// K7 mode, row b by one warp (every lane returns the same): the last set
+// with a contribution, its selected policy by select_pos over three
+// ballots per 32 policies, then that policy's contribution (and with
+// EXPLAIN its merged selection key) read once more by lane 0
+template <bool EXPLAIN>
+__device__ void rule_tail_row(const TailArgs& t, int b) {
+  const int lane = threadIdx.x & 31;
+  const int32_t* row =
+      t.merge + (size_t)b * chunk_width(ROW_RULE_CHUNK, t.S, t.KP, t.N_MODEL,
+                                        false);
+  int win_s = -1, win_kp = 0;
+  for (int s = t.S - 1; s >= 0 && win_s < 0; --s) {
+    int first_deny = ACS_BIG, first_permit = ACS_BIG, first = ACS_BIG;
+    int last = -1;
+    for (int k0 = 0; k0 < t.KP; k0 += 32) {
+      const int kp = k0 + lane, p = s * t.KP + kp;
+      const uint8_t c8 =
+          kp < t.KP ? merged_contrib(t, row + (size_t)p * KEY_COLS, p) : 0;
+      const int eff = (c8 >> 1) & 3;
+      const uint32_t have = __ballot_sync(0xffffffffu, c8 & 1);
+      const uint32_t deny = __ballot_sync(0xffffffffu, (c8 & 1) && eff == 2);
+      const uint32_t permit =
+          __ballot_sync(0xffffffffu, (c8 & 1) && eff == 1);
+      if (have == 0) continue;
+      if (first == ACS_BIG) first = k0 + __ffs((int)have) - 1;
+      if (deny != 0 && first_deny == ACS_BIG)
+        first_deny = k0 + __ffs((int)deny) - 1;
+      if (permit != 0 && first_permit == ACS_BIG)
+        first_permit = k0 + __ffs((int)permit) - 1;
+      last = k0 + 31 - __clz((int)have);
+    }
+    if (last < 0) continue;
+    win_s = s;
+    win_kp = min(max(select_pos(t.set_ca[s], first_deny, first_permit, first,
+                                last), 0), t.KP - 1);
+  }
+  if (lane != 0) return;
+  int decision = 0, cacheable = -1, code = 0;
+  if (win_s >= 0) {
+    const int p = win_s * t.KP + win_kp;
+    const int32_t* k = row + (size_t)p * KEY_COLS;
+    const uint8_t c8 = merged_contrib(t, k, p);
+    decision = (c8 >> 1) & 3;
+    cacheable = (c8 >> 3) & 1;
+    if (EXPLAIN) {
+      // the GLOBAL rule position rides in the merged key's high bits
+      bool any, no_rules;
+      const int sel = merged_sel(t, k, p, &any, &no_rules);
+      code = no_rules ? explain_code(p, 2)
+                      : explain_code(p * t.KR + (sel >> 3), 1);
+    }
+  }
+  tail_outputs<EXPLAIN>(t, b, row + t.S * t.KP * KEY_COLS, decision,
+                        cacheable, code);
+}
+
+// K8 mode, row b by one thread: the merged (negated) last-set key
+template <bool EXPLAIN>
+__device__ void set_tail_row(const TailArgs& t, int b) {
+  const int32_t* row =
+      t.merge + (size_t)b * chunk_width(ROW_SET_CHUNK, t.S, t.KP, t.N_MODEL,
+                                        EXPLAIN);
+  int decision = 0, cacheable = -1, code = 0;
+  const int k_win = -row[0];
+  if (k_win > 0) {
+    decision = (k_win >> 1) & 3;
+    cacheable = k_win & 1;
+  }
+  if (EXPLAIN) {
+    // the owner's key: a no-rules position scaled by KR comes back
+    const int key = -row[1];
+    code = (key & 3) == 2 ? explain_code((key >> 2) / max(t.KR, 1), 2) : key;
+  }
+  tail_outputs<EXPLAIN>(t, b, row + 1 + (EXPLAIN ? 1 : 0), decision,
+                        cacheable, code);
+}
+
 template <int MODE, bool EXPLAIN>
-static int launch(const TailArgs& t, int threads, cudaStream_t stream) {
-  auto kernel = shard_tail_kernel<MODE, EXPLAIN>;
-  const size_t smem = tail_smem(t, MODE);
-  kernel<<<t.B, threads, smem, stream>>>(t);
+__global__ void shard_tail_kernel(const TailArgs t) {
+  const int rows = tail_rows(MODE, blockDim.x);
+  if constexpr (MODE == ROW_RULE_CHUNK) {
+    const int b = blockIdx.x * rows + (threadIdx.x >> 5);
+    if (b < t.B) rule_tail_row<EXPLAIN>(t, b);
+  } else {
+    const int b = blockIdx.x * rows + threadIdx.x;
+    if (b < t.B) set_tail_row<EXPLAIN>(t, b);
+  }
+}
+
+// an empty kernel: the launch floor of a grid (acs_shard_tail_floor)
+__global__ void shard_tail_floor_kernel(const TailArgs) {}
+
+// one launch of `kernel` over the blocks that take the mode's B rows
+template <class K>
+static int launch(K kernel, const TailArgs& t, int mode, int threads,
+                  cudaStream_t stream) {
+  const int rows = tail_rows(mode, threads);
+  kernel<<<(t.B + rows - 1) / rows, threads, 0, stream>>>(t);
   return (int)cudaGetLastError();
+}
+
+// whether `threads` makes a block shape of `mode`: whole warps, 1,024 at
+// most
+static bool tail_shape_ok(int mode, int threads) {
+  return (mode == ROW_RULE_CHUNK || mode == ROW_SET_CHUNK) && threads > 0 &&
+         threads <= 1024 && threads % 32 == 0;
 }
 
 extern "C" {
@@ -185,14 +260,28 @@ const char* acs_shard_tail_layout() {
   return TAIL_PTRS(ACS_NAME) "|" TAIL_DIMS(ACS_DIM_NAME);
 }
 
+// the block shape the library launches `mode` with: out[0] threads, out[1]
+// request rows per block; -1 on an unknown mode
+int acs_shard_tail_block(int mode, int32_t* out) {
+  const int threads =
+      mode == ROW_RULE_CHUNK ? TAIL_THREADS_K7 : TAIL_THREADS_K8;
+  if (!tail_shape_ok(mode, threads)) return -1;
+  out[0] = threads;
+  out[1] = tail_rows(mode, threads);
+  return 0;
+}
+
 // launches the kernel on `stream` in `mode` (1: the rule-sharded tail,
-// 2: the pod-sharded tail), with the provenance output when `explain`;
+// 2: the pod-sharded tail), with the provenance output when `explain`, in
+// blocks of `threads` threads (K8: a row per thread; K7: a row per warp);
 // returns cudaGetLastError() after the launch, or -1 when the argument
-// counts or the mode do not match this build
+// counts, the mode or the block shape do not match this build
 int acs_shard_tail(const int64_t* ptrs, int n_ptrs, const int32_t* dims,
                    int n_dims, int mode, int explain, int threads,
                    void* stream) {
-  if (n_ptrs != kNumTailPtrs || n_dims != kNumTailDims) return -1;
+  if (n_ptrs != kNumTailPtrs || n_dims != kNumTailDims ||
+      !tail_shape_ok(mode, threads))
+    return -1;
   TailArgs t;
   int i = 0;
 #define TAIL_SET_PTR(type, name) t.name = reinterpret_cast<type>(ptrs[i++]);
@@ -204,12 +293,43 @@ int acs_shard_tail(const int64_t* ptrs, int n_ptrs, const int32_t* dims,
   if (t.B == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (mode == ROW_RULE_CHUNK)
-    return explain ? launch<ROW_RULE_CHUNK, true>(t, threads, s)
-                   : launch<ROW_RULE_CHUNK, false>(t, threads, s);
-  if (mode == ROW_SET_CHUNK)
-    return explain ? launch<ROW_SET_CHUNK, true>(t, threads, s)
-                   : launch<ROW_SET_CHUNK, false>(t, threads, s);
-  return -1;
+    return explain
+        ? launch(shard_tail_kernel<ROW_RULE_CHUNK, true>, t, mode, threads, s)
+        : launch(shard_tail_kernel<ROW_RULE_CHUNK, false>, t, mode, threads,
+                 s);
+  return explain
+      ? launch(shard_tail_kernel<ROW_SET_CHUNK, true>, t, mode, threads, s)
+      : launch(shard_tail_kernel<ROW_SET_CHUNK, false>, t, mode, threads, s);
+}
+
+// launches the empty kernel over the grid a launch of `b` rows in `mode`
+// with `threads` threads would take: the tail's launch floor, for timing
+// only (no output; -1 on a bad block shape)
+int acs_shard_tail_floor(int mode, int b, int threads, void* stream) {
+  if (!tail_shape_ok(mode, threads)) return -1;
+  if (b == 0) return 0;
+  TailArgs t = {};
+  t.B = b;
+  return launch(shard_tail_floor_kernel, t, mode, threads,
+                reinterpret_cast<cudaStream_t>(stream));
+}
+
+// resident blocks per SM of the variant (mode, explain) in blocks of
+// `threads` threads (cudaOccupancyMaxActiveBlocksPerMultiprocessor), -1 on
+// a bad block shape or a failed query
+int acs_shard_tail_occupancy(int mode, int explain, int threads) {
+  if (!tail_shape_ok(mode, threads)) return -1;
+  void (*kernel)(const TailArgs) =
+      mode == ROW_RULE_CHUNK
+          ? (explain ? shard_tail_kernel<ROW_RULE_CHUNK, true>
+                     : shard_tail_kernel<ROW_RULE_CHUNK, false>)
+          : (explain ? shard_tail_kernel<ROW_SET_CHUNK, true>
+                     : shard_tail_kernel<ROW_SET_CHUNK, false>);
+  int blocks = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
+                                                    0);
+  return err != cudaSuccess ? -1 : blocks;
 }
 
 }  // extern "C"

@@ -18,10 +18,12 @@ are wrapped here the same way: ``sig_planes`` (``csrc/sig_planes.cu``),
 (``ops/reverse.ReverseQueryKernel``) is ``wia_planes``
 (``csrc/wia_planes.cu``, plain version ``ops/reverse_ref.py``).  The
 sharded programs' kernels (``parallel/rule_shard.py``,
-``parallel/pod_shard.py``) are ``rule_chunk`` and ``set_chunk`` (the two
-modes of ``csrc/shard_chunk.cu``; ``set_chunk`` runs the rows program on
-a pod shard's live target rows) and ``shard_tail``
-(``csrc/shard_tail.cu``), with plain versions in ``ops/shard_ref.py``.
+``parallel/pod_shard.py``) are ``rule_chunk`` and ``set_chunk`` (the
+rows program in the rule-chunk and set-chunk modes of
+``csrc/shard_chunk.cu``; ``set_chunk`` on a pod shard's live target rows)
+and ``shard_tail`` (``csrc/shard_tail.cu``, several rows per block; the
+rule-sharded tables' pointers packed once, ``TailTables``), with plain
+versions in ``ops/shard_ref.py``.
 Every wrapper checks its library's argument layout string when it loads
 and counts its launches in ``LAUNCHES``.
 
@@ -76,6 +78,7 @@ from .shard_ref import (
 
 __all__ = [
     "BIG", "DecisionKernel", "LAUNCHES", "ORIG_TABLE", "SlotLayout",
+    "TailTables",
     "decide_dense", "decide_grouped", "grouped_layout",
     "lead_padding", "pack_rule_key", "pad_cols", "pow2_bucket",
     "resolve_device", "rows_tiles", "rule_chunk", "set_chunk", "shard_tail",
@@ -242,10 +245,13 @@ GROUPED_DIMS = ("NSLOT", "R", "RT", "PT")
 GROUPED_THREADS = 256
 GROUPED_STAGE = {"rows": 16, "row_bytes": 64 * 1024, "rules": 32 * 1024}
 
-# the block shape of the rows program (csrc/rows_core.cuh: decide_dense and
-# set_chunk) after its other shape ints: request rows per block, policies
-# per staged rule tile
+# the block shape of the rows program (csrc/rows_core.cuh: decide_dense,
+# rule_chunk and set_chunk) after its other shape ints: request rows per
+# block, policies per staged rule tile
 ROWS_DIMS = ("RT", "PT")
+# the rows program's dense mode (csrc/decide_core.cuh RowMode; the shard
+# modes are shard_ref's MODE_RULE and MODE_SET)
+MODE_DENSE = 0
 # threads per rows-program block, and how it sizes its blocks
 # (``rows_tiles``): at most ``rows`` rows per block, fewer where the batch
 # would give the card under ``blocks_per_sm`` blocks per SM, and a block's
@@ -271,11 +277,15 @@ _SIZING = {
     "decide_dense": {
         "acs_decide_dense_smem": (ctypes.c_longlong, [_VP] + [_INT] * 3),
         "acs_decide_dense_occupancy": (_INT, [_VP] + [_INT] * 6),
-        "acs_rows_tile": (_INT, [_VP, _INT, _INT, _VP, _VP])},
+        "acs_rows_tile": (_INT, [_VP, _INT, _INT, _INT, _VP, _VP])},
     "shard_chunk": {
         "acs_shard_chunk_smem": (ctypes.c_longlong, [_VP] + [_INT] * 4),
-        "acs_shard_chunk_occupancy": (_INT, [_VP] + [_INT] * 6),
-        "acs_rows_tile": (_INT, [_VP, _INT, _INT, _VP, _VP])},
+        "acs_shard_chunk_occupancy": (_INT, [_VP] + [_INT] * 7),
+        "acs_rows_tile": (_INT, [_VP, _INT, _INT, _INT, _VP, _VP])},
+    "shard_tail": {
+        "acs_shard_tail_block": (_INT, [_INT, _VP]),
+        "acs_shard_tail_floor": (_INT, [_INT] * 3 + [_VP]),
+        "acs_shard_tail_occupancy": (_INT, [_INT] * 3)},
     "decide_grouped": {
         "acs_decide_grouped_smem": (ctypes.c_longlong, [_VP] + [_INT] * 4),
         "acs_decide_grouped_occupancy": (_INT, [_VP] + [_INT] * 6)},
@@ -330,6 +340,11 @@ def _chunk_library():
     """``shard_chunk`` (``rule_chunk`` and ``set_chunk``)."""
     return _library("shard_chunk", CHUNK_PTRS,
                     DIMS + CHUNK_DIMS + ROWS_DIMS, 5)
+
+
+def _tail_library():
+    """``shard_tail``."""
+    return _library("shard_tail", TAIL_PTRS, TAIL_DIMS, 2)
 
 
 def _grouped_library():
@@ -400,9 +415,11 @@ def _sm_count(dev) -> int:
     return _sm_counts[idx]
 
 
-def rows_tiles(lib, d: dict, explain: bool, n_sm: int) -> dict:
-    """The rows program's block shape ints (``ROWS_DIMS``) for the shapes
-    ``d``, as ``lib`` (a library built from ``csrc/rows_core.cuh``,
+def rows_tiles(lib, d: dict, explain: bool, n_sm: int,
+               mode: int = MODE_DENSE) -> dict:
+    """The rows program's block shape ints (``ROWS_DIMS``) in ``mode``
+    (``MODE_DENSE``, ``MODE_RULE`` or ``MODE_SET``) for the shapes ``d``,
+    as ``lib`` (a library built from ``csrc/rows_core.cuh``,
     ``acs_rows_tile``) sizes them under ``ROWS_STAGE`` for ``n_sm`` SMs:
     ``PT`` policies per rule tile within ``rules`` bytes; ``RT`` rows per
     block, the fewest that keep the batch at most ``blocks_per_sm``
@@ -413,14 +430,15 @@ def rows_tiles(lib, d: dict, explain: bool, n_sm: int) -> dict:
     stage = (n_sm, st["rows"], st["blocks_per_sm"], st["block_bytes"],
              st["rules"])
     vals = [d[k] for k in DIMS]
-    key = (lib._name, explain, stage, *vals)
+    key = (lib._name, mode, explain, stage, *vals)
     tile = _tiles.get(key)
     if tile is None:
         out = (ctypes.c_int32 * 2)()
         if lib.acs_rows_tile((ctypes.c_int32 * len(vals))(*vals), len(vals),
-                             int(explain), (ctypes.c_int32 * 5)(*stage),
-                             out) != 0:
-            raise RuntimeError("acs_rows_tile: argument count mismatch")
+                             mode, int(explain),
+                             (ctypes.c_int32 * 5)(*stage), out) != 0:
+            raise RuntimeError("acs_rows_tile: argument count or mode "
+                               "mismatch")
         if len(_tiles) >= 4096:
             _tiles.clear()
         tile = _tiles[key] = {"RT": out[0], "PT": out[1]}
@@ -549,9 +567,8 @@ def decide_dense_occupancy(c: dict, r: dict, with_acl: bool, with_hr: bool,
 
 
 # the shard programs' shape ints after the dense ones (csrc/decide_core.cuh
-# ACS_CHUNK_DIMS, then ROWS_DIMS, which only set_chunk reads); their
-# pointers are the dense list, whose outputs are passed null, then the
-# merge buffer
+# ACS_CHUNK_DIMS, then ROWS_DIMS); their pointers are the dense list, whose
+# outputs are passed null, then the merge buffer
 CHUNK_DIMS = ("N_MODEL", "RANK", "OFFSET", "KR_TOTAL")
 CHUNK_PTRS = DENSE_PTRS + ("merge",)
 # the merge tail's tables (the rule-sharded mode) and argument order; KR
@@ -561,9 +578,8 @@ TAIL_TABLES = ("pol_ca", "pol_effect", "pol_cacheable", "pol_n_rules",
                "set_ca")
 TAIL_PTRS = ("merge",) + TAIL_TABLES + OUTPUTS
 TAIL_DIMS = ("B", "S", "KP", "N_MODEL", "KR")
-# threads per shard_tail block: 4 warps over the policies (rule-sharded
-# mode), one warp (pod-sharded mode, one thread per row does the work)
-TAIL_THREADS = {MODE_RULE: 128, MODE_SET: 32}
+# the shard_tail block shapes the library has given, by library and mode
+_tail_blocks: dict = {}
 
 
 def pack_chunk_args(name: str, mode: int, c: dict, r: dict, offset: int,
@@ -571,19 +587,14 @@ def pack_chunk_args(name: str, mode: int, c: dict, r: dict, offset: int,
                     explain: bool = False, lib=None) -> LaunchArgs:
     """Check and pack one launch of a shard program (``rule_chunk`` mode
     ``MODE_RULE``, ``set_chunk`` mode ``MODE_SET``, the latter's merge
-    row one column wider with ``explain``, its block shape from
-    ``rows_tiles`` as ``lib``, by default ``shard_chunk``'s library,
+    row one column wider with ``explain``; the block shape of the mode
+    from ``rows_tiles`` as ``lib``, by default ``shard_chunk``'s library,
     sizes it): allocates its merge rows [B, W] as the launch's ``out``."""
     dev = r["r_n_ra"].device
     dims, named = _dense_named(c, r, name)
     dims.update(N_MODEL=n_model, RANK=rank, OFFSET=offset, KR_TOTAL=kr_total)
-    if mode == MODE_SET:
-        dims.update(rows_tiles(lib or _chunk_library(), dims, explain,
-                               _sm_count(dev)))
-        threads = ROWS_STAGE["threads"]
-    else:
-        dims.update(RT=1, PT=1)
-        threads = threads_for(dims["T"])
+    dims.update(rows_tiles(lib or _chunk_library(), dims, explain,
+                           _sm_count(dev), mode))
     out = torch.empty((dims["B"], merge_width(mode, dims["S"], dims["KP"],
                                               n_model, explain)),
                       dtype=torch.int32, device=dev)
@@ -591,7 +602,7 @@ def pack_chunk_args(name: str, mode: int, c: dict, r: dict, offset: int,
     ptrs, cdims = _c_arrays(_c_ptrs(name, named, dev),
                             [dims[k] for k in DIMS + CHUNK_DIMS + ROWS_DIMS])
     return LaunchArgs(out=out, ptrs=ptrs, dims=cdims, shape=dims,
-                      threads=threads)
+                      threads=ROWS_STAGE["threads"])
 
 
 def _launch_chunk(name: str, mode: int, args: LaunchArgs, with_acl: bool,
@@ -621,7 +632,8 @@ def rule_chunk(c: dict, r: dict, kr_offset: int, kr_total: int,
     """Stages A-E of the rule-sharded program on one shard's compacted
     tables -> its int32 merge rows [B, W] (``ops/shard_ref``'s
     layout).  CUDA tensors launch ``csrc/shard_chunk.cu`` in its
-    rule-chunk mode; CPU tensors run the plain version."""
+    rule-chunk mode (the rows program, one block per ``RT`` rows); CPU
+    tensors run the plain version."""
     if r["r_n_ra"].device.type != "cuda":
         return rule_chunk_ref(c, r, kr_offset, kr_total, n_model, rank,
                               with_acl, with_hr, with_rel)
@@ -654,6 +666,26 @@ def set_chunk(c: dict, r: dict, s_offset: int, n_model: int, rank: int,
                          with_rel, explain)
 
 
+def _chunk_occupancy(mode: int, args: LaunchArgs, device, with_acl: bool,
+                     with_hr: bool, with_rel: bool, explain: bool) -> int:
+    with torch.cuda.device(device):
+        return _chunk_library().acs_shard_chunk_occupancy(
+            ctypes.addressof(args.dims), len(args.dims), mode,
+            int(with_acl), int(with_hr), int(with_rel), int(explain),
+            args.threads)
+
+
+def rule_chunk_occupancy(c: dict, r: dict, kr_offset: int, kr_total: int,
+                         n_model: int, rank: int, with_acl: bool,
+                         with_hr: bool, with_rel: bool) -> int:
+    """Resident ``rule_chunk`` blocks per SM of the variant at one call's
+    shapes (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    args = pack_chunk_args("rule_chunk", MODE_RULE, c, r, kr_offset,
+                           kr_total, n_model, rank)
+    return _chunk_occupancy(MODE_RULE, args, r["r_n_ra"].device, with_acl,
+                            with_hr, with_rel, False)
+
+
 def set_chunk_occupancy(c: dict, r: dict, s_offset: int, n_model: int,
                         rank: int, with_acl: bool, with_hr: bool,
                         with_rel: bool, *, explain: bool = False,
@@ -663,31 +695,75 @@ def set_chunk_occupancy(c: dict, r: dict, s_offset: int, n_model: int,
     c = live_rows(c, t_live)
     args = pack_chunk_args("set_chunk", MODE_SET, c, r, s_offset,
                            c["rule_valid"].shape[2], n_model, rank, explain)
-    with torch.cuda.device(r["r_n_ra"].device):
-        return _chunk_library().acs_shard_chunk_occupancy(
-            ctypes.addressof(args.dims), len(args.dims), int(with_acl),
-            int(with_hr), int(with_rel), int(explain), args.threads)
+    return _chunk_occupancy(MODE_SET, args, r["r_n_ra"].device, with_acl,
+                            with_hr, with_rel, explain)
+
+
+class TailTables(dict):
+    """The rule-sharded tail's tables (``TAIL_TABLES``, a dict of them as
+    the plain version reads) with their checked device pointers packed
+    once in ``TAIL_PTRS`` order (``ptrs``: the merge rows' and outputs'
+    slots 0): ``pack_shard_tail`` fills in only the merge rows and the
+    outputs.  ``RuleShardedKernel`` builds one per placement."""
+
+    def __init__(self, tabs: dict):
+        super().__init__((k, tabs[k]) for k in TAIL_TABLES)
+        self.device = self["pol_ca"].device
+        self.shape = tuple(self["pol_ca"].shape)
+        self.ptrs = tuple(_c_ptrs("shard_tail", [(k, self.get(k))
+                                                 for k in TAIL_PTRS],
+                                  self.device))
+
+
+# the tail's pointer slots: the merge rows, then the outputs
+_TAIL_MERGE = TAIL_PTRS.index("merge")
+_TAIL_OUT = TAIL_PTRS.index(OUTPUTS[0])
+_NO_TABLES = (0,) * len(TAIL_PTRS)
+
+
+def tail_block(lib, mode: int) -> dict:
+    """The block shape ``lib`` (``csrc/shard_tail.cu``) launches ``mode``
+    with, from ``acs_shard_tail_block``: ``threads`` per block and request
+    ``rows`` per block (K8 a row per thread, K7 a row per warp)."""
+    key = (lib._name, mode)
+    shape = _tail_blocks.get(key)
+    if shape is None:
+        out = (ctypes.c_int32 * 2)()
+        if lib.acs_shard_tail_block(mode, out) != 0:
+            raise RuntimeError(f"acs_shard_tail_block: unknown mode {mode}")
+        shape = _tail_blocks[key] = {"threads": out[0], "rows": out[1]}
+    return shape
 
 
 def pack_shard_tail(merge: torch.Tensor, n_model: int,
                     tabs: dict | None, explain: bool = False,
                     kr_stride: int = 0):
     """Check and pack one ``shard_tail`` launch: allocates the output ->
-    (output [3, B] or [4, B], pointer array, shape-int array, mode)."""
+    (output [3, B] or [4, B], pointer array, shape-int array, mode).
+    ``tabs`` a ``TailTables`` has its pointers packed already (a plain
+    dict of ``TAIL_TABLES`` is packed here)."""
     dev = merge.device
     mode = MODE_SET if tabs is None else MODE_RULE
-    S, KP = (0, 0) if tabs is None else tabs["pol_ca"].shape
+    if tabs is not None and not isinstance(tabs, TailTables):
+        tabs = TailTables(tabs)
+    S, KP = (0, 0) if tabs is None else tabs.shape
     B = merge.shape[0]
     if merge.dim() != 2 or merge.shape[1] != merge_width(mode, S, KP,
                                                          n_model, explain):
         raise ValueError("shard_tail: the merge rows do not match the "
                          "tables and the model-axis size")
-    out, out_named = _outputs(B, explain, dev)
-    src = {"merge": merge, **dict(out_named), **(tabs or {})}
-    named = [(k, src.get(k)) for k in TAIL_PTRS]
-    ptrs, cdims = _c_arrays(_c_ptrs("shard_tail", named, dev),
-                            [B, S, KP, n_model, kr_stride])
-    return out, ptrs, cdims, mode
+    if (merge.dtype != torch.int32 or not merge.is_contiguous()
+            or (tabs is not None and tabs.device != dev)):
+        raise ValueError("shard_tail: the merge rows must be contiguous "
+                         "int32 on the tables' device")
+    out = torch.empty((4 if explain else 3, B), dtype=torch.int32,
+                      device=dev)
+    ptrs = list(_NO_TABLES if tabs is None else tabs.ptrs)
+    ptrs[_TAIL_MERGE] = merge.data_ptr()
+    base = out.data_ptr()
+    for i in range(out.shape[0]):
+        ptrs[_TAIL_OUT + i] = base + 4 * B * i
+    return out, *_c_arrays(ptrs, [B, S, KP, n_model, kr_stride]), mode
 
 
 def shard_tail(merge: torch.Tensor, n_model: int, tabs: dict | None = None,
@@ -696,23 +772,36 @@ def shard_tail(merge: torch.Tensor, n_model: int, tabs: dict | None = None,
     """The decisions from the merged merge rows -> int32 [3, B]
     (decision, cacheable, status; with ``explain`` the provenance code
     fourth, its rule positions in strides ``(KP, kr_stride)``).  ``tabs``
-    (``TAIL_TABLES``) selects the rule-sharded tail, None the pod-sharded
-    one.  CUDA tensors launch ``csrc/shard_tail.cu``; CPU tensors run the
-    plain version."""
+    (``TAIL_TABLES``, best a ``TailTables`` packed once) selects the
+    rule-sharded tail, None the pod-sharded one.  CUDA tensors launch
+    ``csrc/shard_tail.cu``; CPU tensors run the plain version."""
     if merge.device.type != "cuda":
         return shard_tail_ref(merge, n_model, tabs, explain=explain,
                               kr_stride=kr_stride)
     out, ptrs, cdims, mode = pack_shard_tail(merge, n_model, tabs, explain,
                                              kr_stride)
-    lib = _library("shard_tail", TAIL_PTRS, TAIL_DIMS, 2)
+    lib = _tail_library()
     with torch.cuda.device(merge.device):
         code = lib.acs_shard_tail(
             ctypes.addressof(ptrs), len(ptrs), ctypes.addressof(cdims),
-            len(cdims), mode, int(explain), TAIL_THREADS[mode],
+            len(cdims), mode, int(explain), tail_block(lib, mode)["threads"],
             torch.cuda.current_stream(merge.device).cuda_stream,
         )
     _check_launch("shard_tail", lib, code)
     return out
+
+
+def shard_tail_occupancy(merge: torch.Tensor, n_model: int,
+                         tabs: dict | None = None, *, explain: bool = False,
+                         kr_stride: int = 0) -> int:
+    """Resident ``shard_tail`` blocks per SM of the variant one call (these
+    arguments) launches, in the library's block shape
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    mode = MODE_SET if tabs is None else MODE_RULE
+    lib = _tail_library()
+    with torch.cuda.device(merge.device):
+        return lib.acs_shard_tail_occupancy(
+            mode, int(explain), tail_block(lib, mode)["threads"])
 
 
 class SlotLayout(NamedTuple):

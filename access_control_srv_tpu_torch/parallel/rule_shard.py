@@ -15,15 +15,17 @@ JAX package reduces them with ``lax.pmin`` / ``lax.pmax`` inside one
 jitted ``shard_map``; a CUDA kernel cannot call NCCL, so here the program
 is three steps per batch:
 
-1. ``rule_chunk`` (``ops/csrc/shard_chunk.cu``): stages A-E on this rank's
-   shard, writing each row's merge row (keys, the negated last key, the
-   policy gates and this shard's abort slot; ``ops/shard_ref.py``);
+1. ``rule_chunk`` (``ops/csrc/shard_chunk.cu``, the rows program in its
+   rule-chunk mode): stages A-E on this rank's shard, writing each row's
+   merge row (keys, the negated last key, the policy gates and this
+   shard's abort slot; ``ops/shard_ref.py``);
 2. one MIN ``all_reduce`` of the merge rows over the ``model`` group
    (positions are unique, so MIN and the negated MAX are exact in any
    order; the abort slots travel as an all-gather);
-3. ``shard_tail`` (``ops/csrc/shard_tail.cu``): the combining-algorithm
-   selection, the no-rules contributions, stages F-G and the abort
-   preemption; then the ``[3, rows]`` outputs are all-gathered over
+3. ``shard_tail`` (``ops/csrc/shard_tail.cu``, a warp per row): the
+   combining-algorithm selection, the no-rules contributions, stages F-G
+   and the abort preemption, on the tail's tables packed once
+   (``TailTables``); then the ``[3, rows]`` outputs are all-gathered over
    ``data``.
 
 ``explain=True`` adds the provenance code as a fourth output with no
@@ -48,7 +50,7 @@ from ..ops.encode import RequestBatch
 from ..ops.kernel import (
     ROW_ARRAYS,
     TABLE_ARRAYS,
-    TAIL_TABLES,
+    TailTables,
     readback,
     rule_chunk,
     shard_tail,
@@ -188,7 +190,8 @@ class RuleShardedKernel:
         self._kr_offset = int(part.kr_offsets[rank])
         self._c = tables_from_numpy(
             {k: part.arrays[k][rank] for k in TABLE_ARRAYS}, self.device)
-        self._tail = {k: self._c[k] for k in TAIL_TABLES}
+        # the tail's tables with their pointers packed once
+        self._tail = TailTables(self._c)
         self.with_hr = tree_needs_hr(compiled.arrays)
         self.with_rel = tree_needs_rel(compiled.arrays)
 

@@ -13,8 +13,8 @@ PyTorch version:
    instantiation, each explain-off instantiation beside its explain twin
    (with ``--parent-csrc DIR`` also held against the same kernels built
    from another tree's sources: equal registers and spills, except
-   ``sig_decide``, ``decide_grouped``, ``decide_dense`` and ``set_chunk``,
-   listed as changed by design);
+   ``sig_decide``, ``decide_grouped``, ``decide_dense``, ``set_chunk``,
+   ``rule_chunk`` and ``shard_tail``, listed as changed by design);
 3. dense kernel vs plain: ``decide_dense`` against ``kernel_ref`` on the
    card, exactly equal, on every supported fixture tree (the relation
    fixture without a store: fail-closed), the seed data and the 511-rule
@@ -137,18 +137,26 @@ its main-path calls (K1 at ``scoped_511``'s 4,096 rows, rank 0's 512- and
 rebuilt in this process), each call held against its plain version,
 explain on and off where the cell has both, its bound (``set_chunk``'s
 over the live rows) beside the yardstick of the design before, and the
-wrapper's host steps.  With ``--parent-csrc DIR`` both reports also time the kernels
+wrapper's host steps.  Then the K7 / tail report in the same form:
+``rule_chunk`` on the rule shard with the most target rows at
+``model_axis`` (1,4) and (2,2), ``shard_tail`` in K7 mode on the MIN of
+every rule shard's merge rows and in K8 mode on the MIN of every set
+shard's (explain on and off), rebuilt in this process and merged on the
+device, the tail beside its launch floor (an empty kernel over the same
+grid).  With ``--parent-csrc DIR`` the reports also time the kernels
 built from ``DIR`` (the parent tree's ``ops/csrc``, its ``ops/kernel.py``
 beside it) on the same arguments, both ways in the same windows.
-``--quick`` runs phases 1-2, 5 and 13, the K1 / K6 / K8 report, then
-phases 6-7, 12 and 17-18 and the K3 / K4 report only (no result lines).
+``--quick`` runs phases 1-2, 5 and 13, the K1 / K6 / K8 and K7 / tail
+reports, then phases 6-7, 12 and 17-18 and the K3 / K4 report only (no
+result lines).
 
 Any mismatch or error exits non-zero.  The line before the last is the
 kernel table as one JSON object (K1-K4 carry their ``with_rel`` variant's
 launches and times beside their own; ``decide_dense``, ``sig_decide``,
 ``decide_grouped``, ``set_chunk`` and ``shard_tail`` (and its ``pod``
-object) their ``explain`` variant's; ``decide_dense`` K6's); the last
-line is
+object) their ``explain`` variant's; ``decide_dense`` K6's; the
+redesigned kernels their packed-once and parent times); the last line
+is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero before
 printing any result.  Run from the repository root::
 
@@ -267,14 +275,15 @@ REBAC_TUPLES = 1_000_000
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_SCALAR_OPS_PER_S = 67e12
 ITERS = 5
-# the kernels the port redesigned (K3, K4; K1 / K6 decide_dense and K8
-# set_chunk, the rows program): timed through the wrapper as every kernel
-# is, and with STEADY_WINDOWS windows of STEADY_ITERS launches of
-# arguments packed once (time_steady), reported beside their bound, their
-# ptxas numbers, their resident blocks per SM, the parent tree's kernels
-# (--parent-csrc) and the times PERF.md records for the design before
-# (OLD_MS)
-REDESIGNED = ("sig_decide", "decide_grouped", "decide_dense", "set_chunk")
+# the kernels the port redesigned (K3, K4; K1 / K6 decide_dense, K7
+# rule_chunk and K8 set_chunk, the rows program; shard_tail): timed
+# through the wrapper as every kernel is, and with STEADY_WINDOWS windows
+# of STEADY_ITERS launches of arguments packed once (time_steady),
+# reported beside their bound, their ptxas numbers, their resident blocks
+# per SM, the parent tree's kernels (--parent-csrc) and the times PERF.md
+# records for the design before (OLD_MS)
+REDESIGNED = ("sig_decide", "decide_grouped", "decide_dense", "set_chunk",
+              "rule_chunk", "shard_tail")
 STEADY_ITERS, STEADY_WINDOWS = 100, 5
 # their times beside ``ms`` in the kernel table: packed once, and the
 # parent tree's kernel through its wrapper and packed once
@@ -295,6 +304,13 @@ OLD_MS = {
     ("set_chunk", "(1,4)"): "1.142-1.165",
     ("set_chunk", "(2,2)"): "0.657-0.662",
     ("set_chunk", "explain"): "1.128 / 1.169 at (1,4)",
+    ("rule_chunk", "(1,4)"): "0.226-0.249",
+    ("rule_chunk", "(2,2)"): "0.211-0.273",
+    ("shard_tail", "K7(1,4)"): "0.068-0.077",
+    ("shard_tail", "K7(2,2)"): "0.073",
+    ("shard_tail", "K8(1,4)"): "0.052-0.077",
+    ("shard_tail", "K8(2,2)"): "0.059",
+    ("shard_tail", "explain"): "0.069-0.104 (K7 (1,4)), 0.050-0.089 (K8)",
 }
 
 
@@ -703,19 +719,25 @@ def ptxas_report(csrc: str, out_dir: str) -> dict:
 
 
 # the instantiations phase 2 lists as changed by design (set_chunk_kernel
-# was shard_chunk_kernel<2, ...> in trees before it: set_chunk's own
-# kernel of shard_chunk.cu, whose shard_chunk_kernel<1, ...> is
-# rule_chunk's and keeps its numbers)
+# and rule_chunk_kernel were shard_chunk_kernel<2, ...> and
+# shard_chunk_kernel<1, ..., 0> in trees before them: shard_chunk.cu's
+# two modes)
 REDESIGNED_PTX = ("sig_decide_kernel", "decide_grouped_kernel",
-                  "decide_dense_kernel", "set_chunk_kernel")
+                  "decide_dense_kernel", "set_chunk_kernel",
+                  "rule_chunk_kernel", "shard_tail_kernel")
 
 
 def former_name(name: str) -> str:
-    """An instantiation's name in a tree before the set-mode kernel had
-    its own name."""
-    if not name.startswith("set_chunk_kernel<"):
-        return name
-    return "shard_chunk_kernel<2," + name[len("set_chunk_kernel<"):]
+    """An instantiation's name in a tree before the shard modes had
+    kernels of their own: ``set_chunk_kernel<a,h,r,e>`` was
+    ``shard_chunk_kernel<2,a,h,r,e>``, ``rule_chunk_kernel<a,h,r>``
+    ``shard_chunk_kernel<1,a,h,r,0>``."""
+    if name.startswith("set_chunk_kernel<"):
+        return "shard_chunk_kernel<2," + name[len("set_chunk_kernel<"):]
+    if name.startswith("rule_chunk_kernel<"):
+        return ("shard_chunk_kernel<1," + name[len("rule_chunk_kernel<"):-1]
+                + ",0>")
+    return name
 
 
 def explain_off_twin(name: str) -> str:
@@ -787,6 +809,12 @@ def phase_ptxas(other_csrc: str | None = None,
                 f"spills {v[1]} / {v[2]} B; before: " + (
                     f"{old[0]} registers, spills {old[1]} / {old[2]} B"
                     if old else "none"))
+        moved = sorted({k.split("<")[0] for k, old, v in by_design
+                        if old is None or tuple(old) != tuple(v)})
+        kept = sum(k.split("<")[0] not in moved for k, _, _ in by_design)
+        log(f"  ptxas: {kept} of {len(by_design)} instantiations listed as "
+            f"changed by design keep the other tree's numbers (every one "
+            f"of a kernel outside {moved})")
         if changed:
             raise AssertionError(f"phase 2: kernels outside "
                                  f"{REDESIGNED_PTX} changed: {changed}")
@@ -1529,26 +1557,25 @@ def occupancy(name: str, args: tuple, **kw) -> int:
     fn = {"sig_decide": kmod.sig_decide_occupancy,
           "decide_grouped": kmod.decide_grouped_occupancy,
           "decide_dense": kmod.decide_dense_occupancy,
-          "set_chunk": kmod.set_chunk_occupancy}[name]
+          "set_chunk": kmod.set_chunk_occupancy,
+          "rule_chunk": kmod.rule_chunk_occupancy,
+          "shard_tail": kmod.shard_tail_occupancy}[name]
     return fn(*args, **kw)
 
 
 def library_of(mod, name: str):
     """A redesigned kernel's loaded library in ``mod`` (the port's
     ``ops.kernel``, or the parent tree's copy of it from
-    ``load_parent``, whose dense library loader takes the source name
-    and whose shard library has no loader of its own)."""
+    ``load_parent``, whose tail library has no loader of its own)."""
     if name == "sig_decide":
         return mod._sig_library()
     if name == "decide_grouped":
         return mod._grouped_library()
-    if mod is kmod:
-        return (kmod._dense_library() if name == "decide_dense"
-                else kmod._chunk_library())
     if name == "decide_dense":
-        return mod._dense_library("decide_dense")
-    return mod._library("shard_chunk", mod.CHUNK_PTRS,
-                        mod.DIMS + mod.CHUNK_DIMS, 5)
+        return mod._dense_library()
+    if name == "shard_tail":
+        return mod._library("shard_tail", mod.TAIL_PTRS, mod.TAIL_DIMS, 2)
+    return mod._chunk_library()
 
 
 def prepacked(mod, name: str, args: tuple, explain: bool = False,
@@ -1558,7 +1585,9 @@ def prepacked(mod, name: str, args: tuple, explain: bool = False,
     it from ``load_parent``) and launched through its library: what
     ``time_steady`` times, the kernel without the wrapper's host packing.
     ``set_chunk`` takes ``kw["t_live"]``: the port's kernel runs on the
-    live target rows, the parent's on the whole table unless ``live``."""
+    live target rows, the parent's on the whole table unless ``live``;
+    ``shard_tail`` ``kw["kr_stride"]``, in its library's block shape (the
+    parent's: its ``TAIL_THREADS``)."""
     kw = kw or {}
     flags = tuple(bool(f) for f in args[len(args) - N_FLAGS[name]:])
     pre: tuple = ()
@@ -1570,6 +1599,19 @@ def prepacked(mod, name: str, args: tuple, explain: bool = False,
             inv, cs, planes, slot_g, rows, g2r, gp, schedule, needs_pairs,
             with_hr, with_rel, explain)
         threads = mod.SIG_DECIDE_THREADS
+    elif name == "shard_tail":
+        merge, n_model, tabs = args
+        out, ptrs, dims, mode = mod.pack_shard_tail(
+            merge, n_model, tabs, explain, kw.get("kr_stride", 0))
+        pre = (mode,)
+        threads = (mod.tail_block(library_of(mod, name), mode)["threads"]
+                   if hasattr(mod, "tail_block") else mod.TAIL_THREADS[mode])
+    elif name == "rule_chunk":
+        packed = mod.pack_chunk_args("rule_chunk", shard_ref.MODE_RULE,
+                                     *args[:6])
+        pre = (shard_ref.MODE_RULE,)
+        out, ptrs, dims, threads = (packed.out, packed.ptrs, packed.dims,
+                                    packed.threads)
     else:
         if name == "decide_grouped":
             packed, layout = mod._grouped_args(*args[:4], explain)
@@ -1588,7 +1630,7 @@ def prepacked(mod, name: str, args: tuple, explain: bool = False,
         out, ptrs, dims, threads = (packed.out, packed.ptrs, packed.dims,
                                     packed.threads)
     entry = getattr(library_of(mod, name), "acs_" + (
-        "shard_chunk" if name == "set_chunk" else name))
+        "shard_chunk" if name in ("set_chunk", "rule_chunk") else name))
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
@@ -1669,7 +1711,7 @@ def redesigned_times(name: str, args: tuple, explains: tuple = (False,),
         if name == "set_chunk":
             fns.append(prepacked(PARENT, name, args, explain, kw, live=True))
             keys.append("parent_live_kernel_ms" + sfx)
-    if name in ("decide_dense", "set_chunk"):
+    if name not in ("sig_decide", "decide_grouped"):
         # the wrappers too, in turns with the parent's (explain off)
         ekw = {**kw, **({"explain": True} if explains[-1] else {})}
         fns.append(lambda: wrapper(*new_args, **ekw))
@@ -3644,22 +3686,41 @@ def k6_calls(device) -> list:
     return out
 
 
+def local_mesh(device, n_data: int, n_model: int, d: int) -> "mmod.Mesh":
+    """A mesh without collectives at data coordinate 0 and model
+    coordinate ``d`` of layout (n_data, n_model): a sharded kernel's rank
+    rebuilt in this process."""
+    return mmod.Mesh(axis_names=("data", "model"),
+                     shape={"data": n_data, "model": n_model},
+                     coords={"data": 0, "model": d},
+                     groups={"data": None, "model": None}, backend=None,
+                     device=device)
+
+
+_SHARD_TREE: list = []
+
+
+def shard_scale_tree() -> tuple:
+    """(engine, compile) of the shard-scale tree, built once for the
+    reports."""
+    if not _SHARD_TREE:
+        engine = shard_scale_engine()
+        _SHARD_TREE.extend(
+            (engine, compile_policies(engine.policy_sets, engine.urns)))
+    return tuple(_SHARD_TREE)
+
+
 def pod_call(device, n_data: int, n_model: int) -> tuple:
     """The ``set_chunk`` call of the shard-scale tree's stress shard (the
     one with the most live target rows) at pod layout (n_data, n_model),
     data coordinate 0, rebuilt in this process: ``PodShardedKernel`` on
     a mesh without collectives at that shard's coordinates -> (args,
     keywords, the shard's t_live and the kernel's t_cap)."""
-    engine = shard_scale_engine()
-    compiled = compile_policies(engine.policy_sets, engine.urns)
+    engine, compiled = shard_scale_tree()
     shards, _ = pod_shard.partition_sets(compiled, n_model)
     d = max(range(n_model), key=lambda i: shards[i].t_live)
-    mesh = mmod.Mesh(axis_names=("data", "model"),
-                     shape={"data": n_data, "model": n_model},
-                     coords={"data": 0, "model": d},
-                     groups={"data": None, "model": None}, backend=None,
-                     device=device)
-    kern = pod_shard.PodShardedKernel(compiled, mesh)
+    kern = pod_shard.PodShardedKernel(compiled,
+                                      local_mesh(device, n_data, n_model, d))
     (batch,) = evaluator_batches(compiled, engine, shard_scale_traffic())
     _, r = mmod.row_slice(batch, device, kmod.ROW_ARRAYS, n_data, 0)
     args = (kern._c, r, kern._own.s_lo, n_model, d) + shard_flags(compiled,
@@ -3686,6 +3747,66 @@ def rows_cases(device, stats: dict, rebac: dict) -> dict:
     return cases
 
 
+def target_rows(c: dict) -> int:
+    """The target rows a rule shard's tables reference (its compacted
+    subtable before the padding to the shards' common T)."""
+    refs = [c[k + "_target"][c[k + "_has_target"].bool()]
+            for k in ("rule", "pol", "set")]
+    refs.append(torch.zeros(1, dtype=refs[0].dtype, device=refs[0].device))
+    return int(torch.unique(torch.cat([x.flatten() for x in refs])).numel())
+
+
+def k7_cases(device) -> dict:
+    """The main-path calls of K7's ``rule_chunk`` and of ``shard_tail``
+    in both modes, rebuilt in this process on the shard-scale tree's
+    batch at the (1,4) and (2,2) layouts, data coordinate 0: ``rule_chunk``
+    of ``RuleShardedKernel`` at the rule shard with the most target rows;
+    the K7 tail on the MIN over every rule shard's merge rows (each
+    shard's kernel at its own coordinate, merged on the device, no
+    collective), with the kernel's packed tail tables; the K8 tail on the
+    MIN over every set shard's ``set_chunk`` rows (``PodShardedKernel``
+    per coordinate; explain on from the explain rows, a cell of its own).
+    By cell: (kernel, args, keywords, explain flags to time)."""
+    engine, compiled = shard_scale_tree()
+    (batch,) = evaluator_batches(compiled, engine, shard_scale_traffic())
+    flags = shard_flags(compiled, batch)
+    cases = {}
+    for n_data, n_model in ((1, 4), (2, 2)):
+        layout = f"({n_data},{n_model})"
+        _, r = mmod.row_slice(batch, device, kmod.ROW_ARRAYS, n_data, 0)
+        rules = [rule_shard.RuleShardedKernel(
+            compiled, local_mesh(device, n_data, n_model, d))
+            for d in range(n_model)]
+        calls = [(k._c, r, k._kr_offset, k._kr_total, n_model, d) + flags
+                 for d, k in enumerate(rules)]
+        t_rows = [target_rows(k._c) for k in rules]
+        d = max(range(n_model), key=t_rows.__getitem__)
+        cases["rule_chunk" + layout] = ("rule_chunk", calls[d], {}, (False,))
+        merged = torch.stack([kmod.rule_chunk(*a) for a in calls]).amin(0)
+        cases["shard_tail K7" + layout] = (
+            "shard_tail", (merged, n_model, rules[d]._tail),
+            {"kr_stride": rules[d]._kr_total}, (True, False))
+        pods = [pod_shard.PodShardedKernel(
+            compiled, local_mesh(device, n_data, n_model, e))
+            for e in range(n_model)]
+        for explain in (False, True):
+            ekw = {"explain": True} if explain else {}
+            merged = torch.stack([kmod.set_chunk(
+                p._live, r, p._own.s_lo, n_model, e, *flags,
+                t_live=p._own.t_live, **ekw)
+                for e, p in enumerate(pods)]).amin(0)
+            cases["shard_tail K8" + layout + (" explain" if explain
+                                             else "")] = (
+                "shard_tail", (merged, n_model, None),
+                {"kr_stride": compiled.KR}, (explain,))
+        log(f"  K7 {layout}: rule shard {d} of target rows {t_rows} (T "
+            f"{int(calls[d][0]['t_role'].shape[0])}), KR_local "
+            f"{rules[d]._kr_total // n_model}, {int(r['r_n_ra'].shape[0])} "
+            f"rows")
+        del rules, pods
+    return cases
+
+
 def host_us(fn, n: int = 200) -> float:
     """Mean host microseconds of ``fn`` over ``n`` calls (host clock),
     after one warm-up call."""
@@ -3696,56 +3817,137 @@ def host_us(fn, n: int = 200) -> float:
     return (time.perf_counter() - t0) / n * 1e6
 
 
-def host_steps(name: str, args: tuple, kw: dict) -> dict:
-    """The rows-program wrapper's host steps on one call's arguments, in
+def host_steps(name: str, args: tuple, kw: dict,
+               explain: bool = False) -> dict:
+    """A redesigned wrapper's host steps on one call's arguments, in
     microseconds: the whole packing (``pack``; set_chunk's of the live
-    rows' views, which ``PodShardedKernel`` cuts once per placement),
-    with ``PARENT`` the parent's packing of the same call
-    (``parent_pack``, its set_chunk on the whole table as its wrapper
-    did), and the steps the rows program added: ``rows_tiles`` (cached
-    per shapes), ``sm_count`` and set_chunk's ``live_rows`` (the cut,
-    once per placement, and on the views it is handed per call)."""
+    rows' views, which ``PodShardedKernel`` cuts once per placement;
+    shard_tail's of the tables ``RuleShardedKernel`` packs once, beside
+    ``pack_dict``, the same call on a plain dict, and ``tail_tables``,
+    the packing once per placement), with ``PARENT`` the parent's
+    packing of the same call (``parent_pack``, its set_chunk on the
+    whole table as its wrapper did), and the steps the rows program
+    added: ``rows_tiles`` (cached per shapes), ``sm_count`` and
+    set_chunk's ``live_rows`` (the cut, once per placement, and on the
+    views it is handed per call); the tail's ``tail_block``.  The tail
+    packs its ``explain`` variant."""
+    if name == "shard_tail":
+        merge, n_model, tabs = args
+        lib = kmod._tail_library()
+        mode = shard_ref.MODE_SET if tabs is None else shard_ref.MODE_RULE
+        kr = kw.get("kr_stride", 0)
+        out = {"pack": host_us(lambda: kmod.pack_shard_tail(
+            merge, n_model, tabs, explain, kr)),
+            "tail_block": host_us(lambda: kmod.tail_block(lib, mode))}
+        if tabs is not None:
+            plain = dict(tabs)
+            out["pack_dict"] = host_us(lambda: kmod.pack_shard_tail(
+                merge, n_model, plain, explain, kr))
+            out["tail_tables"] = host_us(lambda: kmod.TailTables(plain))
+        if PARENT is not None:
+            ptabs = None if tabs is None else dict(tabs)
+            out["parent_pack"] = host_us(lambda: PARENT.pack_shard_tail(
+                merge, n_model, ptabs, explain, kr))
+        return out
     c, r = args[0], args[1]
     dev = r["r_n_ra"].device
+    mode = kmod.MODE_DENSE
 
     def pack(mod, table):
         if name == "decide_dense":
             return mod.pack_args(table, r)
+        if name == "rule_chunk":
+            return mod.pack_chunk_args("rule_chunk", shard_ref.MODE_RULE,
+                                       table, *args[1:6])
         return mod.pack_chunk_args(
             "set_chunk", shard_ref.MODE_SET, table, r, args[2],
             table["rule_valid"].shape[2], args[3], args[4])
 
-    if name == "decide_dense":
-        out = {"pack": host_us(lambda: pack(kmod, c))}
-        lib = kmod._dense_library()
-    else:
+    if name == "set_chunk":
         live = shard_ref.live_rows(c, kw["t_live"])
         out = {"pack": host_us(lambda: pack(kmod, live)),
                "live_rows": host_us(
                    lambda: shard_ref.live_rows(c, kw["t_live"])),
                "live_rows_per_call": host_us(
                    lambda: shard_ref.live_rows(live, kw["t_live"]))}
-        lib = kmod._chunk_library()
+        lib, mode, table = kmod._chunk_library(), shard_ref.MODE_SET, live
+    else:
+        out = {"pack": host_us(lambda: pack(kmod, c))}
+        lib, table = kmod._dense_library(), c
+        if name == "rule_chunk":
+            lib, mode = kmod._chunk_library(), shard_ref.MODE_RULE
     if PARENT is not None:
         out["parent_pack"] = host_us(lambda: pack(PARENT, c))
-    shape = pack(kmod, c if name == "decide_dense" else shard_ref.live_rows(
-        c, kw["t_live"])).shape
+    shape = pack(kmod, table).shape
     out["rows_tiles"] = host_us(
-        lambda: kmod.rows_tiles(lib, shape, False, kmod._sm_count(dev)))
+        lambda: kmod.rows_tiles(lib, shape, False, kmod._sm_count(dev),
+                                mode))
     out["sm_count"] = host_us(lambda: kmod._sm_count(dev))
     return out
 
 
+def cell_shape(name: str, args: tuple, kw: dict) -> dict:
+    """A report cell's rows and block shape: the rows program's ``RT`` /
+    ``PT`` (with its target rows ``T``), the tail's threads and rows per
+    block."""
+    if name == "shard_tail":
+        mode = shard_ref.MODE_SET if args[2] is None else shard_ref.MODE_RULE
+        block = kmod.tail_block(kmod._tail_library(), mode)
+        return {"rows": int(args[0].shape[0]), "threads": block["threads"],
+                "rows_per_block": block["rows"]}
+    if name == "decide_dense":
+        shape = kmod.pack_args(args[0], args[1]).shape
+    elif name == "rule_chunk":
+        shape = kmod.pack_chunk_args("rule_chunk", shard_ref.MODE_RULE,
+                                     *args[:6]).shape
+    else:
+        live = shard_ref.live_rows(args[0], kw["t_live"])
+        shape = kmod.pack_chunk_args(
+            "set_chunk", shard_ref.MODE_SET, live, args[1], args[2],
+            args[0]["rule_valid"].shape[2], args[3], args[4]).shape
+    return {"rows": shape["B"], "T": shape["T"], "RT": shape["RT"],
+            "PT": shape["PT"]}
+
+
+def ptx_name(name: str, args: tuple, explain: bool) -> str:
+    """The ptxas entry of a report cell's kernel instantiation."""
+    if name == "shard_tail":
+        mode = shard_ref.MODE_SET if args[2] is None else shard_ref.MODE_RULE
+        return f"shard_tail_kernel<{mode},{int(explain)}>"
+    flags = ",".join(str(int(f)) for f in args[-3:])
+    if name == "rule_chunk":
+        return f"rule_chunk_kernel<{flags}>"
+    return f"{name}_kernel<{flags},{int(explain)}>"
+
+
+def tail_floor_ms(args: tuple) -> float:
+    """The tail's launch floor: the empty kernel of
+    ``acs_shard_tail_floor`` over the grid the call's launch takes, the
+    median window of ``time_steady``."""
+    lib = kmod._tail_library()
+    mode = shard_ref.MODE_SET if args[2] is None else shard_ref.MODE_RULE
+    threads = kmod.tail_block(lib, mode)["threads"]
+    rows = int(args[0].shape[0])
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def floor():
+        if lib.acs_shard_tail_floor(mode, rows, threads, stream) != 0:
+            raise RuntimeError("acs_shard_tail_floor failed")
+    return time_steady(floor)[0]
+
+
 def rows_report(cases: dict, ptx: dict, card: str, stats: dict) -> dict:
-    """The rows program's report: each main-path call of ``cases`` held
-    against its plain version (each explain flag), then through the
-    wrapper and packed once (with ``--parent-csrc`` beside the parent's
-    kernel on the same arguments, both ways), explain on and off where
-    the cell has both, its plain version's time, bound (``set_chunk``:
-    over the live target rows) beside the yardstick of the design before
-    (the stage-A fold on every pair of the whole table), the wrapper's
-    host steps (``host_steps``), ptxas numbers, blocks per SM and block
-    shape; returns the times by cell."""
+    """The report of the rows program's kernels and the tail: each
+    main-path call of ``cases`` held against its plain version (each
+    explain flag), then through the wrapper and packed once (with
+    ``--parent-csrc`` beside the parent's kernel on the same arguments,
+    both ways), explain on and off where the cell has both, its plain
+    version's time, bound (``set_chunk``: over the live target rows)
+    beside the yardstick of the design before (the stage-A fold on every
+    pair of the whole table; the tail: its launch floor, an empty kernel
+    over the same grid), the wrapper's host steps (``host_steps``),
+    ptxas numbers, blocks per SM and block shape; returns the times by
+    cell."""
     out = {}
     for cell, (name, args, kw, explains) in cases.items():
         for e in explains:
@@ -3756,30 +3958,28 @@ def rows_report(cases: dict, ptx: dict, card: str, stats: dict) -> dict:
         t = redesigned_times(name, args, explains, kw)
         ekw = {**kw, "explain": True} if explains[0] else kw
         t["plain_ms"] = time_ms(lambda: PLAIN[name](*args, **ekw), 1)
+        res = getattr(kmod, name)(*args, **ekw)
         if name == "decide_dense":
             t["bound_ms"], t["bound_by"], _, t["ops"] = bound_ms(
                 args[0], args[1], args[-1])
             t["yardstick_ms"], _, _, t["ops_yardstick"] = bound_ms(
                 args[0], args[1], args[-1], every_pair=True)
-            shape = kmod.pack_args(args[0], args[1]).shape
+        elif name == "shard_tail":
+            t["bound_ms"], t["bound_by"], _, t["ops"] = bound_tail(
+                args[0], args[2], res)
+            t["floor_ms"] = tail_floor_ms(args)
         else:
-            res = kmod.set_chunk(*args, **kw)
-            live = shard_ref.live_rows(args[0], kw["t_live"])
+            table = args[0] if name == "rule_chunk" else shard_ref.live_rows(
+                args[0], kw["t_live"])
             t["bound_ms"], t["bound_by"], _, t["ops"] = bound_chunk(
-                live, args[1], args[-3:], res)
+                table, args[1], args[-3:], res)
             t["yardstick_ms"], _, _, t["ops_yardstick"] = bound_chunk(
                 args[0], args[1], args[-3:], res, every_pair=True)
-            shape = kmod.pack_chunk_args(
-                "set_chunk", shard_ref.MODE_SET, live, args[1], args[2],
-                args[0]["rule_valid"].shape[2], args[3], args[4]).shape
-        t.update(rows=shape["B"], T=shape["T"], RT=shape["RT"],
-                 PT=shape["PT"], flags=[bool(f) for f in args[-3:]],
-                 host_us=host_steps(name, args, kw))
-        flags = ",".join(str(int(f)) for f in args[-3:])
-        kname = "decide_dense_kernel" if name == "decide_dense" \
-            else "set_chunk_kernel"
-        t["ptxas"] = {e: ptx.get(f"{kname}<{flags},{int(e)}>")
-                      for e in explains}
+        t.update(cell_shape(name, args, kw),
+                 host_us=host_steps(name, args, kw, explains[0]))
+        if name != "shard_tail":
+            t["flags"] = [bool(f) for f in args[-3:]]
+        t["ptxas"] = {e: ptx.get(ptx_name(name, args, e)) for e in explains}
         out[cell] = t
         log(f"  {name} {cell} on {card}: " + json.dumps(t))
         for i, e in enumerate(explains):
@@ -3792,17 +3992,21 @@ def rows_report(cases: dict, ptx: dict, card: str, stats: dict) -> dict:
                 line += (f"; parent wrapper {t['parent_ms' + sfx]:.4f} ms, "
                          f"packed once {pk:.4f} ms "
                          f"({pk / t['kernel_ms' + sfx]:.2f}x)")
-            log(f"{line}; PERF.md before: {old_ms(name, cell, e)} ms")
+            if "floor_ms" in t:
+                line += (f"; launch floor {t['floor_ms']:.4f} ms "
+                         f"({t['kernel_ms' + sfx] / t['floor_ms']:.2f}x)")
+            log(f"{line}; bound {t['bound_ms']:.5f} ms; PERF.md before: "
+                f"{old_ms(name, cell, e)} ms")
     return out
 
 
 def old_ms(name: str, cell: str, explain: bool) -> str:
-    """The time PERF.md records for a rows-program cell's design before."""
+    """The time PERF.md records for a report cell's design before."""
     if explain:
         return OLD_MS[(name, "explain")]
     if cell.startswith("K6"):
         return OLD_MS[(name, "K6 (4,1)")]
-    return OLD_MS[(name, cell.replace("set_chunk", ""))]
+    return OLD_MS[(name, cell.replace(name, "").strip())]
 
 
 def main(argv: list[str]) -> int:
@@ -3815,14 +4019,18 @@ def main(argv: list[str]) -> int:
     sig_stats: dict = {}
     t_start = time.perf_counter()
 
-    log("phase 1: device")
+    def stamp(msg: str) -> None:
+        """A phase's heading with the seconds since the start."""
+        log(f"{msg} [{time.perf_counter() - t_start:.1f} s]")
+
+    stamp("phase 1: device")
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {kind} count {torch.cuda.device_count()}")
     log(card)
 
-    log("phase 2: build")
+    stamp("phase 2: build")
     t0 = time.perf_counter()
     cuda_build.build(list(SOURCES))
     log(f"  {', '.join(SOURCES)} built in {time.perf_counter() - t0:.1f} s "
@@ -3837,47 +4045,49 @@ def main(argv: list[str]) -> int:
         # the parent's K3 / K4, timed beside the new on the same arguments
         global PARENT
         PARENT = load_parent(parent_csrc, parent_dir)
-    # --quick: the redesigned kernels' phases only (2, 5, 13 and the rows
-    # program's report, then 6, 7, 12, 17, 18 and the K3 / K4 report), no
-    # kernel table and no result line
+    # --quick: the redesigned kernels' phases only (2, 5, 13, the rows
+    # program's report and the K7 / tail report, then 6, 7, 12, 17, 18 and
+    # the K3 / K4 report), no kernel table and no result line
     quick = "--quick" in argv
     if quick:
-        log("phase 5: dense main path")
+        stamp("phase 5: dense main path")
         phase_end_to_end(device, 4096, stats)
-        log("phase 13: ReBAC main path")
+        stamp("phase 13: ReBAC main path")
         rebac = phase_rebac(device, sig_stats, card, REBAC_TUPLES)
-        log("K1 / K6 / K8 report (the rows program):")
+        stamp("K1 / K6 / K8 report (the rows program):")
         rows_report(rows_cases(device, stats, rebac), ptx, card, sig_stats)
+        stamp("K7 / tail report (rule_chunk, shard_tail):")
+        rows_report(k7_cases(device), ptx, card, sig_stats)
 
     if not quick:
-        log("phase 3-4: dense kernel vs plain version, kernel vs oracle")
+        stamp("phase 3-4: dense kernel vs plain version, kernel vs oracle")
         variants = phase_kernel_vs_plain(device, 1024, stats)
         for flags, n in sorted(variants.items()):
             log(f"  variant (with_acl, with_hr, with_rel)={flags}: {n} rows "
                 f"checked")
 
-        log("phase 5: dense main path (HybridEvaluator.is_allowed_batch, "
+        stamp("phase 5: dense main path (HybridEvaluator.is_allowed_batch, "
             "511 rules)")
         phase_end_to_end(device, 4096, stats)
 
-    log("phase 6: signature kernels vs plain versions")
+    stamp("phase 6: signature kernels vs plain versions")
     phase_sig_vs_plain(device, sig_stats)
 
-    log("phase 7: signature main paths (100k rules)")
+    stamp("phase 7: signature main paths (100k rules)")
     sig = phase_sig_main(device, sig_stats, card)
     if quick:
-        log("phase 12: relation variants vs plain versions")
+        stamp("phase 12: relation variants vs plain versions")
         rel = phase_rel_vs_plain(device, sig_stats)
-        log("phase 17: explain variants vs plain versions")
+        stamp("phase 17: explain variants vs plain versions")
         phase_explain_vs_plain(device, sig_stats)
-        log("phase 18: explain main path")
+        stamp("phase 18: explain main path")
         expl = phase_explain_main(device, sig_stats, card)
-        log("K3 / K4 report:")
+        stamp("K3 / K4 report:")
         redesign_report(sig, expl, ptx, card)
         log(f"  quick run: {time.perf_counter() - t_start:.1f} s in all")
         return 0
 
-    log("phase 8: throughput")
+    stamp("phase 8: throughput")
     seed = phase_throughput(device, "seed_data", 1 << 18, card)
     scoped = phase_throughput(device, "scoped_511", 1 << 16, card)
     e2e = stats["e2e"]
@@ -3895,51 +4105,54 @@ def main(argv: list[str]) -> int:
             f"decisions/s ({st['batch_ms']:.3f} ms per batch), stages (ms) "
             f"{json.dumps(st['stages_ms'])} on {card}")
 
-    log("phase 9: wia_planes vs plain version (fixtures, 1k, 10k, 100k)")
+    stamp("phase 9: wia_planes vs plain version (fixtures, 1k, 10k, 100k)")
     tree_100k = sig.pop("tree_100k")
     wia = phase_wia_vs_plain(device, sig_stats, tree_100k)
 
-    log("phase 10: whatIsAllowed main path (wia-large, 1,000 rules, "
+    stamp("phase 10: whatIsAllowed main path (wia-large, 1,000 rules, "
         "2,048 queries)")
     wl = phase_wia_main(device, sig_stats, card)
 
-    log("phase 11: lattice sweep (128 x 128 x 1 on 10,000 rules)")
+    stamp("phase 11: lattice sweep (128 x 128 x 1 on 10,000 rules)")
     lat = phase_lattice(device, sig_stats, card)
 
-    log("phase 12: relation variants vs plain versions (fixture, 720 rules)")
+    stamp("phase 12: relation variants vs plain versions (fixture, 720 rules)")
     rel = phase_rel_vs_plain(device, sig_stats)
 
-    log("phase 13: ReBAC main path (rebac-serve, 1,000,000 tuples)")
+    stamp("phase 13: ReBAC main path (rebac-serve, 1,000,000 tuples)")
     rebac = phase_rebac(device, sig_stats, card, REBAC_TUPLES)
 
-    log("phase 14: rule_chunk, set_chunk, shard_tail vs plain versions "
+    stamp("phase 14: rule_chunk, set_chunk, shard_tail vs plain versions "
         "(shard-scale, 100k, fixtures; 4 shards)")
     phase_shard_vs_plain(device, sig_stats, tree_100k)
     del tree_100k
 
-    log("phase 15: HybridEvaluator on meshes, 4 ranks sharing the card "
+    stamp("phase 15: HybridEvaluator on meshes, 4 ranks sharing the card "
         "(gloo)")
     p15 = phase15(card)
 
-    log("phase 16: NCCL, world size 1")
+    stamp("phase 16: NCCL, world size 1")
     phase16(card)
 
-    log("phase 17: explain variants vs plain versions (fixtures, 511, "
+    stamp("phase 17: explain variants vs plain versions (fixtures, 511, "
         "720, relation, shard-scale partitions)")
     phase_explain_vs_plain(device, sig_stats)
 
-    log("phase 18: explain main path (explain-overhead: 20,000 rules, "
+    stamp("phase 18: explain main path (explain-overhead: 20,000 rules, "
         "8 x 4,096 rows)")
     expl = phase_explain_main(device, sig_stats, card)
 
-    log("K3 / K4 report (CUDA events: the mean of "
+    stamp("K3 / K4 report (CUDA events: the mean of "
         f"{ITERS} launches through the wrapper, and the median of "
         f"{STEADY_WINDOWS} windows of {STEADY_ITERS} launches of arguments "
         "packed once):")
     redesign_report(sig, expl, ptx, card)
-    log("K1 / K6 / K8 report (the rows program; CUDA events as above):")
+    stamp("K1 / K6 / K8 report (the rows program; CUDA events as above):")
     rows_t = rows_report(rows_cases(device, stats, rebac), ptx, card,
                          sig_stats)
+    stamp("K7 / tail report (rule_chunk and shard_tail; CUDA events as "
+        "above):")
+    rows_t.update(rows_report(k7_cases(device), ptx, card, sig_stats))
 
     log("  relation variants' times (CUDA events, 5 launches after a "
         "warm-up):")
@@ -3996,16 +4209,21 @@ def main(argv: list[str]) -> int:
                                                       "K7")})
     rows.append({"name": "set_chunk", **sharded_row(p15, "set_chunk",
                                                      "K8")})
-    # K1's and K8's packed-once times (explain off): the rows report's
-    # scoped_511 and (1,4) cells
-    for r, cell in ((rows[0], "scoped_511"), (rows[-1], "set_chunk(1,4)")):
-        t = rows_t[cell]
-        r.update({k: t[k + "_explain_off"] for k in PACKED_KEYS
-                  if k + "_explain_off" in t})
     rows.append({"name": "shard_tail", **sharded_row(p15, "shard_tail",
                                                       "K7"),
                  "pod": {"replaces": TAIL_ALSO_REPLACES, **sharded_row(
                      p15, "shard_tail", "K8"), "library_ms": None}})
+    # the redesigned kernels' packed-once and parent times (explain off):
+    # the reports' scoped_511 and (1,4) cells
+    by_name = {r["name"]: r for r in rows}
+    for r, cell in ((rows[0], "scoped_511"),
+                    (by_name["set_chunk"], "set_chunk(1,4)"),
+                    (by_name["rule_chunk"], "rule_chunk(1,4)"),
+                    (by_name["shard_tail"], "shard_tail K7(1,4)"),
+                    (by_name["shard_tail"]["pod"], "shard_tail K8(1,4)")):
+        t = rows_t[cell]
+        sfx = "_explain_off" if "kernel_ms_explain_off" in t else ""
+        r.update({k: t[k + sfx] for k in PACKED_KEYS if k + sfx in t})
     keys = ("launches", "ms", "plain_ms", "bound_ms", "bound_by")
     extra = ("ms_explain_off",) + PACKED_KEYS + tuple(
         k + "_explain_off" for k in PACKED_KEYS)

@@ -11,8 +11,12 @@ whole batch; the shards' merge rows are merged with ``amin`` (what the
 MIN ``all_reduce`` computes) and the tail kernel decides.  Each kernel's
 output must equal its plain version (``ops/shard_ref.py``) exactly,
 and the merged decisions must equal the dense plain version's.
-``set_chunk`` runs the rows program with 64-thread blocks of 3 rows
-unless a test asks for another block shape.  That nvcc accepts the
+Both shard kernels run the rows program (``rule_chunk`` in its
+rule-chunk mode, ``set_chunk`` in its set-chunk mode) with 64-thread
+blocks of 3 rows unless a test asks for another block shape; the tail
+runs in the library's block shape (a row per warp in the rule-sharded
+mode, a row per thread in the pod-sharded one) unless a test passes
+other thread counts.  That nvcc accepts the
 sources for ``sm_90a``, and their timing, are checked on the card by
 ``chip_smoke.py``.
 """
@@ -42,6 +46,7 @@ from .test_torch_cuda_source import (
     build_emulated,
     set_rows_stage,
     window_batch,
+    window_doc,
 )
 from .test_torch_kernel import engines_from_doc
 from .test_torch_pod_shard import MIXED_SPECS, mixed_ca_doc
@@ -71,12 +76,17 @@ def libs(tmp_path_factory):
     smem = out["shard_chunk"].acs_shard_chunk_smem
     smem.restype = ctypes.c_longlong
     smem.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_int] * 3
+    for lib_name, sizing in tkernel._SIZING.items():
+        if lib_name in out:
+            for fn, (restype, argtypes) in sizing.items():
+                getattr(out[lib_name], fn).restype = restype
+                getattr(out[lib_name], fn).argtypes = argtypes
     return {name: out[lib] for name, lib in LIBRARY.items()}
 
 
 @pytest.fixture(autouse=True)
 def rows_stage(monkeypatch):
-    """set_chunk in two-warp blocks of three rows."""
+    """rule_chunk and set_chunk in two-warp blocks of three rows."""
     set_rows_stage(monkeypatch, 3)
 
 
@@ -93,14 +103,18 @@ def run_chunk(lib, name, mode, c, r, offset, kr_total, n_model, rank, flags,
     return args.out
 
 
-def run_tail(lib, merge, n_model, tabs, explain=False, kr_stride=0):
+def run_tail(lib, merge, n_model, tabs, explain=False, kr_stride=0,
+             threads=None):
+    """The tail on the stand-in, in the library's block shape unless
+    ``threads`` is given."""
     out, ptrs, dims, mode = tkernel.pack_shard_tail(merge, n_model, tabs,
                                                     explain, kr_stride)
     out.fill_(-7)
+    if threads is None:
+        threads = tkernel.tail_block(lib, mode)["threads"]
     assert lib.acs_shard_tail(ctypes.addressof(ptrs), len(ptrs),
                               ctypes.addressof(dims), len(dims), mode,
-                              int(explain), tkernel.TAIL_THREADS[mode],
-                              None) == 0
+                              int(explain), threads, None) == 0
     return out
 
 
@@ -181,10 +195,17 @@ def check_tree(libs, compiled, batch, n_model: int, explain: bool = False,
     reads slot 0 from its merged key as JAX's rule-sharded program does,
     the dense program the clipped selection); returns the outputs [3, B]
     ([4, B])."""
-    flags, r, dense, el = tree_inputs(compiled, batch, explain)
-    c = tables_from_numpy(compiled.arrays, "cpu", keys=tkernel.TABLE_ARRAYS)
-    n = batch.B
+    got7, _, _ = check_rule_shards(libs, compiled, batch, n_model, explain,
+                                   k7_codes)
+    check_set_shards(libs, compiled, batch, n_model, explain)
+    return got7
 
+
+def rule_merges(libs, compiled, batch, n_model: int):
+    """``rule_chunk`` on every shard of an ``n_model``-way rule partition,
+    each equal to its plain version -> (the shards' merge rows, the
+    padded global rule extent ``kr_total``)."""
+    flags, r, _, _ = tree_inputs(compiled, batch)
     part = rule_shard.partition_rules(compiled, n_model)
     kr_total = part.kr_local * n_model
     merges = []
@@ -198,6 +219,21 @@ def check_tree(libs, compiled, batch, n_model: int, explain: bool = False,
                         cd, r, off, kr_total, n_model, d, flags)
         assert torch.equal(got, want), ("rule_chunk", d)
         merges.append(got)
+    return merges, kr_total
+
+
+def check_rule_shards(libs, compiled, batch, n_model: int,
+                      explain: bool = False, k7_codes: bool = True):
+    """The rule-sharded program on every shard of an ``n_model``-way rule
+    partition (``rule_merges``), merged with ``amin``; the tail equal to
+    its plain version and, on the eligible rows, to the dense plain
+    version (``check_tree`` says how explain codes compare); returns the
+    tail's outputs [3, B] ([4, B]), the shards' merge rows and
+    ``kr_total``."""
+    _, _, dense, el = tree_inputs(compiled, batch, explain)
+    c = tables_from_numpy(compiled.arrays, "cpu", keys=tkernel.TABLE_ARRAYS)
+    n = batch.B
+    merges, kr_total = rule_merges(libs, compiled, batch, n_model)
     merged = torch.stack(merges).amin(dim=0)
     tabs = {k: c[k] for k in tkernel.TAIL_TABLES}
     want = shard_ref.shard_tail_ref(merged, n_model, tabs, explain=explain,
@@ -210,8 +246,7 @@ def check_tree(libs, compiled, batch, n_model: int, explain: bool = False,
         want7[3] = (to_kr_stride(dense[3], compiled.KR, kr_total)
                     if k7_codes else got7[3])
     assert torch.equal(got7[:, :n][:, el], want7[:, :n][:, el])
-    check_set_shards(libs, compiled, batch, n_model, explain)
-    return got7[:, :n]
+    return got7[:, :n], merges, kr_total
 
 
 def port_batch(teng, specs, store_ops=None):
@@ -250,7 +285,7 @@ def test_argument_count_mismatch_is_refused(libs, name):
         _, r = row_slice(batch, "cpu", tkernel.ROW_ARRAYS, 1, 0)
         c = tables_from_numpy(tc.arrays, "cpu", keys=tkernel.TABLE_ARRAYS)
         args = tkernel.pack_chunk_args(name, tkernel.MODE_RULE, c, r, 0,
-                                       tc.KR, 1, 0)
+                                       tc.KR, 1, 0, lib=libs[name])
         assert libs[name].acs_shard_chunk(
             ctypes.addressof(args.ptrs), len(args.ptrs),
             ctypes.addressof(args.dims), len(args.dims), tkernel.MODE_RULE,
@@ -418,3 +453,157 @@ def test_set_chunk_live_rows(libs):
             after = [k._own.t_live for k in kernels]
             assert after == [t - (d == owner) for d, t in enumerate(before)]
             assert len({k.t_cap for k in kernels}) == 1
+
+
+# ------------------------- rule_chunk: windows, rows per block; the tail
+
+
+def rule_keys(merge, S: int, KP: int) -> torch.Tensor:
+    """The keys of a rule chunk's merge rows -> int64 [B, S, KP, 5]."""
+    B = merge.shape[0]
+    return merge[:, :S * KP * shard_ref.KEY_COLS].long().reshape(
+        B, S, KP, shard_ref.KEY_COLS)
+
+
+@pytest.mark.parametrize("rt", [1, 2, 5])
+@pytest.mark.parametrize("kr_local", [5, 33, 100])
+def test_rule_chunk_windows(libs, monkeypatch, kr_local, rt):
+    """``rule_chunk`` on both shards of a 2-way rule split of trees whose
+    policies hold 10, 66 and 200 rules (KR_local 5, 33, 100; several
+    policies per staged tile, so their windows cross bitset words), in
+    blocks of 1, 2 and 5 rows: every key equal to the plain version's,
+    the first and last keys inside the shard's chunk
+    ([OFFSET, OFFSET + KR_local) at the second shard's offset), at
+    KR_local 33 and 100 some policy's first collected rule in the second
+    32-bit word of its window; aborts on both shards; merged, the tail equal to
+    the dense plain version."""
+    set_rows_stage(monkeypatch, rt)
+    n_policies = {5: 9, 33: 5, 100: 2}[kr_local]
+    tc, batch = window_batch(n_policies, 2 * kr_local, 24,
+                             seed=kr_local + rt)
+    out, merges, kr_total = check_rule_shards(libs, tc, batch, 2)
+    assert kr_total == 2 * kr_local and (out[2] != 200).any()
+    n = batch.B
+    second_word = False
+    for d, merge in enumerate(merges):
+        off = d * kr_local
+        keys = rule_keys(merge[:n], tc.S, tc.KP)
+        first, last = keys[..., 2], -keys[..., 3]
+        have = first < shard_ref.BIGKEY
+        assert have.any() and torch.equal(have, last > 0)
+        kr_first = (first[have] >> 3) - off
+        kr_last = (last[have] >> 3) - 1 - off
+        assert (kr_first >= 0).all() and (kr_last < kr_local).all()
+        assert (kr_first <= kr_last).all()
+        second_word |= bool((kr_first >= 32).any())
+        # the shard's own abort slot, in the padded global order
+        slot = merge[:n, tc.S * tc.KP * shard_ref.KEY_COLS + 3 * d]
+        assert (slot < shard_ref.BIG).any()
+        pos = slot[slot < shard_ref.BIG].long() % kr_total - off
+        assert ((pos >= 0) & (pos < kr_local)).all()
+    assert second_word == (kr_local > 32)
+
+
+def role_specs(roles: list) -> list:
+    """One request spec per role of ``roles``, in order, over
+    ``window_doc``'s entities and actions (the i-th row on entity i % 3
+    and action i % 4), with subject ids."""
+    import chip_smoke
+
+    return [request_spec(chip_smoke.build_request(
+        subject_id="u1", subject_role=role,
+        role_scoping_entity=chip_smoke.ORG, role_scoping_instance="Org1",
+        resource_type=chip_smoke.STRESS_ENTITIES[i % 3], resource_id="id-0",
+        action_type=chip_smoke.ACTIONS[i % 4],
+        owner_indicatory_entity=chip_smoke.ORG, owner_instance="Org1"))
+        for i, role in enumerate(roles)]
+
+
+def test_rule_chunk_rows_per_block(libs, monkeypatch):
+    """Blocks of 5 rows over 13 rows padded to 16 (three full blocks, a
+    last one of one row): the first block's rows hold four different roles
+    (each row's keys its own), the second block's only a role no target
+    of the tree has (the role filter drops every target: no collected
+    rule on any shard), the third mixed; every key equal to the plain
+    version's, merged decisions equal to the dense plain version's."""
+    set_rows_stage(monkeypatch, 5)
+    roles = ([f"role-{k}" for k in (0, 1, 2, 3, 0)] + ["role-9"] * 5
+             + [f"role-{k}" for k in (3, 9, 1)])
+    _, teng = engines_from_doc(window_doc(5, 66))
+    tc, batch = port_batch(teng, role_specs(roles))
+    _, r = row_slice(batch, "cpu", tkernel.ROW_ARRAYS, 1, 0)
+    c = tables_from_numpy(tc.arrays, "cpu", keys=tkernel.TABLE_ARRAYS)
+    shape = tkernel.pack_chunk_args("rule_chunk", tkernel.MODE_RULE, c, r, 0,
+                                    tc.KR, 1, 0, lib=libs["rule_chunk"]).shape
+    assert shape["RT"] == 5 and shape["B"] % 5 == 1
+    out, merges, _ = check_rule_shards(libs, tc, batch, 2)
+    keys = torch.stack([rule_keys(m, tc.S, tc.KP) for m in merges])
+    collected = (keys[..., 2] < shard_ref.BIGKEY).flatten(2).any(2).any(0)
+    assert collected[:4].all() and not collected[5:10].any()
+    assert (out[0, 5:10] == 0).all()
+    firsts = [tuple(keys[:, j, ..., 2].flatten().tolist()) for j in range(4)]
+    assert len(set(firsts)) == 4
+
+
+@pytest.mark.parametrize("n_model", [1, 2, 4, 8])
+def test_tail_rows_per_block(libs, n_model):
+    """Both tail modes, explain off and on, on merged rows made from the
+    plain chunk versions of every shard of ``n_model``-way rule and set
+    partitions (MIN-reduced here) of a tree with aborts, ACL rows and
+    mixed algorithms: its first 61 rows (a multiple of no block's rows)
+    in blocks of 32 and 96 threads (rule-sharded: 1 and 3 rows a block,
+    pod-sharded: 32 and 96) and in the library's shape, equal to the
+    plain tail."""
+    tc, batch = window_batch(5, 33, 64, seed=n_model)
+    flags, r, _, _ = tree_inputs(tc, batch)
+    c = tables_from_numpy(tc.arrays, "cpu", keys=tkernel.TABLE_ARRAYS)
+    tabs = tkernel.TailTables(c)
+    part = rule_shard.partition_rules(tc, n_model)
+    kr_total = part.kr_local * n_model
+    rule_merged = torch.stack([shard_ref.rule_chunk_ref(
+        tables_from_numpy({k: part.arrays[k][d]
+                           for k in tkernel.TABLE_ARRAYS}, "cpu"),
+        r, int(part.kr_offsets[d]), kr_total, n_model, d, *flags)
+        for d in range(n_model)]).amin(dim=0)[:61]
+    shards, _ = pod_shard.partition_sets(tc, n_model)
+    for explain in (False, True):
+        set_merged = torch.stack([shard_ref.set_chunk_ref(
+            tables_from_numpy({k: sh.arrays[k]
+                               for k in tkernel.TABLE_ARRAYS}, "cpu"),
+            r, sh.s_lo, n_model, d, *flags, explain=explain)
+            for d, sh in enumerate(shards)]).amin(dim=0)[:61]
+        cases = ((rule_merged, tabs, kr_total), (set_merged, None, tc.KR))
+        for merged, t, stride in cases:
+            want = shard_ref.shard_tail_ref(merged, n_model, t,
+                                            explain=explain,
+                                            kr_stride=stride)
+            assert (want[2] != 200).any() and (want[0] == 1).any()
+            for threads in (32, 96, None):
+                got = run_tail(libs["shard_tail"], merged.contiguous(),
+                               n_model, t, explain, stride, threads)
+                assert torch.equal(got, want), (t is None, explain, threads)
+
+
+def test_tail_block_shape(libs):
+    """The tail library's block shape (a warp per row in the
+    rule-sharded mode, a thread per row in the pod-sharded one, at least
+    128 rows a block there), its refusal of block shapes that are not
+    whole warps, and its launch floor and occupancy exports."""
+    lib = libs["shard_tail"]
+    k7 = tkernel.tail_block(lib, tkernel.MODE_RULE)
+    k8 = tkernel.tail_block(lib, tkernel.MODE_SET)
+    assert k7["rows"] * 32 == k7["threads"] and k7["rows"] > 1
+    assert k8["rows"] == k8["threads"] >= 128
+    out = (ctypes.c_int32 * 2)()
+    assert lib.acs_shard_tail_block(0, out) == -1
+    for mode, shape in ((tkernel.MODE_RULE, k7), (tkernel.MODE_SET, k8)):
+        assert lib.acs_shard_tail_floor(mode, 61, shape["threads"],
+                                        None) == 0
+        assert lib.acs_shard_tail_floor(mode, 61, 48, None) == -1
+        assert lib.acs_shard_tail_occupancy(mode, 0, shape["threads"]) == \
+            2048 // shape["threads"]
+    ptrs = (ctypes.c_int64 * len(tkernel.TAIL_PTRS))()
+    dims = (ctypes.c_int32 * len(tkernel.TAIL_DIMS))(1, 1, 1, 1, 1)
+    assert lib.acs_shard_tail(ctypes.addressof(ptrs), len(ptrs),
+                              ctypes.addressof(dims), len(dims),
+                              tkernel.MODE_SET, 0, 100, None) == -1
