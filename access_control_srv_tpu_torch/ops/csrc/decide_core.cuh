@@ -2,9 +2,10 @@
 //
 // rows_core.cuh (the rows program, which decide_dense.cu and both modes of
 // shard_chunk.cu run, and the stage helpers decide_grouped.cu shares),
-// sig_decide.cu, sig_planes.cu (stage A per resource signature),
-// wia_planes.cu (the whatIsAllowed planes per representative row) and
-// shard_tail.cu (the sharded programs' merge tail) include this header.  It
+// sig_decide.cu, sig_planes.cu (stage A per resource signature, its
+// component pass), wia_planes.cu (the whatIsAllowed planes per
+// representative row: the argument macros only) and shard_tail.cu (the
+// sharded programs' merge tail) include this header.  It
 // holds the argument list of the dense program and of the shard programs
 // (Chunk, chunk_width), the stage-A components (`target_components`), the
 // HR and relation-path fold (`hr_bad`), the verifyACL branches
@@ -127,15 +128,15 @@ enum : uint8_t {
 enum : uint8_t {
   TC_EX_P = 1, TC_EX_D = 2, TC_RG_P = 4, TC_RG_D = 8, TC_ACT = 16
 };
-// the raw entity/operation bits under them (whatIsAllowed planes): an
-// exact entity hit in any run, an operation hit, the sticky regex state
-// after the last run and at any run
-enum : uint8_t {
-  TR_ENT_EX = 1, TR_OPM = 2, TR_FINAL_RG = 4, TR_ANY_RG = 8
-};
 
 __host__ __device__ inline size_t align_up(size_t x, size_t a) {
   return (x + a - 1) / a * a;
+}
+
+// bits 0-3 of m as the bytes of a word (byte i = bit i): four byte-plane
+// values as one 32-bit store
+__device__ __forceinline__ uint32_t expand4(uint32_t m) {
+  return (m & 1u) | ((m & 2u) << 7) | ((m & 4u) << 14) | ((m & 8u) << 21);
 }
 
 __device__ __forceinline__ int warp_min(int v) {
@@ -290,14 +291,12 @@ __device__ bool acl_create(const Args& a, int b, int t,
 // stage A without the subject fold for target row t against request row b:
 // the resource/action match bits (TC_*), the per-op-slot operation hits,
 // and when `want_collect` the sticky per-run collection state that stage B
-// and the relation-path fold read; `raw` carries the TR_* bits.  `A` is any
-// argument struct carrying the target-table, request-row and regex fields
-// by these names (the dense program's Args, sig_planes.cu's per-group view
-// of a pseudo-request, or wia_planes.cu's view of one packed row, whose
-// validity and has-props columns are int32).
+// and the relation-path fold read.  `A` is any argument struct carrying
+// the target-table, request-row and regex fields by these names (the
+// dense program's Args, or sig_planes.cu's per-group view of a
+// pseudo-request).
 struct TargetComp {
   uint8_t bits;
-  uint8_t raw;
   uint32_t collect;
   uint32_t op_hit;
 };
@@ -421,9 +420,6 @@ __device__ TargetComp target_components(const A& a, int b, int t,
   if (no_res || (state_final_rg && !permit_fail_rg)) out.bits |= TC_RG_P;
   if (no_res || (state_final_rg && !deny_skip_rg)) out.bits |= TC_RG_D;
   if (act_ok) out.bits |= TC_ACT;
-  out.raw = (ent_any_ex ? TR_ENT_EX : 0) | (opm ? TR_OPM : 0) |
-            (state_final_rg ? TR_FINAL_RG : 0) |
-            (state_any_rg ? TR_ANY_RG : 0);
   out.op_hit = op_hit;
   out.collect = 0;
   if (want_collect) {

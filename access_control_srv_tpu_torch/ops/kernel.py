@@ -43,7 +43,8 @@ explain-off launches run the variants they ran before.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+import math
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -178,7 +179,7 @@ def resolve_device(device=None) -> torch.device:
 # the argument order of csrc/sig_planes.cu: the stacked varying tables it
 # reads, the shared policy arrays, the pseudo-requests, the planes (the HR
 # planes, then the relation planes, each null where the variant has none)
-# and three scratch arrays
+# and the scratch of the per-target records
 SIG_PLANES_INPUTS = (
     "t_n_subjects", "t_role", "t_has_role", "t_has_scoping", "t_hr_check",
     "t_skip_acl", "t_sub_ids", "t_sub_vals", "t_act_ids", "t_act_vals",
@@ -193,11 +194,68 @@ SIG_PSEUDO = (
     "r_prop_vals", "r_prop_sfx", "r_prop_run", "r_prop_tail", "r_op_vals",
     "r_has_props", "rgx_set", "pfx_neq",
 )
-SIG_SCRATCH = ("comp_bits", "comp_collect", "comp_op")
+SIG_SCRATCH = ("comp",)
 SIG_PLANES_PTRS = SIG_PLANES_INPUTS + SIG_PSEUDO + plane_names(True, True) \
     + SIG_SCRATCH
 SIG_PLANES_DIMS = ("G", "T", "S", "KP", "KR", "KS", "KA", "KE", "KO", "KPR",
                    "NACT", "NR", "NP", "NOP", "W", "E")
+# threads per block of both sig_planes launches, and the int32 words of a
+# per-(group, target) record of its component pass (csrc SP_REC)
+SIG_PLANES_THREADS = 256
+SIG_COMP_WORDS = 8
+
+# every region ``carve_plan`` lays out starts at a multiple of this
+CARVE_ALIGN = 256
+_TORCH_DTYPE = {np.dtype(np.bool_): torch.bool, np.dtype(np.uint8): torch.uint8,
+                np.dtype(np.int32): torch.int32}
+
+
+class Region(NamedTuple):
+    """A region of a carved allocation: its byte offset, shape, numpy
+    dtype and (contiguous) strides in elements."""
+
+    offset: int
+    shape: tuple
+    dtype: np.dtype
+    strides: tuple
+
+
+def carve_plan(specs) -> tuple[dict, int]:
+    """Regions of one allocation for ``specs`` ((name, shape, numpy dtype,
+    room): ``room`` the elements to reserve, ``None`` for the shape's),
+    back to back, each ``CARVE_ALIGN``-aligned -> ({name: Region}, total
+    bytes, a multiple of ``CARVE_ALIGN``)."""
+    plan, off = {}, 0
+    for name, shape, dtype, room in specs:
+        dt = np.dtype(dtype)
+        shape = tuple(int(x) for x in shape)
+        strides, step = [], 1
+        for x in reversed(shape):
+            strides.append(step)
+            step *= x
+        plan[name] = Region(off, shape, dt, tuple(reversed(strides)))
+        n = step if room is None else int(room)
+        off = -(-(off + n * dt.itemsize) // CARVE_ALIGN) * CARVE_ALIGN
+    return plan, off
+
+
+def carve(buf, plan: dict) -> dict:
+    """The regions of ``plan`` as views of ``buf`` (a flat uint8 torch
+    tensor or numpy array, its length a multiple of ``CARVE_ALIGN``) in
+    their shapes and dtypes."""
+    if isinstance(buf, np.ndarray):
+        return {name: buf[r.offset:r.offset + math.prod(r.shape)
+                          * r.dtype.itemsize].view(r.dtype).reshape(r.shape)
+                for name, r in plan.items()}
+    typed: dict = {}
+    out = {}
+    for name, r in plan.items():
+        base = typed.get(r.dtype)
+        if base is None:
+            base = typed[r.dtype] = buf.view(_TORCH_DTYPE[r.dtype])
+        out[name] = base.as_strided(r.shape, r.strides,
+                                    r.offset // r.dtype.itemsize)
+    return out
 
 # the argument order of csrc/sig_decide.cu
 SIG_DECIDE_INV = (
@@ -266,7 +324,8 @@ HOST_SM_COUNT = 132
 
 _libs: dict = {}
 _sm_counts: dict = {}
-# the block shapes rows_tiles has sized, by library, shapes and rule
+# the sizes asked of the libraries and the carved layouts, by library or
+# kernel and shapes (rows_tiles, wia_tiles, the sig_planes plan)
 _tiles: dict = {}
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
@@ -292,6 +351,13 @@ _SIZING = {
     "sig_decide": {
         "acs_sig_decide_smem": (ctypes.c_longlong, [_VP] + [_INT] * 2),
         "acs_sig_decide_occupancy": (_INT, [_VP, _INT, _VP] + [_INT] * 5)},
+    "sig_planes": {
+        "acs_sig_planes_floor": (_INT, [_VP] + [_INT] * 2 + [_VP]),
+        "acs_sig_planes_occupancy": (_INT, [_INT] * 3)},
+    "wia_planes": {
+        "acs_wia_planes_tile": (_INT, [_VP, _INT, _INT, _VP, _VP]),
+        "acs_wia_planes_floor": (_INT, [_VP] + [_INT] * 2 + [_VP]),
+        "acs_wia_planes_occupancy": (_INT, [_VP] + [_INT] * 2)},
 }
 
 
@@ -396,11 +462,6 @@ def _dims(c: dict, r: dict) -> dict[str, int]:
         "W": r["rgx_set"].shape[0], "E": r["rgx_set"].shape[1],
         "C": r["cond_true"].shape[0], "CSTRIDE": r["cond_true"].shape[1],
     }
-
-
-def threads_for(T: int) -> int:
-    """Threads per block: one warp per 32 target rows, 64 to 256."""
-    return min(256, max(64, -(-T // 32) * 32))
 
 
 def _sm_count(dev) -> int:
@@ -974,12 +1035,47 @@ def decide_grouped_occupancy(inv: dict, cs: dict, g_idx, r: dict,
             int(with_hr), int(with_rel), int(explain), args.threads)
 
 
+def _planes_plan(d: dict, with_hr: bool, with_rel: bool
+                 ) -> tuple[dict, int]:
+    """``sig_planes``'s carved allocation for the shapes ``d``: the
+    variant's planes (a rule or policy plane padded to whole quads of
+    positions) and the component records; cached per shapes."""
+    key = ("sig_planes", with_hr, with_rel,
+           *(d[k] for k in ("G", "T", "S", "KP", "KR", "KS", "NR", "NOP")))
+    plan = _tiles.get(key)
+    if plan is not None:
+        return plan
+    G, S, KP, KR = d["G"], d["S"], d["KP"], d["KR"]
+    lead = {"rl": (G, S, KP, KR), "pl": (G, S, KP), "sl": (G, S)}
+    width = {"sub_ids": d["KS"], "sub_vals": d["KS"], "collect": d["NR"],
+             "op_hit": d["NOP"]}
+    specs = []
+    for k in plane_names(with_hr, with_rel):
+        pre = {"rl": "rl", "pl": "pl", "pp": "pl", "sl": "sl",
+               "ss": "sl", "mu": "sl"}[k[:2]]
+        field = k.split("_", 1)[1]
+        w = width.get(field)
+        dtype = (np.int32 if field in ("role", "n_sub", "rs", "rel_idx",
+                                       "sub_ids", "sub_vals") else np.bool_)
+        n = math.prod(lead[pre])
+        specs.append((k, lead[pre] + ((w,) if w is not None else ()), dtype,
+                      -(-n // 4) * 4 * (1 if w is None else w)))
+    specs.append(("comp", (G * d["T"] * SIG_COMP_WORDS,), np.int32, None))
+    if len(_tiles) >= 4096:
+        _tiles.clear()
+    plan = _tiles[key] = carve_plan(specs)
+    return plan
+
+
 def pack_sig_planes(tabs: dict, inv: dict, pseudo: dict, with_hr: bool,
                     with_rel: bool):
-    """Check and pack one ``sig_planes`` launch: allocates the planes and
-    the scratch arrays -> (planes dict, scratch dict, pointer array,
-    shape-int array, threads per block).  The caller keeps the scratch
-    alive until the launch is enqueued."""
+    """Check and pack one ``sig_planes`` launch: carves the planes and the
+    component records out of one device allocation (each region
+    ``CARVE_ALIGN``-aligned, a rule or policy plane padded to whole quads
+    of positions, which the kernel's vector stores take) -> (planes dict
+    of views, the allocation, pointer array, shape-int array, threads per
+    block).  The caller keeps the allocation alive until the launch is
+    enqueued."""
     dev = pseudo["r_ent_vals"].device
     G, S, KP, KR = tabs["rule_effect"].shape
     T = tabs["t_role"].shape[1]
@@ -998,36 +1094,26 @@ def pack_sig_planes(tabs: dict, inv: dict, pseudo: dict, with_hr: bool,
         if d[k] > _LIMITS[k]:
             raise ValueError(f"sig_planes: {k}={d[k]} exceeds the kernel's "
                              f"limit {_LIMITS[k]}")
-    KS, NR, NOP = d["KS"], d["NR"], d["NOP"]
-    b, i32 = torch.bool, torch.int32
-    shapes = {
-        "rl": ((G, S, KP, KR), b), "pl": ((G, S, KP), b), "sl": ((G, S), b),
-    }
-    out = {}
-    for k in plane_names(with_hr, with_rel):
-        pre = {"rl": "rl", "pl": "pl", "pp": "pl", "sl": "sl",
-               "ss": "sl", "mu": "sl"}[k[:2]]
-        shape, dtype = shapes[pre]
-        field = k.split("_", 1)[1]
-        if field in ("role", "n_sub", "rs", "rel_idx"):
-            dtype = i32
-        elif field in ("sub_ids", "sub_vals"):
-            dtype, shape = i32, shape + (KS,)
-        elif field == "collect":
-            shape = shape + (NR,)
-        elif field == "op_hit":
-            shape = shape + (NOP,)
-        out[k] = torch.empty(shape, dtype=dtype, device=dev)
-    scratch = {
-        "comp_bits": torch.empty((G, T), dtype=torch.uint8, device=dev),
-        "comp_collect": torch.empty((G, T), dtype=i32, device=dev),
-        "comp_op": torch.empty((G, T), dtype=i32, device=dev),
-    }
-    src = {**tabs, **inv, **pseudo, **scratch}
-    named = [(k, src.get(k, out.get(k))) for k in SIG_PLANES_PTRS]
-    ptrs, cdims = _c_arrays(_c_ptrs("sig_planes", named, dev),
-                            [d[k] for k in SIG_PLANES_DIMS])
-    return out, scratch, ptrs, cdims, threads_for(T)
+    plan, nbytes = _planes_plan(d, with_hr, with_rel)
+    buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    out = carve(buf, plan)
+    del out["comp"]
+    # the planes and records are this allocation's: their pointers by
+    # offset; the inputs checked one by one
+    base = buf.data_ptr()
+    src = {**tabs, **inv, **pseudo}
+    vals = _c_ptrs("sig_planes", [(k, src.get(k)) for k in SIG_PLANES_PTRS
+                                  if k not in plan], dev)
+    vals.reverse()
+    ptrs, cdims = _c_arrays(
+        [base + plan[k].offset if k in plan else vals.pop()
+         for k in SIG_PLANES_PTRS], [d[k] for k in SIG_PLANES_DIMS])
+    return out, buf, ptrs, cdims, SIG_PLANES_THREADS
+
+
+def _sig_planes_library():
+    """``sig_planes``."""
+    return _library("sig_planes", SIG_PLANES_PTRS, SIG_PLANES_DIMS, 2)
 
 
 def sig_planes(tabs: dict, inv: dict, pseudo: dict, with_hr: bool,
@@ -1036,14 +1122,15 @@ def sig_planes(tabs: dict, inv: dict, pseudo: dict, with_hr: bool,
     planes: ``tabs`` the stacked varying tables ``[G, ...]``, ``inv`` the
     group-invariant tables, ``pseudo`` one pseudo-request per group
     (``rgx_set`` / ``pfx_neq`` ``[G, W, E]``) -> the planes ``[G, ...]``
-    under ``prefilter_ref.plane_names(with_hr, with_rel)``.  CUDA tensors
-    launch ``csrc/sig_planes.cu``; CPU tensors run the plain version."""
+    under ``prefilter_ref.plane_names(with_hr, with_rel)``, views of one
+    allocation.  CUDA tensors launch ``csrc/sig_planes.cu`` (its component
+    pass, then its planes pass); CPU tensors run the plain version."""
     dev = pseudo["r_ent_vals"].device
     if dev.type != "cuda":
         return sig_planes_ref(tabs, inv, pseudo, with_hr, with_rel)
-    out, scratch, ptrs, cdims, threads = pack_sig_planes(tabs, inv, pseudo,
-                                                         with_hr, with_rel)
-    lib = _library("sig_planes", SIG_PLANES_PTRS, SIG_PLANES_DIMS, 2)
+    out, _, ptrs, cdims, threads = pack_sig_planes(tabs, inv, pseudo,
+                                                   with_hr, with_rel)
+    lib = _sig_planes_library()
     with torch.cuda.device(dev):
         code = lib.acs_sig_planes(
             ctypes.addressof(ptrs), len(ptrs), ctypes.addressof(cdims),
@@ -1052,6 +1139,34 @@ def sig_planes(tabs: dict, inv: dict, pseudo: dict, with_hr: bool,
         )
     _check_launch("sig_planes", lib, code)
     return out
+
+
+def sig_planes_occupancy(tabs: dict, inv: dict, pseudo: dict, with_hr: bool,
+                         with_rel: bool) -> int:
+    """Resident blocks per SM of the variant's planes pass
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    lib = _sig_planes_library()
+    with torch.cuda.device(pseudo["r_ent_vals"].device):
+        return lib.acs_sig_planes_occupancy(int(with_hr), int(with_rel),
+                                            SIG_PLANES_THREADS)
+
+
+def sig_planes_floor(tabs: dict, inv: dict, pseudo: dict, with_hr: bool,
+                     with_rel: bool) -> Callable[[], None]:
+    """The launch floor of one call's ``sig_planes`` launches: a function
+    that launches an empty kernel over both launches' grids
+    (``acs_sig_planes_floor``), for timing only; it counts no launch."""
+    lib = _sig_planes_library()
+    _, _, _, cdims, threads = pack_sig_planes(tabs, inv, pseudo, with_hr,
+                                              with_rel)
+    stream = torch.cuda.current_stream(
+        pseudo["r_ent_vals"].device).cuda_stream
+
+    def floor():
+        if lib.acs_sig_planes_floor(ctypes.addressof(cdims), len(cdims),
+                                    threads, stream) != 0:
+            raise RuntimeError("acs_sig_planes_floor failed")
+    return floor
 
 
 def pack_sig_decide(inv: dict, cs: dict, planes: dict, slot_g, mega_rows,
@@ -1150,18 +1265,62 @@ def sig_decide_occupancy(inv: dict, cs: dict, planes: dict, slot_g,
             SIG_DECIDE_THREADS)
 
 
-# the argument order of csrc/wia_planes.cu
-WIA_PLANES_PTRS = WIA_TABLES + ("rows", "rgx_set", "pfx_neq", "planes")
+# the argument order of csrc/wia_planes.cu: the tables, the packed rows,
+# the regex matrices, the planes and the scratch of the compacted rows
+WIA_PLANES_PTRS = WIA_TABLES + ("rows", "rgx_set", "pfx_neq", "planes",
+                                "rows_c")
 # the packed row's columns the kernel reads, by the offset dim naming them
 WIA_ROW_OFFSETS = tuple(("O_" + k[2:].upper(), k) for k in WIA_ROWS)
 WIA_PLANES_DIMS = ("N", "T", "KA", "KE", "KO", "KPR", "NACT", "NR", "NP",
                    "NOP", "W", "E", "WROW") + tuple(
-                       o for o, _ in WIA_ROW_OFFSETS)
+                       o for o, _ in WIA_ROW_OFFSETS) + ("TT", "RB")
+# threads per wia_planes block, and how it sizes its blocks
+# (``wia_tiles``): at most ``targets`` target rows per tile (a power of
+# two) within ``block_bytes`` of shared memory, at most ``rows`` rows per
+# block, the fewest that keep the grid within ``blocks_per_sm`` blocks per
+# SM
+WIA_THREADS = 256
+WIA_STAGE = {"targets": 1024, "rows": 64, "blocks_per_sm": 2,
+             "block_bytes": 48 * 1024}
 
 
-def pack_wia_planes(tables: dict, rows, schedule: tuple, rgx_set, pfx_neq):
-    """Check and pack one ``wia_planes`` launch: allocates the planes ->
-    (planes, pointer array, shape-int array, threads per block)."""
+def _wia_library():
+    """``wia_planes``."""
+    return _library("wia_planes", WIA_PLANES_PTRS, WIA_PLANES_DIMS, 0)
+
+
+def wia_tiles(lib, d: dict, n_sm: int) -> dict:
+    """``wia_planes``'s block shape (``TT`` target rows per tile, ``RB``
+    rows per block) for the shapes ``d`` on ``n_sm`` SMs, as ``lib``
+    (``acs_wia_planes_tile``) sizes it under ``WIA_STAGE``, and the ints
+    of a compacted row (``row_ints``); cached per shapes and stage."""
+    st = WIA_STAGE
+    stage = (st["targets"], st["rows"], st["blocks_per_sm"],
+             st["block_bytes"])
+    vals = [d.get(k, 0) for k in WIA_PLANES_DIMS]
+    key = (lib._name, n_sm, stage, *vals)
+    tile = _tiles.get(key)
+    if tile is None:
+        out = (ctypes.c_int32 * 3)()
+        if lib.acs_wia_planes_tile((ctypes.c_int32 * len(vals))(*vals),
+                                   len(vals), n_sm,
+                                   (ctypes.c_int32 * 4)(*stage), out) != 0:
+            raise RuntimeError("acs_wia_planes_tile: argument count "
+                               "mismatch or no tile fits")
+        if len(_tiles) >= 4096:
+            _tiles.clear()
+        tile = _tiles[key] = {"TT": out[0], "RB": out[1],
+                              "row_ints": out[2]}
+    return tile
+
+
+def pack_wia_planes(tables: dict, rows, schedule: tuple, rgx_set, pfx_neq,
+                    *, lib=None):
+    """Check and pack one ``wia_planes`` launch: sizes the blocks with
+    ``lib`` (the CUDA library unless given: the tests pass their g++-built
+    one) and carves the planes and the compacted rows' scratch out of one
+    allocation -> (planes, a view that keeps the allocation alive, pointer
+    array, shape-int array, threads per block)."""
     dev = rows.device
     offsets, widths = {}, {}
     off = 0
@@ -1187,14 +1346,19 @@ def pack_wia_planes(tables: dict, rows, schedule: tuple, rgx_set, pfx_neq):
         if d[k] > _LIMITS[k]:
             raise ValueError(f"wia_planes: {k}={d[k]} exceeds the kernel's "
                              f"limit {_LIMITS[k]}")
-    out = torch.empty((d["N"], len(PLANE_KEYS), T), dtype=torch.bool,
+    tile = wia_tiles(lib or _wia_library(), d, _sm_count(dev))
+    d["TT"], d["RB"] = tile["TT"], tile["RB"]
+    n = d["N"] * len(PLANE_KEYS) * T
+    off = -(-n // CARVE_ALIGN) * CARVE_ALIGN
+    buf = torch.empty(off + 4 * d["N"] * tile["row_ints"], dtype=torch.uint8,
                       device=dev)
-    src = {**tables, "rows": rows, "rgx_set": rgx_set, "pfx_neq": pfx_neq,
-           "planes": out}
-    named = [(k, src[k]) for k in WIA_PLANES_PTRS]
-    ptrs, cdims = _c_arrays(_c_ptrs("wia_planes", named, dev),
+    out = buf[:n].view(torch.bool).view(d["N"], len(PLANE_KEYS), T)
+    src = {**tables, "rows": rows, "rgx_set": rgx_set, "pfx_neq": pfx_neq}
+    vals = _c_ptrs("wia_planes", [(k, src[k]) for k in WIA_PLANES_PTRS[:-2]],
+                   dev)
+    ptrs, cdims = _c_arrays(vals + [buf.data_ptr(), buf.data_ptr() + off],
                             [d[k] for k in WIA_PLANES_DIMS])
-    return out, ptrs, cdims, threads_for(T)
+    return out, ptrs, cdims, WIA_THREADS
 
 
 def wia_planes(tables: dict, rows, schedule: tuple, rgx_set, pfx_neq
@@ -1208,9 +1372,9 @@ def wia_planes(tables: dict, rows, schedule: tuple, rgx_set, pfx_neq
     dev = rows.device
     if dev.type != "cuda":
         return wia_planes_ref(tables, rows, schedule, rgx_set, pfx_neq)
+    lib = _wia_library()
     out, ptrs, cdims, threads = pack_wia_planes(tables, rows, schedule,
-                                                rgx_set, pfx_neq)
-    lib = _library("wia_planes", WIA_PLANES_PTRS, WIA_PLANES_DIMS, 0)
+                                                rgx_set, pfx_neq, lib=lib)
     with torch.cuda.device(dev):
         code = lib.acs_wia_planes(
             ctypes.addressof(ptrs), len(ptrs), ctypes.addressof(cdims),
@@ -1218,6 +1382,35 @@ def wia_planes(tables: dict, rows, schedule: tuple, rgx_set, pfx_neq
         )
     _check_launch("wia_planes", lib, code)
     return out
+
+
+def wia_planes_occupancy(tables: dict, rows, schedule: tuple, rgx_set,
+                         pfx_neq) -> int:
+    """Resident ``wia_planes`` blocks per SM at one call's shapes
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    lib = _wia_library()
+    _, _, cdims, threads = pack_wia_planes(tables, rows, schedule, rgx_set,
+                                           pfx_neq, lib=lib)
+    with torch.cuda.device(rows.device):
+        return lib.acs_wia_planes_occupancy(ctypes.addressof(cdims),
+                                            len(cdims), threads)
+
+
+def wia_planes_floor(tables: dict, rows, schedule: tuple, rgx_set, pfx_neq
+                     ) -> Callable[[], None]:
+    """The launch floor of one call's ``wia_planes`` launch: a function
+    that launches an empty kernel over the same grid and shared memory
+    (``acs_wia_planes_floor``), for timing only; it counts no launch."""
+    lib = _wia_library()
+    _, _, cdims, threads = pack_wia_planes(tables, rows, schedule, rgx_set,
+                                           pfx_neq, lib=lib)
+    stream = torch.cuda.current_stream(rows.device).cuda_stream
+
+    def floor():
+        if lib.acs_wia_planes_floor(ctypes.addressof(cdims), len(cdims),
+                                    threads, stream) != 0:
+            raise RuntimeError("acs_wia_planes_floor failed")
+    return floor
 
 
 class DecisionKernel:

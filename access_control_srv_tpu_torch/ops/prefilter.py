@@ -63,7 +63,6 @@ import numpy as np
 import torch
 
 from .carry import (
-    _tensor,
     batch_from_numpy,
     half_pow2_bucket,
     lead_padding,
@@ -77,6 +76,8 @@ from .kernel import (
     DecisionKernel,
     ROW_ARRAYS,
     TABLE_ARRAYS,
+    carve,
+    carve_plan,
     decide_grouped,
     readback,
     resolve_device,
@@ -371,11 +372,13 @@ class PrefilteredKernel:
                     widths: tuple, rgx_np, pfx_np) -> dict:
         """Per-signature stage-A planes pre-gathered to rule/policy/set
         granularity ([G, S, KP, KR] / [G, S, KP] / [G, S]), cached per
-        signature set.  One ``sig_planes`` launch over per-group
+        signature set.  One ``sig_planes`` call over per-group
         pseudo-requests (the signature's entities, operations and actions;
         no subjects or properties) against the stacked target tables:
         regex outcomes are deterministic per (vocab row, entity value), so
-        the planes do not depend on the batch."""
+        the planes do not depend on the batch.  The pseudo-requests travel
+        packed in one pooled host buffer (pinned on the card), one copy,
+        held until an event after the launch."""
         bits = self._bits.pop(keys, None)
         if bits is None:
             NR, NOP, NACT = widths
@@ -420,11 +423,24 @@ class PrefilteredKernel:
                 "rgx_set": p_rgx,
                 "pfx_neq": p_pfx,
             }
-            bits = sig_planes(
-                stack.tables, self._c_inv,
-                {k: _tensor(v, self.device) for k, v in pseudo.items()},
-                self.needs_hr, self.needs_rel,
-            )
+            plan, nbytes = carve_plan(
+                [(k, v.shape, v.dtype, None) for k, v in pseudo.items()])
+            host = self.staging.acquire((pow2_bucket(nbytes, floor=4096),),
+                                        np.uint8)
+            try:
+                for k, v in carve(host, plan).items():
+                    v[...] = pseudo[k]
+                packed = self.staging.tensor(host)[:nbytes].to(
+                    self.device, non_blocking=True)
+                bits = sig_planes(stack.tables, self._c_inv,
+                                  carve(packed, plan), self.needs_hr,
+                                  self.needs_rel)
+                if self.device.type == "cuda":
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(self.device))
+                    done.synchronize()
+            finally:
+                self.staging.release(host)
             if len(self._bits) >= 16:
                 self._bits.pop(next(iter(self._bits)))
         self._bits[keys] = bits

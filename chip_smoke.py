@@ -14,7 +14,8 @@ PyTorch version:
    (with ``--parent-csrc DIR`` also held against the same kernels built
    from another tree's sources: equal registers and spills, except
    ``sig_decide``, ``decide_grouped``, ``decide_dense``, ``set_chunk``,
-   ``rule_chunk`` and ``shard_tail``, listed as changed by design);
+   ``rule_chunk``, ``shard_tail``, ``sig_planes`` (and its component
+   pass) and ``wia_planes``, listed as changed by design);
 3. dense kernel vs plain: ``decide_dense`` against ``kernel_ref`` on the
    card, exactly equal, on every supported fixture tree (the relation
    fixture without a store: fail-closed), the seed data and the 511-rule
@@ -38,7 +39,8 @@ PyTorch version:
    Every kernel call of the first batch is held against its plain
    version, and a 32-row sample of responses against ``engine.is_allowed``;
 8. times: each kernel at its main path's shapes (CUDA events) beside its
-   plain version and its bound (``sig_decide`` and ``decide_grouped``:
+   plain version and its bound (``sig_planes`` and ``wia_planes`` in the
+   K2 / K5 report below; ``sig_decide`` and ``decide_grouped``:
    the median of 5 windows of 100 launches of arguments packed once, with
    their resident blocks per SM); the evaluators' steady-state
    decisions/s and stage split; the dense kernel's throughput at 2^18 /
@@ -75,8 +77,8 @@ PyTorch version:
    decisions/s, the stage split, K1's relation variant beside the same
    program on ``skip_relation_bits`` planes; then tuple churn that flips
    a probe with no new build, no ``sig_planes`` launch and an unchanged
-   compiled version; then the times of the relation variants and of
-   ``wia_planes`` at their shapes.
+   compiled version; then the times of the relation variants at their
+   shapes (``sig_planes``'s from the K2 / K5 report).
 
 14. the sharded programs' kernels vs plain: every shard of a 4-way rule
    partition and set partition of the shard-scale tree (the JAX
@@ -143,20 +145,27 @@ wrapper's host steps.  Then the K7 / tail report in the same form:
 every rule shard's merge rows and in K8 mode on the MIN of every set
 shard's (explain on and off), rebuilt in this process and merged on the
 device, the tail beside its launch floor (an empty kernel over the same
-grid).  With ``--parent-csrc DIR`` the reports also time the kernels
-built from ``DIR`` (the parent tree's ``ops/csrc``, its ``ops/kernel.py``
-beside it) on the same arguments, both ways in the same windows.
-``--quick`` runs phases 1-2, 5 and 13, the K1 / K6 / K8 and K7 / tail
-reports, then phases 6-7, 12 and 17-18 and the K3 / K4 report only (no
-result lines).
+grid).  Then the K2 / K5 report: ``sig_planes`` at (a), (b) and at
+relation-720 in all four (with_hr, with_rel) variants, ``wia_planes`` at
+100k, the lattice and wia-large, each call held against its plain
+version, through the wrapper and packed once, beside its launch floor
+(an empty kernel over the same grids: K2's two launches, K5's one), its
+bound (K2's beside the yardstick of the count before: every stacked
+table read), the wrapper's host packing, ptxas numbers, blocks per SM
+and block shape.  With ``--parent-csrc DIR`` the reports also time the
+kernels built from ``DIR`` (the parent tree's ``ops/csrc``, its
+``ops/kernel.py`` beside it) on the same arguments, both ways in the
+same windows.  ``--quick`` runs phases 1-2, 6-7 and 9-12 and the K2 / K5
+report only (no result lines).
 
 Any mismatch or error exits non-zero.  The line before the last is the
 kernel table as one JSON object (K1-K4 carry their ``with_rel`` variant's
 launches and times beside their own; ``decide_dense``, ``sig_decide``,
 ``decide_grouped``, ``set_chunk`` and ``shard_tail`` (and its ``pod``
 object) their ``explain`` variant's; ``decide_dense`` K6's; the
-redesigned kernels their packed-once and parent times); the last line
-is
+redesigned kernels their packed-once and parent times, ``sig_planes``
+and ``wia_planes`` also their launch floor and blocks per SM); the last
+line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero before
 printing any result.  Run from the repository root::
 
@@ -276,18 +285,21 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_SCALAR_OPS_PER_S = 67e12
 ITERS = 5
 # the kernels the port redesigned (K3, K4; K1 / K6 decide_dense, K7
-# rule_chunk and K8 set_chunk, the rows program; shard_tail): timed
-# through the wrapper as every kernel is, and with STEADY_WINDOWS windows
-# of STEADY_ITERS launches of arguments packed once (time_steady),
-# reported beside their bound, their ptxas numbers, their resident blocks
-# per SM, the parent tree's kernels (--parent-csrc) and the times PERF.md
-# records for the design before (OLD_MS)
+# rule_chunk and K8 set_chunk, the rows program; shard_tail; K2
+# sig_planes, K5 wia_planes): timed through the wrapper as every kernel
+# is, and with STEADY_WINDOWS windows of STEADY_ITERS launches of
+# arguments packed once (time_steady), reported beside their bound, their
+# ptxas numbers, their resident blocks per SM, the parent tree's kernels
+# (--parent-csrc) and the times PERF.md records for the design before
+# (OLD_MS)
 REDESIGNED = ("sig_decide", "decide_grouped", "decide_dense", "set_chunk",
-              "rule_chunk", "shard_tail")
+              "rule_chunk", "shard_tail", "sig_planes", "wia_planes")
 STEADY_ITERS, STEADY_WINDOWS = 100, 5
 # their times beside ``ms`` in the kernel table: packed once, and the
 # parent tree's kernel through its wrapper and packed once
 PACKED_KEYS = ("kernel_ms", "parent_ms", "parent_kernel_ms")
+# and the plane kernels' (K2, K5) launch floor and resident blocks per SM
+PLANES_KEYS = ("floor_ms", "blocks_per_sm")
 OLD_MS = {
     ("sig_decide", "a"): "1.054-1.103",
     ("sig_decide", "b"): "0.589",
@@ -311,6 +323,13 @@ OLD_MS = {
     ("shard_tail", "K8(1,4)"): "0.052-0.077",
     ("shard_tail", "K8(2,2)"): "0.059",
     ("shard_tail", "explain"): "0.069-0.104 (K7 (1,4)), 0.050-0.089 (K8)",
+    ("sig_planes", "(a)"): "0.260-0.765 through the wrapper",
+    ("sig_planes", "(b)"): "0.400 through the wrapper",
+    ("sig_planes", "relation-720"): "0.210-0.472 through the wrapper "
+                                    "(with_rel)",
+    ("wia_planes", "100k"): "0.533-0.551 through the wrapper",
+    ("wia_planes", "wia-large"): "0.043-0.128 through the wrapper",
+    ("wia_planes", "lattice"): "0.042-0.048 through the wrapper",
 }
 
 
@@ -702,9 +721,15 @@ def ptxas_report(csrc: str, out_dir: str) -> dict:
     """Every source of ``SOURCES`` in the directory ``csrc`` built with the
     port's nvcc flags into ``out_dir`` (``lib<source>.so``), one nvcc
     each, all started together -> {source: ptxas_entries}; for holding
-    the instantiations against another tree's sources."""
+    the instantiations against another tree's sources.  The host code is
+    built with ``-fno-gnu-unique``: the instances of a variable template
+    (``shard_chunk.cu``'s shared-memory opt-in records) are otherwise
+    unique symbols, which the process shares with the port's library of
+    the same source, so the other tree's kernels would skip their own
+    opt-in."""
     procs = [(name, subprocess.Popen(
-        [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o",
+        [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-Xcompiler",
+         "-fno-gnu-unique", "-o",
          os.path.join(out_dir, f"lib{name}.so"),
          os.path.join(csrc, f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
@@ -724,7 +749,9 @@ def ptxas_report(csrc: str, out_dir: str) -> dict:
 # two modes)
 REDESIGNED_PTX = ("sig_decide_kernel", "decide_grouped_kernel",
                   "decide_dense_kernel", "set_chunk_kernel",
-                  "rule_chunk_kernel", "shard_tail_kernel")
+                  "rule_chunk_kernel", "shard_tail_kernel",
+                  "sig_planes_kernel", "sig_planes_comp_kernel",
+                  "wia_planes_kernel", "wia_rows_kernel")
 
 
 def former_name(name: str) -> str:
@@ -1272,13 +1299,17 @@ PLAIN = {
 # the variant flags at the end of each wrapper's arguments
 N_FLAGS = {"sig_planes": 2, "sig_decide": 2, "decide_grouped": 3,
            "decide_dense": 3, "rule_chunk": 3, "set_chunk": 3,
-           "shard_tail": 0}
+           "shard_tail": 0, "wia_planes": 0}
 # the modules that call each wrapper (each imports it by name)
 SITES = {"sig_planes": (pfmod,), "sig_decide": (pfmod,),
          "decide_grouped": (pfmod,), "decide_dense": (kmod, mmod),
          "rule_chunk": (rule_shard,), "set_chunk": (pod_shard,),
          "shard_tail": (rule_shard, pod_shard)}
 SIG_KERNELS = ("sig_planes", "sig_decide", "decide_grouped")
+# the plane kernels' plain versions (K5's calls are held by WiaCheck, so
+# it has no entry in PLAIN, whose every name KernelCheck can wrap)
+PLANES_PLAIN = {"sig_planes": prefilter_ref.sig_planes_ref,
+                "wia_planes": reverse_ref.wia_planes_ref}
 
 
 class KernelCheck:
@@ -1483,12 +1514,30 @@ def _finish_bound(nbytes: int, ops: int) -> tuple[float, str, int, int]:
     return t_ops, "operations", nbytes, ops
 
 
-def bound_sig_planes(tabs, inv, pseudo, with_hr, with_rel, out):
-    """Bytes: the stacked tables, policy arrays and pseudo-requests read
-    once, the planes written once.  Operations: stage A's compares per
-    target row of every group, one per plane element written."""
+# the stacked target-table columns K2 reads for the planes, by variant
+# (the pseudo-requests carry no properties, so the property and tail
+# columns decide nothing)
+SIG_PLANES_READS = (
+    "t_n_subjects", "t_role", "t_has_role", "t_skip_acl", "t_sub_ids",
+    "t_sub_vals", "t_act_ids", "t_act_vals", "t_ent_vals", "t_ent_w",
+    "t_op_vals", "t_has_props", "t_n_res", "rule_effect", "rule_target",
+    "pol_target", "set_target")
+SIG_PLANES_HR_READS = ("t_has_scoping", "t_hr_check", "t_rs_idx")
+
+
+def bound_sig_planes(tabs, inv, pseudo, with_hr, with_rel, out,
+                     every_table: bool = False):
+    """Bytes: the stacked columns the planes read (``SIG_PLANES_READS``,
+    the HR and relation ones in their variants), the policy arrays and
+    pseudo-requests read once, the planes written once; with
+    ``every_table`` every stacked table (the count PRs 2-10 used, now the
+    yardstick).  Operations: stage A's compares per target row of every
+    group, one per plane element written."""
+    reads = SIG_PLANES_READS + (SIG_PLANES_HR_READS if with_hr else ()) \
+        + (REL_TABLES if with_rel else ())
     nbytes = sum(int(t.nbytes) for k, t in tabs.items()
-                 if with_rel or k not in REL_TABLES)
+                 if (with_rel or k not in REL_TABLES)
+                 and (every_table or k in reads))
     nbytes += sum(int(inv[k].nbytes) for k in kmod.SIG_PLANES_INPUTS
                   if k in inv)
     nbytes += sum(int(t.nbytes) for t in pseudo.values())
@@ -1559,7 +1608,9 @@ def occupancy(name: str, args: tuple, **kw) -> int:
           "decide_dense": kmod.decide_dense_occupancy,
           "set_chunk": kmod.set_chunk_occupancy,
           "rule_chunk": kmod.rule_chunk_occupancy,
-          "shard_tail": kmod.shard_tail_occupancy}[name]
+          "shard_tail": kmod.shard_tail_occupancy,
+          "sig_planes": kmod.sig_planes_occupancy,
+          "wia_planes": kmod.wia_planes_occupancy}[name]
     return fn(*args, **kw)
 
 
@@ -1575,6 +1626,12 @@ def library_of(mod, name: str):
         return mod._dense_library()
     if name == "shard_tail":
         return mod._library("shard_tail", mod.TAIL_PTRS, mod.TAIL_DIMS, 2)
+    if name == "sig_planes":
+        return mod._library("sig_planes", mod.SIG_PLANES_PTRS,
+                            mod.SIG_PLANES_DIMS, 2)
+    if name == "wia_planes":
+        return mod._library("wia_planes", mod.WIA_PLANES_PTRS,
+                            mod.WIA_PLANES_DIMS, 0)
     return mod._chunk_library()
 
 
@@ -1587,11 +1644,30 @@ def prepacked(mod, name: str, args: tuple, explain: bool = False,
     ``set_chunk`` takes ``kw["t_live"]``: the port's kernel runs on the
     live target rows, the parent's on the whole table unless ``live``;
     ``shard_tail`` ``kw["kr_stride"]``, in its library's block shape (the
-    parent's: its ``TAIL_THREADS``)."""
+    parent's: its ``TAIL_THREADS``).  ``sig_planes`` and ``wia_planes``
+    have no explain flag."""
     kw = kw or {}
     flags = tuple(bool(f) for f in args[len(args) - N_FLAGS[name]:])
     pre: tuple = ()
     keep: tuple = ()
+    if name in ("sig_planes", "wia_planes"):
+        if name == "sig_planes":
+            out, buf, ptrs, dims, threads = mod.pack_sig_planes(*args)
+            keep = (buf,)
+        else:
+            out, ptrs, dims, threads = mod.pack_wia_planes(*args)
+        entry = getattr(library_of(mod, name), "acs_" + name)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def launch_planes():
+            code = entry(ctypes.addressof(ptrs), len(ptrs),
+                         ctypes.addressof(dims), len(dims),
+                         *(int(f) for f in flags), threads, stream)
+            if code != 0:
+                raise RuntimeError(f"{name} launch: {code}")
+        launch_planes.keep = (args, out) + keep
+        launch_planes.dims = dims
+        return launch_planes
     if name == "sig_decide":
         (inv, cs, planes, slot_g, rows, g2r, gp, _, schedule, needs_pairs,
          with_hr, with_rel) = args
@@ -1673,6 +1749,18 @@ def load_parent(csrc: str, lib_dir: str):
     return mod
 
 
+def parent_kw(pw, ekw: dict) -> tuple[dict, bool | None]:
+    """The keywords of a call for the parent tree's wrapper ``pw``, and
+    whether its packed launch takes the live rows: ``t_live`` only where
+    that wrapper takes it (a tree before it gets the whole padded table,
+    as its main path did)."""
+    import inspect
+
+    if "t_live" in inspect.signature(pw).parameters:
+        return ekw, True
+    return {k: v for k, v in ekw.items() if k != "t_live"}, None
+
+
 def redesigned_times(name: str, args: tuple, explains: tuple = (False,),
                      kw: dict | None = None) -> dict:
     """A redesigned kernel on one call's arguments (and keywords ``kw``:
@@ -1682,8 +1770,9 @@ def redesigned_times(name: str, args: tuple, explains: tuple = (False,),
     of the kernel table is timed), ``kernel_ms`` the median window of
     ``time_steady`` over ``prepacked`` launches, and the resident blocks
     per SM; with ``PARENT`` the parent tree's kernel on the same
-    arguments (for ``set_chunk`` the whole padded table, as the parent's
-    main path gave it), ``parent_ms`` through its wrapper and
+    arguments (for ``set_chunk`` the live rows where the parent's wrapper
+    takes ``t_live``, else the whole padded table, as its main path gave
+    it: ``parent_kw``), ``parent_ms`` through its wrapper and
     ``parent_kernel_ms`` timed window by window in turns with
     ``kernel_ms`` (and ``parent_live_kernel_ms``: the parent's
     ``set_chunk`` on the live rows)."""
@@ -1704,9 +1793,9 @@ def redesigned_times(name: str, args: tuple, explains: tuple = (False,),
         if PARENT is None:
             continue
         pw = getattr(PARENT, name)
-        pkw = {k: v for k, v in ekw.items() if k != "t_live"}
+        pkw, live = parent_kw(pw, ekw)
         out["parent_ms" + sfx] = time_ms(lambda: pw(*args, **pkw))
-        fns.append(prepacked(PARENT, name, args, explain, kw))
+        fns.append(prepacked(PARENT, name, args, explain, kw, live=live))
         keys.append("parent_kernel_ms" + sfx)
         if name == "set_chunk":
             fns.append(prepacked(PARENT, name, args, explain, kw, live=True))
@@ -1718,7 +1807,7 @@ def redesigned_times(name: str, args: tuple, explains: tuple = (False,),
         keys.append("wrapper_steady_ms")
         if PARENT is not None:
             pw = getattr(PARENT, name)
-            pkw = {k: v for k, v in ekw.items() if k != "t_live"}
+            pkw, _ = parent_kw(pw, ekw)
             fns.append(lambda: pw(*args, **pkw))
             keys.append("parent_wrapper_steady_ms")
     out.update(zip(keys, time_steady(*fns)))
@@ -1729,7 +1818,7 @@ def time_kernel(name: str, args: tuple, plain_iters: int = 1) -> dict:
     """The kernel and its plain version on one call's arguments, CUDA
     events (the kernel: mean of ITERS launches through its wrapper after a
     warm-up; K3 and K4 also as ``redesigned_times`` reads them)."""
-    launch = {"sig_planes": kmod.sig_planes, "sig_decide": kmod.sig_decide,
+    launch = {"sig_decide": kmod.sig_decide,
               "decide_grouped": kmod.decide_grouped,
               "decide_dense": kmod.decide_dense}[name]
     extra = {}
@@ -1740,9 +1829,7 @@ def time_kernel(name: str, args: tuple, plain_iters: int = 1) -> dict:
     else:
         ms = time_ms(lambda: launch(*args))
     plain_ms = time_ms(lambda: PLAIN[name](*args), plain_iters)
-    if name == "sig_planes":
-        bms, by, nbytes, ops = bound_sig_planes(*args, launch(*args))
-    elif name == "sig_decide":
+    if name == "sig_decide":
         bms, by, nbytes, ops = bound_sig_decide(args)
     elif name == "decide_grouped":
         inv, cs, _, r, _, _, with_rel = args
@@ -1780,8 +1867,8 @@ def phase_sig_main(device, stats: dict, card: str) -> dict:
     log(f"  (a) shapes: G={tabs['t_role'].shape[0]} Tp={tabs['t_role'].shape[1]}"
         f" KRp={tabs['rule_valid'].shape[3]} NSLOT={sig_args[5].shape[0]} "
         f"R={sig_args[5].shape[1]} row width={sig_args[4].shape[1]}")
+    out["planes_args"] = {"a": a_args["sig_planes"]}
     out["a"] = {"launches": launches,
-                "sig_planes": time_kernel("sig_planes", a_args["sig_planes"]),
                 "sig_decide": time_kernel("sig_decide", sig_args),
                 "h2d_rows_ms": h2d_ms(sig_args[4])}
     out["a"]["steady"] = steady_state(evaluator, reqs)
@@ -1817,8 +1904,8 @@ def phase_sig_main(device, stats: dict, card: str) -> dict:
                                      stats)
     if not b_args["sig_decide"][-2]:
         raise AssertionError("(b): sig_decide ran without HR")
+    out["planes_args"]["b"] = b_args["sig_planes"]
     out["b"] = {"launches": launches,
-                "sig_planes": time_kernel("sig_planes", b_args["sig_planes"]),
                 "sig_decide": time_kernel("sig_decide", b_args["sig_decide"]),
                 "steady": steady_state(evaluator, reqs_b)}
     for key in ("a", "b", "c"):
@@ -1889,43 +1976,33 @@ def wia_encode(requests, compiled):
                            skip_owner_bits=True, skip_relation_bits=True)
 
 
+# the target-table columns the whatIsAllowed planes read (no plane reads
+# the property gates, so the tails and property columns decide nothing)
+WIA_READS = ("t_act_ids", "t_act_vals", "t_ent_vals", "t_ent_w",
+             "t_op_vals", "t_has_props", "t_n_res")
+
+
 def bound_wia_planes(args) -> tuple[float, str, int, int]:
-    """Bytes: the target-table columns, the packed rows and the regex
-    matrices read once, the [N, 7, T] planes written once.  Operations:
-    stage A's compares per (row, target row), counted for this call's
-    data: the target rows' valid action ids against the row's action
-    slots, and per row its valid entity runs, operations and properties
-    (the kernel skips the empty slots)."""
+    """Bytes: the target-table columns the planes read (``WIA_READS``),
+    the packed rows and the regex matrices read once, the [N, 7, T]
+    planes written once.  Operations: stage A's compares per (row, target
+    row), counted for this call's data: the target rows' valid action ids
+    against the row's action slots, and per row its valid entity runs and
+    operations (the kernel skips the empty slots)."""
     tables, rows, schedule, rgx, pfx = args
     N, T = rows.shape[0], tables["t_n_res"].shape[0]
-    nbytes = sum(int(t.nbytes) for t in tables.values())
+    nbytes = sum(int(tables[k].nbytes) for k in WIA_READS)
     nbytes += int(rows.nbytes) + int(rgx.nbytes) + int(pfx.nbytes)
     nbytes += N * len(reverse_ref.PLANE_KEYS) * T
     cols = prefilter_ref.unpack_rows(rows.cpu(), schedule)
-    KE, KO, KPR = (tables[k].shape[1] for k in (
-        "t_ent_vals", "t_op_vals", "t_prop_vals"))
+    KE, KO = (tables[k].shape[1] for k in ("t_ent_vals", "t_op_vals"))
     NACT = cols["r_act_ids"].shape[1]
-    NR = cols["r_ent_vals"].shape[1]
     runs = int((cols["r_ent_valid"] != 0).sum())
     ops_v = int((cols["r_op_vals"] >= 0).sum())
-    props = int(((cols["r_prop_vals"] >= 0)
-                 & (cols["r_prop_run"] >= 0)).sum())
     act_ids = int((tables["t_act_ids"] >= 0).sum())
-    ops = (N * act_ids * NACT
-           + T * (3 * KE * runs + KO * ops_v + props * (KE + 2 * KPR))
-           + N * T * (4 * NR + 16))
+    ops = (N * act_ids * NACT + T * (3 * KE * runs + KO * ops_v)
+           + N * T * 16)
     return _finish_bound(nbytes, ops)
-
-
-def time_wia(args, plain_iters: int = 1) -> dict:
-    """K5 and its plain version on one call's arguments (CUDA events)."""
-    ms = time_ms(lambda: kmod.wia_planes(*args))
-    plain_ms = time_ms(lambda: reverse_ref.wia_planes_ref(*args),
-                       plain_iters)
-    bms, by, nbytes, ops = bound_wia_planes(args)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                bytes=nbytes, ops=ops, N=int(args[1].shape[0]),
-                T=int(args[0]["t_n_res"].shape[0]))
 
 
 def phase_wia_vs_plain(device, stats: dict, tree_100k) -> dict:
@@ -4009,6 +4086,111 @@ def old_ms(name: str, cell: str, explain: bool) -> str:
     return OLD_MS[(name, cell.replace(name, "").strip())]
 
 
+# ---------------------------------------- the plane kernels (K2 and K5)
+
+
+def planes_cases(sig: dict, rel: dict, wia: dict, wl: dict, lat: dict
+                 ) -> dict:
+    """The plane kernels' main-path calls, by cell: ``sig_planes`` at (a)
+    and (b) (phase 7's first batches) and at relation-720 (phase 12's
+    unscoped call) in all four (with_hr, with_rel) variants, the flags
+    replaced on the same tables; ``wia_planes`` at 100k (phase 9), the
+    lattice's warm sweep (phase 11) and wia-large (phase 10)."""
+    cases = {"sig_planes (a)": ("sig_planes", sig["planes_args"]["a"]),
+             "sig_planes (b)": ("sig_planes", sig["planes_args"]["b"])}
+    base = rel["sig_planes"][:3]
+    for h in (False, True):
+        for r in (False, True):
+            cases[f"sig_planes relation-720 ({int(h)},{int(r)})"] = (
+                "sig_planes", base + (h, r))
+    for cell, args in (("100k", wia["100k"]), ("lattice", lat["args"]),
+                       ("wia-large", wl["args"])):
+        cases["wia_planes " + cell] = ("wia_planes", args)
+    return cases
+
+
+def planes_shape(name: str, args: tuple) -> dict:
+    """A plane kernel cell's shapes and block shape: K2's groups, target
+    rows, rule positions and threads; K5's rows, target rows, TT target
+    rows per tile and RB rows per block (the library's) and threads."""
+    if name == "sig_planes":
+        tabs = args[0]
+        G, S, KP, KR = (int(x) for x in tabs["rule_effect"].shape)
+        return {"G": G, "T": int(tabs["t_role"].shape[1]),
+                "positions": G * S * KP * KR,
+                "threads": kmod.SIG_PLANES_THREADS}
+    _, _, dims, threads = kmod.pack_wia_planes(*args)
+    d = dict(zip(kmod.WIA_PLANES_DIMS, dims))
+    return {"N": d["N"], "T": d["T"], "TT": d["TT"], "RB": d["RB"],
+            "threads": threads}
+
+
+def planes_ptx(name: str, args: tuple, ptx: dict) -> dict:
+    """The ptxas entries of a plane kernel cell's instantiations."""
+    if name == "wia_planes":
+        keys = ("wia_rows_kernel", "wia_planes_kernel")
+    else:
+        flags = ",".join(str(int(f)) for f in args[-2:])
+        keys = (f"sig_planes_comp_kernel<{flags}>",
+                f"sig_planes_kernel<{flags}>")
+    return {k: ptx.get(k) for k in keys}
+
+
+def planes_report(cases: dict, ptx: dict, card: str, stats: dict) -> dict:
+    """The report of K2 and K5 at their main-path calls: each call held
+    against its plain version, then through the wrapper and packed once
+    (with ``--parent-csrc`` beside the parent's kernel on the same
+    arguments, in turns, and the wrappers in turns), its launch floor (an
+    empty kernel over the same grids: K2's two launches, K5's one), its
+    plain version's time, bound (K2's beside the yardstick of PRs 2-10,
+    every stacked table read), the wrapper's host packing, ptxas numbers,
+    blocks per SM and block shape; returns the times by cell."""
+    out = {}
+    for cell, (name, args) in cases.items():
+        plain = PLANES_PLAIN[name]
+        _checked(name, stats, getattr(kmod, name)(*args), plain(*args))
+        t = redesigned_times(name, args)
+        t["plain_ms"] = time_ms(lambda: plain(*args), 1)
+        floor = getattr(kmod, name + "_floor")(*args)
+        t["floor_ms"] = time_steady(floor)[0]
+        pack = getattr(kmod, "pack_" + name)
+        t["pack_us"] = host_us(lambda: pack(*args), 50)
+        if PARENT is not None:
+            ppack = getattr(PARENT, "pack_" + name)
+            t["parent_pack_us"] = host_us(lambda: ppack(*args), 50)
+        if name == "sig_planes":
+            res = kmod.sig_planes(*args)
+            t["bound_ms"], t["bound_by"], t["bytes"], t["ops"] = \
+                bound_sig_planes(*args, res)
+            t["yardstick_ms"], _, t["bytes_yardstick"], _ = \
+                bound_sig_planes(*args, res, every_table=True)
+            t["flags"] = [bool(f) for f in args[-2:]]
+            del res
+        else:
+            t["bound_ms"], t["bound_by"], t["bytes"], t["ops"] = \
+                bound_wia_planes(args)
+        t.update(planes_shape(name, args))
+        t["ptxas"] = planes_ptx(name, args, ptx)
+        out[cell] = t
+        log(f"  {cell} on {card}: " + json.dumps(t))
+        line = (f"    wrapper {t['ms']:.4f} ms, packed once "
+                f"{t['kernel_ms']:.4f} ms; launch floor {t['floor_ms']:.4f} "
+                f"ms ({t['kernel_ms'] / t['floor_ms']:.2f}x)")
+        if "parent_kernel_ms" in t:
+            pk = t["parent_kernel_ms"]
+            line += (f"; parent wrapper {t['parent_ms']:.4f} ms, packed "
+                     f"once {pk:.4f} ms ({pk / t['kernel_ms']:.2f}x); "
+                     f"wrappers in turns {t['wrapper_steady_ms']:.4f} / "
+                     f"{t['parent_wrapper_steady_ms']:.4f} ms")
+        key = cell.split(" ", 1)[1].split(" (")[0] if "relation" in cell \
+            else cell.split(" ", 1)[1]
+        log(f"{line}; bound {t['bound_ms']:.5f} ms ({t['bound_by']}), "
+            f"packed once {t['kernel_ms'] / t['bound_ms']:.1f}x the bound; "
+            f"{t['blocks_per_sm']} blocks per SM; PERF.md before: "
+            f"{OLD_MS[(name, key)]} ms")
+    return out
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -4045,20 +4227,9 @@ def main(argv: list[str]) -> int:
         # the parent's K3 / K4, timed beside the new on the same arguments
         global PARENT
         PARENT = load_parent(parent_csrc, parent_dir)
-    # --quick: the redesigned kernels' phases only (2, 5, 13, the rows
-    # program's report and the K7 / tail report, then 6, 7, 12, 17, 18 and
-    # the K3 / K4 report), no kernel table and no result line
+    # --quick: the plane kernels' phases only (2, 6, 7, 9-12 and the K2 /
+    # K5 report), no kernel table and no result line
     quick = "--quick" in argv
-    if quick:
-        stamp("phase 5: dense main path")
-        phase_end_to_end(device, 4096, stats)
-        stamp("phase 13: ReBAC main path")
-        rebac = phase_rebac(device, sig_stats, card, REBAC_TUPLES)
-        stamp("K1 / K6 / K8 report (the rows program):")
-        rows_report(rows_cases(device, stats, rebac), ptx, card, sig_stats)
-        stamp("K7 / tail report (rule_chunk, shard_tail):")
-        rows_report(k7_cases(device), ptx, card, sig_stats)
-
     if not quick:
         stamp("phase 3-4: dense kernel vs plain version, kernel vs oracle")
         variants = phase_kernel_vs_plain(device, 1024, stats)
@@ -4076,14 +4247,19 @@ def main(argv: list[str]) -> int:
     stamp("phase 7: signature main paths (100k rules)")
     sig = phase_sig_main(device, sig_stats, card)
     if quick:
+        tree_100k = sig.pop("tree_100k")
+        stamp("phase 9: wia_planes vs plain version")
+        wia = phase_wia_vs_plain(device, sig_stats, tree_100k)
+        del tree_100k
+        stamp("phase 10: whatIsAllowed main path")
+        wl = phase_wia_main(device, sig_stats, card)
+        stamp("phase 11: lattice sweep")
+        lat = phase_lattice(device, sig_stats, card)
         stamp("phase 12: relation variants vs plain versions")
         rel = phase_rel_vs_plain(device, sig_stats)
-        stamp("phase 17: explain variants vs plain versions")
-        phase_explain_vs_plain(device, sig_stats)
-        stamp("phase 18: explain main path")
-        expl = phase_explain_main(device, sig_stats, card)
-        stamp("K3 / K4 report:")
-        redesign_report(sig, expl, ptx, card)
+        stamp("K2 / K5 report (sig_planes, wia_planes):")
+        planes_report(planes_cases(sig, rel, wia, wl, lat), ptx, card,
+                      sig_stats)
         log(f"  quick run: {time.perf_counter() - t_start:.1f} s in all")
         return 0
 
@@ -4153,23 +4329,24 @@ def main(argv: list[str]) -> int:
     stamp("K7 / tail report (rule_chunk and shard_tail; CUDA events as "
         "above):")
     rows_t.update(rows_report(k7_cases(device), ptx, card, sig_stats))
+    stamp("K2 / K5 report (sig_planes and wia_planes; CUDA events as "
+        "above):")
+    planes_t = planes_report(planes_cases(sig, rel, wia, wl, lat), ptx,
+                             card, sig_stats)
 
     log("  relation variants' times (CUDA events, 5 launches after a "
         "warm-up):")
-    rel_rows = {"decide_dense": dict(rebac["k1"])}
-    for name, key in (("sig_planes", "launches"), ("sig_decide", "launches"),
+    rel_rows = {"decide_dense": dict(rebac["k1"]),
+                "sig_planes": dict(planes_t[
+                    "sig_planes relation-720 "
+                    f"({int(rel['sig_planes'][3])},1)"],
+                    launches=rel["launches"]["sig_planes"])}
+    for name, key in (("sig_decide", "launches"),
                       ("decide_grouped", "launches_acl")):
         rel_rows[name] = time_kernel(name, rel[name])
         rel_rows[name]["launches"] = rel[key][name]
         log(f"  {name} with_rel (720 relation tree) on {card}: "
             + json.dumps(rel_rows[name]))
-
-    log("  wia_planes times (CUDA events, 5 launches after a warm-up):")
-    k5 = {}
-    for key, args in (("wia-large", wl["args"]), ("lattice", lat["args"]),
-                      ("100k", wia["100k"])):
-        k5[key] = time_wia(args)
-        log(f"  wia_planes {key} on {card}: " + json.dumps(k5[key]))
     log(f"  launches: wia-large first batch {wl['launches']['wia_planes']}, "
         f"warm 0; lattice warm sweep {lat['warm_launches']}, timed sweep "
         f"{lat['timed_launches']}")
@@ -4185,20 +4362,22 @@ def main(argv: list[str]) -> int:
             k: main_stats[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "yardstick_ms")},
     }]
-    for name, key in (("sig_planes", "a"), ("sig_decide", "a"),
-                      ("decide_grouped", "c")):
-        t = sig[key][name]
+    for name, key, t in (
+            ("sig_planes", "a", planes_t["sig_planes (a)"]),
+            ("sig_decide", "a", sig["a"]["sig_decide"]),
+            ("decide_grouped", "c", sig["c"]["decide_grouped"])):
         rows.append({
             "name": name, "launches": sig[key]["launches"][name],
             "max_abs_err": sig_stats[name]["max_abs_err"],
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-            **{k: t[k] for k in PACKED_KEYS if k in t},
+            **{k: t[k] for k in PACKED_KEYS + PLANES_KEYS if k in t},
         })
+    t = planes_t["wia_planes wia-large"]
     rows.append({
         "name": "wia_planes", "launches": wl["launches"]["wia_planes"],
         "max_abs_err": sig_stats["wia_planes"]["max_abs_err"],
-        **{k: k5["wia-large"][k] for k in ("ms", "plain_ms", "bound_ms",
-                                          "bound_by")},
+        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        **{k: t[k] for k in PACKED_KEYS + PLANES_KEYS if k in t},
     })
     rows[0]["k6"] = {"replaces": K6_REPLACES, **sharded_row(
         p15, "decide_dense", "K6"), "library_ms": None}
@@ -4266,7 +4445,7 @@ def main(argv: list[str]) -> int:
                 "replaces": REPLACES_REL[r["name"]],
                 "max_abs_err": sig_stats[r["name"]]["max_abs_err"],
                 **{k: t[k] for k in keys}, "library_ms": None,
-                **{k: t[k] for k in PACKED_KEYS if k in t}}
+                **{k: t[k] for k in PACKED_KEYS + PLANES_KEYS if k in t}}
     print(json.dumps({"kernels": [{
         "name": r["name"], "route": "cuda",
         "source": CSRC + SOURCE[r["name"]] + ".cu",
@@ -4274,7 +4453,8 @@ def main(argv: list[str]) -> int:
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None,
-        **{k: r[k] for k in PACKED_KEYS + ("yardstick_ms",) if k in r},
+        **{k: r[k] for k in PACKED_KEYS + PLANES_KEYS + ("yardstick_ms",)
+           if k in r},
         **({"with_rel": r["with_rel"]} if "with_rel" in r else {}),
         **{k: r[k] for k in ("explain", "k6", "pod") if k in r},
     } for r in rows]}))

@@ -119,6 +119,7 @@ inline void __syncwarp(unsigned = 0xffffffffu) {
 }
 inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int __clz(int x) { return x == 0 ? 32 : __builtin_clz((unsigned)x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline void __syncthreads() { g_block->arrive_and_wait(); }
 inline int atomicMin(int* p, int v) {
   int o = __atomic_load_n(p, __ATOMIC_SEQ_CST);
@@ -774,13 +775,13 @@ PROBE = r"""
 #include <cuda_runtime.h>
 
 struct ProbeArgs { int32_t* out; };
-#define PROBE_INTS 11
+#define PROBE_INTS 12
 
 // PROBE_INTS ints per thread: ballot (full mask, partial mask), a 64-bit
 // xor shuffle (high, low word), __ffs, __clz, after __syncwarp the value
 // the next lane of the warp wrote, a shared atomicAdd's total and
-// returned ticket, a shared atomicOr's result, and the word a uint4 store
-// of make_uint4 left at the thread's index
+// returned ticket, a shared atomicOr's result, the word a uint4 store of
+// make_uint4 left at the thread's index, and __popc
 __global__ void __launch_bounds__(64, 1) probe_kernel(const ProbeArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31;
@@ -812,6 +813,7 @@ __global__ void __launch_bounds__(64, 1) probe_kernel(const ProbeArgs a) {
   __syncthreads();
   o[9] = (int)bits[tid & 1];
   o[10] = reinterpret_cast<int32_t*>(quads)[tid];
+  o[11] = __popc((unsigned)tid * 0x9e3779b9u);
 }
 
 extern "C" int run_probe(int32_t* out, int* occupancy) {
@@ -832,7 +834,7 @@ def probe(tmp_path_factory):
     occupancy)."""
     lib = build_emulated("probe", tmp_path_factory.mktemp("probe_emu"),
                          src=PROBE)
-    out = torch.zeros((64, 11), dtype=torch.int32)
+    out = torch.zeros((64, 12), dtype=torch.int32)
     occ = ctypes.c_int(0)
     lib.run_probe.restype = ctypes.c_int
     assert lib.run_probe(ctypes.c_void_p(out.data_ptr()),
@@ -901,6 +903,13 @@ def test_standin_uint4(probe):
     """``uint4`` stores of ``make_uint4``: four words each, in order."""
     out = probe[0]
     assert out[:, 10].tolist() == [t // 4 + t % 4 for t in range(64)]
+
+
+def test_standin_popc(probe):
+    """__popc: the set bits of a 32-bit word."""
+    out = probe[0]
+    assert out[:, 11].tolist() == [
+        bin(t * 0x9E3779B9 & 0xFFFFFFFF).count("1") for t in range(64)]
 
 
 def test_standin_occupancy(probe):

@@ -66,6 +66,10 @@ def libs(tmp_path_factory):
     grouped.acs_decide_grouped_occupancy.restype = ctypes.c_int
     grouped.acs_decide_grouped_occupancy.argtypes = [
         ctypes.c_void_p, ctypes.c_int] + [ctypes.c_int] * 5
+    planes = out["sig_planes"]
+    for fn, (restype, argtypes) in tkernel._SIZING["sig_planes"].items():
+        getattr(planes, fn).restype = restype
+        getattr(planes, fn).argtypes = argtypes
     sig = out["sig_decide"]
     sig.acs_sig_decide_smem.restype = ctypes.c_longlong
     sig.acs_sig_decide_smem.argtypes = [ctypes.c_void_p, ctypes.c_int,
@@ -1023,3 +1027,155 @@ def second_chunk_draw(libs, name: str, a: tuple, slots: tuple,
             out.add((1, pos % 33, selectable(e0, p) if 0 in slots else None,
                      selectable(e32, p)))
     return out
+
+
+# ------------------------------------- K2's tiling on seeded random tables
+
+
+def random_planes_call(rng, G, T, S, KP, KR, KS, NR, NOP, KE=2, KA=2, KO=2,
+                       KPR=2, NACT=3, NP=2, W=4) -> tuple:
+    """One ``sig_planes`` call's arguments (without the variant flags) at
+    the given shapes, every table, policy array and pseudo-request drawn
+    by ``rng`` in its valid range (the pseudo-requests with properties,
+    which the planes path never sends, to reach every gate of stage A)."""
+    E = max(NR, 1)
+
+    def ints(shape, lo, hi):
+        return torch.from_numpy(rng.integers(lo, hi, size=shape)
+                                .astype(np.int32))
+
+    def bools(shape, p):
+        return torch.from_numpy(rng.random(shape) < p)
+
+    tabs = {
+        "t_n_subjects": ints((G, T), 0, 3), "t_role": ints((G, T), -1, 5),
+        "t_has_role": bools((G, T), 0.5), "t_has_scoping": bools((G, T), 0.5),
+        "t_hr_check": bools((G, T), 0.5), "t_skip_acl": bools((G, T), 0.3),
+        "t_sub_ids": ints((G, T, KS), -1, 4),
+        "t_sub_vals": ints((G, T, KS), -1, 4),
+        "t_act_ids": ints((G, T, KA), -1, 2),
+        "t_act_vals": ints((G, T, KA), 0, 2),
+        "t_ent_vals": ints((G, T, KE), -1, 5),
+        "t_ent_w": ints((G, T, KE), -1, W),
+        "t_ent_tails": ints((G, T, KE), -1, 3),
+        "t_op_vals": ints((G, T, KO), -1, 4),
+        "t_prop_vals": ints((G, T, KPR), -1, 4),
+        "t_prop_sfx": ints((G, T, KPR), -1, 3),
+        "t_has_props": bools((G, T), 0.3), "t_n_res": ints((G, T), 0, 3),
+        "t_rs_idx": ints((G, T), 0, 6), "t_rel_idx": ints((G, T), -1, 6),
+        "t_rel_direct": bools((G, T), 0.5),
+        "rule_effect": ints((G, S, KP, KR), 0, 3),
+        "rule_target": ints((G, S, KP, KR), 0, T),
+        "pol_target": ints((G, S, KP), 0, T),
+        "set_target": ints((G, S), 0, T),
+    }
+    inv = {"pol_valid": bools((S, KP), 0.8),
+           "pol_effect": ints((S, KP), 0, 3),
+           "pol_has_props": bools((S, KP), 0.3),
+           "pol_ent_vals": ints((S, KP, KE), -1, 5)}
+    pseudo = {
+        "r_act_ids": ints((G, NACT), -1, 2),
+        "r_act_vals": ints((G, NACT), 0, 2),
+        "r_ent_vals": ints((G, NR), -1, 5), "r_ent_e": ints((G, NR), 0, E),
+        "r_ent_valid": bools((G, NR), 0.6),
+        "r_prop_vals": ints((G, NP), -1, 4), "r_prop_sfx": ints((G, NP), -1, 3),
+        "r_prop_run": ints((G, NP), -1, NR), "r_prop_tail": ints((G, NP), -1, 3),
+        "r_op_vals": ints((G, NOP), -1, 4),
+        "r_has_props": bools((G,), 0.5),
+        "rgx_set": bools((G, W, E), 0.3), "pfx_neq": bools((G, W, E), 0.3),
+    }
+    return tabs, inv, pseudo
+
+
+def planes_vs_plain(lib, args: tuple, with_hr: bool, with_rel: bool):
+    """One call through the emulated kernel (its allocation dirty first),
+    every plane against the plain version's."""
+    from access_control_srv_tpu_torch.ops.prefilter_ref import (
+        sig_planes_ref,
+    )
+
+    want = sig_planes_ref(*args, with_hr, with_rel)
+    got, buf, ptrs, dims, threads = tkernel.pack_sig_planes(
+        *args, with_hr, with_rel)
+    buf.fill_(0xCD)
+    code = lib.acs_sig_planes(
+        ctypes.addressof(ptrs), len(ptrs), ctypes.addressof(dims),
+        len(dims), int(with_hr), int(with_rel), threads, None)
+    assert code == 0
+    assert sorted(got) == sorted(want)
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
+    return want
+
+
+# (G, T, S, KP, KR, KS, NR, NOP, threads): one group and 15 rule positions
+# (no whole quad at the end); groups whose positions straddle quads and
+# blocks (126 a group, blocks of 128); 33 policies (two lane chunks of the
+# set warp) with KS 2 and NR 32; more sets than warps, NR 5 (the collection
+# rows as words) and NOP 0
+PLANES_SHAPES = [
+    (1, 8, 1, 3, 5, 1, 1, 0, 32),
+    (5, 8, 2, 7, 9, 3, 16, 3, 32),
+    (3, 16, 1, 33, 3, 2, 32, 8, 64),
+    (9, 8, 2, 3, 2, 1, 5, 5, 32),
+]
+
+
+@pytest.mark.parametrize("shape", PLANES_SHAPES)
+def test_planes_tiling(libs, monkeypatch, shape):
+    """K2 on seeded random tables at shapes that reach its tile edges, in
+    all four (with_hr, with_rel) variants: each plane equal to the plain
+    version's, with positions and groups not whole quads or blocks and
+    every subject and collection width path."""
+    G, T, S, KP, KR, KS, NR, NOP, threads = shape
+    monkeypatch.setattr(tkernel, "SIG_PLANES_THREADS", threads)
+    rng = np.random.default_rng(sum(shape))
+    args = random_planes_call(rng, G, T, S, KP, KR, KS, NR, NOP)
+    seen = set()
+    for with_hr in (False, True):
+        for with_rel in (False, True):
+            want = planes_vs_plain(libs["sig_planes"], args, with_hr,
+                                   with_rel)
+            seen |= {(k, v) for k in ("rl_ex", "rl_has_role")
+                     for v in want[k].flatten().tolist()}
+    # the draws reach both values of the match and byte planes
+    assert seen >= {(k, v) for k in ("rl_ex", "rl_has_role")
+                    for v in (False, True)}
+
+
+def test_planes_recheck_chunks(libs, monkeypatch):
+    """The multi-entity recheck of a set whose only matching policy sits
+    in the second 32-lane chunk, and one where no policy matches."""
+    monkeypatch.setattr(tkernel, "SIG_PLANES_THREADS", 64)
+    rng = np.random.default_rng(5)
+    tabs, inv, pseudo = random_planes_call(rng, 2, 8, 1, 40, 2, 1, 4, 2)
+    pseudo["r_ent_valid"][:] = torch.tensor([True, False, False, False])
+    pseudo["r_ent_vals"][:, 0] = torch.tensor([3, 4], dtype=torch.int32)
+    inv["pol_valid"][:] = True
+    inv["pol_has_props"][:] = False
+    inv["pol_ent_vals"][:] = -1
+    inv["pol_ent_vals"][0, 37, 1] = 3
+    want = planes_vs_plain(libs["sig_planes"], (tabs, inv, pseudo), False,
+                           False)
+    assert want["multi_ok"].flatten().tolist() == [True, False]
+
+
+def test_planes_floor_and_occupancy(libs, monkeypatch):
+    """The library's launch floor (an empty kernel over both launches'
+    grids) takes the shape ints of a call and refuses a bad block shape;
+    its occupancy export counts blocks of the planes pass (no shared
+    memory: the stand-in's 2,048 threads an SM)."""
+    lib = libs["sig_planes"]
+    args = random_planes_call(np.random.default_rng(2), 2, 8, 1, 3, 5, 1, 4,
+                              2)
+    _, _, _, dims, threads = tkernel.pack_sig_planes(*args, False, False)
+    assert lib.acs_sig_planes_floor(ctypes.addressof(dims), len(dims),
+                                    threads, None) == 0
+    assert lib.acs_sig_planes_floor(ctypes.addressof(dims), len(dims), 48,
+                                    None) == -1
+    assert lib.acs_sig_planes_floor(ctypes.addressof(dims), len(dims) - 1,
+                                    threads, None) == -1
+    for hr in (0, 1):
+        for rel in (0, 1):
+            assert lib.acs_sig_planes_occupancy(hr, rel, 256) == 8
+    assert lib.acs_sig_planes_occupancy(0, 0, 512) == -1
