@@ -13,8 +13,14 @@ with the same layout so every module has a counterpart of the same name:
   permission lattice (``ops/lattice.py``, host only).  Every kernel is
   hand-written CUDA for ``sm_90a`` (``ops/csrc/*.cu``) beside its plain
   PyTorch version (``ops/*_ref.py``).
-- ``srv``     -- the hybrid evaluator's uncached batch path (isAllowed and
-  whatIsAllowed) and the direct-mode audit sweep (``srv/audit_sweep.py``).
+- ``native``  -- the C++ wire-batch encoder (host code, built by g++ into
+  ``_build/`` on first use) behind the evaluator's wire path.
+- ``srv``     -- the hybrid evaluator (isAllowed and whatIsAllowed batches,
+  the decision cache, token / HR-scope preparation, the native wire
+  path), the identity clients, caches and resource adapters, and the
+  direct-mode audit sweep (``srv/audit_sweep.py``).  ``srv/gen`` holds
+  the generated protobuf module, which only the gRPC identity classes
+  import.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; they raise when CUDA is asked for and unavailable.

@@ -40,25 +40,45 @@ rows carry ``_explain`` naming the aborting rule and no ``_rule_id``, as
 the oracle's abort response carries none; oracle rows get the same
 ``_explain`` shape from the engine's source stamp.
 
+The serving front half is the JAX evaluator's: ``prepare_batch``
+resolves every distinct subject token through the engine's identity client
+and runs one HR-scope rendezvous per distinct cache key, so resolved token
+rows stay on the kernel; a ``decision_cache`` (``srv/decision_cache.py``)
+is consulted batch-wide before encode (one epoch snapshot per batch) and
+written through from kernel and oracle rows alike, and every refresh and
+every relation-tuple write bumps its epoch.  Oracle rows of a tree with a
+resource adapter (``srv/adapters.py``) fan out over the adapter's
+concurrency bound.
+
+The native wire path (``is_allowed_batch_wire`` / ``_async``) takes
+serialized ``acstpu.Request`` bytes: the C++ encoder (``native/``) fills
+the row arrays, the kernel decides them, and rows past the floor caps are
+re-encoded natively at ``_CAPS_CEIL``.  It returns None, as in JAX, in
+explain mode, on trees with host-assisted conditions, with no kernel and
+with ``backend="oracle"``; a native build or load failure raises.
+
 A refresh recompiles the whole tree (``compile_policies``), the JAX
 evaluator's ``delta_enabled=False`` path; the JAX pod path compiles
 through the delta subsystem's capacity-bucketed compile, which waits for
 the delta slice (capacities differ, decisions do not).  Not ported yet:
-the decision cache (and with it the epoch bump on tuple churn), token /
-HR-scope preparation (token rows are served by the oracle, which
-resolves them itself), delta patching, async compiles, the watchdog,
-telemetry and tracing, the native wire encoder's relation tables and
-tenancy.
+delta patching and scoped cache bumps, async compiles (the delta slice);
+the deadline shed, the watchdog, telemetry counters and tracing spans
+(the serving shell, whose ``admission`` / ``tracing`` modules they
+import); tenancy.
 """
 
 from __future__ import annotations
 
 import copy
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
+import numpy as np
+
 from ..core.candidate_index import CandidateIndex
-from ..core.engine import AccessController
+from ..core.common import get_field
+from ..core.engine import AccessController, apply_resolved_subject
 from ..core.relation_path import (
     collect_target_instances,
     relation_paths,
@@ -67,11 +87,19 @@ from ..core.relation_path import (
 from ..models.model import Decision, OperationStatus, Response
 from ..ops import reverse
 from ..ops.compile import DECISION_NAMES, compile_policies
-from ..ops.encode import _CAPS_FLOOR, encode_requests, fits_floor, request_needs
+from ..ops.encode import (
+    _CAPS_CEIL,
+    _CAPS_FLOOR,
+    encode_requests,
+    fits_floor,
+    request_needs,
+)
 from ..ops.kernel import resolve_device
 from ..ops.prefilter import PrefilteredKernel
 from ..ops.relation import relation_bits_needed
+from .decision_cache import request_features
 from .explain import ExplainDecoder, explain_capacity_ok
+from .telemetry import SampledLogger
 
 # trees with fewer rules skip the candidate index (its build and lookups
 # cost more than the walk it saves)
@@ -79,14 +107,28 @@ CANDIDATE_MIN_RULES = 256
 
 
 class HybridEvaluator:
-    def __init__(self, engine: AccessController, device=None,
-                 explain: bool = False, mesh=None, mesh_axis: str = "data",
+    def __init__(self, engine: AccessController,
+                 backend: str = "hybrid",  # oracle | kernel | hybrid
+                 logger=None, mesh=None, mesh_axis: str = "data",
                  model_axis: Optional[str] = None,
-                 pod_shards: Optional[int] = None):
+                 pod_shards: Optional[int] = None, decision_cache=None,
+                 explain: bool = False, device=None):
         self.engine = engine
+        self.backend = backend
+        self.logger = logger
+        # rate-limited hot-path logging: the per-row warning sites
+        # (token-unresolved, oracle fallback) must not turn the logger
+        # into the bottleneck when an upstream is down under load
+        self._slog = SampledLogger(logger)
+        # server-side decision cache (srv/decision_cache.py): consulted
+        # batch-wide BEFORE encode so hit rows skip both the device
+        # round-trip and the oracle walk; written through from every miss
+        # row the engine marks evaluation_cacheable.  Every refresh and
+        # every relation-tuple write bumps its epoch.
+        self.decision_cache = decision_cache
         # explain mode (srv/explain.py): the kernels' fourth output,
         # decoded onto each response
-        self.explain = bool(explain)
+        self.explain = bool(explain) and backend != "oracle"
         self._explain_decoder: Optional[ExplainDecoder] = None
         self.mesh = mesh
         self.mesh_axis = mesh_axis
@@ -99,28 +141,34 @@ class HybridEvaluator:
         self._kernel = None  # see _make_kernel
         self._rq_kernel: Optional[reverse.ReverseQueryKernel] = None
         self._tree_snapshot = None
+        self._native_encoder = None  # see _make_native_encoder
         # candidate index over the LIVE engine tree: oracle rows skip rules
-        # that provably cannot target-match (bit-identical).  Published as
-        # ONE (tree, index) tuple so readers see a consistent pair; a hot
+        # that provably cannot target-match.  Published as ONE (tree,
+        # index) tuple so readers see a consistent pair; a hot
         # replace_policy_sets swap fails the identity check at once and
         # the refresh that follows rebuilds it.
         self._cand: Optional[tuple] = None
-        # tuple writes seen by an attached relation store (the JAX
-        # evaluator bumps its decision-cache epoch here; the port has no
-        # decision cache yet)
+        # tuple writes seen by an attached relation store
         self.relation_churn = 0
         self._lock = threading.Lock()
-        self.refresh(wait=True)
+        self.refresh(wait=True)  # the oracle backend builds only the index
 
     # ------------------------------------------------------------- lifecycle
 
     def refresh(self, wait: bool = True) -> None:
         """Recompile the policy tensors after a tree mutation; the previous
-        kernel serves until the swap."""
+        kernel serves until the swap.  The decision cache's epoch is
+        bumped first: a stale hit must never outlive the swap."""
         if not wait:
             raise NotImplementedError(
-                "async compile: not ported yet (evaluator slice)"
+                "async compile: not ported yet (delta slice)"
             )
+        if self.decision_cache is not None:
+            self.decision_cache.bump_epoch()
+        if self.backend == "oracle":
+            # no compile; every request takes the candidate-filtered walk
+            self._cand = self._build_candidate_index()
+            return
         with self._lock:
             self._version += 1
             version = self._version
@@ -133,6 +181,7 @@ class HybridEvaluator:
         kernel = None
         if compiled.supported and compiled.n_rules > 0:
             kernel = self._make_kernel(compiled)
+        native_encoder = self._make_native_encoder(compiled, kernel)
         decoder = self._make_explain_decoder(compiled, kernel,
                                              tree_snapshot)
         cand = self._build_candidate_index()
@@ -142,8 +191,14 @@ class HybridEvaluator:
                 self._kernel = kernel
                 self._rq_kernel = None  # lazy: built on first wia batch
                 self._tree_snapshot = tree_snapshot
+                self._native_encoder = native_encoder
                 self._explain_decoder = decoder
                 self._cand = cand
+        if self.logger and not compiled.supported:
+            self.logger.warning(
+                "policy tree not kernel-supported; serving from oracle",
+                extra={"reason": compiled.unsupported_reason},
+            )
 
     def _make_kernel(self, compiled):
         """The kernel for a supported compile: pod-sharded, rule-sharded
@@ -185,6 +240,18 @@ class HybridEvaluator:
                              "position bound")
         return ExplainDecoder(tree, kernel.explain_strides)
 
+    def _make_native_encoder(self, compiled, kernel):
+        """The C++ wire-batch encoder for ``is_allowed_batch_wire``; None,
+        as in JAX, with no kernel, on trees with host-assisted conditions
+        (the native encoder cannot run the condition sandbox) and in
+        explain mode (wire batches carry no Response objects to stamp
+        provenance on).  A build or load failure raises."""
+        if kernel is None or compiled.conditions or self.explain:
+            return None
+        from .. import native
+
+        return native.NativeBatchEncoder(compiled)
+
     def shard_identity(self) -> Optional[dict]:
         """Pod-sharding surface: shard count, per-shard fingerprints and
         capacities, applied-patch watermarks; None when the active kernel
@@ -212,6 +279,10 @@ class HybridEvaluator:
     def kernel_active(self) -> bool:
         return self._kernel is not None
 
+    @property
+    def native_active(self) -> bool:
+        return self._native_encoder is not None
+
     # ------------------------------------------------------ relation plumbing
 
     def attach_relation_store(self, store) -> None:
@@ -219,10 +290,12 @@ class HybridEvaluator:
         ``engine.relation_store`` and every batch encode packs its flat
         verdict tables.  Tuple churn changes decisions but swaps nothing:
         the compiled tables, the kernels and their built libraries stay
-        as they are."""
+        as they are; each tuple write bumps the decision cache."""
         self.engine.relation_store = store
 
         def _on_change(_gen: int) -> None:
+            if self.decision_cache is not None:
+                self.decision_cache.bump_epoch()
             with self._lock:
                 self.relation_churn += 1
 
@@ -237,11 +310,161 @@ class HybridEvaluator:
             return None
         return store.tables_for(compiled)
 
+    def _relation_tables_native(self, encoder):
+        """Verdict tables in the NATIVE encoder's id space for the wire
+        path: the C++ interner diverges from the Python one after the
+        preload snapshot, so the host-space tables cannot be reused."""
+        store = getattr(self.engine, "relation_store", None)
+        if store is None or not encoder.needs_relation_bits:
+            return None
+        return encoder.native_relation_tables(store)
+
+    # ------------------------------------------------- host-side pipeline
+
+    def prepare_batch(self, requests: list) -> bool:
+        """Host-side eligibility pipeline: batch-resolve every distinct
+        ``subject.token`` through the engine's identity client (one call
+        per distinct token; a TTL'd resolution cache makes repeats across
+        batches nearly free) and the HR-scope rendezvous (one per
+        distinct cache key), then mark each request prepared so the
+        encoder keeps resolved token rows on the kernel path.  True when
+        the batch had unprepared token rows.
+
+        Idempotent and semantics-preserving: afterwards
+        ``engine.prepare_context`` is a no-op for these requests, so the
+        kernel and the oracle evaluate the same resolved context.  A
+        failed resolution leaves ``request._token_resolved`` False and
+        the row goes to the oracle, as unprepared token traffic does."""
+        engine = self.engine
+        pending: list[tuple] = []
+        for request in requests:
+            if getattr(request, "_context_prepared", False):
+                continue
+            context = request.context
+            subject = get_field(context, "subject") if context else None
+            token = get_field(subject, "token") if subject is not None \
+                else None
+            if token:
+                pending.append((request, token))
+        if not pending:
+            return False
+
+        client = engine.identity_client
+
+        def resolve(token):
+            try:
+                return client.find_by_token(token)
+            except Exception as err:  # noqa: BLE001 — fail the row closed
+                # sampled: a down identity service under overload fires
+                # this once per distinct token per batch
+                self._slog.warning(
+                    "token-resolution",
+                    "batch token resolution failed: %s", err,
+                )
+                return None
+
+        by_token: dict[str, list] = {}
+        for request, token in pending:
+            by_token.setdefault(token, []).append(request)
+        resolutions: dict[str, object] = {}
+        if client is not None:
+            tokens = list(by_token)
+            if len(tokens) == 1:
+                resolutions[tokens[0]] = resolve(tokens[0])
+            else:
+                with ThreadPoolExecutor(
+                    max_workers=min(8, len(tokens))
+                ) as pool:
+                    for token, resolved in zip(
+                        tokens, pool.map(resolve, tokens)
+                    ):
+                        resolutions[token] = resolved
+
+        for token, rows in by_token.items():
+            resolved = resolutions.get(token)
+            payload = get_field(resolved, "payload") if resolved else None
+            for request in rows:
+                request._context_prepared = True
+                if payload is not None:
+                    # per-request copy: rows sharing a token must not
+                    # share mutable payload objects
+                    apply_resolved_subject(
+                        get_field(request.context, "subject"),
+                        copy.deepcopy(payload),
+                    )
+                    request._token_resolved = True
+                else:
+                    request._token_resolved = False
+
+        # HR scopes: one rendezvous per distinct cache key; the other rows
+        # of each group read the freshly written cache.  A timed-out key
+        # leaves its whole group scope-less, the per-row outcome the
+        # reference's individual waits produce.
+        provider = engine.hr_scope_provider
+        if provider is None:
+            return True
+        groups: dict[str, list] = {}
+        for request, _ in pending:
+            if not getattr(request, "_token_resolved", False):
+                continue
+            subject = get_field(request.context, "subject")
+            if get_field(subject, "hierarchical_scopes"):
+                continue
+            key = provider.hr_scopes_key(request.context)
+            if key is not None:
+                groups.setdefault(key, []).append(request)
+        if not groups:
+            return True
+        firsts = [rows[0] for rows in groups.values()]
+        if len(firsts) > 1:
+            with ThreadPoolExecutor(max_workers=min(8, len(firsts))) as pool:
+                list(pool.map(
+                    lambda r: engine.create_hr_scope(r.context), firsts
+                ))
+        else:
+            engine.create_hr_scope(firsts[0].context)
+        for key, rows in groups.items():
+            for request in rows[1:]:
+                try:
+                    cached = provider.cache.exists(key)
+                except Exception:  # noqa: BLE001 — cache backend hiccup
+                    cached = True  # fall through to the normal path
+                if cached:
+                    engine.create_hr_scope(request.context)
+        return True
+
     # ------------------------------------------------------------ evaluation
 
     def is_allowed(self, request) -> Response:
-        """Single-request path: the oracle."""
-        return self._oracle_is_allowed(request)
+        """Single-request path: the oracle, behind the decision cache when
+        one is set (a warm cacheable request never pays the walk)."""
+        cache = self.decision_cache
+        if cache is None or not cache.enabled:
+            return self._oracle_is_allowed(request)
+        # epoch snapshot BEFORE the walk reads the tree: if a bump lands
+        # while this decision is in flight, the write-through below stores
+        # a born-stale entry (logical miss) instead of serving an old-tree
+        # decision as fresh
+        epoch = cache.epoch
+        self.engine.prepare_context(request)
+        key = cache.fingerprint(
+            request, self.engine.urns.get("subjectID") or ""
+        )
+        hit = cache.get(key)
+        if hit is not None:
+            return hit
+        response = self._oracle_is_allowed(request)
+        cache.put(key, response, epoch=epoch,
+                  features=self._request_features(request))
+        return response
+
+    def _request_features(self, request):
+        """Candidate-signature features for scoped cache invalidation
+        (srv/decision_cache.request_features)."""
+        urns = self.engine.urns
+        return request_features(
+            request, urns.get("entity"), urns.get("operation")
+        )
 
     def _oracle_is_allowed(self, request) -> Response:
         """Oracle walk, candidate-filtered on large trees (skipped rules
@@ -331,6 +554,7 @@ class HybridEvaluator:
         Dispatch is adaptive like the decision path's ``MIN_RULES``: below
         ``REVERSE_MIN_RULES`` rules, and when no kernel is active, the
         scalar walk serves every request."""
+        self.prepare_batch(requests)
         with self._lock:
             # one consistent snapshot: kernel, compiled and tree are always
             # published together, so kernel != None implies supported
@@ -339,7 +563,8 @@ class HybridEvaluator:
             rq_kernel = self._rq_kernel
             tree_snapshot = self._tree_snapshot
         if (
-            compiled is None
+            self.backend == "oracle"
+            or compiled is None
             or kernel is None
             or compiled.n_rules < reverse.REVERSE_MIN_RULES
         ):
@@ -365,17 +590,63 @@ class HybridEvaluator:
         )
 
     def is_allowed_batch(self, requests: list) -> list[Response]:
-        """Batched decision path: kernel rows and oracle rows together."""
+        """Batched decision path: decision-cache lookup batch-wide BEFORE
+        encode (hit rows skip the device round-trip and the oracle walk),
+        then kernel rows and oracle rows together over the misses, then
+        write-through of every miss row the engine marked
+        ``evaluation_cacheable``."""
         return self.is_allowed_batch_async(requests)()
 
     def is_allowed_batch_async(self, requests: list):
-        """Encode and launch now; the returned zero-arg ``finalize`` waits
-        for the device result, decodes it and runs the oracle rows.
+        """Token / HR preparation, cache lookups, encode and launch now;
+        the returned zero-arg ``finalize`` waits for the device result,
+        decodes it, runs the oracle rows and writes the cache through.
         Calling it at once is the synchronous path."""
+        self.prepare_batch(requests)
+        cache = self.decision_cache
+        if cache is None or not cache.enabled:
+            return self._uncached_async(requests)
+        subject_urn = self.engine.urns.get("subjectID") or ""
+        # one epoch snapshot for the whole batch, taken before any row
+        # reads the tree: rows whose evaluation spans a concurrent epoch
+        # bump are written through born-stale (see DecisionCache.put)
+        epoch = cache.epoch
+        responses: list[Optional[Response]] = [None] * len(requests)
+        keys: list = [None] * len(requests)
+        misses: list[int] = []
+        for b, request in enumerate(requests):
+            # fingerprints are taken AFTER context resolution so the key
+            # reflects the subject the evaluation will actually see
+            self.engine.prepare_context(request)
+            keys[b] = cache.fingerprint(request, subject_urn)
+            hit = cache.get(keys[b])
+            if hit is not None:
+                responses[b] = hit
+            else:
+                misses.append(b)
+        if not misses:
+            return lambda: responses
+        fin_misses = self._uncached_async([requests[b] for b in misses])
+
+        def finalize_cached():
+            computed = fin_misses()
+            for j, b in enumerate(misses):
+                responses[b] = computed[j]
+                # write-through from BOTH serving paths: kernel rows and
+                # oracle rows land here alike; put() keeps only
+                # cacheable 200s
+                cache.put(keys[b], computed[j], epoch=epoch,
+                          features=self._request_features(requests[b]))
+            return responses
+
+        return finalize_cached
+
+    def _uncached_async(self, requests: list):
         with self._lock:
             kernel = self._kernel
             compiled = self._compiled
-        if kernel is None:
+        if self.backend == "oracle" or kernel is None:
+            # host only: nothing to overlap, so the walk runs at finalize
             return lambda: [self._oracle_is_allowed(r) for r in requests]
 
         # mixed-traffic split: a handful of deep/wide rows must not
@@ -486,7 +757,92 @@ class HybridEvaluator:
                     # the oracle's EffectEvaluation.source stamp
                     resp._rule_id = source
             responses.append(resp)
-        for slot in oracle_rows:
-            # candidate-filtered on large trees
-            responses[slot] = self._oracle_is_allowed(requests[slot])
+        if not oracle_rows:
+            return responses
+        if len(requests) >= 8:
+            # sampled: a down adapter under overload degrades whole
+            # batches to the oracle; the signal matters, not the flood
+            self._slog.warning(
+                "oracle-fallback",
+                "%d/%d batch rows fell back to the scalar oracle",
+                len(oracle_rows), len(requests),
+            )
+        rows = [requests[slot] for slot in oracle_rows]
+        adapter = self.engine.resource_adapter
+        if adapter is not None and len(rows) > 1:
+            # adapter-backed rows block on remote context queries: fan the
+            # (candidate-filtered) walks out so the batch stalls for about
+            # one endpoint timeout instead of N sequential ones
+            workers = min(len(rows),
+                          int(getattr(adapter, "max_concurrency", 8) or 8))
+            with ThreadPoolExecutor(max_workers=workers) as pool:
+                results = list(pool.map(self._oracle_is_allowed, rows))
+        else:
+            results = [self._oracle_is_allowed(r) for r in rows]
+        for slot, response in zip(oracle_rows, results):
+            responses[slot] = response
         return responses
+
+    # ------------------------------------------------------ native wire path
+
+    def is_allowed_batch_wire(self, messages: list[bytes]):
+        """Native path: serialized ``acstpu.Request`` messages -> the
+        batch and per-row (decision, cacheable, status) arrays; rows with
+        ``batch.eligible`` False or a status other than 200 are the
+        caller's to serve another way.  None when the native encoder is
+        not active (explain mode, host-assisted conditions, no kernel,
+        ``backend="oracle"``)."""
+        finalize = self.is_allowed_batch_wire_async(messages)
+        return None if finalize is None else finalize()
+
+    def is_allowed_batch_wire_async(self, messages: list[bytes],
+                                    reuse: bool = False):
+        """Encode (C++) and launch without waiting; the returned zero-arg
+        ``finalize`` waits for the device result and yields (batch,
+        decision, cacheable, status).  Rows that overflowed the floor
+        caps are re-encoded natively at ``_CAPS_CEIL`` and launched once
+        more inside ``finalize``.  None when the native path is not
+        active.
+
+        ``reuse=True`` encodes into pooled staging buffers; the CALLER
+        must fire ``batch.release_staging()`` once it has finished
+        reading the batch, never before."""
+        with self._lock:
+            kernel = self._kernel
+            encoder = self._native_encoder
+        if kernel is None or encoder is None or self.backend == "oracle":
+            return None
+        rel_tables = self._relation_tables_native(encoder)
+        batch = encoder.encode_wire(
+            messages, reuse=reuse, relation_tables=rel_tables
+        )
+        materialize = kernel.evaluate_async(batch)
+
+        def finalize():
+            decision, cacheable, status = materialize()[:3]
+            if batch.overcap is not None and batch.overcap.any():
+                # adaptive caps, native path: rows that overflowed the
+                # floor shapes re-encode natively at the ceiling (one
+                # more native call and one more launch for the rare deep
+                # rows) instead of falling to the oracle
+                idx = [
+                    b for b in range(len(messages))
+                    if batch.overcap[b] and not batch.eligible[b]
+                ]
+                retry = encoder.encode_wire(
+                    [messages[b] for b in idx], caps=dict(_CAPS_CEIL),
+                    relation_tables=rel_tables,
+                )
+                d2, c2, s2 = kernel.evaluate_async(retry)()[:3]
+                decision = np.array(decision)
+                cacheable = np.array(cacheable)
+                status = np.array(status)
+                for j, b in enumerate(idx):
+                    if retry.eligible[j]:
+                        batch.eligible[b] = True
+                        decision[b] = d2[j]
+                        cacheable[b] = c2[j]
+                        status[b] = s2[j]
+            return batch, decision, cacheable, status
+
+        return finalize

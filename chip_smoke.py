@@ -127,6 +127,36 @@ PyTorch version:
    20% bar, reported and not gated) and ``sig_decide``'s time in both
    variants beside its bound and plain time; one 16,384-row batch with 16
    ACL rows through ``decide_grouped``'s explain variant.
+19. the wire main path: ``HybridEvaluator.is_allowed_batch_wire`` on
+   serialized ``acstpu.Request`` bytes (written here from
+   ``proto/access_control.proto``'s field numbers, ``wire_bytes``; checked
+   against protobuf's serialization when ``google.protobuf`` imports) at
+   ``serve-20k`` (the JAX package's ``bench_serving_e2e``: the seed data
+   plus 20,000 stress rules, 8,192 rows of ``_serving_batch_msg(wide=True)``
+   at numpy seed 11), at (a) (phase 7's evaluator and 16,384 rows) and at
+   ``scoped_511`` (phase 5's 4,096 rows, the dense path): the native
+   encoder active, counts set to 0 before each first batch and read after
+   it, every kernel call of it held against its plain version, every
+   eligible row's (decision, cacheable, status) equal to
+   ``is_allowed_batch`` on the same Request objects, 32 sampled rows equal
+   to the oracle; then a ``serve-20k`` batch with 16 deep-HR rows past the
+   floor caps, all re-encoded at the ceiling and equal to the oracle.
+   Warm decisions/s over 8 batches (fresh and pooled staging) and the
+   stage split, beside ``is_allowed_batch``'s on the same traffic; the
+   wire call returns arrays (response framing comes with the transport).
+   The line before: ``g++ --version`` and whether ``google.protobuf``
+   imports;
+20. ``token-mix`` (the JAX ``bench_token_mix``): 8,192 rows over 512
+   bare tokens on the 10,000-rule tree through ``prepare_batch``
+   (``StaticIdentityClient`` behind ``CachingIdentityClient``,
+   ``HRScopeProvider``), eligible share at least 99%, sampled responses
+   equal to the oracle, decisions/s with the preparation in every pass and
+   the stage split;
+21. ``adapter-mixed-warm`` (the JAX ``bench_adapter_mixed_warm``): the
+   10,000-rule cacheable tree plus 8 context-query rules, the stub
+   adapter, 8,192 rows at numpy seed 23 behind a ``DecisionCache``: a cold
+   pass, then warm passes whose hits equal the cold responses; the cache's
+   counts, warm decisions/s of the hit rows and of the mixed traffic.
 
 After phase 18 the K3 / K4 report: each at (a), (b), (c) and explain on
 / off at phase 18's shapes, through its wrapper (as every kernel is
@@ -155,14 +185,16 @@ table read), the wrapper's host packing, ptxas numbers, blocks per SM
 and block shape.  With ``--parent-csrc DIR`` the reports also time the
 kernels built from ``DIR`` (the parent tree's ``ops/csrc``, its
 ``ops/kernel.py`` beside it) on the same arguments, both ways in the
-same windows.  ``--quick`` runs phases 1-2, 6-7 and 9-12 and the K2 / K5
-report only (no result lines).
+same windows.  ``--quick`` runs phases 1-2, 6-7 and 9-12, the K2 / K5
+report and phase 19 only (no result lines).
 
 Any mismatch or error exits non-zero.  The line before the last is the
 kernel table as one JSON object (K1-K4 carry their ``with_rel`` variant's
 launches and times beside their own; ``decide_dense``, ``sig_decide``,
 ``decide_grouped``, ``set_chunk`` and ``shard_tail`` (and its ``pod``
-object) their ``explain`` variant's; ``decide_dense`` K6's; the
+object) their ``explain`` variant's; ``decide_dense`` K6's;
+``decide_dense``, ``sig_planes`` and ``sig_decide`` phase 19's launches
+(``wire``); the
 redesigned kernels their packed-once and parent times, ``sig_planes``
 and ``wia_planes`` also their launch floor and blocks per SM); the last
 line is
@@ -220,8 +252,14 @@ from access_control_srv_tpu_torch.ops.relation import pack_relation_bitplanes
 from access_control_srv_tpu_torch.parallel import mesh as mmod
 from access_control_srv_tpu_torch.parallel import pod_shard, rule_shard
 from access_control_srv_tpu_torch.srv.audit_sweep import AuditSweepManager
+from access_control_srv_tpu_torch.srv.cache import HRScopeProvider, SubjectCache
+from access_control_srv_tpu_torch.srv.decision_cache import DecisionCache
 from access_control_srv_tpu_torch.srv.evaluator import HybridEvaluator
 from access_control_srv_tpu_torch.srv.explain import ExplainDecoder
+from access_control_srv_tpu_torch.srv.identity import (
+    CachingIdentityClient,
+    StaticIdentityClient,
+)
 from access_control_srv_tpu_torch.srv.relations import RelationTupleStore
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -340,13 +378,14 @@ def log(msg: str) -> None:
 # -------------------------------------------------------------- policy trees
 
 
-def stress_doc(n_rules: int, scoped: bool = False):
+def stress_doc(n_rules: int, scoped: bool = False, cacheable: bool = False):
     """The synthetic stress tree as a nested ``policy_sets`` document:
     deny-overrides set of permit-overrides policies, role/entity/action-
     targeted rules with interleaved PERMIT/DENY (every third rule DENY).
-    ``scoped=True`` adds a roleScopingEntity to every rule's role subject.
-    A copy of the JAX package's bench generator (bench_all._stress_doc
-    with its defaults for the other options)."""
+    ``scoped=True`` adds a roleScopingEntity to every rule's role subject,
+    ``cacheable=True`` marks every rule ``evaluation_cacheable``.  A copy
+    of the JAX package's bench generator (bench_all._stress_doc with its
+    default for ``flip_every``)."""
     n_policies = max(1, n_rules // 400)
     per_policy = n_rules // n_policies
     actions = [URNS["read"], URNS["modify"], URNS["create"], URNS["delete"]]
@@ -375,7 +414,7 @@ def stress_doc(n_rules: int, scoped: bool = False):
                         ],
                     },
                     "effect": effect,
-                    "evaluation_cacheable": False,
+                    "evaluation_cacheable": cacheable,
                 }
             )
             rid += 1
@@ -1438,16 +1477,14 @@ def sample_oracle(engine, requests, responses, n: int = 32,
     return len(idx)
 
 
-def run_main_path(label: str, evaluator, engine, requests, expect, stats,
-                  always=()):
-    """One main path: counts to 0, one ``is_allowed_batch`` with every
-    kernel call held against its plain version, counts read; then a
-    sample, with the rows of ``always``, against the oracle.  Returns
-    (launches, the arguments of each kernel's last call)."""
+def checked_call(label: str, fn, expect, stats: dict, dense: bool = False):
+    """Counts to 0, ``fn()`` with every kernel call held against its plain
+    version, counts read; fails if a kernel of ``expect`` never launched.
+    Returns (fn's result, launches, the KernelCheck)."""
     check: dict = {}
     reset_launches()
-    with KernelCheck(check) as chk:
-        responses = evaluator.is_allowed_batch(requests)
+    with KernelCheck(check, dense=dense) as chk:
+        out = fn()
     launches = dict(kmod.LAUNCHES)
     for k, v in check.items():
         st = stats.setdefault(k, {"calls": 0, "max_abs_err": 0,
@@ -1456,6 +1493,17 @@ def run_main_path(label: str, evaluator, engine, requests, expect, stats,
     for k in expect:
         if launches[k] < 1:
             raise AssertionError(f"{label}: the main path launched no {k}")
+    return out, launches, chk
+
+
+def run_main_path(label: str, evaluator, engine, requests, expect, stats,
+                  always=()):
+    """One main path: counts to 0, one ``is_allowed_batch`` with every
+    kernel call held against its plain version, counts read; then a
+    sample, with the rows of ``always``, against the oracle.  Returns
+    (launches, the arguments of each kernel's last call)."""
+    responses, launches, chk = checked_call(
+        label, lambda: evaluator.is_allowed_batch(requests), expect, stats)
     n = sample_oracle(engine, requests, responses, always=always)
     decisions: dict = {}
     for resp in responses:
@@ -1872,6 +1920,8 @@ def phase_sig_main(device, stats: dict, card: str) -> dict:
                 "sig_decide": time_kernel("sig_decide", sig_args),
                 "h2d_rows_ms": h2d_ms(sig_args[4])}
     out["a"]["steady"] = steady_state(evaluator, reqs)
+    # the (a) evaluator serves phase 19's wire cell at (a)
+    out["wire_a"] = (engine, evaluator, reqs)
 
     # (c) the same tree, a few ACL rows in 16,384: all through decide_grouped
     reqs_c = stress_traffic(16384, seed=8, n_acl=16)
@@ -4191,6 +4241,528 @@ def planes_report(cases: dict, ptx: dict, card: str, stats: dict) -> dict:
     return out
 
 
+# ------------------------------- phases 19-21: the serving front half
+
+SERVE_RULES = 20_000   # bench_serving_e2e's tree (with the seed data)
+SERVE_ROWS = 8192
+WIRE_BATCHES = 8
+DEEP_ROWS = 16         # rows past the floor caps in phase 19's extra batch
+FRONT_RULES = 10_000   # bench_token_mix's and bench_adapter_mixed_warm's
+FRONT_ROWS = 8192
+TOKENS = 512
+FRONT_PASSES = 4       # the benches' 32,768 rows / 8,192
+WARM_HIT_PASSES = 16
+
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        low, n = n & 0x7F, n >> 7
+        out.append(low | 0x80 if n else low)
+        if not n:
+            return bytes(out)
+
+
+def _field(number: int, payload: bytes) -> bytes:
+    """One length-delimited protobuf field (wire type 2)."""
+    return _varint(number << 3 | 2) + _varint(len(payload)) + payload
+
+
+def _attribute_bytes(attr) -> bytes:
+    """``acstpu.Attribute``: id = 1, value = 2, attributes = 3."""
+    out = b""
+    if attr.id:
+        out += _field(1, attr.id.encode())
+    if attr.value:
+        out += _field(2, attr.value.encode())
+    for sub in attr.attributes or []:
+        out += _field(3, _attribute_bytes(sub))
+    return out
+
+
+def wire_bytes(request) -> bytes:
+    """The serialized ``acstpu.Request`` of ``request``, written from
+    ``proto/access_control.proto``'s field numbers (Request: target 1,
+    context 2; Target: subjects 1, resources 2, actions 3; Context:
+    subject 1, resources 2, security 3, each a ContextValue whose
+    ``value`` (2) holds the entry's JSON text), so this script makes wire
+    bytes without protobuf.  ``tests/test_torch_wire.py`` holds them equal
+    to the JAX package's ``request_to_pb(request).SerializeToString()``."""
+    out = b""
+    target = request.target
+    if target is not None:
+        out += _field(1, b"".join(
+            _field(number, _attribute_bytes(a))
+            for number, side in ((1, target.subjects),
+                                 (2, target.resources), (3, target.actions))
+            for a in side))
+    ctx = request.context
+    if ctx is not None:
+        body = b""
+        if ctx.get("subject") is not None:
+            body += _field(1, _field(2, json.dumps(ctx["subject"]).encode()))
+        for res in ctx.get("resources") or []:
+            body += _field(2, _field(2, json.dumps(res).encode()))
+        if ctx.get("security") is not None:
+            body += _field(3, _field(2, json.dumps(ctx["security"]).encode()))
+        if body:
+            out += _field(2, body)
+    return out
+
+
+def host_tools() -> dict:
+    """``g++ --version``'s first line (the native encoder's compiler) and
+    whether ``google.protobuf`` imports (nothing here needs it)."""
+    proc = subprocess.run(["g++", "--version"], capture_output=True,
+                          text=True, timeout=60, check=True)
+    try:
+        from access_control_srv_tpu_torch.srv.gen import access_control_pb2
+    except ImportError as err:
+        return {"gxx": proc.stdout.splitlines()[0], "protobuf": None,
+                "protobuf_error": str(err)}
+    import google.protobuf
+
+    return {"gxx": proc.stdout.splitlines()[0],
+            "protobuf": google.protobuf.__version__,
+            "pb": access_control_pb2}
+
+
+def check_wire_with_pb(pb, messages: list[bytes]) -> None:
+    """With protobuf present: every written message parses as an
+    ``acstpu.Request`` and serializes back to the same bytes."""
+    for i, m in enumerate(messages):
+        if pb.Request.FromString(m).SerializeToString() != m:
+            raise AssertionError(f"wire row {i}: the writer's bytes are not "
+                                 "protobuf's serialization")
+
+
+def serve_engine(n_rules: int) -> AccessController:
+    """The JAX package's ``bench_serving_e2e`` tree: the seed data plus
+    ``stress_doc(n_rules)``'s policy set (the bench upserts those rules
+    into a worker seeded with the same data)."""
+    engine = engine_for("seed_data")
+    for ps in load_policy_sets(stress_doc(n_rules)):
+        engine.update_policy_set(ps)
+    return engine
+
+
+def deep_hr_rows(n: int, seed: int) -> list[Request]:
+    """``stress_traffic`` rows whose HR tree flattens to 64 pairs, past
+    the floor caps' 32: the wire path encodes them over cap and
+    re-encodes them at ``_CAPS_CEIL``."""
+    rows = stress_traffic(n, seed=seed)
+    for r in rows:
+        sub = r.context["subject"]
+        sub["hierarchical_scopes"] = [{
+            "id": "org-0", "role": sub["role_associations"][0]["role"],
+            "children": [{"id": f"org-{i}"} for i in range(1, 64)]}]
+    return rows
+
+
+def _row_key(dec, cach, status, b: int) -> tuple:
+    return (int(dec[b]), None if cach[b] < 0 else bool(cach[b]),
+            int(status[b]))
+
+
+def _resp_key(resp) -> tuple:
+    return (DEC_CODE[resp.decision], resp.evaluation_cacheable,
+            resp.operation_status.code)
+
+
+def wire_check(label: str, evaluator, engine, requests, messages, expect,
+               stats: dict, dense: bool = False, always=()) -> dict:
+    """One wire batch: counts to 0, ``is_allowed_batch_wire`` with every
+    kernel call held against its plain version, counts read; every
+    eligible row's (decision, cacheable, status) equal to
+    ``is_allowed_batch`` on the same Request objects, 32 sampled eligible
+    rows (and every row of ``always``) equal to the oracle."""
+    if not evaluator.native_active:
+        raise AssertionError(f"{label}: the native encoder is not active")
+    (batch, dec, cach, status), launches, _ = checked_call(
+        label, lambda: evaluator.is_allowed_batch_wire(messages), expect,
+        stats, dense=dense)
+    ref = evaluator.is_allowed_batch(copy.deepcopy(requests))
+    eligible = np.flatnonzero(batch.eligible)
+    for b in eligible:
+        if _row_key(dec, cach, status, b) != _resp_key(ref[b]):
+            raise AssertionError(
+                f"{label} row {b}: wire {_row_key(dec, cach, status, b)} != "
+                f"is_allowed_batch {_resp_key(ref[b])}")
+    rng = random.Random(3)
+    sample = sorted(set(rng.sample(list(eligible), min(32, len(eligible))))
+                    | set(always))
+    for b in sample:
+        if not batch.eligible[b]:
+            raise AssertionError(f"{label} row {b}: not served natively")
+        want = engine.is_allowed(copy.deepcopy(requests[b]))
+        if _row_key(dec, cach, status, b) != _resp_key(want):
+            raise AssertionError(
+                f"{label} row {b}: wire {_row_key(dec, cach, status, b)} != "
+                f"oracle {_resp_key(want)}")
+    share = float(batch.eligible.mean())
+    log(f"  {label}: {len(messages)} wire rows, {len(eligible)} eligible "
+        f"({share:.4f}); launches {launches}; every kernel call equal to "
+        f"its plain version; every eligible row equal to is_allowed_batch; "
+        f"{len(sample)} sampled rows equal to the oracle")
+    return {"launches": launches, "eligible_share": share,
+            "overcap": int(batch.overcap.sum()), "batch": batch}
+
+
+def wire_rates(evaluator, requests, messages,
+               batches: int = WIRE_BATCHES) -> dict:
+    """Warm ``is_allowed_batch_wire`` decisions/s over ``batches``
+    batches (host clock; each ends in the device sync of materialize),
+    the same with pooled staging (``reuse=True``, released after the
+    result is read), one batch's stage split (native encode, host
+    grouping / packing / launch, device wait and readback, the rest by
+    difference), and beside them ``is_allowed_batch`` on the same
+    requests (``steady_state``)."""
+    evaluator.is_allowed_batch_wire(messages)
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        evaluator.is_allowed_batch_wire(messages)
+    dt = (time.perf_counter() - t0) / batches
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        batch = evaluator.is_allowed_batch_wire_async(messages, reuse=True)()[0]
+        batch.release_staging()
+    dt_pooled = (time.perf_counter() - t0) / batches
+    encoder, kernel = evaluator._native_encoder, evaluator._kernel
+    t0 = time.perf_counter()
+    batch = encoder.encode_wire(messages)
+    t1 = time.perf_counter()
+    thunk = kernel.evaluate_async(batch)
+    t2 = time.perf_counter()
+    thunk()
+    t3 = time.perf_counter()
+    stages = {"native_encode": (t1 - t0) * 1e3,
+              "group_pack_launch": (t2 - t1) * 1e3,
+              "device_wait_readback": (t3 - t2) * 1e3}
+    stages["rest"] = dt * 1e3 - sum(stages.values())
+    return {"rows": len(messages), "batch_ms": dt * 1e3,
+            "decisions_per_s": len(messages) / dt,
+            "pooled_decisions_per_s": len(messages) / dt_pooled,
+            "stages_ms": stages,
+            "is_allowed_batch": steady_state(evaluator, requests)}
+
+
+def phase_wire(device, stats: dict, card: str, wire_a) -> dict:
+    """Phase 19: ``is_allowed_batch_wire`` at ``serve-20k``, at (a) and
+    at ``scoped_511`` (the dense path), plus one ``serve-20k`` batch with
+    deep-HR rows through the ceiling re-encode."""
+    tools = host_tools()
+    log(f"  {tools['gxx']}; google.protobuf "
+        f"{tools['protobuf'] or 'absent: ' + tools['protobuf_error']}")
+    out = {"launches": {}}
+    t0 = time.perf_counter()
+    engine = serve_engine(SERVE_RULES)
+    evaluator = HybridEvaluator(engine, device=device)
+    log(f"  serve-20k tree: {evaluator._compiled.n_rules} rules, loaded and "
+        f"compiled in {time.perf_counter() - t0:.1f} s")
+    # bench_serving_e2e's _serving_batch_msg(8192, default_rng(11),
+    # wide=True) is stress_traffic at numpy seed 11 (no context resources)
+    reqs = stress_traffic(SERVE_ROWS, seed=11)
+    cells = [("serve-20k", evaluator, engine, reqs, False,
+              ("sig_planes", "sig_decide"))]
+    engine_a, evaluator_a, reqs_a = wire_a
+    cells.append(("(a)", evaluator_a, engine_a, reqs_a, False,
+                  ("sig_decide",)))
+    rng = random.Random(5)
+    engine_d = engine_for("scoped_511")
+    reqs_d = grid_requests(rng, 4096 - 5, stress=True) + odd_requests(rng,
+                                                                      True)
+    cells.append(("scoped_511", HybridEvaluator(engine_d, device=device),
+                  engine_d, reqs_d, True, ("decide_dense",)))
+    for label, ev, eng, rq, dense, expect in cells:
+        t0 = time.perf_counter()
+        msgs = [wire_bytes(r) for r in rq]
+        if tools["protobuf"]:
+            check_wire_with_pb(tools["pb"], msgs)
+        cell = wire_check(label, ev, eng, rq, msgs, expect, stats,
+                          dense=dense)
+        cell.pop("batch")
+        cell.update(wire_rates(ev, rq, msgs))
+        out[label] = cell
+        for k in ("decide_dense", "sig_planes", "sig_decide"):
+            out["launches"][k] = out["launches"].get(k, 0) \
+                + cell["launches"][k]
+        py = cell["is_allowed_batch"]
+        log(f"  {label} on {card}: wire {cell['decisions_per_s']:.0f} "
+            f"decisions/s ({cell['batch_ms']:.3f} ms per batch; pooled "
+            f"staging {cell['pooled_decisions_per_s']:.0f}), stages (ms) "
+            f"{json.dumps(cell['stages_ms'])}; is_allowed_batch "
+            f"{py['decisions_per_s']:.0f} decisions/s ({py['batch_ms']:.3f} "
+            f"ms), stages (ms) {json.dumps(py['stages_ms'])}; the wire call "
+            f"returns arrays (response framing comes with the transport); "
+            f"cell {time.perf_counter() - t0:.1f} s")
+    # the ceiling re-encode: DEEP_ROWS rows past the floor caps
+    deep = deep_hr_rows(DEEP_ROWS, seed=12)
+    rows = list(reqs)
+    at = list(range(0, SERVE_ROWS, SERVE_ROWS // DEEP_ROWS))
+    for i, r in zip(at, deep):
+        rows[i] = r
+    msgs = [wire_bytes(r) for r in rows]
+    cell = wire_check("serve-20k + deep HR", evaluator, engine, rows, msgs,
+                      ("sig_decide",), stats, always=at)
+    batch = cell.pop("batch")
+    if not (batch.overcap[at].all() and batch.eligible[at].all()):
+        raise AssertionError("deep-HR rows did not take the ceiling "
+                             "re-encode")
+    for k in ("sig_planes", "sig_decide"):
+        out["launches"][k] += cell["launches"][k]
+    out["deep"] = cell
+    log(f"  serve-20k + deep HR: {len(at)} rows over the floor caps, all "
+        f"re-encoded at the ceiling and served natively; launches "
+        f"{cell['launches']}")
+    return out
+
+
+def token_mix_setup(n_rules: int, rows: int, n_tokens: int,
+                    seed: int = 29):
+    """The JAX package's ``bench_token_mix``: ``stress_doc(n_rules)``,
+    rows over ``n_tokens`` tokens whose subjects arrive as bare tokens,
+    ``StaticIdentityClient`` behind ``CachingIdentityClient(ttl_s=3600)``
+    and ``HRScopeProvider(SubjectCache())``."""
+    engine = engine_from_doc(stress_doc(n_rules))
+    ids = StaticIdentityClient()
+    subject_cache = SubjectCache()
+    rng = np.random.default_rng(seed)
+    roles = []
+    for t in range(n_tokens):
+        role = f"role-{int(rng.integers(108))}"
+        roles.append(role)
+        ids.register(f"tok-{t}", {
+            "id": f"user-{t}",
+            "tokens": [{"token": f"tok-{t}", "interactive": True}],
+            "role_associations": [{"role": role, "attributes": []}],
+        })
+        subject_cache.set(f"cache:user-{t}:hrScopes", [])
+    identity = CachingIdentityClient(ids, ttl_s=3600.0)
+    engine.identity_client = identity
+    engine.hr_scope_provider = HRScopeProvider(subject_cache)
+    actions = [URNS["read"], URNS["modify"], URNS["create"], URNS["delete"]]
+    requests = []
+    for i in range(rows):
+        t = int(rng.integers(n_tokens))
+        k = int(rng.integers(72))
+        requests.append(Request(
+            target=Target(
+                subjects=[Attribute(id=URNS["role"], value=roles[t]),
+                          Attribute(id=URNS["subjectID"], value=f"user-{t}")],
+                resources=[
+                    Attribute(id=URNS["entity"],
+                              value=f"urn:restorecommerce:acs:model:"
+                                    f"stress{k}.Stress{k}"),
+                    Attribute(id=URNS["resourceID"], value=f"res-{i}")],
+                actions=[Attribute(id=URNS["actionID"],
+                                   value=actions[i % 4])],
+            ),
+            context={"resources": [], "subject": {"token": f"tok-{t}"}},
+        ))
+    return engine, requests, identity
+
+
+def reset_prepared(requests) -> None:
+    """Each timed pass pays the token / HR preparation again (warm
+    caches), as ``bench_token_mix`` resets the flags."""
+    for r in requests:
+        r._context_prepared = False
+        r._token_resolved = False
+
+
+def batch_split(evaluator, requests, prepare: bool = False) -> dict:
+    """One ``is_allowed_batch``'s host stages: token / HR preparation
+    (with ``prepare``), encode, grouping / packing / launch, device wait
+    and readback, decode."""
+    if prepare:
+        reset_prepared(requests)
+    t0 = time.perf_counter()
+    evaluator.prepare_batch(requests)
+    t1 = time.perf_counter()
+    batch = encode_requests(requests, evaluator._compiled,
+                            evaluator.engine.resource_adapter)
+    t2 = time.perf_counter()
+    thunk = evaluator._kernel.evaluate_async(batch)
+    t3 = time.perf_counter()
+    out = thunk()
+    t4 = time.perf_counter()
+    evaluator._decode_batch(requests, batch, out)
+    t5 = time.perf_counter()
+    return {"prepare": (t1 - t0) * 1e3, "encode": (t2 - t1) * 1e3,
+            "group_pack_launch": (t3 - t2) * 1e3,
+            "device_wait_readback": (t4 - t3) * 1e3,
+            "decode_oracle_rows": (t5 - t4) * 1e3}
+
+
+def phase_token_mix(device, stats: dict, card: str, n_rules: int = FRONT_RULES,
+                    rows: int = FRONT_ROWS, n_tokens: int = TOKENS) -> dict:
+    """Phase 20, ``token-mix``: token traffic through ``prepare_batch``;
+    eligible share, sampled responses against the oracle (which resolves
+    the token itself), decisions/s with the preparation in every pass."""
+    import gc
+
+    engine, requests, identity = token_mix_setup(n_rules, rows, n_tokens)
+    fresh = copy.deepcopy(requests)
+    evaluator = HybridEvaluator(engine, device=device)
+    responses, launches, _ = checked_call(
+        "token-mix", lambda: evaluator.is_allowed_batch(requests),
+        ("sig_decide",), stats)
+    n = sample_oracle(engine, fresh, responses)
+    batch = encode_requests(requests, evaluator._compiled)
+    share = float(batch.eligible.mean())
+    if share < 0.99:
+        raise AssertionError(f"token-mix eligible share {share} < 0.99 "
+                             f"({batch.ineligible_reasons})")
+    gc.collect()
+    t0 = time.perf_counter()
+    for _ in range(FRONT_PASSES):
+        reset_prepared(requests)
+        evaluator.is_allowed_batch(requests)
+    dt = (time.perf_counter() - t0) / FRONT_PASSES
+    out = {"rows": rows, "tokens": n_tokens, "launches": launches,
+           "eligible_share": share, "batch_ms": dt * 1e3,
+           "decisions_per_s": rows / dt,
+           "resolution_hit_ratio": identity.cache_stats()["hit_ratio"],
+           "stages_ms": batch_split(evaluator, requests, prepare=True)}
+    log(f"  token-mix: {rows} rows over {n_tokens} tokens; launches "
+        f"{launches}; every kernel call equal to its plain version; {n} "
+        f"sampled responses equal to the oracle; eligible share "
+        f"{share:.4f}")
+    log(f"  token-mix on {card}: {out['decisions_per_s']:.0f} decisions/s "
+        f"({out['batch_ms']:.3f} ms per batch, preparation included), "
+        f"stages (ms) {json.dumps(out['stages_ms'])}")
+    return out
+
+
+class StubAdapter:
+    """``bench_adapter_mixed``'s adapter: every context query returns one
+    row."""
+
+    def query(self, context_query, request):
+        return [{"id": "res"}]
+
+
+def adapter_mixed_setup(n_rules: int, rows: int, seed: int = 23):
+    """The JAX package's ``_adapter_mixed_setup(cacheable=True)``:
+    ``stress_doc(n_rules, cacheable=True)`` plus 8 context-query rules
+    (entities 56-63, a condition on the query result), the stub adapter,
+    rows drawn uniformly over the 64 entities."""
+    engine = engine_from_doc(stress_doc(n_rules, cacheable=True))
+    cq = []
+    for k in range(56, 64):
+        entity = f"urn:restorecommerce:acs:model:stress{k}.Stress{k}"
+        cq.append({"id": f"cqp{k}", "combining_algorithm": PO, "rules": [{
+            "id": f"cqr{k}",
+            "target": {"resources": [{"id": URNS["entity"], "value": entity}],
+                       "actions": []},
+            "effect": "PERMIT",
+            "context_query": {
+                "filters": [{"field": "id", "operation": "eq",
+                             "value": f"res-{k}"}],
+                "query": "query q { all { id } }"},
+            "condition": "len(context._queryResult) > 0",
+            "evaluation_cacheable": True,
+        }]})
+    for ps in load_policy_sets({"policy_sets": [
+            {"id": "cq", "combining_algorithm": DO, "policies": cq}]}):
+        engine.update_policy_set(ps)
+    engine.resource_adapter = StubAdapter()
+    rng = np.random.default_rng(seed)
+    actions = [URNS["read"], URNS["modify"], URNS["create"], URNS["delete"]]
+    requests = []
+    for i in range(rows):
+        role = f"role-{int(rng.integers(108))}"
+        k = int(rng.integers(64))
+        requests.append(Request(
+            target=Target(
+                subjects=[Attribute(id=URNS["role"], value=role),
+                          Attribute(id=URNS["subjectID"], value=f"u{i}")],
+                resources=[
+                    Attribute(id=URNS["entity"],
+                              value=f"urn:restorecommerce:acs:model:"
+                                    f"stress{k}.Stress{k}"),
+                    Attribute(id=URNS["resourceID"], value=f"res-{i}")],
+                actions=[Attribute(id=URNS["actionID"],
+                                   value=actions[i % 4])],
+            ),
+            context={"resources": [], "subject": {
+                "id": f"u{i}",
+                "role_associations": [{"role": role, "attributes": []}],
+                "hierarchical_scopes": []}},
+        ))
+    return engine, requests
+
+
+def phase_adapter_warm(device, stats: dict, card: str,
+                       n_rules: int = FRONT_RULES,
+                       rows: int = FRONT_ROWS) -> dict:
+    """Phase 21, ``adapter-mixed-warm``: a cold pass writes the decision
+    cache through; a warm pass's hits equal the cold responses; warm
+    decisions/s of the hit rows alone and of the mixed traffic."""
+    import gc
+
+    engine, requests = adapter_mixed_setup(n_rules, rows)
+    fresh = copy.deepcopy(requests)
+    cache = DecisionCache(ttl_s=3600.0, max_entries=1 << 17)
+    evaluator = HybridEvaluator(engine, device=device, decision_cache=cache)
+    cold, launches, _ = checked_call(
+        "adapter-mixed-warm", lambda: evaluator.is_allowed_batch(requests),
+        ("sig_decide",), stats)
+    n = sample_oracle(engine, fresh, cold)
+    cacheable = [b for b, r in enumerate(cold)
+                 if r.evaluation_cacheable is True]
+    hits0 = cache.stats()["hits"]
+    warm = evaluator.is_allowed_batch(copy.deepcopy(fresh))
+    if cache.stats()["hits"] - hits0 != len(cacheable):
+        raise AssertionError("warm pass: not every cacheable row hit")
+    for b in cacheable:
+        if response_key(warm[b]) != response_key(cold[b]):
+            raise AssertionError(f"warm hit {b} != its cold response")
+    gc.collect()
+    t0 = time.perf_counter()
+    for _ in range(FRONT_PASSES):
+        evaluator.is_allowed_batch(requests)
+    dt_mixed = (time.perf_counter() - t0) / FRONT_PASSES
+    hit_rows = [requests[b] for b in cacheable]
+    hits0 = cache.stats()["hits"]
+    gc.collect()
+    t0 = time.perf_counter()
+    for _ in range(WARM_HIT_PASSES):
+        evaluator.is_allowed_batch(hit_rows)
+    dt_hits = (time.perf_counter() - t0) / WARM_HIT_PASSES
+    if cache.stats()["hits"] - hits0 != len(hit_rows) * WARM_HIT_PASSES:
+        raise AssertionError("warm cacheable rows must all hit")
+    # one warm mixed batch's split: the batch-wide lookup, then the
+    # uncached path over the misses
+    subject_urn = engine.urns.get("subjectID") or ""
+    t0 = time.perf_counter()
+    misses = [r for r in requests
+              if cache.get(cache.fingerprint(r, subject_urn)) is None]
+    t1 = time.perf_counter()
+    evaluator._uncached_async(misses)()
+    t2 = time.perf_counter()
+    st = cache.stats()
+    out = {"rows": rows, "launches": launches,
+           "cacheable_rows": len(cacheable), "cache": {
+               k: st[k] for k in ("hits", "misses", "entries", "hit_ratio")},
+           "hit_rows_decisions_per_s": len(hit_rows) / dt_hits,
+           "mixed_decisions_per_s": rows / dt_mixed,
+           "mixed_batch_ms": dt_mixed * 1e3,
+           "stages_ms": {"cache_lookup": (t1 - t0) * 1e3,
+                         "miss_rows": (t2 - t1) * 1e3, "miss_count":
+                         len(misses)}}
+    log(f"  adapter-mixed-warm: {rows} rows; launches {launches}; every "
+        f"kernel call equal to its plain version; {n} sampled cold "
+        f"responses equal to the oracle; {len(cacheable)} cacheable rows, "
+        f"every warm hit equal to its cold response; cache {out['cache']}")
+    log(f"  adapter-mixed-warm on {card}: hit rows "
+        f"{out['hit_rows_decisions_per_s']:.0f} decisions/s, mixed warm "
+        f"traffic {out['mixed_decisions_per_s']:.0f} decisions/s "
+        f"({out['mixed_batch_ms']:.3f} ms per batch), stages (ms) "
+        f"{json.dumps(out['stages_ms'])}")
+    return out
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -4260,6 +4832,8 @@ def main(argv: list[str]) -> int:
         stamp("K2 / K5 report (sig_planes, wia_planes):")
         planes_report(planes_cases(sig, rel, wia, wl, lat), ptx, card,
                       sig_stats)
+        stamp("phase 19: the wire main path (serve-20k, (a), scoped_511)")
+        phase_wire(device, sig_stats, card, sig.pop("wire_a"))
         log(f"  quick run: {time.perf_counter() - t_start:.1f} s in all")
         return 0
 
@@ -4347,6 +4921,15 @@ def main(argv: list[str]) -> int:
         rel_rows[name]["launches"] = rel[key][name]
         log(f"  {name} with_rel (720 relation tree) on {card}: "
             + json.dumps(rel_rows[name]))
+    stamp("phase 19: the wire main path (is_allowed_batch_wire: serve-20k, "
+          "(a), scoped_511; deep HR through the ceiling)")
+    wire = phase_wire(device, sig_stats, card, sig.pop("wire_a"))
+    stamp("phase 20: token-mix (prepare_batch, 10,000 rules, 8,192 rows "
+          "over 512 tokens)")
+    phase_token_mix(device, sig_stats, card)
+    stamp("phase 21: adapter-mixed-warm (decision cache, 10,008 rules, "
+          "8,192 rows)")
+    phase_adapter_warm(device, sig_stats, card)
     log(f"  launches: wia-large first batch {wl['launches']['wia_planes']}, "
         f"warm 0; lattice warm sweep {lat['warm_launches']}, timed sweep "
         f"{lat['timed_launches']}")
@@ -4439,6 +5022,9 @@ def main(argv: list[str]) -> int:
                                    sig_stats["shard_tail+explain"][
                                        "max_abs_err"]),
                 **{k: pod_explain[k] for k in keys}, "library_ms": None}
+        if r["name"] in wire["launches"]:
+            # phase 19's launches, beside the main path's of phases 5 / 7
+            r["wire"] = {"launches": wire["launches"][r["name"]]}
         if r["name"] in rel_rows:
             t = rel_rows[r["name"]]
             r["with_rel"] = {
@@ -4456,7 +5042,7 @@ def main(argv: list[str]) -> int:
         **{k: r[k] for k in PACKED_KEYS + PLANES_KEYS + ("yardstick_ms",)
            if k in r},
         **({"with_rel": r["with_rel"]} if "with_rel" in r else {}),
-        **{k: r[k] for k in ("explain", "k6", "pod") if k in r},
+        **{k: r[k] for k in ("explain", "k6", "pod", "wire") if k in r},
     } for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
