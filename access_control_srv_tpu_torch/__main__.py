@@ -1,0 +1,139 @@
+"""Process entrypoint: start the worker + gRPC transport, stop cleanly on
+SIGINT/SIGTERM (reference: src/start.ts:6-21 — cfg from the working
+directory, worker.start, SIGINT -> worker.stop).
+
+    python -m access_control_srv_tpu_torch [--config-dir DIR]
+        [--addr HOST:PORT] [--device cuda|cuda:N|cpu]
+
+The worker serves on the CUDA device unless ``--device`` names another
+(``cpu`` runs every kernel's plain PyTorch version); without CUDA the
+default fails at startup.  ``--broker``, ``--router`` and ``--cluster``
+(the JAX package's broker process, cluster router and local cluster
+tier) are parsed and refused: the broker and cluster slice of the port
+brings them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import signal
+import sys
+import threading
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(prog="access_control_srv_tpu_torch")
+    parser.add_argument(
+        "--config-dir", default=os.getcwd(),
+        help="directory holding config.json / config_{ENV}.json",
+    )
+    parser.add_argument(
+        "--env", default=os.environ.get("NODE_ENV"),
+        help="config environment overlay name",
+    )
+    parser.add_argument(
+        "--addr", default=None,
+        help="bind address (overrides server:transports[0].addr)",
+    )
+    parser.add_argument(
+        "--device", default=None,
+        help="torch device to serve on (default: the CUDA device)",
+    )
+    parser.add_argument(
+        "--broker", action="store_true",
+        help="serve the cross-process event/cache broker instead of a worker",
+    )
+    parser.add_argument(
+        "--broker-data-dir", default=None,
+        help="broker durability: journal directory (topics/offsets/KV "
+             "survive restarts)",
+    )
+    parser.add_argument(
+        "--broker-secret", default=os.environ.get("ACS_BROKER_SECRET"),
+        help="broker auth: shared secret required from every connection "
+             "(also via ACS_BROKER_SECRET)",
+    )
+    parser.add_argument(
+        "--broker-fsync-interval", default=None, type=float,
+        help="broker durability: fsync the journal at most every N "
+             "seconds (0 = every record); default keeps flush-only "
+             "semantics — a host crash can drop the flushed tail",
+    )
+    parser.add_argument(
+        "--broker-snapshot-every", default=None, type=int,
+        help="broker durability: take a crash-consistent snapshot and "
+             "truncate the journal behind it every N journal records "
+             "(default: never — replay walks the full journal)",
+    )
+    parser.add_argument(
+        "--router", action="store_true",
+        help="serve a cluster router (srv/router.py) over running "
+             "replicas instead of a worker",
+    )
+    parser.add_argument(
+        "--replica", action="append", default=None, metavar="HOST:PORT",
+        help="replica address for --router (repeatable)",
+    )
+    parser.add_argument(
+        "--cluster", action="store_true",
+        help="bring up the whole local cluster tier: broker + replicas "
+             "+ router (parallel/cluster.py)",
+    )
+    parser.add_argument(
+        "--replicas", default=None, type=int,
+        help="replica count for --cluster (default: cfg cluster:replicas)",
+    )
+    args = parser.parse_args(argv)
+
+    if args.addr is not None:
+        _, sep, port = args.addr.rpartition(":")
+        if not sep or not port.isdecimal() or not 0 <= int(port) <= 65535:
+            parser.error(
+                f"--addr must be HOST:PORT (e.g. 0.0.0.0:50061), "
+                f"got {args.addr!r}"
+            )
+
+    for flag, on in (("--broker", args.broker), ("--router", args.router),
+                     ("--cluster", args.cluster)):
+        if on:
+            raise NotImplementedError(
+                f"{flag}: the broker, router and local cluster are not "
+                f"ported yet (the broker and cluster slice)"
+            )
+
+    stop_event = threading.Event()
+
+    def request_stop(signum, frame):
+        stop_event.set()
+
+    signal.signal(signal.SIGINT, request_stop)
+    signal.signal(signal.SIGTERM, request_stop)
+
+    from .srv.config import Config
+    from .srv.transport_grpc import GrpcServer
+    from .srv.worker import Worker
+
+    cfg = Config.load(args.config_dir, env=args.env)
+    worker = Worker()
+    try:
+        worker.start(cfg, device=args.device)
+    except Exception as err:  # startup error path (start.ts:11-14)
+        print(f"startup error: {err}", file=sys.stderr, flush=True)
+        return 1
+    transports = cfg.get("server:transports") or []
+    addr = args.addr or (
+        transports[0].get("addr") if transports else "0.0.0.0:50061"
+    )
+    server = GrpcServer(worker, addr).start()
+    print(f"serving on {server.addr}", flush=True)
+
+    stop_event.wait()  # SIGINT / SIGTERM
+    print("shutting down", flush=True)
+    server.stop()
+    worker.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -58,19 +58,43 @@ explain mode, on trees with host-assisted conditions, with no kernel and
 with ``backend="oracle"``; a native build or load failure raises.
 
 A refresh recompiles the whole tree (``compile_policies``), the JAX
-evaluator's ``delta_enabled=False`` path; the JAX pod path compiles
-through the delta subsystem's capacity-bucketed compile, which waits for
-the delta slice (capacities differ, decisions do not).  Not ported yet:
-delta patching and scoped cache bumps, async compiles (the delta slice);
-the deadline shed, the watchdog, telemetry counters and tracing spans
-(the serving shell, whose ``admission`` / ``tracing`` modules they
-import); tenancy.
+evaluator's ``delta_enabled=False`` path; with ``async_compile`` a
+``refresh(wait=False)`` runs it on one debounced background thread (at
+most one compile running and one pending), and the new tables are
+published only after their upload to the device has completed.  The
+CRUD ``events`` a refresh may carry take that full recompile; the cache
+bumps are the JAX evaluator's when no patch applies (whole before a
+recompile, scoped by the footprint on the oracle backend).  The JAX pod
+path compiles through the delta subsystem's capacity-bucketed compile,
+which waits for the delta slice (capacities differ, decisions do not).
+
+The serving hooks are the JAX evaluator's: ``telemetry`` path counters
+(``_count_path``), the deadline shed of ``is_allowed_batch_async``
+(``srv/admission.py``), stage spans for an ``observability`` hub
+(``srv/tracing.py``), and the device watchdog (``srv/watchdog.py``:
+``_guard_materialize`` bounds each device wait).  Where the port parts
+from the JAX evaluator is what a failing device path answers: a batch
+whose dispatch or readback raised or timed out, and every batch while
+the watchdog holds the kernel path quarantined, gets the never-cacheable
+``degraded`` envelope (``srv/admission.degraded_response``, code 503)
+on each row, counted under ``device-error-degraded``,
+``hang-fallback-degraded`` or ``quarantine-degraded``; the JAX
+evaluator answers those rows with the oracle walk.  The tables live on
+the card, so a failure there is reported to the caller, never served
+from the host in its place.  The oracle still answers the rows the
+kernel cannot encode (``batch.eligible`` False), the single-request
+path and the ``backend="oracle"`` / no-kernel evaluators, as in JAX.
+Kernel dispatches of one evaluator are serialized by a lock: the
+prefilter's signature caches, the plane caches and the launch counts
+are shared between the serving threads.  Not ported yet: delta patching
+(the delta slice) and tenancy.
 """
 
 from __future__ import annotations
 
 import copy
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
@@ -84,7 +108,7 @@ from ..core.relation_path import (
     relation_paths,
     request_subject_id,
 )
-from ..models.model import Decision, OperationStatus, Response
+from ..models.model import Decision, OperationStatus, Response, ReverseQuery
 from ..ops import reverse
 from ..ops.compile import DECISION_NAMES, compile_policies
 from ..ops.encode import (
@@ -97,9 +121,25 @@ from ..ops.encode import (
 from ..ops.kernel import resolve_device
 from ..ops.prefilter import PrefilteredKernel
 from ..ops.relation import relation_bits_needed
+from .admission import (
+    DEADLINE_CODE,
+    degraded_response,
+    overload_response,
+)
 from .decision_cache import request_features
 from .explain import ExplainDecoder, explain_capacity_ok
+from .faults import REGISTRY as _faults
 from .telemetry import SampledLogger
+from .tracing import (
+    STAGE_CACHE,
+    STAGE_DECODE,
+    STAGE_DEVICE,
+    STAGE_ENCODE,
+    STAGE_ORACLE,
+    STAGE_PREPARE,
+    STAGE_WIRE_ENCODE,
+)
+from .watchdog import DeviceTimeoutError
 
 # trees with fewer rules skip the candidate index (its build and lookups
 # cost more than the walk it saves)
@@ -109,13 +149,19 @@ CANDIDATE_MIN_RULES = 256
 class HybridEvaluator:
     def __init__(self, engine: AccessController,
                  backend: str = "hybrid",  # oracle | kernel | hybrid
-                 logger=None, mesh=None, mesh_axis: str = "data",
+                 logger=None, async_compile: bool = False, telemetry=None,
+                 mesh=None, mesh_axis: str = "data",
                  model_axis: Optional[str] = None,
                  pod_shards: Optional[int] = None, decision_cache=None,
-                 explain: bool = False, device=None):
+                 observability=None, explain: bool = False, device=None):
         self.engine = engine
         self.backend = backend
         self.logger = logger
+        self.telemetry = telemetry
+        self.async_compile = async_compile
+        # observability hub (srv/tracing.Observability): stage spans and
+        # audit attribution; None keeps every instrumentation site off
+        self.obs = observability
         # rate-limited hot-path logging: the per-row warning sites
         # (token-unresolved, oracle fallback) must not turn the logger
         # into the bottleneck when an upstream is down under load
@@ -151,27 +197,101 @@ class HybridEvaluator:
         # tuple writes seen by an attached relation store
         self.relation_churn = 0
         self._lock = threading.Lock()
+        # one kernel dispatch at a time per evaluator: the serving threads
+        # (transport handlers, batcher pools, the stream pipeline) share
+        # the prefilter's signature caches, the reverse kernel's plane
+        # cache and the launch counts
+        self._dispatch_lock = threading.Lock()
+        self._compile_thread: Optional[threading.Thread] = None
+        # the delta patcher is not ported: every refresh is a full
+        # recompile, counted as the JAX evaluator counts it
+        self._delta_counts = {
+            "patches": 0, "full_compiles": 0, "noops": 0,
+            "recompiles_avoided": 0, "fallbacks": 0,
+        }
+        self._last_visibility_ms: Optional[float] = None
+        # async full-compile debounce: at most one compile running and at
+        # most one pending, however fast CRUD events arrive
+        self._compile_state_lock = threading.Lock()
+        self._compile_pending = False
+        self._shutdown = False
+        # device-health state (srv/watchdog.py): a quarantined evaluator
+        # answers every kernel-path row with the degraded envelope until
+        # the watchdog's probe restores the kernel
+        self._watchdog = None
+        self._quarantined = False
         self.refresh(wait=True)  # the oracle backend builds only the index
 
     # ------------------------------------------------------------- lifecycle
 
-    def refresh(self, wait: bool = True) -> None:
+    def refresh(self, wait: bool = False, events=None,
+                footprint=None) -> None:
         """Recompile the policy tensors after a tree mutation; the previous
-        kernel serves until the swap.  The decision cache's epoch is
-        bumped first: a stale hit must never outlive the swap."""
-        if not wait:
-            raise NotImplementedError(
-                "async compile: not ported yet (delta slice)"
-            )
-        if self.decision_cache is not None:
-            self.decision_cache.bump_epoch()
+        kernel serves until the swap.
+
+        ``events`` (``ops/delta.CrudEvent`` list, captured by the store)
+        and ``footprint`` (``ops/delta.Footprint``) are accepted as the
+        JAX evaluator takes them; with no delta patcher every refresh is
+        the full recompile.  The decision cache's epoch is bumped whole
+        before it (a stale hit must never outlive the swap); the oracle
+        backend, which compiles nothing, bumps only the footprint's scope.
+        With ``async_compile`` and ``wait=False`` the compile runs on the
+        debounced background thread."""
+        t0 = time.perf_counter()
         if self.backend == "oracle":
+            if self.decision_cache is not None:
+                if footprint is not None and footprint.empty:
+                    pass  # certified no-op: nothing to flush
+                elif footprint is not None:
+                    self.decision_cache.bump_scoped(footprint)
+                else:
+                    self.decision_cache.bump_epoch()
             # no compile; every request takes the candidate-filtered walk
             self._cand = self._build_candidate_index()
             return
+        if self.decision_cache is not None:
+            self.decision_cache.bump_epoch()
         with self._lock:
             self._version += 1
-            version = self._version
+        if self.async_compile and not wait:
+            # debounce: one running compile + at most one pending; the
+            # loop compiles from the LATEST version at each round, so a
+            # burst of N CRUD events costs at most two compiles
+            with self._compile_state_lock:
+                if self._shutdown:
+                    return
+                self._compile_pending = True
+                thread = self._compile_thread
+                if thread is None or not thread.is_alive():
+                    thread = threading.Thread(
+                        target=self._compile_worker, daemon=True,
+                        name="acs-compile",
+                    )
+                    self._compile_thread = thread
+                    thread.start()
+        else:
+            with self._lock:
+                version = self._version
+            self._compile_and_swap(version, t0)
+
+    def _compile_worker(self) -> None:
+        """Debounced async compile loop: drains pending requests one
+        compile at a time, always from the latest version."""
+        while True:
+            with self._compile_state_lock:
+                if not self._compile_pending or self._shutdown:
+                    self._compile_thread = None
+                    return
+                self._compile_pending = False
+            with self._lock:
+                version = self._version
+            try:
+                self._compile_and_swap(version, time.perf_counter())
+            except Exception:  # noqa: BLE001 — keep draining
+                if self.logger:
+                    self.logger.exception("async policy compile failed")
+
+    def _compile_and_swap(self, version: int, t0: float) -> None:
         # snapshot first, compile from the snapshot: the published
         # (tree, arrays) pair is consistent by construction
         tree_snapshot = copy.deepcopy(self.engine.policy_sets)
@@ -181,6 +301,12 @@ class HybridEvaluator:
         kernel = None
         if compiled.supported and compiled.n_rules > 0:
             kernel = self._make_kernel(compiled)
+            if self.device.type == "cuda":
+                # the tables' upload must be complete before any serving
+                # thread can reach them through the swap below
+                import torch
+
+                torch.cuda.current_stream(self.device).synchronize()
         native_encoder = self._make_native_encoder(compiled, kernel)
         decoder = self._make_explain_decoder(compiled, kernel,
                                              tree_snapshot)
@@ -194,11 +320,55 @@ class HybridEvaluator:
                 self._native_encoder = native_encoder
                 self._explain_decoder = decoder
                 self._cand = cand
+        self._delta_counts["full_compiles"] += 1
+        self._count_delta("full-compile")
+        self._last_visibility_ms = (time.perf_counter() - t0) * 1e3
+        if self.telemetry is not None:
+            self.telemetry.policy_update_latency.observe(
+                time.perf_counter() - t0
+            )
         if self.logger and not compiled.supported:
             self.logger.warning(
                 "policy tree not kernel-supported; serving from oracle",
                 extra={"reason": compiled.unsupported_reason},
             )
+
+    def shutdown(self, timeout: float = 10.0) -> None:
+        """Stop the async compile loop and join its thread (a worker's
+        stop must not leak a compile thread mid-upload)."""
+        with self._compile_state_lock:
+            self._shutdown = True
+            self._compile_pending = False
+            thread = self._compile_thread
+        if thread is not None and thread.is_alive():
+            thread.join(timeout)
+
+    def _count_delta(self, key: str) -> None:
+        if self.telemetry is not None:
+            self.telemetry.delta.inc(key)
+
+    def delta_stats(self) -> dict:
+        """health_check surface: what the JAX evaluator reports with its
+        delta patcher off (``enabled`` False, full-compile counts, last
+        time to visibility)."""
+        out = {
+            "enabled": False,
+            **self._delta_counts,
+            "fallback_reasons": {},
+            "last_visibility_ms": (
+                round(self._last_visibility_ms, 3)
+                if self._last_visibility_ms is not None else None
+            ),
+        }
+        sharding = self.shard_identity()
+        if sharding is not None:
+            out["sharding"] = {
+                "n_shards": sharding["n_shards"],
+                "applied_patches": [
+                    sh["applied_patches"] for sh in sharding["shards"]
+                ],
+            }
+        return out
 
     def _make_kernel(self, compiled):
         """The kernel for a supported compile: pod-sharded, rule-sharded
@@ -227,6 +397,7 @@ class HybridEvaluator:
         # delegates to the dense kernel below MIN_RULES
         return PrefilteredKernel(compiled, device=self.device,
                                  mesh=self.mesh, axis=self.mesh_axis,
+                                 telemetry=self.telemetry,
                                  explain=self.explain)
 
     def _make_explain_decoder(self, compiled, kernel, tree):
@@ -283,6 +454,137 @@ class HybridEvaluator:
     def native_active(self) -> bool:
         return self._native_encoder is not None
 
+    # ------------------------------------------------ device-health plumbing
+
+    @property
+    def quarantined(self) -> bool:
+        return self._quarantined
+
+    def set_quarantined(self, flag: bool) -> None:
+        """Flipped by the device watchdog (srv/watchdog.py): True refuses
+        every kernel-path row (the degraded envelope; the native wire
+        path reports itself inactive) while the kernel path heals; False
+        restores kernel routing.  The single-request path and the rows
+        the kernel cannot encode stay on the oracle either way."""
+        self._quarantined = bool(flag)
+
+    def attach_watchdog(self, watchdog) -> None:
+        self._watchdog = watchdog
+
+    @property
+    def watchdog(self):
+        return self._watchdog
+
+    def _guard_materialize(self, materialize):
+        """Bound a kernel materialize under the watchdog deadline when one
+        is attached (the device readback then runs on the watchdog's
+        thread); identity otherwise."""
+        watchdog = self._watchdog
+        if watchdog is None:
+            return materialize
+        return lambda: watchdog.run(materialize)
+
+    def _dispatch(self, kernel, batch):
+        """``kernel.evaluate_async(batch)`` under the dispatch lock, with
+        the ``device.dispatch`` / ``device.materialize`` failpoints
+        (srv/faults.py) at the host side of the device boundary, where
+        the JAX package fires them."""
+        _faults.fire("device.dispatch")
+        with self._dispatch_lock:
+            materialize = kernel.evaluate_async(batch)
+        if not _faults.enabled:
+            return materialize
+
+        def faulted():
+            _faults.fire("device.materialize")
+            return materialize()
+
+        return faulted
+
+    def kernel_probe(self) -> bool:
+        """One canary batch through the live kernel's dispatch and
+        materialize; the watchdog's restore probe (bounded there).  False
+        when no kernel is active.  Bypasses the watchdog wrap: the probe
+        applies its own deadline."""
+        with self._lock:
+            kernel = self._kernel
+            compiled = self._compiled
+        if kernel is None or compiled is None:
+            return False
+        from ..models.model import Request, Target
+
+        canary = Request(target=Target(), context={})
+        batch = encode_requests(
+            [canary], compiled, self.engine.resource_adapter
+        )
+        outputs = self._dispatch(kernel, batch)()
+        return len(outputs) >= 3  # explain-enabled kernels append a 4th
+
+    def _degraded_rows(self, requests: list, path: str, message: str,
+                       err: Optional[BaseException] = None) -> list:
+        """Per-row answers for a batch the device path could not answer:
+        rows with an expired deadline shed with the deadline status, the
+        rest get the never-cacheable ``degraded`` envelope, counted under
+        ``path`` and logged (sampled).  Never the oracle in the kernel's
+        place, never a fabricated PERMIT/DENY."""
+        expired = self._expired_rows(requests)
+        shed = overload_response(
+            DEADLINE_CODE, "deadline expired before evaluation"
+        )
+        refused = degraded_response(message)
+        out = [shed if b in expired else refused
+               for b in range(len(requests))]
+        self._count_path(path, len(requests) - len(expired))
+        self._count_path("deadline-expired", len(expired))
+        self._slog.warning(
+            path, "%s: %d rows degraded, %d shed: %r", message,
+            len(requests) - len(expired), len(expired), err,
+        )
+        return out
+
+    def _hang_fallback(self, requests: list) -> list:
+        """Per-row answers for a batch whose device materialize timed
+        out: the degraded envelope (``hang-fallback-degraded``)."""
+        return self._degraded_rows(requests, "hang-fallback-degraded",
+                                   "device materialize timed out")
+
+    def _device_failed(self, requests: list, err: BaseException) -> list:
+        """Per-row answers for a batch whose kernel dispatch or readback
+        raised (a launch or build failure, an injected fault): the
+        degraded envelope (``device-error-degraded``)."""
+        return self._degraded_rows(requests, "device-error-degraded",
+                                   "device kernel failed", err)
+
+    def _count_path(self, path: str, rows: int) -> None:
+        if self.telemetry is not None and rows:
+            self.telemetry.paths.inc(path, rows)
+
+    def count_error(self, path: str, rows: int, err: BaseException) -> None:
+        """A serving-shell site (transport, stream pipeline, batcher)
+        caught ``err`` and answers its ``rows`` another way, as the JAX
+        shell does: the rows are counted under ``path`` and the error is
+        logged (sampled), so a failing kernel path never hides behind its
+        fallback."""
+        self._count_path(path, rows)
+        self._slog.warning(path, "%s: %d rows answered another way: %r",
+                           path, rows, err)
+
+    @staticmethod
+    def _expired_rows(requests: list) -> set[int]:
+        """Indices of rows whose propagated ``_deadline`` already passed
+        (empty for deadline-less traffic)."""
+        expired: set[int] = set()
+        now = None
+        for b, request in enumerate(requests):
+            deadline = getattr(request, "_deadline", None)
+            if deadline is None:
+                continue
+            if now is None:
+                now = time.monotonic()
+            if deadline <= now:
+                expired.add(b)
+        return expired
+
     # ------------------------------------------------------ relation plumbing
 
     def attach_relation_store(self, store) -> None:
@@ -298,6 +600,7 @@ class HybridEvaluator:
                 self.decision_cache.bump_epoch()
             with self._lock:
                 self.relation_churn += 1
+            self._count_path("relation-churn", 1)
 
         store.on_change(_on_change)
 
@@ -322,6 +625,19 @@ class HybridEvaluator:
     # ------------------------------------------------- host-side pipeline
 
     def prepare_batch(self, requests: list) -> bool:
+        """``_prepare_batch`` with the ``prepare`` stage recorded when an
+        observability hub is wired and the batch had unprepared token
+        rows.  True when it had."""
+        tracer = self.obs.tracer if self.obs is not None else None
+        if tracer is None:
+            return self._prepare_batch(requests)
+        t0 = time.perf_counter()
+        did_work = self._prepare_batch(requests)
+        if did_work:
+            tracer.fan_out(requests, STAGE_PREPARE, time.perf_counter() - t0)
+        return did_work
+
+    def _prepare_batch(self, requests: list) -> bool:
         """Host-side eligibility pipeline: batch-resolve every distinct
         ``subject.token`` through the engine's identity client (one call
         per distinct token; a TTL'd resolution cache makes repeats across
@@ -380,6 +696,7 @@ class HybridEvaluator:
                     ):
                         resolutions[token] = resolved
 
+        n_ok = n_fail = 0
         for token, rows in by_token.items():
             resolved = resolutions.get(token)
             payload = get_field(resolved, "payload") if resolved else None
@@ -393,8 +710,12 @@ class HybridEvaluator:
                         copy.deepcopy(payload),
                     )
                     request._token_resolved = True
+                    n_ok += 1
                 else:
                     request._token_resolved = False
+                    n_fail += 1
+        self._count_path("token-resolved", n_ok)
+        self._count_path("token-unresolved", n_fail)
 
         # HR scopes: one rendezvous per distinct cache key; the other rows
         # of each group read the freshly written cache.  A timed-out key
@@ -438,24 +759,43 @@ class HybridEvaluator:
     def is_allowed(self, request) -> Response:
         """Single-request path: the oracle, behind the decision cache when
         one is set (a warm cacheable request never pays the walk)."""
+        tracer = self.obs.tracer if self.obs is not None else None
         cache = self.decision_cache
         if cache is None or not cache.enabled:
-            return self._oracle_is_allowed(request)
+            return self._traced_oracle(request, tracer)
         # epoch snapshot BEFORE the walk reads the tree: if a bump lands
         # while this decision is in flight, the write-through below stores
         # a born-stale entry (logical miss) instead of serving an old-tree
         # decision as fresh
         epoch = cache.epoch
         self.engine.prepare_context(request)
+        t0 = time.perf_counter() if tracer is not None else 0.0
         key = cache.fingerprint(
             request, self.engine.urns.get("subjectID") or ""
         )
         hit = cache.get(key)
         if hit is not None:
+            self._count_path("cache-hit", 1)
+            if tracer is not None:
+                tracer.record(getattr(request, "_span", None),
+                              STAGE_CACHE, time.perf_counter() - t0)
+                hit._path = "cache-hit"
             return hit
-        response = self._oracle_is_allowed(request)
+        response = self._traced_oracle(request, tracer)
         cache.put(key, response, epoch=epoch,
                   features=self._request_features(request))
+        return response
+
+    def _traced_oracle(self, request, tracer) -> Response:
+        """Oracle walk with the ``oracle`` stage recorded (and the serving
+        path stamped for the audit log) when a hub is wired."""
+        if tracer is None:
+            return self._oracle_is_allowed(request)
+        t0 = time.perf_counter()
+        response = self._oracle_is_allowed(request)
+        tracer.record(getattr(request, "_span", None), STAGE_ORACLE,
+                      time.perf_counter() - t0)
+        response._path = "oracle"
         return response
 
     def _request_features(self, request):
@@ -568,7 +908,12 @@ class HybridEvaluator:
             or kernel is None
             or compiled.n_rules < reverse.REVERSE_MIN_RULES
         ):
+            self._count_path("oracle-wia", len(requests))
             return [self.engine.what_is_allowed(r) for r in requests]
+        if self._quarantined:
+            return self._degraded_queries(
+                requests, "quarantine-degraded",
+                "the device path is quarantined")
         if rq_kernel is None or rq_kernel.compiled.version != compiled.version:
             # tree_snapshot was published with `compiled` and is the exact
             # tree the arrays were compiled from
@@ -585,16 +930,40 @@ class HybridEvaluator:
             requests, compiled, skip_conditions=True, skip_owner_bits=True,
             skip_relation_bits=True,
         )
-        return reverse.what_is_allowed_batch(
-            self.engine, compiled, rq_kernel, requests, batch
-        )
+        try:
+            with self._dispatch_lock:
+                out = reverse.what_is_allowed_batch(
+                    self.engine, compiled, rq_kernel, requests, batch
+                )
+        except Exception as err:  # noqa: BLE001 — reported, not rerouted
+            return self._degraded_queries(
+                requests, "device-error-degraded", "device kernel failed",
+                err)
+        n_oracle = int((~batch.eligible).sum())
+        self._count_path("oracle-wia", n_oracle)
+        self._count_path("kernel-wia", len(requests) - n_oracle)
+        return out
+
+    def _degraded_queries(self, requests: list, path: str, message: str,
+                          err: Optional[BaseException] = None) -> list:
+        """``_degraded_rows`` for reverse queries: each a ReverseQuery
+        with no tree and the row's shed or degraded status."""
+        return [
+            ReverseQuery(policy_sets=[], obligations=[],
+                         operation_status=resp.operation_status)
+            for resp in self._degraded_rows(requests, path, message, err)
+        ]
 
     def is_allowed_batch(self, requests: list) -> list[Response]:
         """Batched decision path: decision-cache lookup batch-wide BEFORE
         encode (hit rows skip the device round-trip and the oracle walk),
         then kernel rows and oracle rows together over the misses, then
         write-through of every miss row the engine marked
-        ``evaluation_cacheable``."""
+        ``evaluation_cacheable``.
+
+        Rows carrying an already-expired ``_deadline`` (set by the
+        transports and the service facade, srv/admission.py) are answered
+        with the deadline status before any evaluation, and not cached."""
         return self.is_allowed_batch_async(requests)()
 
     def is_allowed_batch_async(self, requests: list):
@@ -602,6 +971,25 @@ class HybridEvaluator:
         the returned zero-arg ``finalize`` waits for the device result,
         decodes it, runs the oracle rows and writes the cache through.
         Calling it at once is the synchronous path."""
+        expired = self._expired_rows(requests)
+        if expired:
+            live = [r for b, r in enumerate(requests) if b not in expired]
+            fin_live = (
+                self.is_allowed_batch_async(live) if live else (lambda: [])
+            )
+            self._count_path("deadline-expired", len(expired))
+            shed = overload_response(
+                DEADLINE_CODE, "deadline expired before evaluation"
+            )
+
+            def finalize_expired():
+                computed = iter(fin_live())
+                return [
+                    shed if b in expired else next(computed)
+                    for b in range(len(requests))
+                ]
+
+            return finalize_expired
         self.prepare_batch(requests)
         cache = self.decision_cache
         if cache is None or not cache.enabled:
@@ -611,6 +999,8 @@ class HybridEvaluator:
         # reads the tree: rows whose evaluation spans a concurrent epoch
         # bump are written through born-stale (see DecisionCache.put)
         epoch = cache.epoch
+        tracer = self.obs.tracer if self.obs is not None else None
+        t_cache = time.perf_counter() if tracer is not None else 0.0
         responses: list[Optional[Response]] = [None] * len(requests)
         keys: list = [None] * len(requests)
         misses: list[int] = []
@@ -624,6 +1014,16 @@ class HybridEvaluator:
                 responses[b] = hit
             else:
                 misses.append(b)
+        if tracer is not None and len(misses) < len(requests):
+            tracer.fan_out(
+                [r for b, r in enumerate(requests)
+                 if responses[b] is not None],
+                STAGE_CACHE, time.perf_counter() - t_cache,
+            )
+            for response in responses:
+                if response is not None:
+                    response._path = "cache-hit"
+        self._count_path("cache-hit", len(requests) - len(misses))
         if not misses:
             return lambda: responses
         fin_misses = self._uncached_async([requests[b] for b in misses])
@@ -645,9 +1045,20 @@ class HybridEvaluator:
         with self._lock:
             kernel = self._kernel
             compiled = self._compiled
+            # paired with the kernel under the same lock: provenance
+            # decodes against the tree the serving tables came from
+            decoder = self._explain_decoder
         if self.backend == "oracle" or kernel is None:
             # host only: nothing to overlap, so the walk runs at finalize
-            return lambda: [self._oracle_is_allowed(r) for r in requests]
+            def run_oracle():
+                self._count_path("oracle", len(requests))
+                return [self._oracle_is_allowed(r) for r in requests]
+
+            return run_oracle
+        if self._quarantined:
+            return lambda: self._degraded_rows(
+                requests, "quarantine-degraded",
+                "the device path is quarantined")
 
         # mixed-traffic split: a handful of deep/wide rows must not
         # inflate the adaptive padding caps (and device cost) of the whole
@@ -667,6 +1078,7 @@ class HybridEvaluator:
                 fins = [
                     (rows, self._eval_encoded_async(
                         kernel, compiled, [requests[b] for b in rows], caps,
+                        decoder,
                     ))
                     for rows, caps in ((floor_rows, dict(_CAPS_FLOOR)),
                                        (ext, None))
@@ -680,29 +1092,61 @@ class HybridEvaluator:
                     return out
 
                 return finalize_split
-        return self._eval_encoded_async(kernel, compiled, requests, None)
+        return self._eval_encoded_async(kernel, compiled, requests, None,
+                                        decoder)
 
-    def _eval_encoded_async(self, kernel, compiled, requests: list, caps):
+    def _eval_encoded_async(self, kernel, compiled, requests: list, caps,
+                            decoder: Optional[ExplainDecoder] = None):
+        tracer = self.obs.tracer if self.obs is not None else None
+        t_stage = time.perf_counter() if tracer is not None else 0.0
         batch = encode_requests(
             requests, compiled, self.engine.resource_adapter, caps=caps,
             relation_tables=self._relation_tables(compiled),
         )
-        decoder = self._explain_decoder
-        materialize = kernel.evaluate_async(batch)
+        if tracer is not None:
+            tracer.fan_out(requests, STAGE_ENCODE,
+                           time.perf_counter() - t_stage)
+        t_device = time.perf_counter()
+        try:
+            materialize = self._guard_materialize(
+                self._dispatch(kernel, batch))
+        except Exception as err:  # noqa: BLE001 — reported, not rerouted
+            failed = err
+            return lambda: self._device_failed(requests, failed)
 
         def finalize():
-            return self._decode_batch(requests, batch, materialize(),
-                                      decoder)
+            try:
+                outputs = materialize()
+            except DeviceTimeoutError:
+                return self._hang_fallback(requests)
+            except Exception as err:  # noqa: BLE001 — as at dispatch
+                return self._device_failed(requests, err)
+            return self._decode_batch(requests, batch, outputs, decoder,
+                                      tracer, t_device)
 
         return finalize
 
     def _decode_batch(self, requests, batch, outputs,
-                      decoder: Optional[ExplainDecoder] = None
+                      decoder: Optional[ExplainDecoder] = None,
+                      tracer=None, t_device: float = 0.0
                       ) -> list[Response]:
         decision, cacheable, status = outputs[:3]
         # explain mode: the fourth output, decoded per kernel row
         expl = outputs[3] if decoder is not None and len(outputs) > 3 \
             else None
+        t_stage = 0.0
+        if tracer is not None:
+            # dispatch -> materialize (host-to-device copy, launch, the
+            # readback) is one ``device`` stage
+            now = time.perf_counter()
+            tracer.fan_out(requests, STAGE_DEVICE, now - t_device)
+            t_stage = now
+        n_oracle = sum(
+            1 for b in range(len(requests))
+            if not batch.eligible[b] or status[b] != 200
+        )
+        self._count_path("oracle", n_oracle)
+        self._count_path("kernel", len(requests) - n_oracle)
         C = batch.cond_true.shape[0]
         responses: list[Optional[Response]] = []
         oracle_rows: list[int] = []
@@ -757,6 +1201,13 @@ class HybridEvaluator:
                     # the oracle's EffectEvaluation.source stamp
                     resp._rule_id = source
             responses.append(resp)
+        if tracer is not None:
+            now = time.perf_counter()
+            tracer.fan_out(requests, STAGE_DECODE, now - t_stage)
+            t_stage = now
+            for resp in responses:
+                if resp is not None:
+                    resp._path = "kernel"
         if not oracle_rows:
             return responses
         if len(requests) >= 8:
@@ -779,23 +1230,28 @@ class HybridEvaluator:
                 results = list(pool.map(self._oracle_is_allowed, rows))
         else:
             results = [self._oracle_is_allowed(r) for r in rows]
+        if tracer is not None:
+            tracer.fan_out(rows, STAGE_ORACLE, time.perf_counter() - t_stage)
+            for response in results:
+                response._path = "oracle"
         for slot, response in zip(oracle_rows, results):
             responses[slot] = response
         return responses
 
     # ------------------------------------------------------ native wire path
 
-    def is_allowed_batch_wire(self, messages: list[bytes]):
+    def is_allowed_batch_wire(self, messages: list[bytes], span=None):
         """Native path: serialized ``acstpu.Request`` messages -> the
         batch and per-row (decision, cacheable, status) arrays; rows with
         ``batch.eligible`` False or a status other than 200 are the
         caller's to serve another way.  None when the native encoder is
         not active (explain mode, host-assisted conditions, no kernel,
-        ``backend="oracle"``)."""
-        finalize = self.is_allowed_batch_wire_async(messages)
+        ``backend="oracle"``, quarantine).  ``span`` is the RPC-level span
+        of the transport (wire batches carry no per-row spans)."""
+        finalize = self.is_allowed_batch_wire_async(messages, span=span)
         return None if finalize is None else finalize()
 
-    def is_allowed_batch_wire_async(self, messages: list[bytes],
+    def is_allowed_batch_wire_async(self, messages: list[bytes], span=None,
                                     reuse: bool = False):
         """Encode (C++) and launch without waiting; the returned zero-arg
         ``finalize`` waits for the device result and yields (batch,
@@ -810,16 +1266,26 @@ class HybridEvaluator:
         with self._lock:
             kernel = self._kernel
             encoder = self._native_encoder
-        if kernel is None or encoder is None or self.backend == "oracle":
+        if (kernel is None or encoder is None or self.backend == "oracle"
+                or self._quarantined):
             return None
+        tracer = self.obs.tracer if self.obs is not None else None
+        t_stage = time.perf_counter() if tracer is not None else 0.0
         rel_tables = self._relation_tables_native(encoder)
         batch = encoder.encode_wire(
             messages, reuse=reuse, relation_tables=rel_tables
         )
-        materialize = kernel.evaluate_async(batch)
+        if tracer is not None:
+            tracer.record(span, STAGE_WIRE_ENCODE,
+                          time.perf_counter() - t_stage)
+        t_device = time.perf_counter()
+        materialize = self._guard_materialize(self._dispatch(kernel, batch))
 
         def finalize():
             decision, cacheable, status = materialize()[:3]
+            if tracer is not None:
+                tracer.record(span, STAGE_DEVICE,
+                              time.perf_counter() - t_device)
             if batch.overcap is not None and batch.overcap.any():
                 # adaptive caps, native path: rows that overflowed the
                 # floor shapes re-encode natively at the ceiling (one
@@ -833,16 +1299,25 @@ class HybridEvaluator:
                     [messages[b] for b in idx], caps=dict(_CAPS_CEIL),
                     relation_tables=rel_tables,
                 )
-                d2, c2, s2 = kernel.evaluate_async(retry)()[:3]
+                d2, c2, s2 = self._guard_materialize(
+                    self._dispatch(kernel, retry))()[:3]
                 decision = np.array(decision)
                 cacheable = np.array(cacheable)
                 status = np.array(status)
+                n_retried = 0
                 for j, b in enumerate(idx):
                     if retry.eligible[j]:
                         batch.eligible[b] = True
                         decision[b] = d2[j]
                         cacheable[b] = c2[j]
                         status[b] = s2[j]
+                        n_retried += 1
+                self._count_path("native-wire-ceil", n_retried)
+            n_served = sum(
+                1 for b in range(len(messages))
+                if batch.eligible[b] and status[b] == 200
+            )
+            self._count_path("native-wire", n_served)
             return batch, decision, cacheable, status
 
         return finalize

@@ -139,7 +139,8 @@ PyTorch version:
    it, every kernel call of it held against its plain version, every
    eligible row's (decision, cacheable, status) equal to
    ``is_allowed_batch`` on the same Request objects, 32 sampled rows equal
-   to the oracle; then a ``serve-20k`` batch with 16 deep-HR rows past the
+   to the oracle (8 at (a), whose rows phase 7 sampled); then a
+   ``serve-20k`` batch with 16 deep-HR rows past the
    floor caps, all re-encoded at the ceiling and equal to the oracle.
    Warm decisions/s over 8 batches (fresh and pooled staging) and the
    stage split, beside ``is_allowed_batch``'s on the same traffic; the
@@ -156,7 +157,36 @@ PyTorch version:
    10,000-rule cacheable tree plus 8 context-query rules, the stub
    adapter, 8,192 rows at numpy seed 23 behind a ``DecisionCache``: a cold
    pass, then warm passes whose hits equal the cold responses; the cache's
-   counts, warm decisions/s of the hit rows and of the mixed traffic.
+   counts, warm decisions/s of the hit rows and of the mixed traffic;
+22. the gRPC main path, the JAX ``bench_serving_e2e`` through the port's
+   own serving shell: a ``srv/worker.Worker`` on the card (the seed data
+   through the store, 20,000 stress rules upserted into it,
+   ``async_compile`` on, stage histograms on), a ``GrpcServer`` on
+   ``127.0.0.1:0`` and a client over loopback.  The first
+   ``IsAllowedBatch`` (8,192 rows, phase 19's traffic) with every kernel
+   call held against its plain version, every row's decision, cacheable
+   and status equal to ``is_allowed_batch`` on the same Request objects,
+   32 rows to the oracle, ``native-wire`` counting every row; warm
+   wire-to-wire decisions/s over 8 calls (beside phase 19's evaluator
+   wire rate and this worker's), the stage breakdown and the
+   collector's pauses in those calls; 64 concurrent unary callers in
+   another process x 1,024 ``IsAllowed`` at the deployed 2 ms batcher
+   window (``cfg/config.json``: round-trip p50 / p99, the rows each path
+   served, every answer equal to the oracle, the oracle's rows/s), then
+   the same calls against a second worker started with the shipped
+   ``cfg/config_unary.json`` overlay (a 10 ms window: the same answers,
+   a ``sig_decide`` launch from its batcher);
+   ``IsAllowedStream`` (4 frames through ``DevicePipeline``, each equal to
+   the batch call) and 4 concurrent batch callers (the single-caller
+   bytes); ``WhatIsAllowedBatch`` / ``WhatIsAllowed`` (64 queries, every
+   ``wia_planes`` call against its plain version, every answer equal to
+   ``engine.what_is_allowed``); a ``RuleService/Update`` that flips a
+   probe and back (time to visibility of the async full recompile, the
+   probe equal to the oracle after each); ``Health``, ``Command
+   health_check``, the restorecommerce ``IsAllowed``; every fallback
+   site's error count, every ``hang-fallback-*`` count and every
+   ``*-degraded`` count (the device path's refusals) 0.  Its first line:
+   the ``grpc`` version the server runs on.
 
 After phase 18 the K3 / K4 report: each at (a), (b), (c) and explain on
 / off at phase 18's shapes, through its wrapper (as every kernel is
@@ -186,7 +216,7 @@ and block shape.  With ``--parent-csrc DIR`` the reports also time the
 kernels built from ``DIR`` (the parent tree's ``ops/csrc``, its
 ``ops/kernel.py`` beside it) on the same arguments, both ways in the
 same windows.  ``--quick`` runs phases 1-2, 6-7 and 9-12, the K2 / K5
-report and phase 19 only (no result lines).
+report and phases 19 and 22 only (no result lines).
 
 Any mismatch or error exits non-zero.  The line before the last is the
 kernel table as one JSON object (K1-K4 carry their ``with_rel`` variant's
@@ -194,7 +224,7 @@ launches and times beside their own; ``decide_dense``, ``sig_decide``,
 ``decide_grouped``, ``set_chunk`` and ``shard_tail`` (and its ``pod``
 object) their ``explain`` variant's; ``decide_dense`` K6's;
 ``decide_dense``, ``sig_planes`` and ``sig_decide`` phase 19's launches
-(``wire``); the
+(``wire``) and phase 22's (``grpc``); the
 redesigned kernels their packed-once and parent times, ``sig_planes``
 and ``wia_planes`` also their launch floor and blocks per SM); the last
 line is
@@ -209,7 +239,9 @@ from __future__ import annotations
 import atexit
 import copy
 import ctypes
+import gc
 import json
+import multiprocessing
 import os
 import random
 import re
@@ -217,6 +249,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import zlib
 
@@ -1082,8 +1115,8 @@ def phase_end_to_end(device, n_rows: int, stats: dict):
     launches = kmod.LAUNCHES["decide_dense"]
     if launches < 1:
         raise AssertionError("the main path launched no decide_dense kernel")
-    for i, (resp, req) in enumerate(zip(responses, oracle_reqs)):
-        want = engine.is_allowed(req)
+    wants = oracle_walks(engine, oracle_reqs, range(len(oracle_reqs)))
+    for i, (resp, want) in enumerate(zip(responses, wants)):
         if response_key(resp) != response_key(want):
             raise AssertionError(
                 f"end to end row {i}: {response_key(resp)} != "
@@ -1462,6 +1495,42 @@ def phase_sig_vs_plain(device, stats: dict) -> None:
 # --------------------------------------- signature path: the main paths
 
 
+# the oracle walks of the checks are pure host code: forked processes
+# walk them side by side (none touches the card)
+ORACLE_PROCS = 6
+ORACLE_WALKS = {"forked": 0, "here": 0}
+_ORACLE = None  # (engine, requests, candidate index or None) for a walker
+
+
+def _oracle_walk(i: int):
+    engine, requests, cand = _ORACLE
+    req = copy.deepcopy(requests[i])
+    if cand is None:
+        return engine.is_allowed(req)
+    return engine.is_allowed(
+        req, candidate_rules=cand.candidates(req, engine.urns))
+
+
+def oracle_walks(engine, requests, idx, cand=None) -> list:
+    """``engine.is_allowed`` on a copy of ``requests[i]`` for each ``i``
+    of ``idx`` (over ``cand``'s candidate rules when given), in order.
+    With no other thread in this process (a fork would copy a held lock)
+    the walks run in ``ORACLE_PROCS`` forked processes, else here."""
+    global _ORACLE
+    idx = list(idx)
+    _ORACLE = (engine, requests, cand)
+    try:
+        if len(idx) < 2 * ORACLE_PROCS or threading.active_count() > 1:
+            ORACLE_WALKS["here"] += len(idx)
+            return [_oracle_walk(i) for i in idx]
+        ORACLE_WALKS["forked"] += len(idx)
+        with multiprocessing.get_context("fork").Pool(ORACLE_PROCS) as pool:
+            return pool.map(_oracle_walk, idx,
+                            chunksize=max(1, len(idx) // (4 * ORACLE_PROCS)))
+    finally:
+        _ORACLE = None
+
+
 def sample_oracle(engine, requests, responses, n: int = 32,
                   always=()) -> int:
     """``n`` random rows, and every row of ``always``, against the
@@ -1469,8 +1538,7 @@ def sample_oracle(engine, requests, responses, n: int = 32,
     idx = sorted(set(random.Random(3).sample(range(len(requests)),
                                              min(n, len(requests))))
                  | set(always))
-    for i in idx:
-        want = engine.is_allowed(copy.deepcopy(requests[i]))
+    for i, want in zip(idx, oracle_walks(engine, requests, idx)):
         if response_key(responses[i]) != response_key(want):
             raise AssertionError(f"row {i}: {response_key(responses[i])} != "
                                  f"oracle {response_key(want)}")
@@ -2667,8 +2735,8 @@ def phase_rebac(device, stats: dict, card: str, n_tuples: int,
     if check["decide_dense"]["variants"] != {(False, False, True)}:
         raise AssertionError(f"rebac-serve ran {check['decide_dense']}")
     t0 = time.perf_counter()
-    for i, req in enumerate(reqs):
-        want = engine.is_allowed(copy.deepcopy(req))
+    wants = oracle_walks(engine, reqs, range(len(reqs)))
+    for i, want in enumerate(wants):
         if response_key(responses[i]) != response_key(want):
             raise AssertionError(f"rebac-serve row {i}: "
                                  f"{response_key(responses[i])} != "
@@ -3611,12 +3679,10 @@ def phase_explain_main(device, stats: dict, card: str) -> dict:
             and check["sig_decide"].get("explain_calls")):
         raise AssertionError(f"explain main path launches {launches}")
     t0 = time.perf_counter()
-    cand = evaluator._cand[1]
+    wants = oracle_walks(engine, reqs, range(len(reqs)),
+                         cand=evaluator._cand[1])
     n_src = 0
-    for i, (resp, req) in enumerate(zip(first, reqs)):
-        want = engine.is_allowed(copy.deepcopy(req),
-                                 candidate_rules=cand.candidates(
-                                     req, engine.urns))
+    for i, (resp, want) in enumerate(zip(first, wants)):
         got_key = (resp.decision, resp.operation_status.code,
                    getattr(resp, "_rule_id", None))
         want_key = (want.decision, want.operation_status.code,
@@ -3690,8 +3756,7 @@ def phase_explain_main(device, stats: dict, card: str) -> dict:
         raise AssertionError(f"explain ACL batch launches {launches_c}")
     rows = sorted(set(random.Random(3).sample(range(len(reqs_c)), 32))
                   | set(acl_rows))
-    for i in rows:
-        want = engine.is_allowed(copy.deepcopy(reqs_c[i]))
+    for i, want in zip(rows, oracle_walks(engine, reqs_c, rows)):
         got_key = (response_key(got_c[i]), getattr(got_c[i], "_rule_id",
                                                    None))
         want_key = (response_key(want), getattr(want, "_rule_id", None))
@@ -4391,10 +4456,9 @@ def wire_check(label: str, evaluator, engine, requests, messages, expect,
     rng = random.Random(3)
     sample = sorted(set(rng.sample(list(eligible), min(32, len(eligible))))
                     | set(always))
-    for b in sample:
+    for b, want in zip(sample, oracle_walks(engine, requests, sample)):
         if not batch.eligible[b]:
             raise AssertionError(f"{label} row {b}: not served natively")
-        want = engine.is_allowed(copy.deepcopy(requests[b]))
         if _row_key(dec, cach, status, b) != _resp_key(want):
             raise AssertionError(
                 f"{label} row {b}: wire {_row_key(dec, cach, status, b)} != "
@@ -4763,6 +4827,551 @@ def phase_adapter_warm(device, stats: dict, card: str,
     return out
 
 
+# --------------------------------------------- phase 22: the gRPC main path
+
+GRPC_UNARY_CALLERS = 64
+GRPC_UNARY_CALLS = 1024
+# the unary cells: the deployed window (cfg/config.json, 2 ms), then a
+# worker started with the shipped ``unary`` overlay
+# (cfg/config_unary.json, 10 ms).  A collection under
+# ``min_kernel_batch`` (8) rows takes the single-request path, the
+# oracle, one row at a time.
+GRPC_UNARY_ENV = "unary"
+GRPC_STREAM_FRAMES = 4
+GRPC_WIA_QUERIES = 64
+GRPC_WIA_UNARY = 16
+GRPC_CONCURRENT = 4
+GRPC_FLIP_ROWS = 64
+GRPC_FLIP_TIMEOUT_S = 300.0
+# bench_all._SERVE_OBSERVABILITY: stage histograms on, span sampling off
+SERVE_OBSERVABILITY = {"observability:enabled": True,
+                       "observability:tracing:enabled": True,
+                       "observability:tracing:sample_rate": 0.0}
+# the serving shell's fallback sites (their rows answered another way)
+GRPC_ERROR_KEYS = ("native-wire-error", "stream-wire-error",
+                   "stream-wire-timeout", "batch-prepare-error",
+                   "batch-dispatch-error", "batch-finalize-error",
+                   "batch-eval-error", "wia-batch-error")
+
+
+def error_counts(paths: dict) -> dict:
+    """The non-zero counts of the fallback sites and of the device
+    path's refusals (``hang-fallback-*``, ``*-degraded``)."""
+    return {k: v for k, v in paths.items()
+            if v and (k in GRPC_ERROR_KEYS or k.startswith("hang-fallback")
+                      or k.endswith("-degraded"))}
+AC_RPC = "/acstpu.AccessControlService/"
+RC_AC_RPC = "/io.restorecommerce.access_control.AccessControlService/"
+
+
+# the unary callers run in a process of their own (as remote clients
+# would): in the server's process their threads would hold the
+# interpreter lock the handlers need, and arrivals would spread too thin
+# for the micro-batcher's window.  Arguments: address, method path,
+# callers, the file of length-prefixed request bytes, the result file.
+UNARY_CLIENT = r"""
+import struct, sys, threading, time
+from concurrent.futures import ThreadPoolExecutor
+import grpc
+addr, path, callers, src, dst = sys.argv[1:6]
+callers = int(callers)
+with open(src, "rb") as fh:
+    data = fh.read()
+msgs, i = [], 0
+while i < len(data):
+    (n,) = struct.unpack_from("<I", data, i)
+    msgs.append(data[i + 4:i + 4 + n])
+    i += 4 + n
+channel = grpc.insecure_channel(addr)
+rpc = channel.unary_unary(path)
+barrier = threading.Barrier(callers)
+out = [None] * len(msgs)
+def run(k):
+    barrier.wait(timeout=120)
+    for j in range(k, len(msgs), callers):
+        t = time.perf_counter()
+        resp = rpc(msgs[j], timeout=600)
+        out[j] = (resp, time.perf_counter() - t)
+t0 = time.perf_counter()
+with ThreadPoolExecutor(callers) as pool:
+    list(pool.map(run, range(callers)))
+wall = time.perf_counter() - t0
+channel.close()
+with open(dst, "wb") as fh:
+    fh.write(struct.pack("<d", wall))
+    for resp, dt in out:
+        fh.write(struct.pack("<dI", dt, len(resp)) + resp)
+"""
+
+
+def unary_calls_elsewhere(addr: str, path: str, messages: list[bytes],
+                          callers: int) -> tuple[list, float]:
+    """``messages`` as unary calls from ``callers`` threads of another
+    process, started together; returns ([(response bytes, round-trip
+    s)], wall s)."""
+    import struct
+
+    tmp = tempfile.mkdtemp(prefix="acs-unary-")
+    try:
+        src, dst = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+        with open(src, "wb") as fh:
+            for m in messages:
+                fh.write(struct.pack("<I", len(m)) + m)
+        subprocess.run([sys.executable, "-c", UNARY_CLIENT, addr, path,
+                        str(callers), src, dst], check=True, timeout=900)
+        with open(dst, "rb") as fh:
+            data = fh.read()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    (wall,) = struct.unpack_from("<d", data, 0)
+    out, i = [], 8
+    while i < len(data):
+        dt, n = struct.unpack_from("<dI", data, i)
+        out.append((data[i + 12:i + 12 + n], dt))
+        i += 12 + n
+    return out, wall
+
+
+def store_docs(doc) -> tuple[list, list, list]:
+    """(policy sets, policies, rules) of a nested ``policy_sets``
+    document as the policy store keeps them, children referenced by id:
+    what the JAX ``bench_serving_e2e`` upserts into its seeded worker."""
+    sets, policies, rules = [], [], []
+    for ps in doc["policy_sets"]:
+        sets.append({**{k: v for k, v in ps.items() if k != "policies"},
+                     "policies": [p["id"] for p in ps["policies"]]})
+        for pol in ps["policies"]:
+            policies.append({**{k: v for k, v in pol.items()
+                                if k != "rules"},
+                             "rules": [r["id"] for r in pol["rules"]]})
+            rules.extend(copy.deepcopy(pol["rules"]))
+    return sets, policies, rules
+
+
+def batch_envelope(messages: list[bytes]) -> bytes:
+    """``acstpu.BatchRequest`` bytes: each request one field-1 frame."""
+    return b"".join(_field(1, m) for m in messages)
+
+
+def serving_worker(device, env: str = ""):
+    """The JAX ``bench_serving_e2e`` worker: ``cfg/config.json`` (with
+    its ``cfg/config_<env>.json`` overlay when ``env`` names one), the
+    seed data through the store, ``stress_doc(SERVE_RULES)`` upserted
+    into it and compiled, stage histograms on."""
+    from access_control_srv_tpu_torch.srv.config import Config
+    from access_control_srv_tpu_torch.srv.worker import Worker
+
+    seed = os.path.join(REPO, "data", "seed_data")
+    cfg = Config.load(os.path.join(REPO, "cfg"), env=env)
+    cfg.set("policies:type", "database")
+    cfg.set("seed_data", {k: os.path.join(seed, f"{k}.yaml")
+                          for k in ("policy_sets", "policies", "rules")})
+    for path, value in SERVE_OBSERVABILITY.items():
+        cfg.set(path, value)
+    worker = Worker().start(cfg, device=device)
+    try:
+        worker.store.seed(*store_docs(stress_doc(SERVE_RULES)))
+        worker.evaluator.refresh(wait=True)
+    except BaseException:
+        worker.stop()
+        raise
+    return worker
+
+
+def unary_cell(worker, addr: str, messages: list[bytes], card: str,
+               label: str) -> dict:
+    """``messages`` as unary ``IsAllowed`` calls from
+    ``GRPC_UNARY_CALLERS`` callers in another process through
+    ``worker``'s micro-batcher: the launch counts set to 0 just before
+    and read just after, the rows each path served, the round trip p50 /
+    p99 and the calls/s.  Rows of a batch count under ``kernel`` /
+    ``oracle``; a collection under ``min_kernel_batch`` rows takes the
+    single-request path (the oracle), which counts no path, so its rows
+    are the rest.  ``answers`` holds the response bytes."""
+    tel = worker.telemetry
+    before = tel.paths.snapshot()
+    reset_launches()
+    results, wall = unary_calls_elsewhere(addr, AC_RPC + "IsAllowed",
+                                          messages, GRPC_UNARY_CALLERS)
+    launches = dict(kmod.LAUNCHES)
+    paths = {k: v - before.get(k, 0)
+             for k, v in tel.paths.snapshot().items()
+             if v != before.get(k, 0)}
+    lat = sorted(t for _, t in results)
+    batched = paths.get("kernel", 0) + paths.get("oracle", 0)
+    cell = {"calls": len(messages), "callers": GRPC_UNARY_CALLERS,
+            "window_ms": worker.cfg.get("evaluator:micro_batch_window_ms"),
+            "p50_ms": lat[len(lat) // 2] * 1e3,
+            "p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))] * 1e3,
+            "calls_per_s": len(messages) / wall, "launches": launches,
+            "batched_rows": batched,
+            "single_request_rows": len(messages) - batched
+            - paths.get("cache-hit", 0),
+            "paths": paths, "answers": [r for r, _ in results]}
+    log(f"  unary IsAllowed on {card}, {label}, {cell['window_ms']} ms "
+        f"window: {GRPC_UNARY_CALLERS} callers in another process, "
+        f"{len(messages)} calls, round trip p50 {cell['p50_ms']:.3f} ms, "
+        f"p99 {cell['p99_ms']:.3f} ms, {cell['calls_per_s']:.0f} calls/s; "
+        f"{batched} rows in kernel-sized batches, "
+        f"{cell['single_request_rows']} on the single-request path; rows "
+        f"by path {json.dumps(paths)}; launches {launches}")
+    return cell
+
+
+def stage_breakdown(telemetry) -> dict:
+    """``bench_all._stage_breakdown``: per stage the count, total s and
+    interpolated p50 / p99 ms of the window since the histograms were
+    cleared."""
+    out = {}
+    for stage, snap in sorted((telemetry.snapshot().get("stages")
+                               or {}).items()):
+        if snap["count"]:
+            out[stage] = {
+                "count": snap["count"], "total_s": round(snap["sum_s"], 6),
+                "p50_ms": None if snap["p50_s"] is None
+                else round(snap["p50_s"] * 1e3, 4),
+                "p99_ms": None if snap["p99_s"] is None
+                else round(snap["p99_s"] * 1e3, 4)}
+    return out
+
+
+def _pb_key(msg) -> tuple:
+    st = msg.operation_status
+    return (int(msg.decision), bool(msg.evaluation_cacheable), int(st.code),
+            st.message)
+
+
+def _add_launches(out: dict) -> None:
+    for k, v in kmod.LAUNCHES.items():
+        out[k] = out.get(k, 0) + v
+
+
+def phase_grpc(device, stats: dict, card: str, wire_rate: float) -> dict:
+    """Phase 22: ``serve-20k`` through the port's own serving shell: a
+    ``Worker`` on the card, a ``GrpcServer`` on ``127.0.0.1:0`` and a
+    client over loopback (the JAX package's ``bench_serving_e2e``).
+    ``wire_rate`` is phase 19's evaluator-wire decisions/s on the same
+    rows, printed beside the RPC's."""
+    import grpc
+
+    from access_control_srv_tpu_torch.srv import transport_grpc as tg
+    from access_control_srv_tpu_torch.srv.gen import access_control_pb2 as pb
+    from access_control_srv_tpu_torch.srv.gen.rc import (
+        access_control_pb2 as rc_ac,
+    )
+
+    log(f"  grpc: present {grpc.__version__} (a GrpcServer on "
+        f"127.0.0.1:0, the client over loopback)")
+    out: dict = {"launches": {}}
+    t0 = time.perf_counter()
+    rows, calls = SERVE_ROWS, WIRE_BATCHES
+    worker = serving_worker(device)
+    server = tg.GrpcServer(worker, "127.0.0.1:0").start()
+    client = tg.GrpcClient(server.addr)
+    ev, engine, tel = worker.evaluator, worker.engine, worker.telemetry
+    log(f"  worker on {ev.device}: {ev._compiled.n_rules} rules, native "
+        f"encoder {ev.native_active}, started and compiled in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def rpc(method: str, payload: bytes, prefix: str = AC_RPC) -> bytes:
+        return client.channel.unary_unary(prefix + method)(payload,
+                                                           timeout=600)
+
+    try:
+        if not ev.native_active:
+            raise AssertionError("phase 22: the native encoder is not active")
+        reqs = stress_traffic(rows, seed=11)
+        msgs = [wire_bytes(r) for r in reqs]
+        payload = batch_envelope(msgs)
+
+        # IsAllowedBatch: the first batch, every kernel call held
+        tel.paths.clear()
+        raw, launches, _ = checked_call(
+            "grpc IsAllowedBatch", lambda: rpc("IsAllowedBatch", payload),
+            ("sig_planes", "sig_decide"), stats)
+        _add_launches(out["launches"])
+        first_paths = tel.paths.snapshot()
+        got = pb.BatchResponse.FromString(raw).responses
+        if len(got) != rows:
+            raise AssertionError(f"phase 22: {len(got)} responses for "
+                                 f"{rows} rows")
+        if first_paths.get("native-wire", 0) != rows:
+            raise AssertionError(f"phase 22: native-wire counted "
+                                 f"{first_paths} for {rows} rows")
+        ref = ev.is_allowed_batch(copy.deepcopy(reqs))
+        for b in range(rows):
+            want = _pb_key(tg.response_to_pb(ref[b]))
+            if _pb_key(got[b]) != want:
+                raise AssertionError(f"phase 22 row {b}: rpc "
+                                     f"{_pb_key(got[b])} != is_allowed_batch "
+                                     f"{want}")
+        for b in sorted(random.Random(3).sample(range(rows), min(32, rows))):
+            want = _pb_key(tg.response_to_pb(
+                engine.is_allowed(copy.deepcopy(reqs[b]))))
+            if _pb_key(got[b]) != want:
+                raise AssertionError(f"phase 22 row {b}: rpc "
+                                     f"{_pb_key(got[b])} != oracle {want}")
+        log(f"  IsAllowedBatch {rows} rows: launches {launches}; every kernel "
+            f"call equal to its plain version; every row equal to "
+            f"is_allowed_batch (decision, cacheable, status); 32 sampled "
+            f"rows equal to the oracle; native-wire counted every row")
+
+        # warm wire-to-wire rate, the stage breakdown, the evaluator's
+        # wire call on the same rows in the same worker
+        rpc("IsAllowedBatch", payload)
+        tel.stages.clear()
+        pauses = []
+
+        def on_gc(phase: str, info: dict, start=[0.0]) -> None:
+            # the collector runs one collection at a time, whichever
+            # thread triggers it: each start pairs with the next stop
+            if phase == "start":
+                start[0] = time.perf_counter()
+            else:
+                pauses.append((info["generation"],
+                               time.perf_counter() - start[0]))
+
+        gc.callbacks.append(on_gc)
+        try:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                rpc("IsAllowedBatch", payload)
+            dt = (time.perf_counter() - t0) / calls
+        finally:
+            gc.callbacks.remove(on_gc)
+        out["stages"] = stage_breakdown(tel)
+        out["gc"] = {f"gen{g}": {
+            "collections": sum(1 for k, _ in pauses if k == g),
+            "total_ms": sum(t for k, t in pauses if k == g) * 1e3,
+            "max_ms": max((t for k, t in pauses if k == g), default=0.0)
+            * 1e3} for g in range(3)}
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            ev.is_allowed_batch_wire(msgs)
+        dt_ev = (time.perf_counter() - t0) / calls
+        out.update(rows=rows, calls=calls, batch_ms=dt * 1e3,
+                   decisions_per_s=rows / dt,
+                   evaluator_wire_decisions_per_s=rows / dt_ev,
+                   evaluator_wire_batch_ms=dt_ev * 1e3)
+        log(f"  wire-to-wire on {card}: {rows / dt:.0f} decisions/s over "
+            f"{calls} IsAllowedBatch calls of {rows} rows ({dt * 1e3:.3f} ms "
+            f"a call); phase 19's evaluator wire {wire_rate:.0f} "
+            f"decisions/s; this worker's is_allowed_batch_wire "
+            f"{rows / dt_ev:.0f} decisions/s ({dt_ev * 1e3:.3f} ms) on the "
+            f"same rows")
+        log(f"  stage breakdown on {card}: {json.dumps(out['stages'])}")
+        log(f"  the collector in this process during those {calls} calls "
+            f"(gc.callbacks): {json.dumps(out['gc'])}")
+
+        # unary IsAllowed at the deployed window: concurrent callers
+        # through the micro-batcher
+        ureqs = stress_traffic(GRPC_UNARY_CALLS, seed=19)
+        umsgs = [wire_bytes(r) for r in ureqs]
+        deployed = unary_cell(worker, server.addr, umsgs, card,
+                              "cfg/config.json")
+        answers = deployed.pop("answers")
+        _add_launches(out["launches"])
+        walk_s = 0.0
+        for i, resp in enumerate(answers):
+            req = copy.deepcopy(ureqs[i])
+            t0 = time.perf_counter()
+            want = ev._oracle_is_allowed(req)
+            walk_s += time.perf_counter() - t0
+            if resp != tg.response_to_pb(want).SerializeToString():
+                raise AssertionError(f"phase 22 unary {i}: != the oracle")
+        for i in random.Random(4).sample(range(GRPC_UNARY_CALLS), 32):
+            want = tg.response_to_pb(engine.is_allowed(
+                copy.deepcopy(ureqs[i]))).SerializeToString()
+            if answers[i] != want:
+                raise AssertionError(f"phase 22 unary {i}: != the "
+                                     "unfiltered oracle")
+        deployed["oracle_rows_per_s"] = GRPC_UNARY_CALLS / walk_s
+        log(f"  unary IsAllowed: every answer equal to the "
+            f"candidate-filtered oracle, 32 to the unfiltered oracle; that "
+            f"oracle walks {deployed['oracle_rows_per_s']:.0f} rows/s on "
+            f"one thread of this process")
+
+        # the same calls against a worker started with the shipped
+        # ``unary`` overlay: its window collects kernel-sized batches
+        uworker = serving_worker(device, env=GRPC_UNARY_ENV)
+        userver = tg.GrpcServer(uworker, "127.0.0.1:0").start()
+        try:
+            overlay = unary_cell(
+                uworker, userver.addr, umsgs, card,
+                f"cfg/config_{GRPC_UNARY_ENV}.json")
+            overlay["errors"] = error_counts(uworker.telemetry.paths.snapshot())
+        finally:
+            userver.stop(0)
+            uworker.stop()
+        _add_launches(out["launches"])
+        if overlay.pop("answers") != answers:
+            raise AssertionError("phase 22: the unary overlay's answers "
+                                 "differ from the deployed window's")
+        if overlay["launches"]["sig_decide"] < 1:
+            raise AssertionError("phase 22: no unary batch reached "
+                                 "sig_decide through the batcher")
+        if overlay["errors"]:
+            raise AssertionError(f"phase 22: unary overlay error counts "
+                                 f"{overlay['errors']}")
+        out["unary"] = {"deployed": deployed, GRPC_UNARY_ENV: overlay}
+        log(f"  unary IsAllowed: the overlay's answers equal the deployed "
+            f"window's; sig_decide launched "
+            f"{overlay['launches']['sig_decide']} times from its batcher")
+
+        # IsAllowedStream through DevicePipeline, and the same frames from
+        # concurrent IsAllowedBatch callers
+        step = rows // GRPC_STREAM_FRAMES
+        frames = [batch_envelope(msgs[i * step:(i + 1) * step])
+                  for i in range(GRPC_STREAM_FRAMES)]
+        single = [rpc("IsAllowedBatch", f) for f in frames]
+        streamed = list(client.channel.stream_stream(
+            AC_RPC + "IsAllowedStream")(iter(frames), timeout=600))
+        if streamed != single:
+            raise AssertionError("phase 22: a stream frame differs from the "
+                                 "batch call on the same rows")
+        import threading
+        from concurrent.futures import ThreadPoolExecutor
+
+        barrier = threading.Barrier(GRPC_CONCURRENT)
+
+        def racer(k: int) -> list:
+            barrier.wait(timeout=60)
+            return [rpc("IsAllowedBatch", frames[k % len(frames)])
+                    for _ in range(2)]
+
+        with ThreadPoolExecutor(GRPC_CONCURRENT) as pool:
+            raced = list(pool.map(racer, range(GRPC_CONCURRENT)))
+        for k, answers in enumerate(raced):
+            if any(a != single[k % len(frames)] for a in answers):
+                raise AssertionError(f"phase 22: concurrent caller {k} got "
+                                     "other bytes than a single caller")
+        log(f"  IsAllowedStream: {len(frames)} frames of {step} rows, each "
+            f"equal to the batch call; {GRPC_CONCURRENT} concurrent "
+            f"IsAllowedBatch callers x 2 calls got the single-caller bytes")
+
+        # whatIsAllowed, batch and unary
+        wreqs = stress_traffic(GRPC_WIA_QUERIES, seed=29)
+        wmsgs = [wire_bytes(r) for r in wreqs]
+        wia_stats: dict = {}
+        reset_launches()
+        with WiaCheck(wia_stats):
+            wraw = rpc("WhatIsAllowedBatch", batch_envelope(wmsgs))
+            wunary = [rpc("WhatIsAllowed", m) for m in wmsgs[:GRPC_WIA_UNARY]]
+        wlaunch = dict(kmod.LAUNCHES)
+        _add_launches(out["launches"])
+        st = stats.setdefault("wia_planes", {"calls": 0, "max_abs_err": 0})
+        st["max_abs_err"] = max(st["max_abs_err"],
+                                wia_stats.get("wia_planes", {}).get(
+                                    "max_abs_err", 0))
+        if wlaunch["wia_planes"] < 1:
+            raise AssertionError("phase 22: whatIsAllowed launched no "
+                                 "wia_planes")
+        wgot = pb.BatchReverseQuery.FromString(wraw).responses
+        for i, r in enumerate(wreqs):
+            want = tg.reverse_query_to_pb(
+                engine.what_is_allowed(copy.deepcopy(r))).SerializeToString()
+            if wgot[i].SerializeToString() != want or (
+                    i < len(wunary) and wunary[i] != want):
+                raise AssertionError(f"phase 22 whatIsAllowed {i}: != "
+                                     "engine.what_is_allowed")
+        log(f"  WhatIsAllowedBatch {GRPC_WIA_QUERIES} queries and "
+            f"{len(wunary)} WhatIsAllowed: launches {wlaunch}; every "
+            f"wia_planes call equal to its plain version; every answer "
+            f"equal to engine.what_is_allowed")
+
+        # a CRUD flip over gRPC, async full recompile
+        out["crud"] = grpc_crud_flip(rpc, pb, engine, tg)
+        c = out["crud"]
+        log(f"  CRUD flip on {card}: RuleService/Update "
+            f"{c['update_ms'][0]:.1f} / {c['update_ms'][1]:.1f} ms, time to "
+            f"visibility (full recompile, async) {c['visibility_s'][0]:.3f} "
+            f"/ {c['visibility_s'][1]:.3f} s (flip / flip back); the probe "
+            f"equal to the oracle after each")
+
+        # the rest of the surface
+        health = pb.HealthCheckResponse.FromString(
+            rpc("Check", pb.HealthCheckRequest().SerializeToString(),
+                prefix="/acstpu.Health/"))
+        cmd = client.command("health_check")
+        if health.status != "SERVING" or cmd.get("status") != "SERVING":
+            raise AssertionError(f"phase 22: health {health.status}, "
+                                 f"health_check {cmd.get('status')}")
+        rc_raw = rpc("IsAllowed", umsgs[0], prefix=RC_AC_RPC)
+        rc_resp = rc_ac.Response.FromString(rc_raw)
+        ac_resp = pb.Response.FromString(rpc("IsAllowed", umsgs[0]))
+        rc_key = (rc_ac.Response.Decision.Name(rc_resp.decision),
+                  rc_resp.evaluation_cacheable,
+                  rc_resp.operation_status.code,
+                  rc_resp.operation_status.message)
+        ac_key = (pb.Decision.Name(ac_resp.decision),
+                  ac_resp.evaluation_cacheable,
+                  ac_resp.operation_status.code,
+                  ac_resp.operation_status.message)
+        if rc_key != ac_key:
+            raise AssertionError(f"phase 22: restorecommerce IsAllowed "
+                                 f"{rc_key} != acstpu {ac_key}")
+        log(f"  Health {health.status}; Command health_check "
+            f"{cmd['status']} (policy_update {json.dumps(cmd.get('policy_update'))}); "
+            f"restorecommerce IsAllowed {rc_key} equal to the acstpu answer")
+
+        paths = tel.paths.snapshot()
+        bad = error_counts(paths)
+        if bad:
+            raise AssertionError(f"phase 22: error counts {bad}")
+        out["paths"] = paths
+        log(f"  paths since the first batch: {json.dumps(paths)}; every "
+            f"error, hang-fallback and degraded count 0")
+    finally:
+        client.close()
+        server.stop(0)
+        worker.stop()
+    return out
+
+
+def grpc_crud_flip(rpc, pb, engine, tg) -> dict:
+    """``RuleService/Update`` moves stress rule ``r1`` onto a fresh role,
+    so a probe of that role goes from INDETERMINATE to PERMIT, then back:
+    each time the probe (``GRPC_FLIP_ROWS`` copies through the native
+    wire path) is polled until the new tree serves, and then equals the
+    oracle."""
+    read = pb.RuleListResponse.FromString(
+        rpc("Read", pb.ReadRequest(ids=["r1"]).SerializeToString(),
+            prefix="/acstpu.RuleService/"))
+    original = read.items[0]
+    flipped = pb.Rule()
+    flipped.CopyFrom(original)
+    flipped.target.subjects[0].value = "probe-role"
+    probe = copy.deepcopy(stress_traffic(1, seed=31)[0])
+    probe.target.subjects[0].value = "probe-role"
+    probe.context["subject"]["role_associations"][0]["role"] = "probe-role"
+    probe.target.resources[0].value = original.target.resources[0].value
+    probe.target.actions[0].value = original.target.actions[0].value
+    probe_batch = batch_envelope([wire_bytes(probe)] * GRPC_FLIP_ROWS)
+    out = {"update_ms": [], "visibility_s": [], "decisions": []}
+    for rule, want in ((flipped, pb.PERMIT), (original, pb.INDETERMINATE)):
+        t0 = time.perf_counter()
+        rpc("Update", pb.RuleList(items=[rule]).SerializeToString(),
+            prefix="/acstpu.RuleService/")
+        t1 = time.perf_counter()
+        while True:
+            got = pb.BatchResponse.FromString(
+                rpc("IsAllowedBatch", probe_batch)).responses
+            if all(r.decision == want for r in got):
+                break
+            if time.perf_counter() - t0 > GRPC_FLIP_TIMEOUT_S:
+                raise AssertionError("phase 22: the CRUD flip never served")
+            time.sleep(0.005)
+        t2 = time.perf_counter()
+        oracle = tg.response_to_pb(engine.is_allowed(copy.deepcopy(probe)))
+        if _pb_key(got[0]) != _pb_key(oracle):
+            raise AssertionError(f"phase 22: flipped probe {_pb_key(got[0])}"
+                                 f" != oracle {_pb_key(oracle)}")
+        out["update_ms"].append((t1 - t0) * 1e3)
+        out["visibility_s"].append(t2 - t0)
+        out["decisions"].append(pb.Decision.Name(got[0].decision))
+    return out
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -4833,7 +5442,10 @@ def main(argv: list[str]) -> int:
         planes_report(planes_cases(sig, rel, wia, wl, lat), ptx, card,
                       sig_stats)
         stamp("phase 19: the wire main path (serve-20k, (a), scoped_511)")
-        phase_wire(device, sig_stats, card, sig.pop("wire_a"))
+        wire = phase_wire(device, sig_stats, card, sig.pop("wire_a"))
+        stamp("phase 22: the gRPC main path (serve-20k over loopback)")
+        phase_grpc(device, sig_stats, card,
+                   wire["serve-20k"]["decisions_per_s"])
         log(f"  quick run: {time.perf_counter() - t_start:.1f} s in all")
         return 0
 
@@ -4930,11 +5542,16 @@ def main(argv: list[str]) -> int:
     stamp("phase 21: adapter-mixed-warm (decision cache, 10,008 rules, "
           "8,192 rows)")
     phase_adapter_warm(device, sig_stats, card)
+    stamp("phase 22: the gRPC main path (Worker, GrpcServer and client over "
+          "loopback: serve-20k)")
+    grpc_out = phase_grpc(device, sig_stats, card,
+                          wire["serve-20k"]["decisions_per_s"])
     log(f"  launches: wia-large first batch {wl['launches']['wia_planes']}, "
         f"warm 0; lattice warm sweep {lat['warm_launches']}, timed sweep "
         f"{lat['timed_launches']}")
     log(f"  max_memory_allocated {torch.cuda.max_memory_allocated()} bytes "
         f"on {card}")
+    log(f"  oracle walks of the checks: {json.dumps(ORACLE_WALKS)}")
     log(f"  sources: {json.dumps(list(SOURCES))}; "
         f"{time.perf_counter() - t_start:.1f} s in all")
 
@@ -5025,6 +5642,9 @@ def main(argv: list[str]) -> int:
         if r["name"] in wire["launches"]:
             # phase 19's launches, beside the main path's of phases 5 / 7
             r["wire"] = {"launches": wire["launches"][r["name"]]}
+        if grpc_out["launches"].get(r["name"]):
+            # phase 22's launches through the gRPC serving shell
+            r["grpc"] = {"launches": grpc_out["launches"][r["name"]]}
         if r["name"] in rel_rows:
             t = rel_rows[r["name"]]
             r["with_rel"] = {
@@ -5042,7 +5662,8 @@ def main(argv: list[str]) -> int:
         **{k: r[k] for k in PACKED_KEYS + PLANES_KEYS + ("yardstick_ms",)
            if k in r},
         **({"with_rel": r["with_rel"]} if "with_rel" in r else {}),
-        **{k: r[k] for k in ("explain", "k6", "pod", "wire") if k in r},
+        **{k: r[k] for k in ("explain", "k6", "pod", "wire", "grpc")
+           if k in r},
     } for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -158,6 +158,24 @@ import access_control_srv_tpu_torch.parallel.pod_shard
 import access_control_srv_tpu_torch.parallel.rule_shard
 import access_control_srv_tpu_torch.ops.shard_ref
 import access_control_srv_tpu_torch.ops.delta
+import access_control_srv_tpu_torch.srv
+import access_control_srv_tpu_torch.srv.clock
+import access_control_srv_tpu_torch.srv.config
+import access_control_srv_tpu_torch.srv.telemetry
+import access_control_srv_tpu_torch.srv.tracing
+import access_control_srv_tpu_torch.srv.admission
+import access_control_srv_tpu_torch.srv.watchdog
+import access_control_srv_tpu_torch.srv.store
+import access_control_srv_tpu_torch.srv.service
+import access_control_srv_tpu_torch.srv.batcher
+import access_control_srv_tpu_torch.srv.command
+import access_control_srv_tpu_torch.srv.pipeline
+import access_control_srv_tpu_torch.srv.transport_grpc
+import access_control_srv_tpu_torch.srv.transport_rc
+import access_control_srv_tpu_torch.srv.worker
+import access_control_srv_tpu_torch.srv.gen.rc.health_pb2
+import access_control_srv_tpu_torch.__main__
+import access_control_srv_tpu_torch.healthcheck
 import tests.torch_world
 import chip_smoke
 bad = [m for m in sys.modules
@@ -186,6 +204,14 @@ def test_no_reference_import_lines():
         "__init__.py", "cluster.py", "mesh.py", "pod_shard.py",
         "rule_shard.py")} <= set(files)
     assert os.path.join(PORT, "ops", "shard_ref.py") in files
+    # the serving shell
+    assert {os.path.join(PORT, "srv", n + ".py") for n in (
+        "clock", "config", "telemetry", "tracing", "admission", "watchdog",
+        "store", "service", "batcher", "command", "pipeline",
+        "transport_grpc", "transport_rc", "worker")} <= set(files)
+    assert {os.path.join(PORT, n) for n in ("__main__.py", "healthcheck.py")
+            } <= set(files)
+    assert os.path.join(PORT, "srv", "gen", "rc", "health_pb2.py") in files
     for path in files:
         with open(path) as fh:
             assert not pattern.search(fh.read()), path
