@@ -78,8 +78,8 @@ from .shard_ref import (
 )
 
 __all__ = [
-    "BIG", "DecisionKernel", "LAUNCHES", "ORIG_TABLE", "SlotLayout",
-    "TailTables",
+    "BIG", "DecisionKernel", "LAUNCHES", "ORIG_TABLE", "Runner",
+    "SlotLayout", "TailTables",
     "decide_dense", "decide_grouped", "grouped_layout",
     "lead_padding", "pack_rule_key", "pad_cols", "pow2_bucket",
     "resolve_device", "rows_tiles", "rule_chunk", "set_chunk", "shard_tail",
@@ -1413,15 +1413,58 @@ def wia_planes_floor(tables: dict, rows, schedule: tuple, rgx_set, pfx_neq
     return floor
 
 
+class Runner:
+    """One kernel variant's launcher, what the port keeps in a
+    ``shared_jits`` registry where the JAX package keeps a jitted
+    callable, under the same key.  It names the wrapper (looked up in
+    ``scope``, the calling module's globals, at each call) and binds the
+    variant's flags, which follow the call's own positional arguments.
+    The kernels take their shapes at run time: the libraries behind the
+    wrappers are built and loaded once per process (``_libs``,
+    ``cuda_build``) and the launch sizing is cached per shapes
+    (``rows_tiles``), so a kernel object built over patched tables
+    reuses its runners and adds no build and no load."""
+
+    def __init__(self, scope: dict, name: str, *flags, **kw):
+        self.scope = scope
+        self.name = name
+        self.flags = flags
+        self.kw = kw
+
+    def __call__(self, *args, **kw):
+        return self.scope[self.name](*args, *self.flags, **self.kw, **kw)
+
+
+def runner(registry: dict, shared: bool, key: tuple, scope: dict,
+           name: str, *flags, **kw) -> Runner:
+    """The runner under ``key``: taken from (and, when new, put into)
+    ``registry`` when ``shared`` (``dynamic_policies``), else a new one."""
+    run = registry.get(key) if shared else None
+    if run is None:
+        run = Runner(scope, name, *flags, **kw)
+        if shared:
+            registry[key] = run
+    return run
+
+
 class DecisionKernel:
     """Compiled-policy decision kernel: the policy tables live on
     ``device`` (``None`` = the CUDA device) and each batch is one call of
     ``decide_dense``.  ``explain=True`` adds the provenance code as a
     fourth output, its positions in ``explain_strides`` = (KP, KR) of the
     compiled tables (through ``rule_orig_flat`` when the tables carry
-    it)."""
+    it).
+
+    ``dynamic_policies=True`` (the hot-update mode, ops/delta.py)
+    registers the two runners (the ACL and no-ACL variants) in
+    ``shared_jits`` under the JAX package's keys (``("dense", with_acl,
+    with_hr, with_rel)``, ``"explain"`` appended in explain mode), so a
+    kernel swapped in over patched tables of the same shapes reuses
+    them (``Runner``)."""
 
     def __init__(self, compiled: CompiledPolicies, device=None,
+                 dynamic_policies: bool = False,
+                 shared_jits: dict | None = None,
                  explain: bool = False):
         if not compiled.supported:
             raise ValueError(
@@ -1429,15 +1472,24 @@ class DecisionKernel:
             )
         self.compiled = compiled
         self.device = resolve_device(device)
+        self.dynamic_policies = bool(dynamic_policies)
+        self._shared = shared_jits if shared_jits is not None else {}
         self.explain = bool(explain)
         self.explain_strides = (compiled.KP, compiled.KR)
         # explain-off launches pass no keyword: their calls are unchanged
-        self._explain_kw = {"explain": True} if explain else {}
+        explain_kw = {"explain": True} if explain else {}
         self.with_hr = tree_needs_hr(compiled.arrays)
         self.with_rel = tree_needs_rel(compiled.arrays)
         self._c = tables_from_numpy(compiled.arrays, self.device,
                                     keys=TABLE_ARRAYS,
                                     optional=(ORIG_TABLE,))
+        tail = ("explain",) if explain else ()
+        self._run_noacl, self._run_acl = (
+            runner(self._shared, self.dynamic_policies,
+                   ("dense", acl, self.with_hr, self.with_rel) + tail,
+                   globals(), "decide_dense", acl, self.with_hr,
+                   self.with_rel, **explain_kw)
+            for acl in (False, True))
 
     def evaluate(self, batch: RequestBatch):
         """Returns (decision, cacheable, status) numpy arrays [B], and the
@@ -1457,8 +1509,8 @@ class DecisionKernel:
         planes: every relation check fails closed)."""
         with_acl = bool((np.asarray(batch.arrays["r_acl_ent"]) >= 0).any())
         b, r = batch_from_numpy(batch, self.device, keys=ROW_ARRAYS)
-        return readback(decide_dense(self._c, r, with_acl, self.with_hr,
-                                     self.with_rel, **self._explain_kw), b)
+        run = self._run_acl if with_acl else self._run_noacl
+        return readback(run(self._c, r), b)
 
 
 def readback(out: torch.Tensor, b: int):

@@ -49,9 +49,16 @@ another rank decides, summed).
 kernel's explain mode): the compacted subtrees then record each slot's
 original flat position (``rule_orig_flat``), which K3 and K4 map the
 winning rule through, so the codes decode with the uncompacted strides
-``explain_strides = (KP, KR)``.  Not ported yet, and refused with
-``NotImplementedError`` naming the slice: ``dynamic_policies`` /
-``shared_jits``.
+``explain_strides = (KP, KR)``.
+
+``dynamic_policies=True`` (the hot-update mode, ops/delta.py) registers
+the kernel's runners (``kernel.Runner``: ``sig_planes`` under the JAX
+package's ``("bits", needs_hr, needs_rel)``, ``sig_decide`` under
+``("sig", schedule, needs_pairs, with_hr, with_rel)``, ``decide_grouped``
+under ``("pref", (with_acl, with_hr, with_rel))``, ``"explain"``
+appended in explain mode, and the dense delegate's) in ``shared_jits``,
+so a kernel swapped in over patched tables reuses them: no build and no
+library load.
 """
 
 from __future__ import annotations
@@ -75,12 +82,14 @@ from .kernel import (
     ORIG_TABLE,
     DecisionKernel,
     ROW_ARRAYS,
+    Runner,
     TABLE_ARRAYS,
     carve,
     carve_plan,
     decide_grouped,
     readback,
     resolve_device,
+    runner,
     sig_decide,
     sig_planes,
     slot_layout,
@@ -270,17 +279,20 @@ class PrefilteredKernel:
         the slot maps (pinned when the device is CUDA).
 
         ``mesh``: a ``parallel.mesh.Mesh``; requests shard over its
-        ``axis`` and the tables live on the mesh's device."""
+        ``axis`` and the tables live on the mesh's device.
+
+        ``dynamic_policies``: the hot-update mode (ops/delta.py): the
+        kernel's runners live in ``shared_jits`` (see the module
+        docstring), so a kernel swapped in over patched tables of the
+        same shapes reuses them."""
         if not compiled.supported:
             raise ValueError(
                 f"policy tree unsupported by kernel: {compiled.unsupported_reason}"
             )
-        if dynamic_policies or shared_jits is not None:
-            raise NotImplementedError(
-                "dynamic_policies / shared_jits (hot delta patching): not "
-                "ported yet (delta slice)"
-            )
         self.compiled = compiled
+        self.dynamic_policies = bool(dynamic_policies)
+        self._shared = shared_jits if shared_jits is not None else {}
+        self._runs: dict[tuple, Runner] = {}
         self.mesh = mesh
         self.axis = axis
         self.explain = bool(explain)
@@ -316,8 +328,10 @@ class PrefilteredKernel:
                 self._dense = ShardedDecisionKernel(compiled, mesh, axis,
                                                     explain=self.explain)
             else:
-                self._dense = DecisionKernel(compiled, device=self.device,
-                                             explain=self.explain)
+                self._dense = DecisionKernel(
+                    compiled, device=self.device,
+                    dynamic_policies=dynamic_policies,
+                    shared_jits=self._shared, explain=self.explain)
         self._c_inv = tables_from_numpy(compiled.arrays, self.device,
                                         keys=INVARIANT_TABLES)
 
@@ -325,6 +339,21 @@ class PrefilteredKernel:
     def _count(self, key: str, n: int = 1) -> None:
         if self.telemetry is not None and n:
             self.telemetry.paths.inc(key, n)
+
+    def _runner(self, key: tuple, name: str, *flags,
+                explains: bool = True) -> Runner:
+        """The runner of wrapper ``name`` in the variant ``flags`` under
+        the JAX package's ``key`` (``"explain"`` appended in explain mode
+        where the wrapper ``explains``): this kernel's own, else the
+        shared registry's in ``dynamic_policies`` mode, else a new one."""
+        kw = self._explain_kw if explains else {}
+        key = key + (("explain",) if kw else ())
+        run = self._runs.get(key)
+        if run is None:
+            run = self._runs[key] = runner(
+                self._shared, self.dynamic_policies, key, globals(), name,
+                *flags, **kw)
+        return run
 
     def _sub(self, key, ent_ids, ent_cols, op_ids, act_vals,
              rgx_set) -> CompiledPolicies:
@@ -432,9 +461,10 @@ class PrefilteredKernel:
                     v[...] = pseudo[k]
                 packed = self.staging.tensor(host)[:nbytes].to(
                     self.device, non_blocking=True)
-                bits = sig_planes(stack.tables, self._c_inv,
-                                  carve(packed, plan), self.needs_hr,
-                                  self.needs_rel)
+                run = self._runner(
+                    ("bits", self.needs_hr, self.needs_rel), "sig_planes",
+                    self.needs_hr, self.needs_rel, explains=False)
+                bits = run(stack.tables, self._c_inv, carve(packed, plan))
                 if self.device.type == "cuda":
                     done = torch.cuda.Event()
                     done.record(torch.cuda.current_stream(self.device))
@@ -708,12 +738,13 @@ class PrefilteredKernel:
                 pool.tensor(buf).to(dev, non_blocking=True)
                 for buf in (slot_g, mega_rows, grid2row_flat, gp_orig)
             )
-            out = sig_decide(
-                self._c_inv, cs, bits, slot_g_d, mega_rows_d,
-                grid2row_d.reshape(ns_own, R), gp_orig_d, B, tuple(schedule),
-                stack.needs_pairs, self.needs_hr, self.needs_rel,
-                **self._explain_kw,
-            )
+            schedule = tuple(schedule)
+            run = self._runner(
+                ("sig", schedule, stack.needs_pairs, self.needs_hr,
+                 self.needs_rel), "sig_decide", stack.needs_pairs,
+                self.needs_hr, self.needs_rel)
+            out = run(self._c_inv, cs, bits, slot_g_d, mega_rows_d,
+                      grid2row_d.reshape(ns_own, R), gp_orig_d, B, schedule)
             if n_data > 1:
                 from ..parallel.mesh import all_reduce
 
@@ -748,6 +779,8 @@ class PrefilteredKernel:
         batch): K4 over the stacked subtrees, one group index per row, in
         the variant of the stack (a stack without relation rows runs the
         plain variant even on a relation tree)."""
+        flags = (with_acl, stack.with_hr, stack.with_rel)
+        run = self._runner(("pref", flags), "decide_grouped", *flags)
         if self.mesh is not None:
             # this rank's row slice; the outputs gather over the axis
             from ..parallel.mesh import all_gather_cols, row_slice, \
@@ -759,15 +792,11 @@ class PrefilteredKernel:
             per = shard_bucket(b, n_data) // n_data
             g_all = np.zeros((per * n_data,), np.int32)
             g_all[:b] = inv
-            out = decide_grouped(self._c_inv, stack.tables,
-                                 g_all[index * per:(index + 1) * per], r,
-                                 with_acl, stack.with_hr, stack.with_rel,
-                                 **self._explain_kw)
+            out = run(self._c_inv, stack.tables,
+                      g_all[index * per:(index + 1) * per], r)
             return readback(all_gather_cols(out, self.mesh, self.axis), b)
         b, r = batch_from_numpy(batch, self.device, keys=ROW_ARRAYS)
         _, _, _, pad_lead = lead_padding(batch)
         return readback(
-            decide_grouped(self._c_inv, stack.tables,
-                           pad_lead(inv.astype(np.int32)), r, with_acl,
-                           stack.with_hr, stack.with_rel,
-                           **self._explain_kw), b)
+            run(self._c_inv, stack.tables, pad_lead(inv.astype(np.int32)),
+                r), b)

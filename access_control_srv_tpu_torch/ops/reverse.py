@@ -74,6 +74,16 @@ class ReverseQueryKernel:
         # version-pinned snapshot (the evaluator publishes one alongside
         # the compiled arrays)
         self.sets = copy.deepcopy(sets) if copy_tree else sets
+        # the tree's own (set, policy, rule) extents: on capacity-bucketed
+        # tables (ops/delta.py) the slots past them are pads, which the
+        # rule-match cubes need not cover
+        self.live = (
+            len(self.sets),
+            max((len(ps.combinables) for ps in self.sets), default=0),
+            max((len(pol.combinables) for ps in self.sets
+                 for pol in ps.combinables.values() if pol is not None),
+                default=0),
+        )
         # RuleRQ carriers are request-independent (pure rule data), so one
         # shared instance per rule serves every request this kernel
         # answers.  ALIASING INVARIANT: one RuleRQ instance appears in MANY
@@ -261,8 +271,11 @@ class ReverseQueryKernel:
         return self.fold(batch, planes[inv])
 
 
-def _rule_match_cubes(compiled: CompiledPolicies, masks: dict):
-    """Vectorized per-rule wia verdicts for the whole batch.
+def _rule_match_cubes(compiled: CompiledPolicies, masks: dict,
+                      live: Optional[tuple] = None):
+    """Vectorized per-rule wia verdicts for the whole batch, over the
+    tree's ``live`` (set, policy, rule) extents when given (the kernel's
+    ``live``; the whole padded tables otherwise).
 
     ``rule_match[b, s, kp, kr]``: the oracle's final rule-target verdict
     (no-target rules match; otherwise exact OR regex -- the regex call is
@@ -271,6 +284,10 @@ def _rule_match_cubes(compiled: CompiledPolicies, masks: dict):
     could append obligations for row b -- those rules must go through the
     scalar matcher in oracle order, the rest can be collected wholesale."""
     a = compiled.arrays
+    cut = (slice(None),) * 3 if live is None else tuple(
+        slice(0, n) for n in live)
+    a = {k: a[k][cut] for k in ("rule_target", "rule_effect",
+                                "rule_has_target", "rule_valid")}
     rt = a["rule_target"]  # [S, KP, KR]
     deny = (a["rule_effect"] == 2)[None]
     ex = np.where(deny, masks["tm_wia_ex_d"][:, rt],
@@ -476,4 +493,4 @@ def what_is_allowed_batch(
         )
     masks = kernel.evaluate(batch)
     return assemble_batch(engine, compiled, kernel, requests, batch, masks,
-                          _rule_match_cubes(compiled, masks))
+                          _rule_match_cubes(compiled, masks, kernel.live))

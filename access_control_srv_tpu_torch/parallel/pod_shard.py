@@ -35,9 +35,13 @@ key that orders like the global set position into one more merge column
 and ``shard_tail`` decodes it, in strides ``explain_strides = (KP,
 KR)``.
 
-The JAX pod path compiles through the delta subsystem's capacity-bucketed
-compile; until that slice is ported the caller hands in a
-``compile_policies`` compile (decisions are the same, capacities differ).
+The evaluator hands in a capacity-bucketed compile
+(``ops/delta.full_bucketed_compile``) and, after a CRUD patch
+(``ops/delta.apply_events``), calls ``patched`` with the patched set
+slots.  ``shared_jits`` holds the ``set_chunk`` runner
+(``ops/kernel.Runner``) under the JAX package's key ``("pod",
+model_axis, n_shards, with_rel)`` (``"explain"`` appended in explain
+mode): every kernel object of a patch chain reuses it.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ from ..ops.kernel import (
     ROW_ARRAYS,
     TABLE_ARRAYS,
     readback,
+    runner,
     set_chunk,
     shard_tail,
     tree_needs_hr,
@@ -181,7 +186,8 @@ class PodShardedKernel:
 
     def __init__(self, compiled: CompiledPolicies, mesh: Mesh,
                  data_axis: str = "data", model_axis: str = "model",
-                 prev_t_cap: int = 0, explain: bool = False,
+                 shared_jits: dict | None = None, prev_t_cap: int = 0,
+                 explain: bool = False,
                  _shards: list[ShardTables] | None = None,
                  _applied: list[int] | None = None,
                  _placed: tuple | None = None):
@@ -222,6 +228,12 @@ class PodShardedKernel:
         )
         self.with_hr = tree_needs_hr(compiled.arrays)
         self.with_rel = tree_needs_rel(compiled.arrays)
+        self._shared = shared_jits if shared_jits is not None else {}
+        key = ("pod", model_axis, self.n_shards, self.with_rel) + (
+            ("explain",) if explain else ())
+        # the variant flags follow the call's own arguments; the with_acl
+        # flag varies per batch, so the runner is called with it
+        self._run = runner(self._shared, True, key, globals(), "set_chunk")
         self._place(_placed)
 
     # ------------------------------------------------------------ placement
@@ -269,7 +281,8 @@ class PodShardedKernel:
         return PodShardedKernel(
             new_compiled, self.mesh,
             data_axis=self.data_axis, model_axis=self.model_axis,
-            prev_t_cap=self.t_cap, explain=self.explain, _shards=shards,
+            shared_jits=self._shared, prev_t_cap=self.t_cap,
+            explain=self.explain, _shards=shards,
             _applied=applied,
             _placed=(self._own, self.t_cap, self._c),
         )
@@ -314,7 +327,7 @@ class PodShardedKernel:
         with_acl = bool((np.asarray(batch.arrays["r_acl_ent"]) >= 0).any())
         b, r = row_slice(batch, self.device, ROW_ARRAYS, self.n_data,
                          self.mesh.coords[self.data_axis])
-        merge = set_chunk(self._live, r, self._own.s_lo, self.n_shards,
+        merge = self._run(self._live, r, self._own.s_lo, self.n_shards,
                           self.mesh.coords[self.model_axis], with_acl,
                           self.with_hr, self.with_rel, t_live=self._own.t_live,
                           **self._explain_kw)

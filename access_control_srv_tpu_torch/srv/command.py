@@ -372,9 +372,9 @@ class CommandInterface:
     def program_identity(self, payload: dict) -> dict:
         """Cluster-tier convergence probe: the replica's policy epoch,
         its store origin, the pod-sharding breakdown where one serves and
-        the device-health routing state.  The compiled-table digest
-        (``table_fingerprint``) comes with the delta slice, and is
-        reported where the evaluator has it."""
+        the device-health routing state and the compiled-table digest
+        (``table_fingerprint``): two replicas that applied the same CRUD
+        sequence report equal digests."""
         out: dict = {}
         if self.worker is not None and hasattr(self.worker, "policy_epoch"):
             out["policy_epoch"] = self.worker.policy_epoch()

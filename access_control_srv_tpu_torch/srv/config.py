@@ -42,9 +42,9 @@ DEFAULT_CONFIG: dict = {
         # Depth N>2 turns on the dispatch/finalize split: H2D+eval of
         # batch i overlaps prep of i+1 and decode/serialize of i-1.
         "pipeline_depth": 2,
-        # incremental policy updates (ops/delta.py in the JAX package):
-        # kept for config compatibility; this port's worker does not read
-        # it and recompiles in full on every mutation (the delta slice).
+        # incremental policy updates (ops/delta.py): in-capacity CRUD
+        # deltas patch capacity-bucketed tables; false recompiles in full
+        # on every mutation.
         "delta_enabled": True,
         # device-hang watchdog (srv/watchdog.py, docs/FAULTS.md).
         # Disabled by default: materialize blocks exactly as before.

@@ -32,7 +32,7 @@ Design:
   entries written under an older epoch are logical misses (O(1) flush, no
   lock sweep on the mutation path).
 - **Scoped epoch bumps** — the incremental policy-update subsystem
-  (the JAX package's ops/delta.py; in the port a later slice) classifies each CRUD bump with a target-signature
+  (ops/delta.py) classifies each CRUD bump with a target-signature
   *footprint*.  Entries store their request's resource features
   (:func:`request_features`) at write time; an entry whose features are
   disjoint from every bump between its epoch and the current one is

@@ -57,16 +57,26 @@ re-encoded natively at ``_CAPS_CEIL``.  It returns None, as in JAX, in
 explain mode, on trees with host-assisted conditions, with no kernel and
 with ``backend="oracle"``; a native build or load failure raises.
 
-A refresh recompiles the whole tree (``compile_policies``), the JAX
-evaluator's ``delta_enabled=False`` path; with ``async_compile`` a
+Hot policy mutation is the JAX evaluator's (``delta_enabled``, the
+default off the rule-sharded path and the oracle backend): compiled
+tables are capacity-bucketed (``ops/delta.full_bucketed_compile``, or
+``fixed_caps_compile`` into a pinned size class) and a refresh carrying
+the store's CRUD ``events`` first tries the delta patcher
+(``ops/delta.apply_events``).  A certified-empty diff keeps the tables,
+the kernel and the decision cache; an in-capacity delta patches the
+host tables, builds a new kernel over them (``PrefilteredKernel`` with
+``dynamic_policies``, reusing the runners of ``shared_jits``: no build,
+no library load; on the pod path ``PodShardedKernel.patched``, which
+re-slices only the shards owning the patched set slots) and publishes it
+with a post-swap decision-cache bump scoped to the footprint.  Anything
+the patcher cannot certify falls back, its reason counted
+(``delta_stats``), to the full recompile: the cache's epoch bumped whole,
+the tree deep-copied and compiled again; with ``async_compile`` a
 ``refresh(wait=False)`` runs it on one debounced background thread (at
-most one compile running and one pending), and the new tables are
-published only after their upload to the device has completed.  The
-CRUD ``events`` a refresh may carry take that full recompile; the cache
-bumps are the JAX evaluator's when no patch applies (whole before a
-recompile, scoped by the footprint on the oracle backend).  The JAX pod
-path compiles through the delta subsystem's capacity-bucketed compile,
-which waits for the delta slice (capacities differ, decisions do not).
+most one compile running and one pending).  On both paths the new
+tables are published only after their upload to the device has
+completed.  ``table_fingerprint`` digests the published tables (the
+cluster tier's convergence check).
 
 The serving hooks are the JAX evaluator's: ``telemetry`` path counters
 (``_count_path``), the deadline shed of ``is_allowed_batch_async``
@@ -86,8 +96,7 @@ kernel cannot encode (``batch.eligible`` False), the single-request
 path and the ``backend="oracle"`` / no-kernel evaluators, as in JAX.
 Kernel dispatches of one evaluator are serialized by a lock: the
 prefilter's signature caches, the plane caches and the launch counts
-are shared between the serving threads.  Not ported yet: delta patching
-(the delta slice) and tenancy.
+are shared between the serving threads.  Not ported yet: tenancy.
 """
 
 from __future__ import annotations
@@ -109,6 +118,7 @@ from ..core.relation_path import (
     request_subject_id,
 )
 from ..models.model import Decision, OperationStatus, Response, ReverseQuery
+from ..ops import delta as delta_mod
 from ..ops import reverse
 from ..ops.compile import DECISION_NAMES, compile_policies
 from ..ops.encode import (
@@ -153,7 +163,9 @@ class HybridEvaluator:
                  mesh=None, mesh_axis: str = "data",
                  model_axis: Optional[str] = None,
                  pod_shards: Optional[int] = None, decision_cache=None,
-                 observability=None, explain: bool = False, device=None):
+                 delta_enabled: bool = True, observability=None,
+                 shared_jits: Optional[dict] = None, fixed_caps=None,
+                 explain: bool = False, device=None):
         self.engine = engine
         self.backend = backend
         self.logger = logger
@@ -203,13 +215,38 @@ class HybridEvaluator:
         # cache and the launch counts
         self._dispatch_lock = threading.Lock()
         self._compile_thread: Optional[threading.Thread] = None
-        # the delta patcher is not ported: every refresh is a full
-        # recompile, counted as the JAX evaluator counts it
+        # incremental updates (ops/delta.py): capacity-bucketed tables
+        # and CRUD-event patching.  Off on the rule-sharded path
+        # (RuleShardedKernel repartitions per compile) and for the oracle
+        # backend (nothing compiled to patch); on the pod-sharded path
+        # PodShardedKernel.patched re-slices only the owning shards
+        self.delta_enabled = bool(
+            delta_enabled
+            and (model_axis is None or pod_shards is not None)
+            and backend != "oracle"
+        )
+        self._caps = None                   # delta_mod.Capacities
+        self._delta_state = None            # delta_mod.DeltaState
+        # the kernels' runners (ops/kernel.Runner), kept across swaps
+        # under the JAX package's shared-jit keys.  An injected dict is
+        # shared by every evaluator of one size class (tenancy)
+        self._shared_jits: dict = (
+            shared_jits if shared_jits is not None else {}
+        )
+        # a pinned capacity class (delta_mod.Capacities): full compiles go
+        # through fixed_caps_compile so the published shapes never drift
+        # from the class; a tree that overflows it gets its own buckets
+        self.fixed_caps = fixed_caps
         self._delta_counts = {
             "patches": 0, "full_compiles": 0, "noops": 0,
             "recompiles_avoided": 0, "fallbacks": 0,
         }
+        self._delta_fallback_reasons: dict[str, int] = {}
         self._last_visibility_ms: Optional[float] = None
+        # the last published patch's host-side split (ms): apply_events,
+        # the kernel's construction and upload, the native encoder, the
+        # candidate index
+        self.last_patch_split: Optional[dict] = None
         # async full-compile debounce: at most one compile running and at
         # most one pending, however fast CRUD events arrive
         self._compile_state_lock = threading.Lock()
@@ -230,13 +267,16 @@ class HybridEvaluator:
         kernel serves until the swap.
 
         ``events`` (``ops/delta.CrudEvent`` list, captured by the store)
-        and ``footprint`` (``ops/delta.Footprint``) are accepted as the
-        JAX evaluator takes them; with no delta patcher every refresh is
-        the full recompile.  The decision cache's epoch is bumped whole
-        before it (a stale hit must never outlive the swap); the oracle
+        enables the incremental path: certified-empty diffs skip the cache
+        flush and the compile; in-capacity deltas patch the bucketed
+        tables and reuse every runner; anything else falls back to the
+        full recompile.  ``footprint`` (``ops/delta.Footprint``) scopes
+        the post-swap decision-cache bump on the patch path; the pre-swap
+        bump is the store's.  Before a full recompile the cache's epoch is
+        bumped whole (a stale hit must never outlive the swap); the oracle
         backend, which compiles nothing, bumps only the footprint's scope.
-        With ``async_compile`` and ``wait=False`` the compile runs on the
-        debounced background thread."""
+        With ``async_compile`` and ``wait=False`` the full compile runs on
+        the debounced background thread."""
         t0 = time.perf_counter()
         if self.backend == "oracle":
             if self.decision_cache is not None:
@@ -249,6 +289,9 @@ class HybridEvaluator:
             # no compile; every request takes the candidate-filtered walk
             self._cand = self._build_candidate_index()
             return
+        if events is not None and self._delta_ready():
+            if self._try_patch(events, footprint, t0):
+                return
         if self.decision_cache is not None:
             self.decision_cache.bump_epoch()
         with self._lock:
@@ -274,6 +317,147 @@ class HybridEvaluator:
                 version = self._version
             self._compile_and_swap(version, t0)
 
+    # --------------------------------------------------- incremental path
+
+    def _delta_ready(self) -> bool:
+        """The patch path engages only when the PUBLISHED compile is the
+        latest version (no async full compile in flight: patching stale
+        tables would drop the in-flight mutation) and a supported kernel
+        and its ownership state exist."""
+        if not self.delta_enabled:
+            return False
+        with self._lock:
+            return (
+                self._compiled is not None
+                and self._compiled.supported
+                and self._kernel is not None
+                and self._delta_state is not None
+                and self._compiled.version == self._version
+            )
+
+    def _try_patch(self, events, footprint, t0) -> bool:
+        """Apply a CRUD delta to the bucketed tables; True when the
+        refresh is handled (patch published or certified no-op), False
+        to fall back to the full recompile (a patch the prover refuses,
+        counted with its reason, or one that raised)."""
+        with self._lock:
+            compiled = self._compiled
+            state = self._delta_state
+            claimed = self._version
+            kernel_prev = self._kernel
+        tree = self.engine.policy_sets
+        t_apply = time.perf_counter()
+        try:
+            result, patched, new_state, stats = delta_mod.apply_events(
+                state, compiled, tree, events, self.engine.urns
+            )
+        except delta_mod.DeltaIneligible as err:
+            self._delta_counts["fallbacks"] += 1
+            self._delta_fallback_reasons[err.reason] = (
+                self._delta_fallback_reasons.get(err.reason, 0) + 1
+            )
+            self._count_delta("delta-fallback")
+            if self.logger:
+                self.logger.info("delta ineligible; full recompile",
+                                 extra={"reason": err.reason})
+            return False
+        except Exception:  # noqa: BLE001 — patching must never kill CRUD
+            if self.logger:
+                self.logger.exception("delta patch failed; full recompile")
+            return False
+        split = {"apply_events_ms": (time.perf_counter() - t_apply) * 1e3}
+
+        if result == "noop":
+            # nothing evaluation-relevant changed: keep the tables, the
+            # kernel AND the decision cache; only the candidate index
+            # must track the new tree identity
+            cand = self._build_candidate_index()
+            with self._lock:
+                if self._version == claimed:
+                    self._cand = cand
+                    self._tree_snapshot = tree
+                    self._explain_decoder = self._make_explain_decoder(
+                        self._compiled, self._kernel, tree)
+                    if new_state is not None:
+                        self._delta_state = new_state
+            self._delta_counts["noops"] += 1
+            self._count_delta("delta-noop")
+            return True
+
+        t_kernel = time.perf_counter()
+        shards_patched = 0
+        if getattr(kernel_prev, "supports_shard_patch", False):
+            # pod-sharded path: re-slice ONLY the shards owning the
+            # patched set slots; every other shard's host tables (and
+            # this rank's device tables, when its shard is not an owner)
+            # are reused
+            patched_slots = stats.get("patched_slots", [])
+            kernel = kernel_prev.patched(patched, patched_slots)
+            shards_patched = len({
+                min(int(s) // kernel_prev.s_local, kernel_prev.n_shards - 1)
+                for s in patched_slots
+            })
+        else:
+            kernel = PrefilteredKernel(
+                patched, device=self.device, mesh=self.mesh,
+                axis=self.mesh_axis, telemetry=self.telemetry,
+                dynamic_policies=True, shared_jits=self._shared_jits,
+                explain=self.explain,
+            )
+        self._sync_upload()
+        split["kernel_ms"] = (time.perf_counter() - t_kernel) * 1e3
+        t_native = time.perf_counter()
+        native_encoder = self._make_native_encoder(patched, kernel)
+        split["native_encoder_ms"] = (time.perf_counter() - t_native) * 1e3
+        t_cand = time.perf_counter()
+        cand = self._build_candidate_index()
+        split["candidate_index_ms"] = (time.perf_counter() - t_cand) * 1e3
+        decoder = self._make_explain_decoder(patched, kernel, tree)
+        with self._lock:
+            if self._version != claimed:
+                return False  # a newer refresh superseded this patch
+            self._version += 1
+            patched.version = self._version
+            self._compiled = patched
+            self._kernel = kernel
+            self._rq_kernel = None
+            self._tree_snapshot = tree
+            self._native_encoder = native_encoder
+            self._cand = cand
+            self._explain_decoder = decoder
+            self._delta_state = new_state
+        if self.decision_cache is not None:
+            # post-swap bump, scoped to the delta's footprint: entries
+            # whose signatures are disjoint survive the mutation (the
+            # pre-swap bump in store._load_locked used the same footprint)
+            if footprint is not None:
+                self.decision_cache.bump_scoped(footprint)
+            else:
+                self.decision_cache.bump_epoch()
+        visibility_ms = (time.perf_counter() - t0) * 1e3
+        self._last_visibility_ms = visibility_ms
+        self.last_patch_split = split
+        self._delta_counts["patches"] += 1
+        self._delta_counts["recompiles_avoided"] += 1
+        self._count_delta("delta-patch")
+        if self.telemetry is not None:
+            self.telemetry.policy_update_latency.observe(visibility_ms / 1e3)
+            self.telemetry.delta.inc(
+                "sets_patched", int(stats.get("sets_patched", 0)))
+            if shards_patched:
+                self.telemetry.delta.inc("shards_patched", shards_patched)
+        return True
+
+    def _sync_upload(self) -> None:
+        """Wait for the tables' upload: it must be complete before any
+        serving thread can reach them through a swap."""
+        if self.device.type == "cuda":
+            import torch
+
+            torch.cuda.current_stream(self.device).synchronize()
+
+    # ------------------------------------------------------ full compile
+
     def _compile_worker(self) -> None:
         """Debounced async compile loop: drains pending requests one
         compile at a time, always from the latest version."""
@@ -295,18 +479,39 @@ class HybridEvaluator:
         # snapshot first, compile from the snapshot: the published
         # (tree, arrays) pair is consistent by construction
         tree_snapshot = copy.deepcopy(self.engine.policy_sets)
-        compiled = compile_policies(
-            tree_snapshot, self.engine.urns, version=version
-        )
+        caps = state = None
+        if self.delta_enabled and self.fixed_caps is not None:
+            try:
+                compiled, caps, state = delta_mod.fixed_caps_compile(
+                    tree_snapshot, self.engine.urns, self.fixed_caps,
+                    version=version,
+                )
+            except delta_mod.DeltaIneligible as err:
+                # class overflow: serve from the tree's own buckets
+                # rather than fail
+                if self.logger:
+                    self.logger.info(
+                        "tree overflows the pinned size class; falling "
+                        "back to its own capacity buckets",
+                        extra={"reason": err.reason},
+                    )
+                compiled, caps, state = delta_mod.full_bucketed_compile(
+                    tree_snapshot, self.engine.urns, version=version,
+                    prev_caps=None,
+                )
+        elif self.delta_enabled:
+            compiled, caps, state = delta_mod.full_bucketed_compile(
+                tree_snapshot, self.engine.urns, version=version,
+                prev_caps=self._caps,
+            )
+        else:
+            compiled = compile_policies(
+                tree_snapshot, self.engine.urns, version=version
+            )
         kernel = None
         if compiled.supported and compiled.n_rules > 0:
             kernel = self._make_kernel(compiled)
-            if self.device.type == "cuda":
-                # the tables' upload must be complete before any serving
-                # thread can reach them through the swap below
-                import torch
-
-                torch.cuda.current_stream(self.device).synchronize()
+            self._sync_upload()
         native_encoder = self._make_native_encoder(compiled, kernel)
         decoder = self._make_explain_decoder(compiled, kernel,
                                              tree_snapshot)
@@ -320,6 +525,8 @@ class HybridEvaluator:
                 self._native_encoder = native_encoder
                 self._explain_decoder = decoder
                 self._cand = cand
+                self._caps = caps
+                self._delta_state = state
         self._delta_counts["full_compiles"] += 1
         self._count_delta("full-compile")
         self._last_visibility_ms = (time.perf_counter() - t0) * 1e3
@@ -348,18 +555,21 @@ class HybridEvaluator:
             self.telemetry.delta.inc(key)
 
     def delta_stats(self) -> dict:
-        """health_check surface: what the JAX evaluator reports with its
-        delta patcher off (``enabled`` False, full-compile counts, last
-        time to visibility)."""
+        """health_check surface: patch vs full-compile counts, the
+        fallback taxonomy, the last time to visibility and the active
+        capacities."""
         out = {
-            "enabled": False,
+            "enabled": self.delta_enabled,
             **self._delta_counts,
-            "fallback_reasons": {},
+            "fallback_reasons": dict(self._delta_fallback_reasons),
             "last_visibility_ms": (
                 round(self._last_visibility_ms, 3)
                 if self._last_visibility_ms is not None else None
             ),
         }
+        caps = self._caps
+        if caps is not None:
+            out["capacities"] = caps.as_dict()
         sharding = self.shard_identity()
         if sharding is not None:
             out["sharding"] = {
@@ -369,6 +579,44 @@ class HybridEvaluator:
                 ],
             }
         return out
+
+    def table_fingerprint(self) -> Optional[str]:
+        """Digest of the compiled policy tables: every array's bytes,
+        shape and dtype, the condition sources, the entity vocab and the
+        active capacities (and the pod fingerprint and the relation
+        store's, where they exist).  Two replicas that applied the same
+        CRUD sequence hold byte-identical tables, so their fingerprints
+        match: the cluster tier's convergence check.  Equal to the JAX
+        evaluator's on the same tree and CRUD sequence."""
+        from hashlib import blake2b
+
+        compiled = self._compiled
+        if compiled is None:
+            return None
+        h = blake2b(digest_size=16)
+        for name in sorted(compiled.arrays):
+            arr = np.ascontiguousarray(compiled.arrays[name])
+            h.update(name.encode())
+            h.update(str(arr.dtype).encode())
+            h.update(repr(arr.shape).encode())
+            h.update(arr.tobytes())
+        h.update(repr(compiled.entity_vocab).encode())
+        h.update(repr([
+            (c.rule_flat_index, c.condition, repr(c.context_query), c.owner)
+            for c in compiled.conditions
+        ]).encode())
+        caps = self._caps
+        if caps is not None:
+            h.update(repr(sorted(caps.as_dict().items())).encode())
+        sharding = self.shard_identity()
+        if sharding is not None:
+            # replicas must agree on the sliced tables too
+            h.update(sharding["pod_fingerprint"].encode())
+        store = getattr(self.engine, "relation_store", None)
+        if store is not None:
+            # the relation-tuple state decides relation-bearing rows
+            h.update(store.fingerprint().encode())
+        return h.hexdigest()
 
     def _make_kernel(self, compiled):
         """The kernel for a supported compile: pod-sharded, rule-sharded
@@ -382,6 +630,7 @@ class HybridEvaluator:
             return PodShardedKernel(
                 compiled, self.mesh, data_axis=self.mesh_axis,
                 model_axis=self.model_axis or "model",
+                shared_jits=self._shared_jits,
                 prev_t_cap=getattr(self._kernel, "t_cap", 0),
                 explain=self.explain,
             )
@@ -398,6 +647,8 @@ class HybridEvaluator:
         return PrefilteredKernel(compiled, device=self.device,
                                  mesh=self.mesh, axis=self.mesh_axis,
                                  telemetry=self.telemetry,
+                                 dynamic_policies=self.delta_enabled,
+                                 shared_jits=self._shared_jits,
                                  explain=self.explain)
 
     def _make_explain_decoder(self, compiled, kernel, tree):

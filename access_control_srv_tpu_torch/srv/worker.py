@@ -5,8 +5,9 @@ interface and event listeners into a running service
 The port's copy of the JAX package's ``srv/worker.py`` for one device:
 ``Worker.start(cfg, device=None)`` serves on the CUDA device (raising
 without one, as ``ops.kernel.resolve_device`` does) or on the device
-named.  Every refresh is the full recompile (``evaluator:delta_enabled``
-is read by the JAX worker only; the delta patcher is a later slice).
+named.  ``evaluator:delta_enabled`` (default true) turns on the
+evaluator's incremental updates (CRUD deltas patch capacity-bucketed
+tables, ops/delta.py); false recompiles in full on every mutation.
 Refused with ``NotImplementedError`` naming the slice that brings them:
 the broker (``events:broker:address``), the cluster tier
 (``cluster:enabled``, ``cluster:distributed:enabled``), mesh / model /
@@ -261,6 +262,9 @@ class Worker:
             async_compile=bool(cfg.get("evaluator:async_compile", False)),
             telemetry=self.telemetry,
             decision_cache=self.decision_cache,
+            # incremental policy updates (ops/delta.py): in-capacity CRUD
+            # deltas patch the bucketed tables; false = full recompiles
+            delta_enabled=bool(cfg.get("evaluator:delta_enabled", True)),
             observability=self.obs,
             # explain mode (srv/explain.py): kernel rows carry deciding-
             # node provenance

@@ -277,6 +277,7 @@ from access_control_srv_tpu_torch.ops.encode import (
     _CAPS_FLOOR,
     RequestBatch,
     fits_floor,
+    owner_bit_layout,
     request_needs,
 )
 from access_control_srv_tpu_torch.ops.kernel_ref import decide_dense_ref
@@ -958,16 +959,17 @@ REL_TABLES = ("t_rel_idx", "t_rel_direct")
 REL_ROWS = ("r_rel_runs", "r_rel_bits")
 
 
-def passing_pairs(c: dict, r: dict) -> int:
+def passing_pairs(c: dict, r: dict, t_rows=None) -> int:
     """The (row, target) pairs whose subject and action tests pass: the
     only pairs whose stage-A fold a call needs (the plain version's own
-    tests, a row chunk at a time)."""
+    tests, a row chunk at a time), over the target rows ``t_rows`` (all
+    when None)."""
     n = 0
     for rc in kernel_ref.row_chunks(c, r):
         ok = kernel_ref._subject_ok(c, rc) & kernel_ref._pairs_subset(
             c["t_act_ids"], c["t_act_vals"], rc["r_act_ids"],
             rc["r_act_vals"])
-        n += int(ok.sum())
+        n += int((ok if t_rows is None else ok[:, t_rows]).sum())
     return n
 
 
@@ -980,22 +982,27 @@ def bound_ms(c: dict, r: dict, with_rel: bool = False,
     action test, the rest of the stage-A fold only for the pairs that
     pass it (``passing_pairs``; ``every_pair``: for every pair, the
     yardstick of the design before the rows program and the only count
-    for stacked group tables), per row every rule and policy.  The relation arrays count only for the
-    with_rel variant (three operations per folded pair and relation run:
-    the run test, the collect bit, the closure bit).  Returns (ms,
-    bound_by, bytes, ops)."""
+    for stacked group tables), per row every rule and policy.  The
+    relation arrays count only for the with_rel variant (three operations
+    per folded pair and relation run: the run test, the collect bit, the
+    closure bit).  Every extent and table byte is the live one
+    (``live_extents``: capacity-padded slots and rows are no work the
+    call needs).  Returns (ms, bound_by, bytes, ops)."""
     d = kmod._dims(c, r)
+    live = live_extents(c)
+    d.update({k: live[k] for k in ("S", "KP", "KR", "T")})
     skip = () if with_rel else REL_TABLES + REL_ROWS
-    nbytes = sum(int(c[k].nbytes) for k in kmod.TABLE_ARRAYS if k not in skip)
-    nbytes += sum(int(r[k].nbytes) for k in kmod.ROW_ARRAYS + kmod.BATCH_ARRAYS
-                  if k not in skip)
+    nbytes = sum(live_nbytes(k, c[k], live) for k in kmod.TABLE_ARRAYS
+                 if k not in skip)
+    nbytes += rows_nbytes(r, [k for k in kmod.ROW_ARRAYS + kmod.BATCH_ARRAYS
+                              if k not in skip], live)
     nbytes += 3 * 4 * d["B"]
     test = d["KS"] * d["NSUB"] + d["NROLE"] + d["KA"] * d["NACT"]
     fold = (3 * d["KE"] * d["NR"] + d["KO"] * d["NOP"]
             + d["NP"] * (d["KE"] + 2 * d["KPR"]) + 4 * d["NR"] + 16
             + (3 * d["NRU_REL"] if with_rel else 0))
     pairs = d["B"] * d["T"]
-    folded = pairs if every_pair else passing_pairs(c, r)
+    folded = pairs if every_pair else passing_pairs(c, r, live["t_rows"])
     per_rule, per_policy = 12, 16 + d["KE"] * d["NR"]
     ops = (pairs * test + folded * fold
            + d["B"] * (d["S"] * d["KP"] * d["KR"] * per_rule
@@ -1077,10 +1084,8 @@ def phase_kernel_vs_plain(device, n_rows: int, stats: dict) -> dict:
             # 1024-row sample
             host = got[:, :b].cpu().numpy()
             n_checked = 0
-            for i in range(min(1024, b)):
-                if not elig[i]:
-                    continue
-                resp = engine.is_allowed(reqs[i])
+            rows = [i for i in range(min(1024, b)) if elig[i]]
+            for i, resp in zip(rows, oracle_walks(engine, reqs, rows)):
                 cach = resp.evaluation_cacheable
                 want_row = (DEC_CODE[resp.decision],
                             -1 if cach is None else int(bool(cach)),
@@ -1524,9 +1529,18 @@ def oracle_walks(engine, requests, idx, cand=None) -> list:
             ORACLE_WALKS["here"] += len(idx)
             return [_oracle_walk(i) for i in idx]
         ORACLE_WALKS["forked"] += len(idx)
-        with multiprocessing.get_context("fork").Pool(ORACLE_PROCS) as pool:
-            return pool.map(_oracle_walk, idx,
-                            chunksize=max(1, len(idx) // (4 * ORACLE_PROCS)))
+        # the walkers' collector leaves the inherited heap (the large
+        # trees built ahead of their phases among it) untouched, so its
+        # pages stay shared
+        gc.freeze()
+        try:
+            with multiprocessing.get_context("fork").Pool(
+                    ORACLE_PROCS) as pool:
+                return pool.map(
+                    _oracle_walk, idx,
+                    chunksize=max(1, len(idx) // (4 * ORACLE_PROCS)))
+        finally:
+            gc.unfreeze()
     finally:
         _ORACLE = None
 
@@ -1622,6 +1636,126 @@ def h2d_ms(t: torch.Tensor) -> float:
 # ------------------------------------------------------ bounds (per call)
 
 
+def live_target_rows(t: dict) -> torch.Tensor | None:
+    """The target rows of table dict ``t`` that a valid set, policy or
+    rule references (row 0 backs "no target"), as indices: the evaluator
+    serves ``full_bucketed_compile``'s tables, whose pad rows (and, after
+    a patch, rows no node references any more) no call needs.  None for
+    stacked group tables (K2-K4's, which ``compact_rules`` already cut to
+    the rows their nodes reference) and for a dict without the node
+    arrays."""
+    need = ("rule_target", "rule_valid", "rule_has_target", "pol_target",
+            "pol_valid", "pol_has_target", "set_target", "set_valid",
+            "set_has_target")
+    if t["t_role"].dim() != 1 or any(k not in t for k in need):
+        return None
+    mask = torch.zeros(t["t_role"].shape[0], dtype=torch.bool,
+                       device=t["t_role"].device)
+    mask[0] = True
+    for node in ("rule", "pol", "set"):
+        hit = t[node + "_valid"] & t[node + "_has_target"]
+        mask[t[node + "_target"][hit].long()] = True
+    return mask.nonzero().flatten()
+
+
+def compiled_target_rows(compiled) -> torch.Tensor:
+    """``live_target_rows`` of a ``CompiledPolicies`` (host arrays)."""
+    return live_target_rows({k: torch.as_tensor(v)
+                             for k, v in compiled.arrays.items()})
+
+
+def live_extents(t: dict) -> dict:
+    """The live extents of table dict ``t`` (any of the kernels' table
+    dicts, capacity-padded or not, with or without a leading group axis)
+    and the share of each padded class of array they leave: ``S`` the
+    valid set slots, ``KP`` the most valid policies of a set, ``KR`` the
+    most rules of a policy (no more than the table's rule axis: a
+    compacted one), ``T`` the referenced target rows
+    (``live_target_rows``; the table's own for stacked tables), ``W`` the
+    entity-vocab rows those rows reference (the only rows of the batch's
+    [W, E] regex matrices a call reads; the sentinel rows are never
+    referenced; None without ``t_ent_w``), ``RV`` the (role, scoping)
+    vocab entries they reference (the owner bitplanes' entries; None
+    without ``t_rs_idx``).  An extent whose mask ``t``
+    lacks stays the table's own.  On an unpadded compile every extent of
+    a whole table equals its shape, so those bounds do not change
+    there."""
+    src = t["rule_valid"] if "rule_valid" in t else t["rule_effect"]
+    S, KP, KR = (int(x) for x in src.shape[-3:])
+    s_l, kp_l, kr_l = S, KP, KR
+    if "set_valid" in t:
+        s_l = int(t["set_valid"].reshape(-1, S).sum(-1).max())
+    elif "pol_valid" in t:
+        s_l = int(t["pol_valid"].reshape(-1, S, KP).any(-1).sum(-1).max())
+    if "pol_valid" in t:
+        kp_l = int(t["pol_valid"].reshape(-1, KP).sum(-1).max())
+    if "pol_n_rules" in t:
+        kr_l = min(KR, int(t["pol_n_rules"].max()))
+    T = int(t["t_role"].shape[-1]) if "t_role" in t else 0
+    rows = live_target_rows(t) if "t_role" in t else None
+    t_l = T if rows is None else int(rows.numel())
+    # the regex matrices and the owner bitplanes keep one row / entry
+    # for an empty vocab
+    w_l = rv_l = None
+    if "t_ent_w" in t:
+        w = t["t_ent_w"] if rows is None else t["t_ent_w"][rows]
+        w_l = max(int(torch.unique(w[w >= 0]).numel()), 1)
+    if "t_rs_idx" in t:
+        rs = t["t_rs_idx"] if rows is None else t["t_rs_idx"][rows]
+        rv_l = max(int(torch.unique(rs[rs >= 0]).numel()), 1)
+    return {"S": s_l, "KP": kp_l, "KR": kr_l, "T": t_l, "t_rows": rows,
+            "W": w_l, "RV": rv_l, "share": {
+                "set": s_l / max(S, 1), "pol": s_l * kp_l / max(S * KP, 1),
+                "rule": s_l * kp_l * kr_l / max(S * KP * KR, 1),
+                "t": t_l / max(T, 1)}}
+
+
+def live_nbytes(name: str, x: torch.Tensor, live: dict) -> int:
+    """The bytes of array ``name`` that its live slots hold: a set,
+    policy or rule array (and K2's planes of each: ``ss_`` / ``sl_`` /
+    ``multi_ok``, ``pp_`` / ``pl_``, ``rl_``) by the live share of its
+    slots, a target-table column by the live rows', the regex matrices
+    ([W, E]) by the referenced vocab rows'."""
+    share = live["share"]
+    if name.startswith(("rule_", "rl_")):
+        f = share["rule"]
+    elif name.startswith(("pol_", "pp_", "pl_")):
+        f = share["pol"]
+    elif name.startswith(("set_", "ss_", "sl_")) or name == "multi_ok":
+        f = share["set"]
+    elif name.startswith("t_"):
+        f = share["t"]
+    elif name in ("rgx_set", "pfx_neq") and live["W"] is not None:
+        f = live["W"] / max(int(x.shape[-2]), 1)  # [(G,) W, E]
+    else:
+        f = 1.0
+    return int(round(int(x.nbytes) * f))
+
+
+def own_words(live: dict, width: int, nru: int, nop: int) -> int:
+    """The int32 words of a row's owner bitplanes (``r_own_bits``, packed
+    per ``encode.owner_bit_layout``) over the live (role, scoping) vocab
+    entries, at most ``width`` (the words the rows carry: a pad entry's
+    bits are never read, a stage-B-free tree's one word is a dummy)."""
+    if live["RV"] is None:
+        return width
+    return min(width, owner_bit_layout(live["RV"], nru, nop)[3])
+
+
+def rows_nbytes(r: dict, keys, live: dict) -> int:
+    """The bytes of the row and batch arrays ``keys`` of ``r``, each at
+    its live extent (``live_nbytes``; ``r_own_bits`` by ``own_words``)."""
+    n = 0
+    for k in keys:
+        if k == "r_own_bits":
+            B, width = r[k].shape
+            n += 4 * B * own_words(live, width, r["r_own_runs"].shape[1],
+                                   r["r_op_vals"].shape[1])
+        else:
+            n += live_nbytes(k, r[k], live)
+    return n
+
+
 def _finish_bound(nbytes: int, ops: int) -> tuple[float, str, int, int]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_SCALAR_OPS_PER_S * 1e3
@@ -1648,40 +1782,45 @@ def bound_sig_planes(tabs, inv, pseudo, with_hr, with_rel, out,
     pseudo-requests read once, the planes written once; with
     ``every_table`` every stacked table (the count PRs 2-10 used, now the
     yardstick).  Operations: stage A's compares per target row of every
-    group, one per plane element written."""
+    group, one per live plane element written.  Set, policy and rule
+    slots count live (``live_extents``)."""
     reads = SIG_PLANES_READS + (SIG_PLANES_HR_READS if with_hr else ()) \
         + (REL_TABLES if with_rel else ())
-    nbytes = sum(int(t.nbytes) for k, t in tabs.items()
+    live = live_extents({**inv, **tabs})
+    nbytes = sum(live_nbytes(k, t, live) for k, t in tabs.items()
                  if (with_rel or k not in REL_TABLES)
                  and (every_table or k in reads))
-    nbytes += sum(int(inv[k].nbytes) for k in kmod.SIG_PLANES_INPUTS
-                  if k in inv)
-    nbytes += sum(int(t.nbytes) for t in pseudo.values())
-    nbytes += sum(int(t.nbytes) for t in out.values())
+    nbytes += sum(live_nbytes(k, inv[k], live)
+                  for k in kmod.SIG_PLANES_INPUTS if k in inv)
+    nbytes += sum(live_nbytes(k, t, live) for k, t in pseudo.items())
+    planes = {k: live_nbytes(k, t, live) for k, t in out.items()}
+    nbytes += sum(planes.values())
+    written = sum(n // out[k].element_size() for k, n in planes.items())
     G, T = tabs["t_role"].shape
     KA, KE, KO = (tabs[k].shape[2] for k in ("t_act_ids", "t_ent_vals",
                                              "t_op_vals"))
     NACT, NR, NOP = (pseudo[k].shape[1] for k in ("r_act_ids", "r_ent_vals",
                                                   "r_op_vals"))
     per_target = KA * NACT + 3 * KE * NR + KO * NOP + 4 * NR + 16
-    ops = G * T * per_target + sum(int(t.numel()) for t in out.values())
-    return _finish_bound(nbytes, ops)
+    return _finish_bound(nbytes, G * T * per_target + written)
 
 
 def bound_sig_decide(args) -> tuple[float, str, int, int]:
     """Bytes: the packed rows, slot maps and outputs, the group planes and
     rule arrays read once.  Operations: per real row, the subject fold,
     owner checks and combine compares of every rule position of its group
-    and the policy and set folds."""
+    and the policy and set folds.  Set, policy and rule slots count live
+    (``live_extents``)."""
     (inv, cs, planes, slot_g, rows, g2r, gp, n_rows, schedule,
      needs_pairs, with_hr, with_rel) = args
+    live = live_extents({**inv, **cs})
     nbytes = sum(int(t.nbytes) for t in (slot_g, rows, g2r, gp))
     nbytes += 3 * 4 * int(gp.shape[0])
-    nbytes += sum(int(t.nbytes) for t in planes.values())
-    nbytes += sum(int(t.nbytes) for t in cs.values())
-    nbytes += sum(int(inv[k].nbytes) for k in kmod.SIG_DECIDE_INV)
+    nbytes += sum(live_nbytes(k, t, live) for k, t in planes.items())
+    nbytes += sum(live_nbytes(k, t, live) for k, t in cs.items())
+    nbytes += sum(live_nbytes(k, inv[k], live) for k in kmod.SIG_DECIDE_INV)
     widths = {k: w for k, w, _ in schedule}
-    _, S, KP, KR = cs["rule_effect"].shape
+    S, KP, KR = live["S"], live["KP"], live["KR"]
     nrole, nsub = widths["r_roles"], widths["r_sub_ids"]
     ks = planes["rl_sub_ids"].shape[-1]
     sub = nrole + (ks * nsub if needs_pairs else 0)
@@ -1958,16 +2097,24 @@ def time_kernel(name: str, args: tuple, plain_iters: int = 1) -> dict:
                 bytes=nbytes, ops=ops, **extra)
 
 
-def phase_sig_main(device, stats: dict, card: str) -> dict:
-    """Phase 7 and 8 for the signature paths (a), (b), (c)."""
-    out = {}
+def sig_tree(device, scoped: bool) -> tuple:
+    """Phase 7's 100k-rule stress tree (``scoped``: role-scoped): (engine,
+    evaluator, seconds to load and compile)."""
     t0 = time.perf_counter()
-    engine = engine_from_doc(stress_doc(100_000))
+    engine = engine_from_doc(stress_doc(100_000, scoped=scoped))
     evaluator = HybridEvaluator(engine, device=device)
+    return engine, evaluator, time.perf_counter() - t0
+
+
+def phase_sig_main(device, stats: dict, card: str, trees: dict) -> dict:
+    """Phase 7 and 8 for the signature paths (a), (b), (c); ``trees``
+    holds ``sig_tree``'s two trees under "a" and "b"."""
+    out = {}
+    engine, evaluator, secs = trees.pop("a")
     compiled = evaluator._compiled
     log(f"  100k stress tree: {compiled.n_rules} rules, S={compiled.S} "
         f"KP={compiled.KP} KR={compiled.KR} T={compiled.T}, loaded and "
-        f"compiled in {time.perf_counter() - t0:.1f} s")
+        f"compiled in {secs:.1f} s")
     if not evaluator._kernel.active:
         raise AssertionError("the 100k tree did not take the signature path")
 
@@ -2009,13 +2156,10 @@ def phase_sig_main(device, stats: dict, card: str) -> dict:
     del evaluator, engine, kern, stack, tabs, a_args, sig_args, c_args
 
     # (b) the scoped tree with bench_stress_hr traffic, 8,192 rows
-    t0 = time.perf_counter()
-    engine = engine_from_doc(stress_doc(100_000, scoped=True))
-    evaluator = HybridEvaluator(engine, device=device)
+    engine, evaluator, secs = trees.pop("b")
     if not evaluator._kernel.needs_hr:
         raise AssertionError("the scoped tree carries no HR targets")
-    log(f"  100k scoped tree loaded and compiled in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"  100k scoped tree loaded and compiled in {secs:.1f} s")
     reqs_b = stress_hr_traffic(8192)
     launches, b_args = run_main_path("(b) stress HR 8192", evaluator, engine,
                                      reqs_b, ("sig_planes", "sig_decide"),
@@ -2100,17 +2244,28 @@ WIA_READS = ("t_act_ids", "t_act_vals", "t_ent_vals", "t_ent_w",
              "t_op_vals", "t_has_props", "t_n_res")
 
 
-def bound_wia_planes(args) -> tuple[float, str, int, int]:
+def bound_wia_planes(args, t_rows=None) -> tuple[float, str, int, int]:
     """Bytes: the target-table columns the planes read (``WIA_READS``),
     the packed rows and the regex matrices read once, the [N, 7, T]
     planes written once.  Operations: stage A's compares per (row, target
     row), counted for this call's data: the target rows' valid action ids
     against the row's action slots, and per row its valid entity runs and
-    operations (the kernel skips the empty slots)."""
+    operations (the kernel skips the empty slots).  ``t_rows``: the live
+    target rows (``compiled_target_rows``; all when None) and with them
+    the regex matrices' referenced vocab rows, the only ones counted."""
     tables, rows, schedule, rgx, pfx = args
     N, T = rows.shape[0], tables["t_n_res"].shape[0]
+    if t_rows is not None:
+        t_rows = t_rows.to(tables["t_n_res"].device)
+        tables = {k: v[t_rows] for k, v in tables.items()}
+        T = int(t_rows.numel())
+        w = tables["t_ent_w"]
+        W = max(int(torch.unique(w[w >= 0]).numel()), 1)
+        rgx_bytes = (int(rgx.nbytes) + int(pfx.nbytes)) * W // rgx.shape[0]
+    else:
+        rgx_bytes = int(rgx.nbytes) + int(pfx.nbytes)
     nbytes = sum(int(tables[k].nbytes) for k in WIA_READS)
-    nbytes += int(rows.nbytes) + int(rgx.nbytes) + int(pfx.nbytes)
+    nbytes += int(rows.nbytes) + rgx_bytes
     nbytes += N * len(reverse_ref.PLANE_KEYS) * T
     cols = prefilter_ref.unpack_rows(rows.cpu(), schedule)
     KE, KO = (tables[k].shape[1] for k in ("t_ent_vals", "t_op_vals"))
@@ -2170,7 +2325,7 @@ def phase_wia_vs_plain(device, stats: dict, tree_100k) -> dict:
             f"planes equal ({time.perf_counter() - t0:.1f} s with the "
             f"plain version)")
         args_100k = chk.args[0]
-    return {"100k": args_100k}
+    return {"100k": args_100k, "t_rows": compiled_target_rows(compiled)}
 
 
 def lattice_requests(n: int) -> list:
@@ -2236,7 +2391,7 @@ def phase_wia_main(device, stats: dict, card: str) -> dict:
     t.append(time.perf_counter())
     masks = kern.fold(batch, planes[inv])
     t.append(time.perf_counter())
-    cubes = rmod._rule_match_cubes(compiled, masks)
+    cubes = rmod._rule_match_cubes(compiled, masks, kern.live)
     t.append(time.perf_counter())
     rmod.assemble_batch(engine, compiled, kern, b, batch, masks, cubes)
     t.append(time.perf_counter())
@@ -2254,6 +2409,7 @@ def phase_wia_main(device, stats: dict, card: str) -> dict:
     oracle_qps = 128 / (time.perf_counter() - t0)
     out = {
         "launches": launches, "args": args,
+        "t_rows": compiled_target_rows(compiled),
         "queries_per_s": len(reqs) / warm_s, "batch_ms": warm_s * 1e3,
         "cold_batch_ms": cold_s * 1e3, "stages_ms": stages,
         "miss_set_ms": miss_ms, "signatures": int(len(first_idx)),
@@ -2269,15 +2425,18 @@ def phase_wia_main(device, stats: dict, card: str) -> dict:
 
 def phase_lattice(device, stats: dict, card: str) -> dict:
     """Phase 11: the direct-mode audit sweep of the 128 x 128 x 1 lattice
-    over the 10,000-rule stress tree in 4,096-cell chunks: a warm sweep,
-    then a timed sweep with zero ``wia_planes`` launches; the bitmap held
-    against ``engine.is_allowed`` on a 256-cell strided sample."""
+    over the 10,000-rule stress tree in 4,096-cell chunks: a warm sweep of
+    its first 32 subjects (one chunk, every resource signature of the
+    lattice), then a timed sweep of the whole lattice with zero
+    ``wia_planes`` launches; the bitmap held against
+    ``engine.is_allowed`` on a 256-cell strided sample."""
     import tempfile
 
     engine = engine_from_doc(stress_doc(10_000))
     evaluator = HybridEvaluator(engine, device=device)
     compiled = evaluator._compiled
     spec = LatticeSpec.stress(128, 128, ("read",))
+    warm_spec = LatticeSpec.stress(32, 128, ("read",))
     log(f"  lattice: {spec.n_cells} cells, {compiled.n_rules} rules, "
         f"S={compiled.S} KP={compiled.KP} KR={compiled.KR} T={compiled.T}")
     with tempfile.TemporaryDirectory(prefix="acs-lattice-") as out_dir:
@@ -2287,7 +2446,7 @@ def phase_lattice(device, stats: dict, card: str) -> dict:
             reset_launches()
             with WiaCheck(stats) as chk:
                 t0 = time.perf_counter()
-                warm = manager.start_sweep(spec=spec, wait=True,
+                warm = manager.start_sweep(spec=warm_spec, wait=True,
                                            wait_timeout=900)
                 warm_s = time.perf_counter() - t0
             warm_launches = kmod.LAUNCHES["wia_planes"]
@@ -2306,29 +2465,32 @@ def phase_lattice(device, stats: dict, card: str) -> dict:
                 raise AssertionError(f"the timed sweep launched wia_planes "
                                      f"{timed_launches} times")
             codes = load_bitmap(job.bitmap_path, spec.n_cells)
-            stride = max(1, spec.n_cells // 256)
-            sampled = list(range(0, spec.n_cells, stride))[:256]
-            code_of = {"PERMIT": 1, "DENY": 2}
-            t0 = time.perf_counter()
-            for index in sampled:
-                resp = engine.is_allowed(copy.deepcopy(spec.request(index)))
-                if codes[index] != code_of.get(resp.decision, 0):
-                    raise AssertionError(
-                        f"cell {index}: bitmap {codes[index]} vs oracle "
-                        f"{resp.decision}")
-            oracle_s = time.perf_counter() - t0
             summary = job.status()["summary"]
         finally:
             manager.stop()
+    # the sample after the sweep threads stopped: the oracle walks fork
+    stride = max(1, spec.n_cells // 256)
+    sampled = list(range(0, spec.n_cells, stride))[:256]
+    code_of = {"PERMIT": 1, "DENY": 2}
+    cells = [spec.request(index) for index in sampled]
+    t0 = time.perf_counter()
+    walks = oracle_walks(engine, cells, range(len(cells)))
+    oracle_s = time.perf_counter() - t0
+    for index, resp in zip(sampled, walks):
+        if codes[index] != code_of.get(resp.decision, 0):
+            raise AssertionError(f"cell {index}: bitmap {codes[index]} vs "
+                                 f"oracle {resp.decision}")
     out = {
         "cells": spec.n_cells, "sweep_s": sweep_s, "warm_sweep_s": warm_s,
         "cells_per_s": spec.n_cells / sweep_s,
         "oracle_cells_per_s": len(sampled) / oracle_s,
         "warm_launches": warm_launches, "timed_launches": timed_launches,
         "summary": summary, "args": args,
+        "t_rows": compiled_target_rows(compiled),
     }
     log(f"  lattice on {card}: {out['cells_per_s']:.1f} cells/s timed "
-        f"({sweep_s:.2f} s; warm sweep {warm_s:.2f} s with {warm_launches} "
+        f"({sweep_s:.2f} s; warm sweep of {warm_spec.n_cells} cells "
+        f"{warm_s:.2f} s with {warm_launches} "
         f"wia_planes launches, K5 equal to its plain version); timed sweep "
         f"wia_planes launches {timed_launches}; {len(sampled)} sampled "
         f"cells equal to the oracle ({out['oracle_cells_per_s']:.1f} "
@@ -2511,11 +2673,10 @@ def oracle_rows(engine, store, requests, batch, out, rows=None) -> int:
     engine.relation_store = store
     host = [o.cpu().numpy() if isinstance(o, torch.Tensor) else o
             for o in out]
+    idx = [i for i in (range(len(requests)) if rows is None else rows)
+           if batch.eligible[i]]
     n = 0
-    for i in range(len(requests)) if rows is None else rows:
-        if not batch.eligible[i]:
-            continue
-        resp = engine.is_allowed(copy.deepcopy(requests[i]))
+    for i, resp in zip(idx, oracle_walks(engine, requests, idx)):
         cach = resp.evaluation_cacheable
         want = (DEC_CODE[resp.decision], -1 if cach is None else int(cach),
                 resp.operation_status.code)
@@ -2692,8 +2853,23 @@ def rebac_requests(n_objects: int, batch: int) -> list[Request]:
     return out
 
 
-def phase_rebac(device, stats: dict, card: str, n_tuples: int,
-                n_objects: int = 100_000, depth: int = 4,
+def rebac_tree(device, n_tuples: int = REBAC_TUPLES,
+               n_objects: int = 100_000, depth: int = 4) -> dict:
+    """Phase 13's host work: the tuple store, the evaluator and the
+    closure fold, each timed."""
+    t0 = time.perf_counter()
+    engine, store, n = rebac_setup(n_tuples, n_objects, depth)
+    setup_s = time.perf_counter() - t0
+    evaluator = HybridEvaluator(engine, device=device)
+    t0 = time.perf_counter()
+    tables = store.tables_for(evaluator._compiled)
+    return {"engine": engine, "store": store, "n": n, "setup_s": setup_s,
+            "evaluator": evaluator, "tables": tables,
+            "fold_s": time.perf_counter() - t0, "n_objects": n_objects,
+            "depth": depth}
+
+
+def phase_rebac(device, stats: dict, card: str, pre: dict,
                 batch_rows: int = 4096) -> dict:
     """Phase 13: the ``rebac-serve`` main path.  The store attached to
     ``HybridEvaluator``; the first batch with every ``decide_dense`` call
@@ -2703,17 +2879,14 @@ def phase_rebac(device, stats: dict, card: str, n_tuples: int,
     ``skip_relation_bits``; then a tuple create and delete that flip a
     probe's decision with no new build, no ``sig_planes`` launch and an
     unchanged compiled version."""
-    t0 = time.perf_counter()
-    engine, store, n = rebac_setup(n_tuples, n_objects, depth)
-    setup_s = time.perf_counter() - t0
-    evaluator = HybridEvaluator(engine, device=device)
+    engine, store, n, setup_s, evaluator, tables, fold_s, n_objects, \
+        depth = (pre[k] for k in ("engine", "store", "n", "setup_s",
+                                  "evaluator", "tables", "fold_s",
+                                  "n_objects", "depth"))
     compiled = evaluator._compiled
     kern = evaluator._kernel
     if kern.active or not kern._dense.with_rel:
         raise AssertionError("rebac-serve: not the dense relation variant")
-    t0 = time.perf_counter()
-    tables = store.tables_for(compiled)
-    fold_s = time.perf_counter() - t0
     evaluator.attach_relation_store(store)
     log(f"  rebac-serve: {n} tuples, {n_objects} documents, depth {depth}; "
         f"store built in {setup_s:.1f} s, closure fold {fold_s:.2f} s "
@@ -3181,38 +3354,88 @@ def built_state() -> tuple:
     return set(cuda_build.BUILD_LOG), set(cuda_build._libs), on_disk
 
 
-def pod_patch_check(engine, kernel) -> dict:
-    """One rule flip through ``PodShardedKernel.patched``: exactly one
-    shard re-sliced (its fingerprint moves, the others are reused by
-    reference), the probe's decision changes to the oracle's, and no
-    library is built."""
+def delta_moved(before: dict, after: dict) -> dict:
+    """What moved in ``delta_stats()`` between two reads: the counts
+    (patches, noops, fallbacks, full compiles) and the fallback reasons."""
+    keys = ("patches", "noops", "fallbacks", "full_compiles",
+            "recompiles_avoided")
+    moved = {k: after[k] - before[k] for k in keys if after[k] != before[k]}
+    reasons = {k: v - before["fallback_reasons"].get(k, 0)
+               for k, v in after["fallback_reasons"].items()
+               if v != before["fallback_reasons"].get(k, 0)}
+    if reasons:
+        moved["reasons"] = reasons
+    return moved
+
+
+def pod_patch_check(engine, ev, device, reqs, rank: int) -> dict:
+    """One in-capacity rule flip through the pod evaluator's
+    ``refresh(events=...)`` (the delta patcher, then
+    ``PodShardedKernel.patched``): exactly one patch counted, exactly one
+    shard re-sliced (its fingerprint and applied-patch count move, the
+    others are reused by reference), no library built; then one batch
+    with every ``set_chunk`` / ``shard_tail`` call held against its plain
+    version, its responses (the probe's among them) equal to a
+    single-device evaluator's on the flipped tree, the probe's to the
+    oracle's."""
+    from access_control_srv_tpu_torch.ops.delta import CrudEvent
+
     rule, probe, before, after = _victim_probe(engine)
     try:
-        compiled = compile_policies(engine.policy_sets, engine.urns)
-        slot = list(engine.policy_sets).index("stress")
-        built = built_state()
+        old = "DENY" if rule.effect == "PERMIT" else "PERMIT"
+        event = CrudEvent("rule", "update", rule.id,
+                          {"id": rule.id, "effect": old},
+                          {"id": rule.id, "effect": rule.effect})
+        kernel0 = ev._kernel
+        ident0, stats0, built = ev.shard_identity(), ev.delta_stats(), \
+            built_state()
         t0 = time.perf_counter()
-        patched = kernel.patched(compiled, [slot])
-        d_new = int(patched.evaluate(encode_requests(
-            [copy.deepcopy(probe)], compiled))[0][0])
+        ev.refresh(events=[event], wait=True)
         ttv_ms = (time.perf_counter() - t0) * 1e3
-        d_old = int(kernel.evaluate(encode_requests(
-            [copy.deepcopy(probe)], kernel.compiled))[0][0])
-        fp0 = [sh.fingerprint for sh in kernel.shards]
-        fp1 = [sh.fingerprint for sh in patched.shards]
-        changed = [i for i in range(len(fp0)) if fp0[i] != fp1[i]]
-        reused = [a is b for a, b in zip(kernel.shards, patched.shards)]
-        if len(changed) != 1 or sum(reused) != len(reused) - 1:
-            raise AssertionError(f"patch re-sliced shards {changed}")
-        if (d_old, d_new) != (DEC_CODE[before], DEC_CODE[after]):
-            raise AssertionError(f"patch: decisions {d_old} -> {d_new}, "
-                                 f"oracle {before} -> {after}")
+        moved = delta_moved(stats0, ev.delta_stats())
+        if moved != {"patches": 1, "recompiles_avoided": 1}:
+            raise AssertionError(f"pod patch: delta_stats moved {moved}")
+        ident1 = ev.shard_identity()
+        changed = [i for i, (a, b) in enumerate(zip(ident0["shards"],
+                                                    ident1["shards"]))
+                   if a["fingerprint"] != b["fingerprint"]]
+        applied = [b["applied_patches"] - a["applied_patches"]
+                   for a, b in zip(ident0["shards"], ident1["shards"])]
+        reused = [a is b for a, b in zip(kernel0.shards, ev._kernel.shards)]
+        if len(changed) != 1 or applied != [int(i in changed) for i in
+                                            range(len(applied))] \
+                or sum(reused) != len(reused) - 1:
+            raise AssertionError(f"pod patch re-sliced shards {changed}, "
+                                 f"applied {applied}")
+        batch = copy.deepcopy(reqs) + [copy.deepcopy(probe)]
+        single = HybridEvaluator(engine, device=device)
+        want = [response_key(x) for x in
+                single.is_allowed_batch(copy.deepcopy(batch))]
+        del single
+        check: dict = {}
+        _reset_counts()
+        with KernelCheck(check, names=("set_chunk", "shard_tail")):
+            got = ev.is_allowed_batch(batch)
+        launches = {k: v for k, v in kmod.LAUNCHES.items() if v}
+        if launches.get("set_chunk", 0) < 1:
+            raise AssertionError("pod patch: no set_chunk launch")
+        bad = [i for i, g in enumerate(got) if response_key(g) != want[i]]
+        if bad:
+            raise AssertionError(f"pod patch rank {rank}: rows {bad[:8]} "
+                                 "differ from the single device")
+        if got[-1].decision != after:
+            raise AssertionError(f"pod patch: probe {got[-1].decision}, "
+                                 f"oracle {after}")
         if built != built_state():
-            raise AssertionError("the patch built a library")
+            raise AssertionError("the pod patch built a library")
     finally:
         rule.effect = "DENY" if rule.effect == "PERMIT" else "PERMIT"
-    return {"rule": rule.id, "shard": changed[0], "decision": [d_old, d_new],
-            "ttv_ms": ttv_ms, "new_builds": 0}
+    return {"rule": rule.id, "shard": changed[0],
+            "decision": [before, after], "ttv_ms": ttv_ms,
+            "launches": launches,
+            "checked": {k: [v["calls"], v["max_abs_err"]]
+                        for k, v in check.items()},
+            "rows": len(batch), "new_builds": 0}
 
 
 def rank_device(rank: int) -> torch.device:
@@ -3275,6 +3498,7 @@ def phase15_rank(rank: int, world: int, out_dir: str) -> None:
     ]
     meshes: dict = {}
     res: dict = {"layouts": {}}
+    gate_wait_s = 0.0
     for label, key, layout, kw in configs:
         if layout not in meshes:
             meshes[layout] = make_mesh2(*layout, device=device)
@@ -3298,6 +3522,8 @@ def phase15_rank(rank: int, world: int, out_dir: str) -> None:
             raise AssertionError(f"{label} rank {rank}: rows {bad[:8]} differ "
                                  f"from the single device")
         sampled = sample_oracle(eng, reqs, got) if rank == 0 else 0
+        # no timing before this process's other work of the run is done
+        gate_wait_s += wait_for(os.path.join(out_dir, GATE))
         ev.is_allowed_batch(copy.deepcopy(reqs))
         t0 = time.perf_counter()
         for _ in range(3):
@@ -3322,30 +3548,70 @@ def phase15_rank(rank: int, world: int, out_dir: str) -> None:
             **stages}
         del chk
         if label == "K8 pod_shards (1,4)":
-            res["patch"] = pod_patch_check(eng, kernel)
+            res["patch"] = pod_patch_check(eng, ev, device, reqs, rank)
         del ev, kernel, stage_kernel
         torch.cuda.empty_cache()
+    res["gate_wait_s"] = gate_wait_s
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
         json.dump(res, fh)
 
 
-def phase15(card: str) -> dict:
+# phase 15's gate: the file the main process writes when ``meanwhile``
+# is done; no rank times anything before it exists
+GATE = "meanwhile.done"
+
+
+def wait_for(path: str, timeout_s: float = 600.0) -> float:
+    """Wait until ``path`` exists; returns the seconds waited."""
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t0 > timeout_s:
+            raise TimeoutError(f"{path} did not appear in {timeout_s} s")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def phase15(card: str, meanwhile=None) -> dict:
     """Phase 15: four ranks sharing the card over gloo (NCCL does not put
     two ranks of one communicator on one GPU); returns rank 0's results
     with the launches summed, and the checked calls and errors maxed, over
-    the ranks."""
+    the ranks.  ``meanwhile`` (a callable) runs in this process while the
+    ranks build and check; each rank waits for it (``GATE``) before its
+    first timed batch, so no timing shares the card or the host with
+    it."""
     from access_control_srv_tpu_torch.parallel import launch_local
 
     out_dir = tempfile.mkdtemp(prefix="acs-phase15-")
     t0 = time.perf_counter()
-    launch_local(4, "chip_smoke:phase15_rank", (out_dir,), backend="gloo",
-                 timeout_s=700)
+    failed: list = []
+
+    def ranks() -> None:
+        try:
+            launch_local(4, "chip_smoke:phase15_rank", (out_dir,),
+                         backend="gloo", timeout_s=700)
+        except BaseException as err:  # noqa: BLE001 — raised below
+            failed.append(err)
+
+    world = threading.Thread(target=ranks, name="phase15")
+    world.start()
+    try:
+        if meanwhile is not None:
+            meanwhile()
+    finally:
+        with open(os.path.join(out_dir, GATE), "w"):
+            pass
+        world.join()
+    if failed:
+        raise failed[0]
     ranks = []
     for rank in range(4):
         with open(os.path.join(out_dir, f"rank{rank}.json")) as fh:
             ranks.append(json.load(fh))
     shutil.rmtree(out_dir)
     res = ranks[0]
+    log(f"  the ranks waited {max(rk['gate_wait_s'] for rk in ranks):.1f} "
+        f"s (the longest) for this process's other work before their "
+        f"first timed batch")
     for label, row in res["layouts"].items():
         total: dict = {}
         err: dict = {}
@@ -3382,10 +3648,22 @@ def phase15(card: str) -> dict:
             log(f"    {name} at this layout's main-path shapes, each rank "
                 f"timed alone, slowest rank on {card}: {json.dumps(t)}")
     p = res["patch"]
-    log(f"  pod patch at (1,4): rule {p['rule']} flipped, shard {p['shard']} "
-        f"re-sliced alone, decision {p['decision'][0]} -> "
-        f"{p['decision'][1]}, {p['ttv_ms']:.1f} ms to the first patched "
-        f"decision, no library built")
+    p["launches_all_ranks"] = {}
+    for rk in ranks:
+        for k, v in rk["patch"]["launches"].items():
+            p["launches_all_ranks"][k] = p["launches_all_ranks"].get(k, 0) + v
+        for k, (_, e) in rk["patch"]["checked"].items():
+            p["max_abs_err"] = max(p.get("max_abs_err", 0), e)
+    log(f"  pod patch at (1,4) through HybridEvaluator.refresh(events=...): "
+        f"rule {p['rule']} flipped, one patch counted, shard {p['shard']} "
+        f"re-sliced alone (fingerprint and applied-patch count), the probe "
+        f"{p['decision'][0]} -> {p['decision'][1]} as the oracle, "
+        f"{p['ttv_ms']:.1f} ms for the refresh on rank 0; one batch of "
+        f"{p['rows']} rows on the patched tables: launches (all ranks) "
+        f"{p['launches_all_ranks']}, every set_chunk / shard_tail call "
+        f"equal to its plain version (max abs err "
+        f"{p.get('max_abs_err', 0)}), every response equal to the single "
+        f"device's; no library built; on {card}")
     log(f"  phase 15 took {time.perf_counter() - t0:.1f} s")
     return res
 
@@ -3497,17 +3775,13 @@ def explain_sources(engine, strides, requests, out, rows) -> int:
     provenance source equal to the oracle's ``_rule_id``."""
     decoder = ExplainDecoder(engine.policy_sets, strides)
     host = [np.asarray(o) for o in out]
-    n = 0
-    for i in rows:
-        if int(host[2][i]) != 200:
-            continue
-        want = engine.is_allowed(copy.deepcopy(requests[i]))
+    idx = [i for i in rows if int(host[2][i]) == 200]
+    for i, want in zip(idx, oracle_walks(engine, requests, idx)):
         got = decoder.source(int(host[3][i]))
         if got != getattr(want, "_rule_id", None):
             raise AssertionError(f"row {i}: explain source {got!r} != "
                                  f"oracle {getattr(want, '_rule_id', None)!r}")
-        n += 1
-    return n
+    return len(idx)
 
 
 def same_eligible(a, b, eligible, what: str) -> None:
@@ -3624,10 +3898,11 @@ def bound_explain_sig(args) -> tuple[float, str, int, int]:
     bytes plus the stacked ``rule_orig_flat`` read and the fourth output
     written; per real row one more policy's rule walk."""
     _, _, nbytes, ops = bound_sig_decide(args)
-    cs, gp, n_rows = args[1], args[6], args[7]
-    nbytes += int(cs[kmod.ORIG_TABLE].nbytes) + 4 * int(gp.shape[0])
-    KR = int(cs["rule_effect"].shape[3])
-    return _finish_bound(nbytes, ops + n_rows * KR * 12)
+    inv, cs, gp, n_rows = args[0], args[1], args[6], args[7]
+    live = live_extents({**inv, **cs})
+    nbytes += live_nbytes(kmod.ORIG_TABLE, cs[kmod.ORIG_TABLE], live) \
+        + 4 * int(gp.shape[0])
+    return _finish_bound(nbytes, ops + n_rows * live["KR"] * 12)
 
 
 def pipelined_rate(kernel, batch, iters: int = EXPLAIN_BATCHES) -> float:
@@ -3646,7 +3921,16 @@ def pipelined_rate(kernel, batch, iters: int = EXPLAIN_BATCHES) -> float:
     return batch.B * iters / (time.perf_counter() - t0)
 
 
-def phase_explain_main(device, stats: dict, card: str) -> dict:
+def explain_tree(device) -> tuple:
+    """Phase 18's tree and explain evaluator: (engine, evaluator, seconds
+    to load and compile)."""
+    t0 = time.perf_counter()
+    engine = engine_from_doc(stress_doc(EXPLAIN_RULES))
+    evaluator = HybridEvaluator(engine, device=device, explain=True)
+    return engine, evaluator, time.perf_counter() - t0
+
+
+def phase_explain_main(device, stats: dict, card: str, pre: tuple) -> dict:
     """Phase 18, the explain main path on the JAX package's
     ``explain-overhead`` configuration: ``HybridEvaluator(engine,
     explain=True).is_allowed_batch`` on 8 batches of 4,096
@@ -3656,11 +3940,9 @@ def phase_explain_main(device, stats: dict, card: str) -> dict:
     the oracle (decision, status, ``_rule_id``); warm decisions/s; then
     explain-off against explain-on on the same tables and batch; then one
     16,384-row batch with 16 ACL rows (``decide_grouped``'s explain
-    variant)."""
+    variant).  ``pre``: ``explain_tree``'s result, built earlier."""
     out: dict = {}
-    t0 = time.perf_counter()
-    engine = engine_from_doc(stress_doc(EXPLAIN_RULES))
-    evaluator = HybridEvaluator(engine, device=device, explain=True)
+    engine, evaluator, secs = pre
     compiled = evaluator._compiled
     kern = evaluator._kernel
     if not (kern.active and kern.explain):
@@ -3668,7 +3950,7 @@ def phase_explain_main(device, stats: dict, card: str) -> dict:
                              "signature path")
     log(f"  explain-overhead tree: {compiled.n_rules} rules, S={compiled.S}"
         f" KP={compiled.KP} KR={compiled.KR} T={compiled.T} "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"({secs:.1f} s)")
     reqs = stress_traffic(EXPLAIN_ROWS, seed=7)
     check: dict = {}
     reset_launches()
@@ -3768,8 +4050,10 @@ def phase_explain_main(device, stats: dict, card: str) -> dict:
     _, _, nbytes, ops = bound_ms({**inv, **cs}, r, with_rel,
                                  every_pair=True)
     # plus the stacked rule_orig_flat read and the fourth output written
-    bms, by, _, _ = _finish_bound(nbytes + int(cs[kmod.ORIG_TABLE].nbytes)
-                                  + 4 * int(r["r_n_ra"].shape[0]), ops)
+    orig = live_nbytes(kmod.ORIG_TABLE, cs[kmod.ORIG_TABLE],
+                       live_extents({**inv, **cs}))
+    bms, by, _, _ = _finish_bound(
+        nbytes + orig + 4 * int(r["r_n_ra"].shape[0]), ops)
     grouped = {
         "launches": launches_c["decide_grouped"],
         **redesigned_times("decide_grouped", g_args, (True, False)),
@@ -4211,16 +4495,19 @@ def planes_cases(sig: dict, rel: dict, wia: dict, wl: dict, lat: dict
     unscoped call) in all four (with_hr, with_rel) variants, the flags
     replaced on the same tables; ``wia_planes`` at 100k (phase 9), the
     lattice's warm sweep (phase 11) and wia-large (phase 10)."""
-    cases = {"sig_planes (a)": ("sig_planes", sig["planes_args"]["a"]),
-             "sig_planes (b)": ("sig_planes", sig["planes_args"]["b"])}
+    cases = {"sig_planes (a)": ("sig_planes", sig["planes_args"]["a"],
+                                None),
+             "sig_planes (b)": ("sig_planes", sig["planes_args"]["b"],
+                                None)}
     base = rel["sig_planes"][:3]
     for h in (False, True):
         for r in (False, True):
             cases[f"sig_planes relation-720 ({int(h)},{int(r)})"] = (
-                "sig_planes", base + (h, r))
-    for cell, args in (("100k", wia["100k"]), ("lattice", lat["args"]),
-                       ("wia-large", wl["args"])):
-        cases["wia_planes " + cell] = ("wia_planes", args)
+                "sig_planes", base + (h, r), None)
+    for cell, src, args in (("100k", wia, wia["100k"]),
+                            ("lattice", lat, lat["args"]),
+                            ("wia-large", wl, wl["args"])):
+        cases["wia_planes " + cell] = ("wia_planes", args, src["t_rows"])
     return cases
 
 
@@ -4261,7 +4548,7 @@ def planes_report(cases: dict, ptx: dict, card: str, stats: dict) -> dict:
     every stacked table read), the wrapper's host packing, ptxas numbers,
     blocks per SM and block shape; returns the times by cell."""
     out = {}
-    for cell, (name, args) in cases.items():
+    for cell, (name, args, t_rows) in cases.items():
         plain = PLANES_PLAIN[name]
         _checked(name, stats, getattr(kmod, name)(*args), plain(*args))
         t = redesigned_times(name, args)
@@ -4283,7 +4570,7 @@ def planes_report(cases: dict, ptx: dict, card: str, stats: dict) -> dict:
             del res
         else:
             t["bound_ms"], t["bound_by"], t["bytes"], t["ops"] = \
-                bound_wia_planes(args)
+                bound_wia_planes(args, t_rows)
         t.update(planes_shape(name, args))
         t["ptxas"] = planes_ptx(name, args, ptx)
         out[cell] = t
@@ -4510,7 +4797,16 @@ def wire_rates(evaluator, requests, messages,
             "is_allowed_batch": steady_state(evaluator, requests)}
 
 
-def phase_wire(device, stats: dict, card: str, wire_a) -> dict:
+def serve_tree(device) -> tuple:
+    """Phase 19's serve-20k tree and evaluator: (engine, evaluator,
+    seconds to load and compile)."""
+    t0 = time.perf_counter()
+    engine = serve_engine(SERVE_RULES)
+    evaluator = HybridEvaluator(engine, device=device)
+    return engine, evaluator, time.perf_counter() - t0
+
+
+def phase_wire(device, stats: dict, card: str, wire_a, pre=None) -> dict:
     """Phase 19: ``is_allowed_batch_wire`` at ``serve-20k``, at (a) and
     at ``scoped_511`` (the dense path), plus one ``serve-20k`` batch with
     deep-HR rows through the ceiling re-encode."""
@@ -4518,11 +4814,9 @@ def phase_wire(device, stats: dict, card: str, wire_a) -> dict:
     log(f"  {tools['gxx']}; google.protobuf "
         f"{tools['protobuf'] or 'absent: ' + tools['protobuf_error']}")
     out = {"launches": {}}
-    t0 = time.perf_counter()
-    engine = serve_engine(SERVE_RULES)
-    evaluator = HybridEvaluator(engine, device=device)
+    engine, evaluator, secs = pre if pre is not None else serve_tree(device)
     log(f"  serve-20k tree: {evaluator._compiled.n_rules} rules, loaded and "
-        f"compiled in {time.perf_counter() - t0:.1f} s")
+        f"compiled in {secs:.1f} s")
     # bench_serving_e2e's _serving_batch_msg(8192, default_rng(11),
     # wide=True) is stress_traffic at numpy seed 11 (no context resources)
     reqs = stress_traffic(SERVE_ROWS, seed=11)
@@ -4658,16 +4952,24 @@ def batch_split(evaluator, requests, prepare: bool = False) -> dict:
             "decode_oracle_rows": (t5 - t4) * 1e3}
 
 
-def phase_token_mix(device, stats: dict, card: str, n_rules: int = FRONT_RULES,
-                    rows: int = FRONT_ROWS, n_tokens: int = TOKENS) -> dict:
+def token_mix_tree(device, n_rules: int = FRONT_RULES,
+                   rows: int = FRONT_ROWS, n_tokens: int = TOKENS) -> tuple:
+    """Phase 20's host work: ``token_mix_setup`` and the evaluator."""
+    engine, requests, identity = token_mix_setup(n_rules, rows, n_tokens)
+    return engine, requests, identity, HybridEvaluator(engine,
+                                                       device=device)
+
+
+def phase_token_mix(device, stats: dict, card: str, pre: tuple) -> dict:
     """Phase 20, ``token-mix``: token traffic through ``prepare_batch``;
     eligible share, sampled responses against the oracle (which resolves
-    the token itself), decisions/s with the preparation in every pass."""
+    the token itself), decisions/s with the preparation in every pass.
+    ``pre``: ``token_mix_tree``'s result, built earlier."""
     import gc
 
-    engine, requests, identity = token_mix_setup(n_rules, rows, n_tokens)
+    engine, requests, identity, evaluator = pre
+    rows, n_tokens = len(requests), TOKENS
     fresh = copy.deepcopy(requests)
-    evaluator = HybridEvaluator(engine, device=device)
     responses, launches, _ = checked_call(
         "token-mix", lambda: evaluator.is_allowed_batch(requests),
         ("sig_decide",), stats)
@@ -4757,18 +5059,26 @@ def adapter_mixed_setup(n_rules: int, rows: int, seed: int = 23):
     return engine, requests
 
 
-def phase_adapter_warm(device, stats: dict, card: str,
-                       n_rules: int = FRONT_RULES,
-                       rows: int = FRONT_ROWS) -> dict:
+def adapter_tree(device, n_rules: int = FRONT_RULES,
+                 rows: int = FRONT_ROWS) -> tuple:
+    """Phase 21's host work: ``adapter_mixed_setup`` and the evaluator
+    with its (empty) decision cache."""
+    engine, requests = adapter_mixed_setup(n_rules, rows)
+    cache = DecisionCache(ttl_s=3600.0, max_entries=1 << 17)
+    return engine, requests, cache, HybridEvaluator(
+        engine, device=device, decision_cache=cache)
+
+
+def phase_adapter_warm(device, stats: dict, card: str, pre: tuple) -> dict:
     """Phase 21, ``adapter-mixed-warm``: a cold pass writes the decision
     cache through; a warm pass's hits equal the cold responses; warm
-    decisions/s of the hit rows alone and of the mixed traffic."""
+    decisions/s of the hit rows alone and of the mixed traffic.  ``pre``:
+    ``adapter_tree``'s result, built earlier."""
     import gc
 
-    engine, requests = adapter_mixed_setup(n_rules, rows)
+    engine, requests, cache, evaluator = pre
+    rows = len(requests)
     fresh = copy.deepcopy(requests)
-    cache = DecisionCache(ttl_s=3600.0, max_entries=1 << 17)
-    evaluator = HybridEvaluator(engine, device=device, decision_cache=cache)
     cold, launches, _ = checked_call(
         "adapter-mixed-warm", lambda: evaluator.is_allowed_batch(requests),
         ("sig_decide",), stats)
@@ -4957,7 +5267,8 @@ def serving_worker(device, env: str = ""):
     """The JAX ``bench_serving_e2e`` worker: ``cfg/config.json`` (with
     its ``cfg/config_<env>.json`` overlay when ``env`` names one), the
     seed data through the store, ``stress_doc(SERVE_RULES)`` upserted
-    into it and compiled, stage histograms on."""
+    into it and compiled (the store's refresh, on the compile thread
+    where the config says so, awaited), stage histograms on."""
     from access_control_srv_tpu_torch.srv.config import Config
     from access_control_srv_tpu_torch.srv.worker import Worker
 
@@ -4971,11 +5282,29 @@ def serving_worker(device, env: str = ""):
     worker = Worker().start(cfg, device=device)
     try:
         worker.store.seed(*store_docs(stress_doc(SERVE_RULES)))
-        worker.evaluator.refresh(wait=True)
+        await_compile(worker.evaluator)
     except BaseException:
         worker.stop()
         raise
     return worker
+
+
+def await_compile(ev, timeout_s: float = GRPC_FLIP_TIMEOUT_S) -> None:
+    """Wait until ``ev`` publishes its latest version with no compile
+    pending (the debounced compile thread idle)."""
+    t0 = time.perf_counter()
+    while True:
+        with ev._compile_state_lock:
+            idle = not ev._compile_pending and (
+                ev._compile_thread is None
+                or not ev._compile_thread.is_alive())
+        with ev._lock:
+            if idle and ev._compiled is not None \
+                    and ev._compiled.version == ev._version:
+                return
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError("the policy compile never published")
+        time.sleep(0.002)
 
 
 def unary_cell(worker, addr: str, messages: list[bytes], card: str,
@@ -5249,44 +5578,13 @@ def phase_grpc(device, stats: dict, card: str, wire_rate: float) -> dict:
             f"equal to the batch call; {GRPC_CONCURRENT} concurrent "
             f"IsAllowedBatch callers x 2 calls got the single-caller bytes")
 
-        # whatIsAllowed, batch and unary
-        wreqs = stress_traffic(GRPC_WIA_QUERIES, seed=29)
-        wmsgs = [wire_bytes(r) for r in wreqs]
-        wia_stats: dict = {}
-        reset_launches()
-        with WiaCheck(wia_stats):
-            wraw = rpc("WhatIsAllowedBatch", batch_envelope(wmsgs))
-            wunary = [rpc("WhatIsAllowed", m) for m in wmsgs[:GRPC_WIA_UNARY]]
-        wlaunch = dict(kmod.LAUNCHES)
-        _add_launches(out["launches"])
-        st = stats.setdefault("wia_planes", {"calls": 0, "max_abs_err": 0})
-        st["max_abs_err"] = max(st["max_abs_err"],
-                                wia_stats.get("wia_planes", {}).get(
-                                    "max_abs_err", 0))
-        if wlaunch["wia_planes"] < 1:
-            raise AssertionError("phase 22: whatIsAllowed launched no "
-                                 "wia_planes")
-        wgot = pb.BatchReverseQuery.FromString(wraw).responses
-        for i, r in enumerate(wreqs):
-            want = tg.reverse_query_to_pb(
-                engine.what_is_allowed(copy.deepcopy(r))).SerializeToString()
-            if wgot[i].SerializeToString() != want or (
-                    i < len(wunary) and wunary[i] != want):
-                raise AssertionError(f"phase 22 whatIsAllowed {i}: != "
-                                     "engine.what_is_allowed")
-        log(f"  WhatIsAllowedBatch {GRPC_WIA_QUERIES} queries and "
-            f"{len(wunary)} WhatIsAllowed: launches {wlaunch}; every "
-            f"wia_planes call equal to its plain version; every answer "
-            f"equal to engine.what_is_allowed")
-
-        # a CRUD flip over gRPC, async full recompile
-        out["crud"] = grpc_crud_flip(rpc, pb, engine, tg)
-        c = out["crud"]
-        log(f"  CRUD flip on {card}: RuleService/Update "
-            f"{c['update_ms'][0]:.1f} / {c['update_ms'][1]:.1f} ms, time to "
-            f"visibility (full recompile, async) {c['visibility_s'][0]:.3f} "
-            f"/ {c['visibility_s'][1]:.3f} s (flip / flip back); the probe "
-            f"equal to the oracle after each")
+        # hot policy updates over gRPC (the delta patcher), then the
+        # patched tables under full checks
+        out["crud"] = grpc_crud_segment(rpc, pb, worker, tg, card)
+        out["patched"] = grpc_patched_checks(rpc, pb, worker, tg, reqs,
+                                             payload, stats, card)
+        for k, v in out["patched"]["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
 
         # the rest of the surface
         health = pb.HealthCheckResponse.FromString(
@@ -5328,47 +5626,374 @@ def phase_grpc(device, stats: dict, card: str, wire_rate: float) -> dict:
     return out
 
 
-def grpc_crud_flip(rpc, pb, engine, tg) -> dict:
-    """``RuleService/Update`` moves stress rule ``r1`` onto a fresh role,
-    so a probe of that role goes from INDETERMINATE to PERMIT, then back:
-    each time the probe (``GRPC_FLIP_ROWS`` copies through the native
-    wire path) is polled until the new tree serves, and then equals the
-    oracle."""
-    read = pb.RuleListResponse.FromString(
-        rpc("Read", pb.ReadRequest(ids=["r1"]).SerializeToString(),
-            prefix="/acstpu.RuleService/"))
-    original = read.items[0]
+def phase_hot_updates(device, stats: dict, card: str) -> dict:
+    """Phase 23: K1 on patched tables at scoped_511 (phase 5's tree and
+    rows) through a ``PolicyStore`` on that engine: one in-capacity rule
+    edit (a patch), then one batch with the counts set to 0 just before
+    and read just after, every ``decide_dense`` call held against its
+    plain version and 32 rows against the oracle (no library built or
+    loaded since the warm batch before the edit); one rule create that
+    takes the tree to 512 rules, which must take the
+    ``prefilter-threshold-crossed`` fallback.  Between the two, the cost
+    of padding: K1 on the same rows over unpadded tables (a
+    ``delta_enabled=False`` evaluator) beside the bucketed ones."""
+    from access_control_srv_tpu_torch.srv.store import PolicyStore
+
+    engine = AccessController()
+    ev = HybridEvaluator(engine, device=device)
+    store = PolicyStore(engine, evaluator=ev)
+    store.seed(*store_docs(stress_doc(511, scoped=True)))
+    rng = random.Random(5)
+    reqs = grid_requests(rng, 4096 - 5, stress=True) + odd_requests(rng, True)
+    out: dict = {"caps": ev.delta_stats()["capacities"]}
+
+    # the serving kernel warm before the mutation: its library loaded
+    ev.is_allowed_batch(copy.deepcopy(reqs))
+    rules = store.get_resource_service("rule")
+    doc = store.collections["rule"].get("r1")
+    doc["effect"] = "DENY" if doc["effect"] == "PERMIT" else "PERMIT"
+    before, built = ev.delta_stats(), built_state()
+    t0 = time.perf_counter()
+    rules.update([doc])
+    out["patch_ms"] = (time.perf_counter() - t0) * 1e3
+    moved = delta_moved(before, ev.delta_stats())
+    if moved != {"patches": 1, "recompiles_avoided": 1}:
+        raise AssertionError(f"phase 23: the rule edit moved {moved}")
+    responses, launches, chk = checked_call(
+        "K1 on patched tables", lambda: ev.is_allowed_batch(
+            copy.deepcopy(reqs)), ("decide_dense",), stats, dense=True)
+    n = sample_oracle(engine, reqs, responses)
+    if built != built_state():
+        raise AssertionError("phase 23: the patch built or loaded a library")
+    out["launches"] = launches
+    k1_on = max(chk.calls["decide_dense"],
+                key=lambda a: a[1]["r_n_ra"].shape[0])
+    log(f"  scoped_511 through a PolicyStore (capacities {out['caps']}): "
+        f"rule r1's effect flipped, one patch in {out['patch_ms']:.1f} ms; "
+        f"{len(reqs)} rows on the patched tables: launches {launches}, "
+        f"every decide_dense call equal to its plain version, {n} rows "
+        f"equal to the oracle; no library built or loaded")
+
+    flat = HybridEvaluator(engine, device=device, delta_enabled=False)
+    with captured("decide_dense", kmod) as calls:
+        flat.is_allowed_batch(copy.deepcopy(reqs))
+    k1_off = max(calls, key=lambda a: a[1]["r_n_ra"].shape[0])
+    del flat
+    out["padding_k1"] = padding_cost("decide_dense", k1_off, k1_on, card,
+                                     "scoped_511")
+
+    rules.create([{**{k: v for k, v in doc.items() if k != "meta"},
+                   "id": "r511"}])
+    policy = store.collections["policy"].get("p0")
+    policy["rules"] = policy["rules"] + ["r511"]
+    before = ev.delta_stats()
+    store.get_resource_service("policy").update([policy])
+    moved = delta_moved(before, ev.delta_stats())
+    want = {"fallbacks": 1, "full_compiles": 1,
+            "reasons": {"prefilter-threshold-crossed": 1}}
+    if moved != want or ev._compiled.n_rules != 512 \
+            or not ev._kernel.active:
+        raise AssertionError(f"phase 23: the 512th rule moved {moved}")
+    log(f"  the 512th rule attached: delta_stats moved {json.dumps(moved)} "
+        f"(a full bucketed recompile onto the signature path)")
+    return out
+
+
+CRUD_RULE = "r1"        # a stress rule of policy p0 (stress_doc)
+CRUD_POLICY = "p0"
+CRUD_NEW_RULE = "r_probe"
+FA = "urn:oasis:names:tc:xacml:3.0:rule-combining-algorithm:first-applicable"
+
+
+def grpc_crud_segment(rpc, pb, worker, tg, card: str) -> dict:
+    """Phase 22's CRUD segment: ``RuleService`` / ``PolicyService`` RPCs
+    on the serve-20k Worker, in this order:
+
+    - policy ``p0``'s combining algorithm changed, then restored: two
+      ``combining-algorithm-changed`` fallbacks, each a full bucketed
+      recompile on the Worker's debounced compile thread;
+    - rule ``r1`` moved onto a fresh role, then back: two in-capacity
+      patches (a probe of that role goes INDETERMINATE -> PERMIT -> back);
+    - a rule created (unreferenced: a noop) and attached to ``p0`` (a
+      patch; a probe of its role turns PERMIT);
+    - ``r1`` sent again unchanged: a noop.
+
+    After each: ``delta_stats()`` moved exactly as expected (the reason
+    named), the probe (``GRPC_FLIP_ROWS`` copies through the native wire
+    path) equals the oracle, the ``Update`` RPC's own time, the time to
+    visibility, and on a patch its split (``apply_events``, the kernel's
+    construction and upload, the native encoder, the candidate index, the
+    first batch, K2 included).  No library is built or loaded across the
+    in-capacity patches."""
+    ev, engine = worker.evaluator, worker.engine
+    rs, ps = "/acstpu.RuleService/", "/acstpu.PolicyService/"
+    original = pb.RuleListResponse.FromString(
+        rpc("Read", pb.ReadRequest(ids=[CRUD_RULE]).SerializeToString(),
+            prefix=rs)).items[0]
+    policy = pb.PolicyListResponse.FromString(
+        rpc("Read", pb.ReadRequest(ids=[CRUD_POLICY]).SerializeToString(),
+            prefix=ps)).items[0]
     flipped = pb.Rule()
     flipped.CopyFrom(original)
     flipped.target.subjects[0].value = "probe-role"
-    probe = copy.deepcopy(stress_traffic(1, seed=31)[0])
-    probe.target.subjects[0].value = "probe-role"
-    probe.context["subject"]["role_associations"][0]["role"] = "probe-role"
-    probe.target.resources[0].value = original.target.resources[0].value
-    probe.target.actions[0].value = original.target.actions[0].value
-    probe_batch = batch_envelope([wire_bytes(probe)] * GRPC_FLIP_ROWS)
-    out = {"update_ms": [], "visibility_s": [], "decisions": []}
-    for rule, want in ((flipped, pb.PERMIT), (original, pb.INDETERMINATE)):
+    created = pb.Rule()
+    created.CopyFrom(original)
+    created.id = CRUD_NEW_RULE
+    created.effect = "PERMIT"
+    created.target.subjects[0].value = "probe-role-2"
+    created.ClearField("meta")
+    attached = pb.Policy()
+    attached.CopyFrom(policy)
+    attached.rules.append(CRUD_NEW_RULE)
+    other_ca = pb.Policy()
+    other_ca.CopyFrom(policy)
+    other_ca.combining_algorithm = FA
+
+    def probe_for(role: str):
+        req = copy.deepcopy(stress_traffic(1, seed=31)[0])
+        req.target.subjects[0].value = role
+        req.context["subject"]["role_associations"][0]["role"] = role
+        req.target.resources[0].value = original.target.resources[0].value
+        req.target.actions[0].value = original.target.actions[0].value
+        return req, batch_envelope([wire_bytes(req)] * GRPC_FLIP_ROWS)
+
+    probes = {role: probe_for(role) for role in ("probe-role",
+                                                 "probe-role-2")}
+    fallback = {"fallbacks": 1, "full_compiles": 1,
+                "reasons": {"combining-algorithm-changed": 1}}
+    patch = {"patches": 1, "recompiles_avoided": 1}
+    steps = [
+        ("ca-change", ps + "Update", pb.PolicyList(items=[other_ca]),
+         fallback, "probe-role", pb.INDETERMINATE),
+        ("ca-restore", ps + "Update", pb.PolicyList(items=[policy]),
+         fallback, "probe-role", pb.INDETERMINATE),
+        ("flip", rs + "Update", pb.RuleList(items=[flipped]), patch,
+         "probe-role", pb.PERMIT),
+        ("flip-back", rs + "Update", pb.RuleList(items=[original]), patch,
+         "probe-role", pb.INDETERMINATE),
+        ("create", rs + "Create", pb.RuleList(items=[created]),
+         {"noops": 1}, "probe-role-2", pb.INDETERMINATE),
+        ("attach", ps + "Update", pb.PolicyList(items=[attached]), patch,
+         "probe-role-2", pb.PERMIT),
+        ("noop", rs + "Update", pb.RuleList(items=[original]),
+         {"noops": 1}, "probe-role", pb.INDETERMINATE),
+    ]
+    out: dict = {"steps": {}}
+    built = None
+    for label, path, msg, expect, role, want in steps:
+        probe, probe_batch = probes[role]
+        if label == "flip":
+            built = built_state()
+        before = ev.delta_stats()
         t0 = time.perf_counter()
-        rpc("Update", pb.RuleList(items=[rule]).SerializeToString(),
-            prefix="/acstpu.RuleService/")
+        status = pb.MutationResponse.FromString(
+            rpc(path.rsplit("/", 1)[1], msg.SerializeToString(),
+                prefix=path.rsplit("/", 1)[0] + "/")).operation_status
         t1 = time.perf_counter()
-        while True:
-            got = pb.BatchResponse.FromString(
-                rpc("IsAllowedBatch", probe_batch)).responses
-            if all(r.decision == want for r in got):
-                break
-            if time.perf_counter() - t0 > GRPC_FLIP_TIMEOUT_S:
-                raise AssertionError("phase 22: the CRUD flip never served")
-            time.sleep(0.005)
+        if status.code != 200:
+            raise AssertionError(f"phase 22 {label}: {status}")
+        if "fallbacks" in expect:
+            # the full recompile runs on the compile thread: visible once
+            # it has published the latest version
+            await_compile(ev)
         t2 = time.perf_counter()
+        split = dict(ev.last_patch_split or {}) if "patches" in expect \
+            else {}
+        reset_launches()
+        tb = time.perf_counter()
+        got = pb.BatchResponse.FromString(
+            rpc("IsAllowedBatch", probe_batch)).responses
+        first_ms = (time.perf_counter() - tb) * 1e3
+        first_launches = dict(kmod.LAUNCHES)
+        t3 = time.perf_counter()
+        moved = delta_moved(before, ev.delta_stats())
+        if moved != expect:
+            raise AssertionError(f"phase 22 {label}: delta_stats moved "
+                                 f"{moved}, expected {expect}")
         oracle = tg.response_to_pb(engine.is_allowed(copy.deepcopy(probe)))
-        if _pb_key(got[0]) != _pb_key(oracle):
-            raise AssertionError(f"phase 22: flipped probe {_pb_key(got[0])}"
-                                 f" != oracle {_pb_key(oracle)}")
-        out["update_ms"].append((t1 - t0) * 1e3)
-        out["visibility_s"].append(t2 - t0)
-        out["decisions"].append(pb.Decision.Name(got[0].decision))
+        if any(_pb_key(r) != _pb_key(oracle) for r in got) \
+                or got[0].decision != want:
+            raise AssertionError(f"phase 22 {label}: probe "
+                                 f"{_pb_key(got[0])}, oracle "
+                                 f"{_pb_key(oracle)}, expected "
+                                 f"{pb.Decision.Name(want)}")
+        if "patches" in expect and first_launches["sig_planes"] < 1:
+            raise AssertionError(f"phase 22 {label}: the first batch after "
+                                 "the patch launched no sig_planes")
+        step = {"moved": moved, "update_ms": (t1 - t0) * 1e3,
+                "visibility_ms": (t3 - t0) * 1e3,
+                "first_batch_ms": first_ms,
+                "first_batch_launches": {k: v for k, v in
+                                         first_launches.items() if v},
+                "decision": pb.Decision.Name(got[0].decision)}
+        if "fallbacks" in expect:
+            step["recompile_ms"] = (t2 - t0) * 1e3
+        if split:
+            step["split_ms"] = {**split, "first_batch_ms": first_ms}
+        out["steps"][label] = step
+        log(f"  CRUD {label} on {card}: {path.rsplit('/', 2)[1]}/"
+            f"{path.rsplit('/', 1)[1]} {step['update_ms']:.1f} ms; "
+            f"delta_stats moved {json.dumps(moved)}; time to visibility "
+            f"{step['visibility_ms']:.1f} ms"
+            + (f" (split ms: {json.dumps(step['split_ms'])})" if split
+               else "")
+            + (f" (the recompile published after "
+               f"{step['recompile_ms']:.1f} ms)" if "recompile_ms" in step
+               else "")
+            + f"; the probe {step['decision']} equal to the oracle; first "
+            f"batch launches {step['first_batch_launches']}")
+    if built != built_state():
+        raise AssertionError("phase 22: an in-capacity patch built or "
+                             "loaded a library")
+    out["stats"] = ev.delta_stats()
+    log(f"  delta_stats after the segment: {json.dumps(out['stats'])}; no "
+        "library built or loaded across the patches")
+    return out
+
+
+def grpc_patched_checks(rpc, pb, worker, tg, reqs, payload, stats: dict,
+                        card: str) -> dict:
+    """The serve-20k Worker's patched tables (after the CRUD segment)
+    under full checks: one ``SERVE_ROWS``-row ``IsAllowedBatch`` with
+    every kernel call held against its plain version and 32 rows against
+    the oracle; a batch with 16 ACL rows (K4) the same way, its ACL rows
+    among the sampled; ``WhatIsAllowedBatch`` of ``GRPC_WIA_QUERIES``
+    queries (and ``GRPC_WIA_UNARY`` unary calls) with every
+    ``wia_planes`` call held against its plain version and every answer
+    equal to ``engine.what_is_allowed``; the tables canonically equal to
+    a fresh ``full_bucketed_compile`` of the final tree.  Then the cost
+    of padding: K3 on the same rows over unpadded tables (a
+    ``delta_enabled=False`` evaluator) beside the bucketed ones."""
+    from access_control_srv_tpu_torch.ops import delta as dmod
+
+    ev, engine = worker.evaluator, worker.engine
+    out: dict = {"launches": {}}
+    if ev.delta_stats()["patches"] < 1 or ev._compiled.version != ev._version:
+        raise AssertionError("phase 22: the tables are not the patched ones")
+
+    def wire_checked(label, pay, rows, expect, always=()):
+        raw, launches, chk = checked_call(label, lambda: rpc(
+            "IsAllowedBatch", pay), expect, stats)
+        _add_launches(out["launches"])
+        got = pb.BatchResponse.FromString(raw).responses
+        idx = sorted(set(random.Random(5).sample(range(len(rows)), 32))
+                     | set(always))
+        for i, want in zip(idx, oracle_walks(engine, rows, idx)):
+            if _pb_key(got[i]) != _pb_key(tg.response_to_pb(want)):
+                raise AssertionError(f"phase 22 {label} row {i}: "
+                                     f"{_pb_key(got[i])} != the oracle")
+        log(f"  {label} on the patched tables: {len(rows)} rows, launches "
+            f"{launches}; every kernel call equal to its plain version; "
+            f"{len(idx)} rows equal to the oracle")
+        return launches, chk
+
+    launches, chk = wire_checked("IsAllowedBatch", payload, reqs,
+                                 ("sig_planes", "sig_decide"))
+    out["batch"] = launches
+    k3_on = chk.args["sig_decide"]
+    acl = stress_traffic(1024, seed=37, n_acl=16)
+    acl_rows = [i for i, r in enumerate(acl)
+                if any((res.get("meta") or {}).get("acls")
+                       for res in r.context.get("resources") or [])]
+    out["acl"], _ = wire_checked(
+        "IsAllowedBatch with 16 ACL rows",
+        batch_envelope([wire_bytes(r) for r in acl]), acl,
+        ("decide_grouped",), always=acl_rows)
+
+    wreqs = stress_traffic(GRPC_WIA_QUERIES, seed=29)
+    wmsgs = [wire_bytes(r) for r in wreqs]
+    wia_stats: dict = {}
+    reset_launches()
+    with WiaCheck(wia_stats):
+        wraw = rpc("WhatIsAllowedBatch", batch_envelope(wmsgs))
+        wunary = [rpc("WhatIsAllowed", m) for m in wmsgs[:GRPC_WIA_UNARY]]
+    wlaunch = dict(kmod.LAUNCHES)
+    _add_launches(out["launches"])
+    st = stats.setdefault("wia_planes", {"calls": 0, "max_abs_err": 0})
+    st["max_abs_err"] = max(st["max_abs_err"], wia_stats.get(
+        "wia_planes", {}).get("max_abs_err", 0))
+    if wlaunch["wia_planes"] < 1:
+        raise AssertionError("phase 22: whatIsAllowed launched no "
+                             "wia_planes")
+    wgot = pb.BatchReverseQuery.FromString(wraw).responses
+    for i, r in enumerate(wreqs):
+        want = tg.reverse_query_to_pb(
+            engine.what_is_allowed(copy.deepcopy(r))).SerializeToString()
+        if wgot[i].SerializeToString() != want or (
+                i < len(wunary) and wunary[i] != want):
+            raise AssertionError(f"phase 22 whatIsAllowed {i}: != "
+                                 "engine.what_is_allowed")
+    out["wia"] = wlaunch
+    log(f"  WhatIsAllowedBatch {GRPC_WIA_QUERIES} queries and "
+        f"{len(wunary)} WhatIsAllowed on the patched tables: launches "
+        f"{wlaunch}; every wia_planes call equal to its plain version; "
+        f"every answer equal to engine.what_is_allowed")
+
+    t0 = time.perf_counter()
+    fresh = dmod.full_bucketed_compile(engine.policy_sets, engine.urns)[0]
+    if dmod.canonical_tables(ev._compiled) != dmod.canonical_tables(fresh):
+        raise AssertionError("phase 22: the patched tables differ from a "
+                             "fresh full_bucketed_compile of the tree")
+    log(f"  the patched tables canonically equal to a fresh "
+        f"full_bucketed_compile of the final tree (checked in "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+    # the cost of padding: K3 on the same rows, unpadded tables
+    flat = HybridEvaluator(engine, device=ev.device, delta_enabled=False)
+    with captured("sig_decide", pfmod) as calls:
+        flat.is_allowed_batch_wire([wire_bytes(r) for r in reqs])
+    out["padding_k3"] = padding_cost("sig_decide", calls[-1], k3_on, card,
+                                     "serve-20k")
+    del flat
+    return out
+
+
+class captured:
+    """While active, every call of wrapper ``name`` in ``mod`` is
+    recorded (its arguments, untouched) and launched as it is."""
+
+    def __init__(self, name: str, mod):
+        self.name, self.mod = name, mod
+        self.calls: list[tuple] = []
+
+    def __enter__(self):
+        self.orig = getattr(self.mod, self.name)
+
+        def rec(*args, **kw):
+            self.calls.append(args)
+            return self.orig(*args, **kw)
+
+        setattr(self.mod, self.name, rec)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.orig)
+        return False
+
+
+def padding_cost(name: str, unpadded: tuple, bucketed: tuple, card: str,
+                 cell: str) -> dict:
+    """K1 or K3 on the same rows over unpadded (``delta_enabled=False``)
+    and capacity-bucketed tables: through the wrapper (CUDA events, the
+    mean of ITERS launches after a warm-up) and packed once
+    (``time_steady``, the two taking turns), with each call's table
+    shapes."""
+    wrapper = {"decide_dense": kmod.decide_dense,
+               "sig_decide": kmod.sig_decide}[name]
+    through = [time_ms(lambda a=a: wrapper(*a)) for a in (unpadded,
+                                                          bucketed)]
+    packed = time_steady(*(prepacked(kmod, name, a) for a in (unpadded,
+                                                              bucketed)))
+    table = "rule_valid"
+    shapes = [list((a[0] if name == "decide_dense" else a[1])[table].shape)
+              for a in (unpadded, bucketed)]
+    out = {"unpadded_ms": through[0], "bucketed_ms": through[1],
+           "unpadded_packed_ms": packed[0], "bucketed_packed_ms": packed[1],
+           "rule_valid_shapes": shapes}
+    log(f"  padding cost, {name} at {cell} on {card}: through the wrapper "
+        f"{through[0]:.4f} ms unpadded, {through[1]:.4f} ms bucketed; packed "
+        f"once {packed[0]:.4f} / {packed[1]:.4f} ms; {table} shapes "
+        f"{shapes[0]} / {shapes[1]}")
     return out
 
 
@@ -5394,10 +6019,34 @@ def main(argv: list[str]) -> int:
     log(card)
 
     stamp("phase 2: build")
+    quick = "--quick" in argv
+    # while the nvcc processes run, this thread does the host work of the
+    # largest trees (load, compile, table upload; no kernel library is
+    # needed before a first batch): phase 7's two 100k-rule trees and,
+    # in the full run, phase 13's tuple store and closure fold
+    built: dict = {}
+
+    def build() -> None:
+        t0 = time.perf_counter()
+        try:
+            cuda_build.build(list(SOURCES))
+        except BaseException as err:  # noqa: BLE001 — raised below
+            built["error"] = err
+        built["s"] = time.perf_counter() - t0
+
+    builder = threading.Thread(target=build, name="nvcc")
+    builder.start()
     t0 = time.perf_counter()
-    cuda_build.build(list(SOURCES))
-    log(f"  {', '.join(SOURCES)} built in {time.perf_counter() - t0:.1f} s "
-        f"(one nvcc each, in parallel)")
+    trees = {"a": sig_tree(device, False), "b": sig_tree(device, True)}
+    rebac_pre = None if quick else rebac_tree(device)
+    host_s = time.perf_counter() - t0
+    builder.join()
+    if "error" in built:
+        raise built["error"]
+    log(f"  {', '.join(SOURCES)} built in {built['s']:.1f} s (one nvcc "
+        f"each, in parallel); meanwhile the 100k trees"
+        f"{'' if quick else ' and the rebac-serve store'} were built in "
+        f"{host_s:.1f} s")
     parent_csrc = parent_dir = None
     if "--parent-csrc" in argv:
         parent_csrc = argv[argv.index("--parent-csrc") + 1]
@@ -5410,7 +6059,6 @@ def main(argv: list[str]) -> int:
         PARENT = load_parent(parent_csrc, parent_dir)
     # --quick: the plane kernels' phases only (2, 6, 7, 9-12 and the K2 /
     # K5 report), no kernel table and no result line
-    quick = "--quick" in argv
     if not quick:
         stamp("phase 3-4: dense kernel vs plain version, kernel vs oracle")
         variants = phase_kernel_vs_plain(device, 1024, stats)
@@ -5426,7 +6074,7 @@ def main(argv: list[str]) -> int:
     phase_sig_vs_plain(device, sig_stats)
 
     stamp("phase 7: signature main paths (100k rules)")
-    sig = phase_sig_main(device, sig_stats, card)
+    sig = phase_sig_main(device, sig_stats, card, trees)
     if quick:
         tree_100k = sig.pop("tree_100k")
         stamp("phase 9: wia_planes vs plain version")
@@ -5446,6 +6094,9 @@ def main(argv: list[str]) -> int:
         stamp("phase 22: the gRPC main path (serve-20k over loopback)")
         phase_grpc(device, sig_stats, card,
                    wire["serve-20k"]["decisions_per_s"])
+        stamp("phase 23: hot policy updates at scoped_511 (K1 on patched "
+              "tables, the prefilter threshold)")
+        phase_hot_updates(device, sig_stats, card)
         log(f"  quick run: {time.perf_counter() - t_start:.1f} s in all")
         return 0
 
@@ -5482,7 +6133,8 @@ def main(argv: list[str]) -> int:
     rel = phase_rel_vs_plain(device, sig_stats)
 
     stamp("phase 13: ReBAC main path (rebac-serve, 1,000,000 tuples)")
-    rebac = phase_rebac(device, sig_stats, card, REBAC_TUPLES)
+    rebac = phase_rebac(device, sig_stats, card, rebac_pre)
+    del rebac_pre
 
     stamp("phase 14: rule_chunk, set_chunk, shard_tail vs plain versions "
         "(shard-scale, 100k, fixtures; 4 shards)")
@@ -5491,7 +6143,11 @@ def main(argv: list[str]) -> int:
 
     stamp("phase 15: HybridEvaluator on meshes, 4 ranks sharing the card "
         "(gloo)")
-    p15 = phase15(card)
+    later: dict = {}
+    # the host work of phases 18-21's trees meanwhile
+    p15 = phase15(card, meanwhile=lambda: later.update(
+        explain=explain_tree(device), serve=serve_tree(device),
+        token=token_mix_tree(device), adapter=adapter_tree(device)))
 
     stamp("phase 16: NCCL, world size 1")
     phase16(card)
@@ -5502,7 +6158,8 @@ def main(argv: list[str]) -> int:
 
     stamp("phase 18: explain main path (explain-overhead: 20,000 rules, "
         "8 x 4,096 rows)")
-    expl = phase_explain_main(device, sig_stats, card)
+    expl = phase_explain_main(device, sig_stats, card,
+                              later.pop("explain"))
 
     stamp("K3 / K4 report (CUDA events: the mean of "
         f"{ITERS} launches through the wrapper, and the median of "
@@ -5535,17 +6192,23 @@ def main(argv: list[str]) -> int:
             + json.dumps(rel_rows[name]))
     stamp("phase 19: the wire main path (is_allowed_batch_wire: serve-20k, "
           "(a), scoped_511; deep HR through the ceiling)")
-    wire = phase_wire(device, sig_stats, card, sig.pop("wire_a"))
+    wire = phase_wire(device, sig_stats, card, sig.pop("wire_a"),
+                      later.pop("serve"))
     stamp("phase 20: token-mix (prepare_batch, 10,000 rules, 8,192 rows "
           "over 512 tokens)")
-    phase_token_mix(device, sig_stats, card)
+    phase_token_mix(device, sig_stats, card, later.pop("token"))
     stamp("phase 21: adapter-mixed-warm (decision cache, 10,008 rules, "
           "8,192 rows)")
-    phase_adapter_warm(device, sig_stats, card)
+    phase_adapter_warm(device, sig_stats, card, later.pop("adapter"))
     stamp("phase 22: the gRPC main path (Worker, GrpcServer and client over "
           "loopback: serve-20k)")
     grpc_out = phase_grpc(device, sig_stats, card,
                           wire["serve-20k"]["decisions_per_s"])
+    stamp("phase 23: hot policy updates at scoped_511 (K1 on patched "
+          "tables, the prefilter threshold)")
+    hot = phase_hot_updates(device, sig_stats, card)
+    stats["max_abs_err"] = max(stats["max_abs_err"], sig_stats.get(
+        "decide_dense", {}).get("max_abs_err", 0))
     log(f"  launches: wia-large first batch {wl['launches']['wia_planes']}, "
         f"warm 0; lattice warm sweep {lat['warm_launches']}, timed sweep "
         f"{lat['timed_launches']}")
@@ -5625,6 +6288,10 @@ def main(argv: list[str]) -> int:
             explain_rows[name]["max_abs_err"],
             sig_stats[name + "+explain"]["max_abs_err"])
     pod_explain = sharded_row(p15, "shard_tail", "K8", True)
+    patched_launches = dict(grpc_out["patched"]["launches"])
+    for src in (hot["launches"], p15["patch"]["launches_all_ranks"]):
+        for k, v in src.items():
+            patched_launches[k] = patched_launches.get(k, 0) + v
     for r in rows:
         if r["name"] in explain_rows:
             t = explain_rows[r["name"]]
@@ -5645,6 +6312,9 @@ def main(argv: list[str]) -> int:
         if grpc_out["launches"].get(r["name"]):
             # phase 22's launches through the gRPC serving shell
             r["grpc"] = {"launches": grpc_out["launches"][r["name"]]}
+        if patched_launches.get(r["name"]):
+            # launches on delta-patched tables (phases 15, 22, 23)
+            r["patched"] = {"launches": patched_launches[r["name"]]}
         if r["name"] in rel_rows:
             t = rel_rows[r["name"]]
             r["with_rel"] = {
@@ -5662,8 +6332,8 @@ def main(argv: list[str]) -> int:
         **{k: r[k] for k in PACKED_KEYS + PLANES_KEYS + ("yardstick_ms",)
            if k in r},
         **({"with_rel": r["with_rel"]} if "with_rel" in r else {}),
-        **{k: r[k] for k in ("explain", "k6", "pod", "wire", "grpc")
-           if k in r},
+        **{k: r[k] for k in ("explain", "k6", "pod", "wire", "grpc",
+                             "patched") if k in r},
     } for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

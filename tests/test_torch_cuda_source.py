@@ -25,6 +25,7 @@ import torch
 
 import access_control_srv_tpu_torch.models as tmodels
 from access_control_srv_tpu_torch.ops import compile_policies, encode_requests
+from access_control_srv_tpu_torch.ops import delta as tdelta
 from access_control_srv_tpu_torch.ops import kernel as tkernel
 from access_control_srv_tpu_torch.ops.carry import batch_from_numpy, tables_from_numpy
 from access_control_srv_tpu_torch.ops.cuda_build import CSRC
@@ -37,6 +38,7 @@ from .test_kernel_differential import (
     _scoped_role_tree,
 )
 from .test_torch_carryover import build_request, make_engines, request_spec, spec_grid
+from .test_torch_delta import patched_compile
 from .test_torch_evaluator import abort_doc
 from .test_torch_kernel import (
     KERNEL_FIXTURES,
@@ -429,6 +431,28 @@ def test_scoped_511_tree(emulated):
     assert tc.KR == 511
     got, want = run_emulated(emulated, tc, batch)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name,n", [("scoped_511", 12),
+                                    ("role_scopes.yml", 32),
+                                    ("acl_policies.yml", 32)])
+def test_patched_bucketed_tables(emulated, name, n):
+    """Tables from ``full_bucketed_compile`` and one ``apply_events``
+    patch (pad target rows, pad set / policy / rule slots, the sentinel
+    entity-vocab rows; at scoped_511 KR 1,024 for 511 live rules): the
+    kernel equals the plain version, whose decisions equal the plain
+    version's on a fresh unpadded compile of the edited tree."""
+    _, teng = make_engines(name)
+    patched, _ = patched_compile(teng, tdelta, seed=3)
+    assert not patched.arrays["rule_valid"].all()  # pad rule slots
+    specs = spec_grid(n=n, seed=29)
+    batch = encode_requests([build_request(s, tmodels) for s in specs],
+                            patched)
+    got, want = run_emulated(emulated, patched, batch)
+    assert torch.equal(got, want)
+    fresh, fbatch = port_batch(teng, specs)
+    _, plain = run_emulated(emulated, fresh, fbatch)
+    assert torch.equal(want[:3, :n], plain[:3, :n])
 
 
 def test_condition_aborts(emulated):

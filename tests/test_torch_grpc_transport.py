@@ -7,12 +7,11 @@ response bytes must be equal: ``IsAllowed``, ``IsAllowedBatch`` on the
 native path (and on the pb path with explain on), ``IsAllowedStream``,
 ``WhatIsAllowed`` / ``WhatIsAllowedBatch``, CRUD on rules, policies and
 policy sets with the decisions that follow, ``Command`` and ``Health``.
-The JAX worker runs at its default ``delta_enabled`` and with it off; the
-port recompiles in full either way.  Excepted fields, each named where it
-is cleared: the CRUD items' ``meta.created`` / ``meta.modified`` stamps,
-the health report's timings, and at the JAX default its
-``policy_update`` block and decision-cache epoch counters, which report
-the delta patcher.
+Both workers run at the default ``delta_enabled`` (CRUD deltas patch
+capacity-bucketed tables) and with it off (a full recompile per
+mutation).  Excepted fields, each named where it is cleared: the CRUD
+items' ``meta.created`` / ``meta.modified`` stamps and the health
+report's timings.
 """
 
 import json
@@ -48,10 +47,9 @@ SETS = "/acstpu.PolicySetService/"
 
 @pytest.fixture(scope="module", params=["delta-default", "delta-off"])
 def rig(request):
-    cfg = seed_cfg()
-    jax_cfg = seed_cfg(evaluator={"delta_enabled": False}) \
-        if request.param == "delta-off" else None
-    rig = Rig(cfg, jax_cfg)
+    cfg = seed_cfg(evaluator={"delta_enabled": False}) \
+        if request.param == "delta-off" else seed_cfg()
+    rig = Rig(cfg)
     rig.mode = request.param
     yield rig
     rig.close()
@@ -204,27 +202,25 @@ def test_command_and_health_bytes(rig):
     want = json.loads(pb.CommandResponse.FromString(want).payload)
     got = json.loads(pb.CommandResponse.FromString(got).payload)
     # excepted: the timings (uptime, latency percentiles, the admission
-    # controller's batch-latency estimate) and the policy_update block,
-    # held below; at the JAX default its delta patcher bumps the decision
-    # cache's epoch scoped, so the cache's epoch counters differ there
+    # controller's batch-latency estimate, the policy_update block's
+    # last time to visibility)
     for report in (want, got):
         report.pop("uptime_s")
         report.pop("latency", None)
         report["admission"].pop("batch_latency_estimate_ms")
-        if rig.mode == "delta-default":
-            for key in ("epoch", "scoped_bumps", "scoped_survivors"):
-                report["decision_cache"].pop(key)
-    want_pu, got_pu = want.pop("policy_update"), got.pop("policy_update")
+        report["policy_update"].pop("last_visibility_ms")
     assert got == want
     assert got["status"] == "SERVING"
-    # the port reports what the JAX evaluator reports with its delta
-    # patcher off (excepted: last_visibility_ms, a timing); at the JAX
-    # default the block reports the patcher and is not compared
-    assert got_pu["enabled"] is False and got_pu["full_compiles"] > 0
-    if rig.mode == "delta-off":
-        want_pu.pop("last_visibility_ms")
-        got_pu.pop("last_visibility_ms")
-        assert got_pu == want_pu
+    # the patch path engaged at the default (the CRUD test ran first)
+    pu = got["policy_update"]
+    assert pu["enabled"] is (rig.mode == "delta-default")
+    assert pu["full_compiles"] > 0
+    assert (pu["patches"] > 0) is (rig.mode == "delta-default")
+    want, got = _command(rig, "program_identity")
+    want = json.loads(pb.CommandResponse.FromString(want).payload)
+    got = json.loads(pb.CommandResponse.FromString(got).payload)
+    assert got["table_fingerprint"] == want["table_fingerprint"]
+    assert got["table_fingerprint"] is not None
 
 
 def test_explain_pb_path_bytes_and_trailers():

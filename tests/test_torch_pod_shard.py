@@ -140,10 +140,12 @@ def jax_patch():
 def world4(tmp_path_factory):
     cases = world_cases("k8", LAYOUTS4, extra=True)
     cases.append(mixed_case([(2, 2), (1, 4)]))
-    cases.append({"id": "evaluator", "kind": "evaluator",
-                  "tree": {"fixture": "role_scopes.yml"},
-                  "specs": spec_grid(n=64, seed=21), "layouts": [(2, 2)],
-                  "ev_kw": {"model_axis": "model", "pod_shards": 2}})
+    for delta in (True, False):
+        cases.append({"id": f"evaluator delta={delta}", "kind": "evaluator",
+                      "tree": {"fixture": "role_scopes.yml"},
+                      "specs": spec_grid(n=64, seed=21), "layouts": [(2, 2)],
+                      "ev_kw": {"model_axis": "model", "pod_shards": 2,
+                                "delta_enabled": delta}})
     return cases, run_world(tmp_path_factory.mktemp("pod4"), 4, cases)[0]
 
 
@@ -198,16 +200,18 @@ def test_relation_fixture(world4, layout):
     assert (got["out"][0][el] == 1).any()
 
 
-def test_evaluator_pod_shards(world4):
+@pytest.mark.parametrize("delta_enabled", [True, False])
+def test_evaluator_pod_shards(world4, delta_enabled):
     """``HybridEvaluator(mesh, pod_shards=2)`` serves through the
     pod-sharded kernel: responses and ``shard_identity`` equal the JAX
-    evaluator's on the same layout (both compile with
-    ``compile_policies`` here)."""
+    evaluator's on the same layout, both at ``delta_enabled`` (True, the
+    default: ``full_bucketed_compile``; False: ``compile_policies``)."""
     cases, results = world4
-    case = next(c for c in cases if c["id"] == "evaluator")
-    got = results[("evaluator", (2, 2))]
+    cid = f"evaluator delta={delta_enabled}"
+    case = next(c for c in cases if c["id"] == cid)
+    got = results[(cid, (2, 2))]
     assert got["kernel"] == "PodShardedKernel"
-    jev = JaxEvaluator(jax_tree(case["tree"]), delta_enabled=False,
+    jev = JaxEvaluator(jax_tree(case["tree"]), delta_enabled=delta_enabled,
                        mesh=jax_mesh(2, 2), model_axis="model", pod_shards=2)
     want = jev.is_allowed_batch([build_request(s, jmodels)
                                  for s in case["specs"]])

@@ -494,10 +494,22 @@ def test_async_materialize_releases_leases(stress):
 
 def test_refusals(stress):
     doc, entities, actions, compiled = stress
-    for kw, match in ((dict(dynamic_policies=True), "delta"),
-                      (dict(shared_jits={}), "delta")):
-        with pytest.raises(NotImplementedError, match=match):
-            PrefilteredKernel(compiled, device="cpu", **kw)
+    # ``dynamic_policies`` / ``shared_jits``, refused before the delta
+    # slice, are served: the outputs equal the JAX kernel's in the same
+    # mode, and a second kernel on the same registry adds no runner
+    batch = jencode(stress_requests(entities, actions, n=40), compiled)
+    want = JaxPrefiltered(compiled, dynamic_policies=True,
+                          shared_jits={}).evaluate(batch)
+    shared: dict = {}
+    for _ in range(2):
+        got = PrefilteredKernel(compiled, device="cpu", dynamic_policies=True,
+                                shared_jits=shared).evaluate(batch)
+        for w, g in zip(want, got):
+            assert np.array_equal(np.asarray(w), g)
+        if _ == 0:
+            keys = sorted(shared, key=repr)
+    assert keys and sorted(shared, key=repr) == keys
+    assert {k[0] for k in shared} == {"bits", "sig"}
     # explain, refused before the explain slice, is served: the four
     # outputs equal the JAX kernel's on the stress tree's signature path
     batch = jencode(stress_requests(entities, actions, n=40), compiled)

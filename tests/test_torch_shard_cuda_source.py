@@ -29,6 +29,7 @@ import torch
 
 import access_control_srv_tpu_torch.models as tmodels
 from access_control_srv_tpu_torch.ops import compile_policies, encode_requests
+from access_control_srv_tpu_torch.ops import delta as tdelta
 from access_control_srv_tpu_torch.ops import kernel as tkernel
 from access_control_srv_tpu_torch.ops.carry import tables_from_numpy
 from access_control_srv_tpu_torch.ops.kernel_ref import decide_dense_ref
@@ -48,6 +49,7 @@ from .test_torch_cuda_source import (
     window_batch,
     window_doc,
 )
+from .test_torch_delta import patched_compile
 from .test_torch_kernel import engines_from_doc
 from .test_torch_pod_shard import MIXED_SPECS, mixed_ca_doc
 from .test_torch_rule_shard import REL_OPS, REL_SPECS, two_shard_abort_doc
@@ -299,6 +301,22 @@ def test_fixture_trees(libs, name, n_model):
     _, teng = make_engines(name)
     tc, batch = port_batch(teng, spec_grid(n=8, seed=53))
     check_tree(libs, tc, batch, n_model)
+
+
+@pytest.mark.parametrize("name,n_model", [("role_scopes.yml", 4),
+                                          ("acl_policies.yml", 2)])
+def test_set_chunk_patched_bucketed_tables(libs, name, n_model):
+    """A pod partition of tables from ``full_bucketed_compile`` and one
+    ``apply_events`` patch (pad set slots in the tail shard, pad target
+    rows left out of every shard's compacted subtable): each shard's
+    ``set_chunk`` on its live rows equals the plain version, the merge
+    the dense plain version."""
+    _, teng = make_engines(name)
+    patched, stats = patched_compile(teng, tdelta, seed=13)
+    assert stats["patched_slots"]
+    batch = encode_requests([build_request(s, tmodels)
+                             for s in spec_grid(n=8, seed=59)], patched)
+    check_set_shards(libs, patched, batch, n_model)
 
 
 @pytest.mark.parametrize("n_model", [2])

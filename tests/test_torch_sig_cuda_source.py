@@ -22,6 +22,7 @@ import torch
 
 from access_control_srv_tpu import models as jmodels
 from access_control_srv_tpu.ops import compile_policies as jcompile
+from access_control_srv_tpu.ops import delta as jdelta
 from access_control_srv_tpu.ops import encode_requests as jencode
 from access_control_srv_tpu_torch.ops import cuda_build
 from access_control_srv_tpu_torch.ops import kernel as tkernel
@@ -30,6 +31,7 @@ from access_control_srv_tpu_torch.ops import prefilter as tprefilter
 from .test_kernel_differential import grid_requests
 from .test_sig_kernel import _sig_requests, _sig_tree
 from .test_torch_carryover import build_request, request_spec
+from .test_torch_delta import patched_compile
 from .test_torch_cuda_source import build_emulated
 from .test_torch_kernel import (
     BUCKET,
@@ -247,6 +249,39 @@ def test_stress_tree(libs, monkeypatch):
     calls = record(monkeypatch)
     run(compiled, stress_requests(entities, actions, n=96), force=False)
     assert replay(libs, calls) == {"sig_planes", "sig_decide"}
+
+
+@pytest.mark.parametrize("name", ["acl_policies.yml",
+                                  "props_multi_rules_entities.yml",
+                                  "stress"])
+def test_patched_bucketed_tables(libs, monkeypatch, name):
+    """Tables from ``full_bucketed_compile`` and one ``apply_events``
+    patch: fixtures forced onto the signature machinery (the grid's ACL
+    and property rows take decide_grouped, the rest sig_planes +
+    sig_decide) and the ~720-rule stress tree unforced; every call of
+    the three kernels equals its plain version."""
+    if name == "stress":
+        doc, entities, actions = _stress_doc()
+        engine = engine_of(doc)
+        compiled, _ = patched_compile(engine, jdelta, seed=9)
+        assert not compiled.arrays["rule_valid"].all()  # pad rule slots
+        calls = record(monkeypatch)
+        run(compiled, stress_requests(entities, actions, n=64), force=False)
+        assert replay(libs, calls) == {"sig_planes", "sig_decide"}
+        return
+    engine = make_engine(name)
+    compiled, _ = patched_compile(engine, jdelta, seed=9)
+    calls = record(monkeypatch)
+    specs = grid_requests(n=40, seed=19)
+    run(compiled, specs)
+    batch = jencode(specs, compiled)
+    sig_only = [r for r, a, p in zip(specs,
+                                     (batch.arrays["r_acl_ent"] >= 0).any(1),
+                                     batch.arrays["r_has_props"])
+                if not a and not p]
+    run(compiled, sig_only)
+    assert replay(libs, calls) == {"sig_planes", "sig_decide",
+                                   "decide_grouped"}
 
 
 def test_hr_tree(libs, monkeypatch):

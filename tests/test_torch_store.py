@@ -10,9 +10,15 @@ package's.
 - ``evaluator:async_compile``: a CRUD flip reaches the port's answers
   once the debounced compile thread has swapped, the answers then equal
   the JAX worker's, and ``Worker.stop`` joins the thread.
+- Hot updates through the delta patcher: the same ``RuleService`` /
+  ``PolicyService`` sequence over gRPC leaves the two workers'
+  ``IsAllowedBatch`` bytes, ``program_identity`` table fingerprints and
+  ``health_check`` ``policy_update`` blocks equal after every call;
+  ``evaluator:delta_enabled: false`` takes the full recompile.
 """
 
 import copy
+import json
 import os
 import time
 
@@ -301,3 +307,107 @@ def test_refresh_cache_bumps(backend):
     assert stats[1] == stats[0]
     epochs = [st["epoch"] for st in stats[1]]
     assert epochs == sorted(epochs) and epochs[-1] > epochs[0]
+
+
+def _health(side) -> dict:
+    msg = pb.CommandRequest(name="health_check", payload=b"{}")
+    out = json.loads(pb.CommandResponse.FromString(side.call(
+        "/acstpu.CommandInterface/Command", msg.SerializeToString()))
+        .payload)
+    return out
+
+
+def _fingerprint(side) -> str:
+    msg = pb.CommandRequest(name="program_identity", payload=b"{}")
+    return json.loads(pb.CommandResponse.FromString(side.call(
+        "/acstpu.CommandInterface/Command", msg.SerializeToString()))
+        .payload)["table_fingerprint"]
+
+
+def _read_rule(side, rid: str):
+    return pb.RuleListResponse.FromString(side.call(
+        RULES + "Read", pb.ReadRequest(ids=[rid]).SerializeToString())
+    ).items[0]
+
+
+def test_rule_updates_patch_like_jax():
+    """Each mutation over gRPC on both workers: a rule's effect flipped
+    and flipped back (patches), the same document again (a noop), a rule
+    created and attached to a policy (a noop, then a patch), a policy's
+    combining algorithm changed (a fallback).  After each, the batch
+    answers are equal bytes, the table fingerprints equal, and the
+    ``policy_update`` blocks equal but for the time to visibility."""
+    rig = Rig(seed_cfg())
+    try:
+        messages = batch_bytes(traffic(32, seed=83) + [
+            seed_request(role="delta-role").SerializeToString()])
+        rule = _read_rule(rig.port, "super_admin_rule")
+        flipped = pb.Rule()
+        flipped.CopyFrom(rule)
+        flipped.effect = "DENY" if rule.effect == "PERMIT" else "PERMIT"
+        extra = pb.Rule(id="r_delta", effect="PERMIT")
+        extra.target.subjects.add(id=URNS["role"], value="delta-role")
+        policy = pb.PolicyListResponse.FromString(rig.port.call(
+            POLICIES + "Read", pb.ReadRequest(
+                ids=["super_admin_policy"]).SerializeToString())).items[0]
+        attached = pb.Policy()
+        attached.CopyFrom(policy)
+        attached.rules.append("r_delta")
+        other_ca = pb.Policy()
+        other_ca.CopyFrom(attached)
+        other_ca.combining_algorithm = PO if \
+            policy.combining_algorithm != PO else \
+            "urn:oasis:names:tc:xacml:3.0:rule-combining-algorithm:" \
+            "deny-overrides"
+        steps = [
+            (RULES + "Update", pb.RuleList(items=[flipped]), "patches"),
+            (RULES + "Update", pb.RuleList(items=[rule]), "patches"),
+            (RULES + "Update", pb.RuleList(items=[rule]), "noops"),
+            (RULES + "Create", pb.RuleList(items=[extra]), "noops"),
+            (POLICIES + "Update", pb.PolicyList(items=[attached]),
+             "patches"),
+            (POLICIES + "Update", pb.PolicyList(items=[other_ca]),
+             "fallbacks"),
+        ]
+        for path, msg, moved in steps:
+            before = rig.port.worker.evaluator.delta_stats()[moved]
+            want, got = rig.both(path, msg.SerializeToString())
+            assert got == want, path
+            stats = rig.port.worker.evaluator.delta_stats()
+            assert stats[moved] == before + 1, (path, moved, stats)
+            want, got = rig.both(AC + "IsAllowedBatch", messages)
+            assert got == want, path
+            assert _fingerprint(rig.port) == _fingerprint(rig.jax), path
+            jpu, tpu = (_health(side)["policy_update"]
+                        for side in (rig.jax, rig.port))
+            jpu.pop("last_visibility_ms")
+            tpu.pop("last_visibility_ms")
+            assert tpu == jpu, path
+        assert tpu["fallback_reasons"] == {"combining-algorithm-changed": 1}
+    finally:
+        rig.close()
+
+
+def test_worker_delta_disabled_recompiles_in_full():
+    from access_control_srv_tpu_torch.srv.transport_grpc import GrpcServer
+    from access_control_srv_tpu_torch.srv.worker import Worker
+
+    worker = Worker().start(seed_cfg(evaluator={"delta_enabled": False}),
+                            device="cpu")
+    side = Side(worker, GrpcServer(worker, "127.0.0.1:0").start())
+    try:
+        ev = worker.evaluator
+        assert ev.delta_enabled is False
+        base = ev.delta_stats()
+        rule = _read_rule(side, "super_admin_rule")
+        rule.effect = "DENY" if rule.effect == "PERMIT" else "PERMIT"
+        side.call(RULES + "Update", pb.RuleList(items=[rule])
+                  .SerializeToString())
+        stats = ev.delta_stats()
+        assert stats["enabled"] is False and "capacities" not in stats
+        assert stats["patches"] == stats["noops"] == 0
+        assert stats["full_compiles"] == base["full_compiles"] + 1
+        assert _health(side)["policy_update"]["full_compiles"] == \
+            stats["full_compiles"]
+    finally:
+        side.close()

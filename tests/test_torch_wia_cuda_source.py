@@ -21,6 +21,7 @@ import torch
 
 from access_control_srv_tpu.core import populate
 from access_control_srv_tpu.ops import compile_policies as jcompile
+from access_control_srv_tpu.ops import delta as jdelta
 from access_control_srv_tpu.ops import encode_requests as jencode
 from access_control_srv_tpu_torch.ops import kernel as tkernel
 from access_control_srv_tpu_torch.ops import reverse as treverse
@@ -30,6 +31,7 @@ from .test_kernel_differential import grid_requests
 from .test_prefilter import _stress_doc
 from .test_sig_kernel import _sig_requests, _sig_tree
 from .test_torch_cuda_source import build_emulated
+from .test_torch_delta import patched_compile
 from .test_torch_prefilter import engine_of, stress_requests
 from .utils import fixture, make_engine
 
@@ -113,6 +115,22 @@ def test_fixture_trees(lib, monkeypatch, name):
     the first batch misses the plane cache for every signature."""
     calls = record(monkeypatch)
     run(make_engine(name), grid_requests(n=24, seed=211))
+    assert replay(lib, calls) >= 8
+
+
+@pytest.mark.parametrize("name", ["basic_policies.yml",
+                                  "props_multi_rules_entities.yml"])
+def test_patched_bucketed_tables(lib, monkeypatch, name):
+    """Tables from ``full_bucketed_compile`` and one ``apply_events``
+    patch (pad target rows, pad set slots at their tree positions, the
+    sentinel entity-vocab rows): every ``wia_planes`` call equals its
+    plain version."""
+    engine = make_engine(name)
+    compiled, _ = patched_compile(engine, jdelta, seed=11)
+    calls = record(monkeypatch)
+    kern = treverse.ReverseQueryKernel(compiled, engine.policy_sets,
+                                       device="cpu")
+    kern.evaluate(jencode(grid_requests(n=24, seed=213), compiled))
     assert replay(lib, calls) >= 8
 
 
