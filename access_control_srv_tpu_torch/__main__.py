@@ -4,13 +4,20 @@ directory, worker.start, SIGINT -> worker.stop).
 
     python -m access_control_srv_tpu_torch [--config-dir DIR]
         [--addr HOST:PORT] [--device cuda|cuda:N|cpu]
+    python -m access_control_srv_tpu_torch --broker [--addr HOST:PORT]
+    python -m access_control_srv_tpu_torch --router --replica H:P ...
+    python -m access_control_srv_tpu_torch --cluster [--replicas N]
+        [--device cuda|cpu]
 
 The worker serves on the CUDA device unless ``--device`` names another
 (``cpu`` runs every kernel's plain PyTorch version); without CUDA the
-default fails at startup.  ``--broker``, ``--router`` and ``--cluster``
-(the JAX package's broker process, cluster router and local cluster
-tier) are parsed and refused: the broker and cluster slice of the port
-brings them.
+default fails at startup.  ``--broker`` serves the cross-process
+event/cache broker (srv/broker.py) instead of a worker — the Kafka/Redis
+role of a multi-worker deployment; ``--router`` serves a ClusterRouter
+(srv/router.py) over already-running replicas; ``--cluster`` brings up
+the whole local tier (broker + N replicas on ``--device`` + router,
+parallel/cluster.py) in one command.  Each prints its ready line
+(``broker listening on``, ``routing on``) and stops on SIGINT / SIGTERM.
 """
 
 from __future__ import annotations
@@ -94,14 +101,6 @@ def main(argv: list[str] | None = None) -> int:
                 f"got {args.addr!r}"
             )
 
-    for flag, on in (("--broker", args.broker), ("--router", args.router),
-                     ("--cluster", args.cluster)):
-        if on:
-            raise NotImplementedError(
-                f"{flag}: the broker, router and local cluster are not "
-                f"ported yet (the broker and cluster slice)"
-            )
-
     stop_event = threading.Event()
 
     def request_stop(signum, frame):
@@ -109,6 +108,55 @@ def main(argv: list[str] | None = None) -> int:
 
     signal.signal(signal.SIGINT, request_stop)
     signal.signal(signal.SIGTERM, request_stop)
+
+    if args.broker:
+        from .srv.broker import BrokerServer
+
+        host, _, port = (args.addr or "127.0.0.1:0").rpartition(":")
+        broker = BrokerServer(
+            host or "127.0.0.1", int(port),
+            data_dir=args.broker_data_dir,
+            secret=args.broker_secret,
+            fsync_interval_s=args.broker_fsync_interval,
+            snapshot_every=args.broker_snapshot_every,
+        ).start()
+        print(f"broker listening on {broker.address}", flush=True)
+        stop_event.wait()
+        broker.stop()
+        return 0
+
+    if args.router:
+        from .srv.config import Config
+        from .srv.router import ClusterRouter
+
+        if not args.replica:
+            parser.error("--router requires at least one --replica")
+        cfg = Config.load(args.config_dir, env=args.env)
+        router = ClusterRouter(
+            args.replica,
+            addr=args.addr or cfg.get("cluster:router:addr", "127.0.0.1:0"),
+            cfg=cfg.get("cluster:router") or {},
+        ).start()
+        print(f"routing on {router.addr}", flush=True)
+        stop_event.wait()
+        router.stop()
+        return 0
+
+    if args.cluster:
+        from .parallel.cluster import LocalCluster
+        from .srv.config import Config
+
+        cfg = Config.load(args.config_dir, env=args.env)
+        cluster = LocalCluster(
+            n_replicas=args.replicas or cfg.get("cluster:replicas", 2),
+            seed_cfg=cfg.get("seed_data") or {},
+            router_cfg=cfg.get("cluster:router") or {},
+            device=args.device,
+        ).start()
+        print(f"routing on {cluster.router.addr}", flush=True)
+        stop_event.wait()
+        cluster.stop()
+        return 0
 
     from .srv.config import Config
     from .srv.transport_grpc import GrpcServer

@@ -81,7 +81,8 @@ __all__ = [
     "BIG", "DecisionKernel", "LAUNCHES", "ORIG_TABLE", "Runner",
     "SlotLayout", "TailTables",
     "decide_dense", "decide_grouped", "grouped_layout",
-    "lead_padding", "pack_rule_key", "pad_cols", "pow2_bucket",
+    "lead_padding", "load_libraries", "pack_rule_key", "pad_cols",
+    "pow2_bucket",
     "resolve_device", "rows_tiles", "rule_chunk", "set_chunk", "shard_tail",
     "sig_decide", "sig_planes", "slot_layout", "tree_needs_hr",
     "tree_needs_rel", "unpack_rule_key", "wia_planes",
@@ -1287,6 +1288,23 @@ WIA_STAGE = {"targets": 1024, "rows": 64, "blocks_per_sm": 2,
 def _wia_library():
     """``wia_planes``."""
     return _library("wia_planes", WIA_PLANES_PTRS, WIA_PLANES_DIMS, 0)
+
+
+# the sources of the single-device serving path (K1-K5)
+SERVING_SOURCES = ("decide_dense", "sig_planes", "sig_decide",
+                   "decide_grouped", "wia_planes")
+
+
+def load_libraries() -> None:
+    """Load the kernel libraries of the single-device serving path
+    (``SERVING_SOURCES``), building the stale ones first with one nvcc
+    each, all at once; raises where one fails to build or load."""
+    from . import cuda_build
+
+    cuda_build.build(SERVING_SOURCES)
+    for loader in (_dense_library, _sig_planes_library, _sig_library,
+                   _grouped_library, _wia_library):
+        loader()
 
 
 def wia_tiles(lib, d: dict, n_sm: int) -> dict:

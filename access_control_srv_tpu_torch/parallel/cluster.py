@@ -1,4 +1,19 @@
-"""Process-group bring-up: the on-chip pod hook and a local N-rank launcher.
+"""Process bring-up: the local cluster tier, the on-chip pod hook and a
+local N-rank launcher.
+
+``LocalCluster`` is the whole serving tier in one object, as in the JAX
+package's ``parallel/cluster.py``: a durable broker process, N worker
+replica processes (each a full Worker whose PolicyReplicator replays the
+broker's journaled CRUD log at boot and applies live frames through the
+delta path, ``srv/store.py``), and a ClusterRouter (``srv/router.py``)
+front door.  Each replica is ``python -m access_control_srv_tpu_torch``
+on ``device`` (None: the CUDA device, so a replica fails its start where
+there is none; the tests pass ``"cpu"``).  The replicas of one start
+boot in parallel: all are spawned before the first is waited for.
+
+Convergence invariant: replicas that applied the same CRUD log prefix
+hold byte-identical compiled tables — the ``program_identity`` command
+(policy epoch + table fingerprint) is the probe.
 
 ``maybe_initialize_distributed`` is the JAX package's hook behind the
 ``cluster:distributed`` config block, here ``torch.distributed.
@@ -11,9 +26,6 @@ the chosen backend.  It is how the tests and ``chip_smoke.py`` get N
 ranks on one host, the counterpart of the JAX tests' virtual CPU devices.
 A rank that raises fails the launch: the others are stopped and the
 failing rank's error is raised in the caller.
-
-The JAX module's ``LocalCluster`` / ``ReplicaProcess`` (whole worker
-replicas behind a router) wait for the serving shell.
 """
 
 from __future__ import annotations
@@ -25,6 +37,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -68,6 +81,329 @@ def maybe_initialize_distributed(cfg, process_id: Optional[int] = None
     dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
                             world_size=num_processes, rank=process_id)
     return True
+
+
+def _popen(args: list[str], cwd: Optional[str] = None,
+           env: Optional[dict] = None) -> subprocess.Popen:
+    """Start a CLI subprocess, its stdout and stderr on one pipe."""
+    # failpoint (srv/faults.py): replica/broker spawn — error models a
+    # scheduler refusing the placement, delay a slow cold boot
+    from ..srv.faults import REGISTRY as _faults
+
+    _faults.fire("cluster.spawn")
+    return subprocess.Popen(
+        args, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, cwd=cwd, env=env,
+    )
+
+
+def _await_ready(proc: subprocess.Popen, ready_prefix: str,
+                 timeout_s: float) -> str:
+    """Wait for ``proc``'s ``ready_prefix`` stdout line and return the
+    address after it.  A drain thread keeps consuming stdout afterwards
+    so the pipe never backpressures the child; a child that never
+    reports is killed and its last lines raised."""
+    addr = None
+    deadline = time.monotonic() + timeout_s
+    lines: list[str] = []
+    while time.monotonic() < deadline:
+        line = proc.stdout.readline()
+        if not line:
+            break
+        lines.append(line)
+        if line.startswith(ready_prefix):
+            addr = line[len(ready_prefix):].strip()
+            break
+    if addr is None:
+        proc.kill()
+        proc.wait(timeout=5)
+        raise RuntimeError(
+            f"subprocess never reported {ready_prefix!r}: "
+            f"{''.join(lines[-20:])!r}"
+        )
+
+    def drain(stream=proc.stdout):
+        try:
+            for _ in stream:
+                pass
+        except Exception:  # noqa: BLE001
+            pass
+
+    # named: a thread that only reads this child's pipe
+    threading.Thread(target=drain, daemon=True,
+                     name=f"cluster-drain-{proc.pid}").start()
+    return addr
+
+
+def _spawn(args: list[str], ready_prefix: str, timeout_s: float,
+           cwd: Optional[str] = None, env: Optional[dict] = None):
+    """Start a CLI subprocess and wait for its ``ready_prefix`` stdout
+    line; returns (process, address)."""
+    proc = _popen(args, cwd=cwd, env=env)
+    return proc, _await_ready(proc, ready_prefix, timeout_s)
+
+
+class ReplicaProcess:
+    """One worker replica as a child process: its own config dir (written
+    here), its own gRPC port, booted through the ordinary CLI on
+    ``device`` (None: the CUDA device) so the process is exactly what
+    production runs."""
+
+    def __init__(self, config: dict, base_dir: str, name: str,
+                 timeout_s: float = 120.0, device=None):
+        self.name = name
+        self.config_dir = os.path.join(base_dir, name)
+        os.makedirs(self.config_dir, exist_ok=True)
+        with open(os.path.join(self.config_dir, "config.json"), "w") as fh:
+            json.dump(config, fh, indent=1)
+        self.timeout_s = timeout_s
+        self.device = "cuda" if device is None else str(device)
+        self.proc: Optional[subprocess.Popen] = None
+        self.addr: Optional[str] = None
+        # time.monotonic() at the spawn and when its ready line was read
+        self.spawned_at: Optional[float] = None
+        self.ready_at: Optional[float] = None
+
+    def launch(self) -> "ReplicaProcess":
+        """Spawn the process without waiting for it (``wait_ready``)."""
+        self.spawned_at = time.monotonic()
+        self.proc = _popen(
+            [sys.executable, "-m", "access_control_srv_tpu_torch",
+             "--config-dir", self.config_dir, "--addr", "127.0.0.1:0",
+             "--device", self.device],
+            cwd=str(ROOT),
+        )
+        return self
+
+    def wait_ready(self) -> "ReplicaProcess":
+        """Wait for the ``serving on`` line: the replica has replayed the
+        journal and serves."""
+        self.addr = _await_ready(self.proc, "serving on ", self.timeout_s)
+        self.ready_at = time.monotonic()
+        return self
+
+    def start(self) -> "ReplicaProcess":
+        return self.launch().wait_ready()
+
+    @property
+    def alive(self) -> bool:
+        return self.proc is not None and self.proc.poll() is None
+
+    def kill(self) -> None:
+        """SIGKILL — the chaos path: no drain, no goodbye."""
+        if self.proc is not None:
+            self.proc.kill()
+            self.proc.wait(timeout=10)
+
+    def stop(self, timeout_s: float = 15.0) -> None:
+        """SIGTERM — the graceful path (worker drains in-flight work)."""
+        if self.proc is None:
+            return
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=timeout_s)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=10)
+
+
+class LocalCluster:
+    """Broker + N replicas + router, owned end to end.
+
+    ``seed_cfg`` (``rules`` / ``policies`` / ``policy_sets``, each a seed
+    YAML path or a list of documents) is loaded ONCE, by the cluster, as
+    CRUD frames emitted straight into the broker's journaled topics
+    before any replica boots — the journal, not the YAML, is the
+    cluster's durable policy store, so every replica (first boot or
+    chaos restart) converges by replaying the same log through its
+    PolicyReplicator and all replicas report the same policy epoch."""
+
+    def __init__(self, n_replicas: int = 2, seed_cfg: dict | None = None,
+                 cfg_extra: dict | None = None,
+                 router_cfg: dict | None = None,
+                 base_dir: str | None = None,
+                 replica_timeout_s: float = 120.0,
+                 broker_snapshot_every: int | None = None,
+                 device=None):
+        self.n_replicas = int(n_replicas)
+        self.seed_cfg = seed_cfg or {}
+        self.cfg_extra = cfg_extra or {}
+        self.router_cfg = router_cfg or {}
+        self._own_base = base_dir is None
+        self.base_dir = base_dir or tempfile.mkdtemp(prefix="acs-cluster-")
+        self.replica_timeout_s = replica_timeout_s
+        # snapshot + journal-compaction cadence (srv/broker.py): None
+        # keeps full-journal replay; a reused base_dir reboots the
+        # cluster from snapshot + tail
+        self.broker_snapshot_every = broker_snapshot_every
+        # None: every replica on the CUDA device
+        self.device = device
+        self.broker_proc: Optional[subprocess.Popen] = None
+        self.broker_addr: Optional[str] = None
+        self.replicas: list[ReplicaProcess] = []
+        self.router = None
+        # time.monotonic() when the broker answered and when the journal
+        # was seeded (the replicas carry their own spawn and ready times)
+        self.broker_ready_at: Optional[float] = None
+        self.seeded_at: Optional[float] = None
+
+    # ---------------------------------------------------------- lifecycle
+
+    def start(self) -> "LocalCluster":
+        """Broker and seed (unless ``start_broker`` ran), replicas,
+        router; a start that fails stops every process it started before
+        it raises."""
+        try:
+            if self.broker_proc is None:
+                self._start_broker()
+            return self._start_replicas()
+        except BaseException:
+            self.stop()
+            raise
+
+    def start_broker(self) -> "LocalCluster":
+        """The broker alone, its journal seeded: the host work of a start
+        done ahead of it (``start`` then spawns the replicas)."""
+        try:
+            return self._start_broker()
+        except BaseException:
+            self.stop()
+            raise
+
+    def _start_broker(self) -> "LocalCluster":
+        broker_dir = os.path.join(self.base_dir, "broker")
+        os.makedirs(broker_dir, exist_ok=True)
+        broker_args = [
+            sys.executable, "-m", "access_control_srv_tpu_torch",
+            "--broker", "--addr", "127.0.0.1:0",
+            "--broker-data-dir", broker_dir,
+        ]
+        if self.broker_snapshot_every is not None:
+            broker_args += [
+                "--broker-snapshot-every", str(self.broker_snapshot_every)
+            ]
+        self.broker_proc, self.broker_addr = _spawn(
+            broker_args, "broker listening on ", 30.0, cwd=str(ROOT),
+        )
+        self.broker_ready_at = time.monotonic()
+        # reused base_dir (a reboot): the journal/snapshot already hold
+        # the policy state — re-seeding would double every frame
+        if self.seed_cfg and not self._journal_populated(broker_dir):
+            self._seed_journal()
+        self.seeded_at = time.monotonic()
+        return self
+
+    def _start_replicas(self) -> "LocalCluster":
+        # every replica spawned before the first is waited for: they
+        # replay the journal in parallel
+        for i in range(self.n_replicas):
+            self.replicas.append(ReplicaProcess(
+                self._replica_config(i), self.base_dir, f"replica-{i}",
+                self.replica_timeout_s, device=self.device,
+            ).launch())
+        for replica in self.replicas:
+            replica.wait_ready()
+        from ..srv.router import ClusterRouter
+
+        self.router = ClusterRouter(
+            [r.addr for r in self.replicas], cfg=self.router_cfg,
+        ).start()
+        return self
+
+    @staticmethod
+    def _journal_populated(broker_dir: str) -> bool:
+        """True when the broker dir already carries durable state (a
+        non-empty journal or a snapshot) — i.e. this start() is a reboot
+        over an existing base_dir, not a first boot."""
+        journal = os.path.join(broker_dir, "broker.journal")
+        snapshot = os.path.join(broker_dir, "broker.snapshot")
+        if os.path.exists(snapshot):
+            return True
+        try:
+            return os.path.getsize(journal) > 0
+        except OSError:
+            return False
+
+    def _seed_journal(self) -> None:
+        """Write the seed documents into the broker's journaled CRUD
+        topics as ordinary Created frames (the same wire shape
+        store.ResourceService._emit produces) so every replica's boot
+        replay — not a per-process YAML load — installs the seed state."""
+        from ..srv.broker import SocketEventBus
+        from ..srv.worker import _yaml_list
+
+        kind_event = {"rule": "rule", "policy": "policy",
+                      "policy_set": "policySet"}
+        bus = SocketEventBus(self.broker_addr)
+        try:
+            for kind, key in (("rule", "rules"), ("policy", "policies"),
+                              ("policy_set", "policy_sets")):
+                source = self.seed_cfg.get(key)
+                if not source:
+                    continue
+                docs = _yaml_list(source) if isinstance(source, str) \
+                    else source
+                topic = bus.topic(f"io.restorecommerce.{kind}s.resource")
+                for doc in docs:
+                    topic.emit(
+                        f"{kind_event[kind]}Created",
+                        {"payload": doc, "origin": "cluster-seed"},
+                    )
+        finally:
+            bus.close()
+
+    def _replica_config(self, index: int) -> dict:
+        cfg: dict = {
+            "policies": {"type": "database"},
+            "events": {"broker": {"address": self.broker_addr}},
+        }
+        for key, value in self.cfg_extra.items():
+            if isinstance(value, dict) and isinstance(cfg.get(key), dict):
+                cfg[key] = {**cfg[key], **value}
+            else:
+                cfg[key] = value
+        return cfg
+
+    def restart_replica(self, index: int) -> ReplicaProcess:
+        """Boot a fresh process for a dead replica slot (same config dir:
+        the journal replay, not local state, restores its policy tree)
+        and swap its new address into the router."""
+        old = self.replicas[index]
+        replacement = ReplicaProcess(
+            self._replica_config(index), self.base_dir,
+            old.name, self.replica_timeout_s, device=self.device,
+        ).start()
+        self.replicas[index] = replacement
+        if self.router is not None:
+            if old.addr:
+                self.router.remove_replica(old.addr)
+            self.router.add_replica(
+                replacement.addr, self.router_cfg.get("breaker") or {}
+            )
+        return replacement
+
+    def stop(self) -> None:
+        if self.router is not None:
+            self.router.stop()
+        # every replica told at once, then each awaited
+        for replica in self.replicas:
+            if replica.alive:
+                replica.proc.terminate()
+        for replica in self.replicas:
+            try:
+                replica.stop()
+            except Exception:  # noqa: BLE001
+                pass
+        if self.broker_proc is not None:
+            self.broker_proc.terminate()
+            try:
+                self.broker_proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                self.broker_proc.kill()
+                self.broker_proc.wait(timeout=10)
+        if self._own_base:
+            shutil.rmtree(self.base_dir, ignore_errors=True)
 
 
 def launch_local(world_size: int, target: str, args: tuple = (),

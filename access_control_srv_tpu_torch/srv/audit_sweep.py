@@ -1,19 +1,23 @@
-"""Bulk permission-lattice audit sweeps, direct mode.
+"""Bulk permission-lattice audit sweeps.
 
-A copy of the JAX package's ``srv/audit_sweep.py`` in its batcher-less
-mode: a sweep walks a subject x resource x action lattice
-(``ops/lattice.py``) in chunks, each chunk answered by
-``evaluator.what_is_allowed_batch`` (the reverse-query kernel on large
+A copy of the JAX package's ``srv/audit_sweep.py``: a sweep walks a
+subject x resource x action lattice (``ops/lattice.py``) in chunks, each
+chunk answered by the reverse query (the ``wia_planes`` kernel on large
 trees), folded to per-cell verdicts naming the deciding rule and streamed
 into a masked JSONL + bitmap snapshot, so memory stays bounded by one
 chunk regardless of lattice size.  Jobs expose pause / resume / cancel /
 status, and two finished sweeps can be diffed.
 
+Two modes, as in JAX: with a ``batcher`` (the worker mode, ``audit:
+enabled`` in the Worker) every cell goes through
+``MicroBatcher.submit_reverse`` as BULK-class work, so the interactive
+queue never sees audit traffic; without one each chunk calls
+``evaluator.what_is_allowed_batch`` directly.  ``telemetry`` counts the
+jobs, chunks, cells, retries and sheds under its ``audit`` counter.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
-slice: the BULK-class dispatch through a ``batcher``
-(``MicroBatcher.submit_reverse``, and the ``worker`` that owns it) and
-``telemetry`` (the serving-shell slice); ``target="shadow"`` and the
-learned-policy twin loop ``sweep_twin`` (the shadow slice).
+slice: ``target="shadow"`` and the learned-policy twin loop
+``sweep_twin`` (the shadow and tenancy slice (A.7)).
 """
 
 from __future__ import annotations
@@ -94,9 +98,13 @@ class SweepJob:
 
 
 class AuditSweepManager:
-    """Sweep-job lifecycle: start/pause/resume/cancel, chunked direct
-    dispatch (``evaluator.what_is_allowed_batch`` per chunk) and
-    snapshot/diff plumbing."""
+    """Sweep-job lifecycle: start/pause/resume/cancel, chunked bulk
+    dispatch and snapshot/diff plumbing.
+
+    ``batcher`` present: production sweeps submit through the BULK class
+    (the admission-fairness path — the serving deployment shape).
+    ``batcher`` absent: chunks call ``evaluator.what_is_allowed_batch``
+    directly (the offline/bench shape)."""
 
     def __init__(
         self,
@@ -107,34 +115,34 @@ class AuditSweepManager:
         logger: Optional[logging.Logger] = None,
         out_dir: Optional[str] = None,
         chunk_size: int = 256,
+        cell_timeout_s: float = 60.0,
+        max_retries: int = 3,
         chunk_pause_ms: float = 0.0,
         default_lattice: Optional[dict] = None,
     ):
-        if batcher is not None or worker is not None:
-            raise NotImplementedError(
-                "batcher / worker (BULK-class dispatch through "
-                "MicroBatcher.submit_reverse): not ported yet "
-                "(serving-shell slice)"
-            )
-        if telemetry is not None:
-            raise NotImplementedError(
-                "telemetry: not ported yet (serving-shell slice)"
-            )
         self.evaluator = evaluator
-        self.batcher = None
-        self.worker = None
-        self.telemetry = None
+        self.batcher = batcher
+        self.worker = worker
+        self.telemetry = telemetry
         self.logger = logger or logging.getLogger("acs.audit")
         # the default lies under the process's temporary directory
         self.out_dir = str(out_dir or os.path.join(tempfile.gettempdir(),
                                                    "acs-audit"))
         self.chunk_size = max(1, int(chunk_size))
+        self.cell_timeout_s = float(cell_timeout_s)
+        self.max_retries = max(0, int(max_retries))
         self.chunk_pause_s = max(0.0, float(chunk_pause_ms) / 1e3)
         self.default_lattice = dict(default_lattice or {})
         self._jobs: dict[int, SweepJob] = {}   # guarded-by: _lock
         self._next_id = 1                      # guarded-by: _lock
         self._lock = threading.Lock()
         self._stopping = False                 # guarded-by: _lock
+
+    # ------------------------------------------------------------- metrics
+
+    def _count(self, event: str, by: int = 1) -> None:
+        if self.telemetry is not None:
+            self.telemetry.audit.inc(event, by)
 
     # ------------------------------------------------------------ lifecycle
 
@@ -146,13 +154,14 @@ class AuditSweepManager:
         wait: bool = False,
         wait_timeout: float = 600.0,
     ) -> SweepJob:
-        """Launch a sweep job over the production tree.  ``lattice``
-        overrides the configured default axes
-        (``ops/lattice.LatticeSpec.from_config`` grammar)."""
+        """Launch a sweep job over the production tree (bulk class
+        through the batcher where there is one).  ``lattice`` overrides
+        the configured default axes (``ops/lattice.LatticeSpec.
+        from_config`` grammar)."""
         if target == "shadow":
             raise NotImplementedError(
                 "target='shadow' (sweeping a shadow candidate tree): not "
-                "ported yet (shadow slice)"
+                "ported yet (the shadow and tenancy slice (A.7))"
             )
         if target != "production":
             raise ValueError(f"unknown sweep target: {target!r}")
@@ -167,7 +176,9 @@ class AuditSweepManager:
             path = os.path.join(
                 self.out_dir, f"sweep-{job_id:04d}-{target}.jsonl"
             )
-            job = SweepJob(job_id, spec, target, path)
+            job = SweepJob(
+                job_id, spec, target, path, policy_epoch=self._epoch()
+            )
             self._jobs[job_id] = job
             job._thread = threading.Thread(
                 target=self._run, args=(job,),
@@ -176,6 +187,7 @@ class AuditSweepManager:
             with job._lock:
                 job.state = "running"
             job._thread.start()
+        self._count("jobs_started")
         if wait:
             if not job.wait(wait_timeout):
                 raise TimeoutError(f"sweep {job_id} still running")
@@ -184,11 +196,13 @@ class AuditSweepManager:
     def pause(self, job_id: int) -> dict:
         job = self._job(job_id)
         job._paused.set()
+        self._count("jobs_paused")
         return job.status()
 
     def resume(self, job_id: int) -> dict:
         job = self._job(job_id)
         job._paused.clear()
+        self._count("jobs_resumed")
         return job.status()
 
     def cancel(self, job_id: int) -> dict:
@@ -218,12 +232,15 @@ class AuditSweepManager:
                 raise RuntimeError(
                     f"sweep {job.job_id} is {state}, not done"
                 )
-        return diff_snapshots(a.snapshot_path, b.snapshot_path, limit=limit)
+        out = diff_snapshots(a.snapshot_path, b.snapshot_path, limit=limit)
+        self._count("diffs")
+        self._count("diff_cells", out["cells_changed"])
+        return out
 
     def sweep_twin(self, *args, **kwargs) -> dict:
         raise NotImplementedError(
             "sweep_twin (production against a shadow candidate): not "
-            "ported yet (shadow slice)"
+            "ported yet (the shadow and tenancy slice (A.7))"
         )
 
     def stop(self, timeout: float = 10.0) -> None:
@@ -253,6 +270,15 @@ class AuditSweepManager:
         engine = getattr(self.evaluator, "engine", None)
         return getattr(engine, "urns", None)
 
+    def _epoch(self) -> Optional[int]:
+        worker = self.worker
+        if worker is not None:
+            try:
+                return int(worker.policy_epoch())
+            except Exception:
+                return None
+        return None
+
     # ------------------------------------------------------------ the sweep
 
     def _run(self, job: SweepJob) -> None:
@@ -270,7 +296,10 @@ class AuditSweepManager:
                     job._cancel.wait(0.02)
                 if job._cancel.is_set():
                     break
-                verdicts = self._eval_direct(self.evaluator, chunk)
+                if self.batcher is not None:
+                    verdicts = self._eval_bulk(job, chunk)
+                else:
+                    verdicts = self._eval_direct(self.evaluator, chunk)
                 for (index, _), verdict in zip(chunk, verdicts):
                     writer.write(index, verdict)
                 with job._lock:
@@ -279,6 +308,8 @@ class AuditSweepManager:
                     job.sheds += sum(
                         1 for v in verdicts if v.shed_code is not None
                     )
+                self._count("cells", len(chunk))
+                self._count("chunks")
                 if self.chunk_pause_s:
                     job._cancel.wait(self.chunk_pause_s)
             summary = writer.close()
@@ -287,11 +318,16 @@ class AuditSweepManager:
                 job.summary = summary
                 job.wall_s = time.monotonic() - job.started_monotonic
                 job.state = "cancelled" if job._cancel.is_set() else "done"
+            self._count(
+                "jobs_cancelled" if job._cancel.is_set()
+                else "jobs_completed"
+            )
         except Exception as exc:  # a failed audit must never take the
             # caller down with it -- the job records the error honestly
             with job._lock:
                 job.state = "failed"
                 job.error = f"{type(exc).__name__}: {exc}"
+            self._count("jobs_failed")
             self.logger.warning(
                 "audit sweep %d failed", job.job_id,
                 extra={"error": job.error},
@@ -308,6 +344,41 @@ class AuditSweepManager:
         trees = evaluator.what_is_allowed_batch([r for _, r in chunk])
         return [fold_reverse_query(rq) for rq in trees]
 
+    def _eval_bulk(self, job: SweepJob, chunk: list) -> list:
+        """BULK-class dispatch: every cell goes through admission as the
+        bulk class and waits out ``bulk_interval`` pacing under load —
+        the interactive queue never sees audit traffic.  Shed cells
+        (429/503/504) retry up to ``max_retries`` with a short backoff,
+        then land in the snapshot as honest INDETERMINATE + shed code
+        rather than a fabricated verdict."""
+        futures = [
+            self.batcher.submit_reverse(request) for _, request in chunk
+        ]
+        verdicts: list = []
+        for slot, future in enumerate(futures):
+            rq = future.result(timeout=self.cell_timeout_s)
+            verdict = fold_reverse_query(rq)
+            attempt = 0
+            while (
+                verdict.shed_code is not None
+                and attempt < self.max_retries
+                and not job._cancel.is_set()
+            ):
+                attempt += 1
+                with job._lock:
+                    job.retries += 1
+                self._count("retries")
+                # a cancel ends the backoff at once
+                job._cancel.wait(0.005 * attempt)
+                retry = self.batcher.submit_reverse(chunk[slot][1])
+                verdict = fold_reverse_query(
+                    retry.result(timeout=self.cell_timeout_s)
+                )
+            if verdict.shed_code is not None:
+                self._count("sheds")
+            verdicts.append(verdict)
+        return verdicts
+
 
 def from_config(
     cfg,
@@ -318,7 +389,9 @@ def from_config(
     logger=None,
 ) -> Optional[AuditSweepManager]:
     """Build the manager from the ``audit`` config block (any object with
-    ``.get``); None unless ``audit:enabled``."""
+    ``.get``); None unless ``audit:enabled`` — the serving path stays
+    byte-identical with the subsystem off (no manager object, no command
+    surface, no threads)."""
     if not cfg.get("audit:enabled", False):
         return None
     evaluator = evaluator or getattr(worker, "evaluator", None)
@@ -333,6 +406,8 @@ def from_config(
         logger=logger,
         out_dir=cfg.get("audit:out_dir"),
         chunk_size=cfg.get("audit:chunk_size", 256),
+        cell_timeout_s=cfg.get("audit:cell_timeout_s", 60.0),
+        max_retries=cfg.get("audit:max_retries", 3),
         chunk_pause_ms=cfg.get("audit:chunk_pause_ms", 0.0),
         default_lattice=cfg.get("audit:lattice", {}) or {},
     )

@@ -69,6 +69,7 @@ class CommandInterface:
             "profile": self.profile,
             "program_identity": self.program_identity,
             "stage_stats": self.stage_stats,
+            "kernel_launches": self.kernel_launches,
             "faults": self.faults,
             "shadow_status": self.shadow_status,
             "audit_sweep": self.audit_sweep,
@@ -511,6 +512,20 @@ class CommandInterface:
             telemetry.stages.clear()
             return {"status": "cleared"}
         return {"stages": telemetry.snapshot().get("stages") or {}}
+
+    def kernel_launches(self, payload: dict) -> dict:
+        """The CUDA kernel launches this process has made, per kernel
+        wrapper (``ops/kernel.LAUNCHES``: each wrapper counts where it
+        launches its kernel, so a replica on the CPU reports zeros);
+        ``{"reset": true}`` sets every count to 0 after reading it, so a
+        caller can read the launches of one window of traffic."""
+        from ..ops import kernel
+
+        out = {"launches": dict(kernel.LAUNCHES)}
+        if (payload or {}).get("reset"):
+            for name in kernel.LAUNCHES:
+                kernel.LAUNCHES[name] = 0
+        return out
 
     def set_api_key(self, payload: dict) -> dict:
         self.api_key = (payload or {}).get("authentication", {}).get("apiKey") or (

@@ -102,6 +102,7 @@ are shared between the serving threads.  Not ported yet: tenancy.
 from __future__ import annotations
 
 import copy
+import pickle
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -154,6 +155,13 @@ from .watchdog import DeviceTimeoutError
 # trees with fewer rules skip the candidate index (its build and lookups
 # cost more than the walk it saves)
 CANDIDATE_MIN_RULES = 256
+
+
+def _snapshot(policy_sets):
+    """A deep copy of the policy tree, published with its compile: a
+    pickle round trip, which copies the model's plain dataclasses as
+    ``copy.deepcopy`` does, several times faster on large trees."""
+    return pickle.loads(pickle.dumps(policy_sets, pickle.HIGHEST_PROTOCOL))
 
 
 class HybridEvaluator:
@@ -478,7 +486,7 @@ class HybridEvaluator:
     def _compile_and_swap(self, version: int, t0: float) -> None:
         # snapshot first, compile from the snapshot: the published
         # (tree, arrays) pair is consistent by construction
-        tree_snapshot = copy.deepcopy(self.engine.policy_sets)
+        tree_snapshot = _snapshot(self.engine.policy_sets)
         caps = state = None
         if self.delta_enabled and self.fixed_caps is not None:
             try:

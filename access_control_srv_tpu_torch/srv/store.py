@@ -693,6 +693,14 @@ class PolicyReplicator:
     debounced so a replay burst costs one compile, not one per event.
     Concurrent writers use last-frame-wins per document — the same
     semantics concurrent replicas get from the reference's shared Arango.
+
+    Unlike the JAX replicator, the boot replay is ONE sync: the frames
+    journaled when ``start`` subscribes only queue their events until the
+    last of them has been seen.  The debounced sync would otherwise cut a
+    long replay at points that depend on timing, and two replicas of one
+    journal could end on different capacity buckets (a patch that
+    overflows a bucket grows it; a full compile sizes it to the tree), so
+    on different ``table_fingerprint``s.
     """
 
     def __init__(self, store: PolicyStore, bus, logger=None,
@@ -731,8 +739,14 @@ class PolicyReplicator:
             for kind in ("rule", "policy", "policy_set")
             if self.store.services[kind].topic is not None
         }
+        # per CRUD topic, its journal length when start() subscribed, for
+        # the topics whose boot replay is still under way
+        self._boot_tail: dict[str, int] = {}  # guarded-by: _lock
 
     def start(self) -> "PolicyReplicator":
+        tails = {name: self.bus.topic(name).offset for name in self._topics}
+        with self._lock:
+            self._boot_tail = {n: t for n, t in tails.items() if t > 0}
         for topic_name in self._topics:
             self.bus.topic(topic_name).on(self._on_event, starting_offset=0)
         return self
@@ -766,6 +780,29 @@ class PolicyReplicator:
                 )
 
     def _on_event(self, event_name: str, message, ctx: dict) -> None:
+        try:
+            self._apply_frame(event_name, message, ctx)
+        finally:
+            # acs-lint: ignore[guarded-by] benign racy fast-path: the
+            # boot bookkeeping re-checks under the lock
+            if self._boot_tail:
+                self._boot_progress(ctx)
+
+    def _boot_progress(self, ctx: dict) -> None:
+        """Count a boot-replay frame as seen; once every topic's boot tail
+        has been seen, arm the one sync of the queued replay."""
+        topic, offset = ctx.get("topic"), ctx.get("offset")
+        with self._lock:
+            tail = self._boot_tail.get(topic)
+            if tail is None or not isinstance(offset, int) \
+                    or offset + 1 < tail:
+                return
+            del self._boot_tail[topic]
+            if self._boot_tail or not self._pending_events:
+                return
+        self._schedule_sync()
+
+    def _apply_frame(self, event_name: str, message, ctx: dict) -> None:
         # acs-lint: ignore[guarded-by] benign racy fast-path: a frame that
         # slips past a concurrent stop() is applied to collections that are
         # about to be discarded; _schedule_sync re-checks under the lock
@@ -868,7 +905,10 @@ class PolicyReplicator:
                 self.offsets[topic] = max(
                     self.offsets.get(topic, -1), offset
                 )
-            if self._stopped or self._timer is not None:
+            if self._stopped or self._timer is not None \
+                    or self._boot_tail:
+                # a pending sync covers this frame; during the boot
+                # replay the last frame's progress arms the one sync
                 return
             self._timer = threading.Timer(self.debounce_s, self._sync)
             self._timer.daemon = True

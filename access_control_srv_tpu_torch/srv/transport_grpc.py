@@ -502,10 +502,9 @@ class GrpcServer:
 
     def __init__(self, worker, addr: str = "127.0.0.1:0", max_workers: int = 16):
         self.worker = worker
-        self.server = grpc.server(
-            futures.ThreadPoolExecutor(max_workers=max_workers),
-            options=_MESSAGE_SIZE_OPTIONS,
-        )
+        self._executor = futures.ThreadPoolExecutor(max_workers=max_workers)
+        self.server = grpc.server(self._executor,
+                                  options=_MESSAGE_SIZE_OPTIONS)
         self._register()
         self.port = self.server.add_insecure_port(addr)
         self.addr = addr.rsplit(":", 1)[0] + f":{self.port}"
@@ -515,7 +514,11 @@ class GrpcServer:
         return self
 
     def stop(self, grace: float = 0.5):
-        self.server.stop(grace)
+        # the handler threads end with the server (grpc leaves its
+        # executor's threads alive otherwise); once every handler has
+        # terminated the join is immediate
+        stopped = self.server.stop(grace).wait(grace + 5.0)
+        self._executor.shutdown(wait=stopped)
 
     # ------------------------------------------------------------- handlers
 

@@ -5,17 +5,31 @@ interface and event listeners into a running service
 The port's copy of the JAX package's ``srv/worker.py`` for one device:
 ``Worker.start(cfg, device=None)`` serves on the CUDA device (raising
 without one, as ``ops.kernel.resolve_device`` does) or on the device
-named.  ``evaluator:delta_enabled`` (default true) turns on the
-evaluator's incremental updates (CRUD deltas patch capacity-bucketed
-tables, ops/delta.py); false recompiles in full on every mutation.
+named; on the CUDA device it loads every kernel library of its path
+at start, so a replica whose libraries fail to load fails at boot.
+``evaluator:delta_enabled`` (default true) turns on the evaluator's
+incremental updates (CRUD deltas patch capacity-bucketed tables,
+ops/delta.py); false recompiles in full on every mutation.
+
+``events:broker:address`` switches the event bus, the offset store and
+the subject cache to the broker's socket backends (``srv/broker.py``), so
+the HR-scope rendezvous runs across processes; over a broker,
+``replication:enabled`` (default true) starts the ``PolicyReplicator``,
+which replays the journaled CRUD log before ``start`` returns and then
+applies other replicas' frames through ``PolicyStore.load(events=...)``,
+the same delta path a local CRUD takes.  ``audit:enabled`` builds the
+audit-sweep manager in its worker mode (BULK-class cells through the
+batcher).  ``cluster:enabled`` is read by nothing beyond its default,
+as in JAX.
+
 Refused with ``NotImplementedError`` naming the slice that brings them:
-the broker (``events:broker:address``), the cluster tier
-(``cluster:enabled``, ``cluster:distributed:enabled``), mesh / model /
-pod layouts (``parallel:data_devices`` / ``model_devices`` /
-``pod_shards``), tenancy and shadow evaluation (``tenancy:enabled``,
-``shadow:enabled``) and the audit worker (``audit:enabled``).  With
-each of them off, as in ``cfg/config.json``, the worker holds None in
-its place, as the JAX worker does.
+a multi-process world behind the Worker (``cluster:distributed:
+enabled``) and the mesh / model / pod layouts (``parallel:data_devices``
+/ ``model_devices`` / ``pod_shards``), which need the mesh-serving
+slice's follower loop; tenancy and shadow evaluation
+(``tenancy:enabled``, ``shadow:enabled``).  With each of them off, as in
+``cfg/config.json``, the worker holds None in its place, as the JAX
+worker does.
 """
 
 from __future__ import annotations
@@ -24,7 +38,7 @@ import threading
 from typing import Optional
 
 from ..core.engine import AccessController
-from ..ops.kernel import resolve_device
+from ..ops.kernel import load_libraries, resolve_device
 from ..models.model import Decision
 from ..models.urns import Urns
 from .admission import AdmissionController
@@ -58,12 +72,9 @@ def _yaml_list(path: str) -> list[dict]:
 # config switches whose subsystems this port does not carry yet, with the
 # slice that brings each (ROADMAP A.6-A.7)
 _UNPORTED = (
-    ("events:broker:address", "the cross-process broker (srv/broker.py)",
-     "the broker and cluster slice"),
-    ("cluster:enabled", "the cluster router and LocalCluster",
-     "the broker and cluster slice"),
-    ("cluster:distributed:enabled", "multi-process distributed serving",
-     "the broker and cluster slice"),
+    ("cluster:distributed:enabled", "a multi-process world behind the "
+     "Worker (the serving rank's follower loop)",
+     "the mesh-serving slice (A.6 part 3)"),
     ("parallel:data_devices", "a data-parallel mesh through the Worker",
      "the mesh-serving slice"),
     ("parallel:model_devices", "a rule-sharded mesh through the Worker",
@@ -74,8 +85,6 @@ _UNPORTED = (
      "the shadow and tenancy slice (A.7)"),
     ("shadow:enabled", "shadow evaluation (srv/shadow.py)",
      "the shadow and tenancy slice (A.7)"),
-    ("audit:enabled", "the audit-sweep worker (AuditSweepManager with a "
-     "worker)", "the shadow and tenancy slice (A.7)"),
 )
 
 
@@ -122,7 +131,7 @@ class Worker:
         self.tenancy = None  # srv/tenancy.TenantRegistry (None = off)
         self.watchdog = None  # srv/watchdog.DeviceWatchdog (None = off)
         self.shadow = None  # srv/shadow (not ported: always None)
-        self.audit = None  # srv/audit_sweep worker mode (not ported)
+        self.audit = None  # srv/audit_sweep.AuditSweepManager (worker mode)
         self.device = None  # the torch.device the evaluator serves on
         self._faults_armed = False
         # live CRUD-offset watermark per topic (policy_epoch fallback for
@@ -144,6 +153,11 @@ class Worker:
         _refuse_unported(cfg)
         # None = the CUDA device; raises without one
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # every kernel library of the single-device path, loaded (or
+            # built, where none is in _build/) before anything is served:
+            # a library that fails to load fails the start
+            load_libraries()
         json_sink = cfg.get("logging:json_sink")
         if logger is None:
             import logging as _logging
@@ -178,11 +192,30 @@ class Worker:
             cfg, telemetry=self.telemetry, logger=self.logger
         )
 
-        # event bus + offsets + subject cache: in-process (the broker
-        # backend is refused above)
-        self.bus = EventBus()
-        self.offset_store = OffsetStore()
-        self.subject_cache = SubjectCache()
+        # event bus + offsets + subject cache: in-process by default;
+        # a configured broker address switches all three to the
+        # cross-process TCP backend (srv/broker.py — the reference's
+        # separate Kafka + Redis processes, cfg events.kafka / redis)
+        broker_address = cfg.get("events:broker:address")
+        if broker_address:
+            from .broker import (
+                SocketEventBus,
+                SocketOffsetStore,
+                SocketSubjectCache,
+            )
+
+            broker_secret = cfg.get("events:broker:secret")
+            self.bus = SocketEventBus(broker_address, secret=broker_secret)
+            self.offset_store = SocketOffsetStore(
+                broker_address, secret=broker_secret
+            )
+            self.subject_cache = SocketSubjectCache(
+                broker_address, secret=broker_secret
+            )
+        else:
+            self.bus = EventBus()
+            self.offset_store = OffsetStore()
+            self.subject_cache = SubjectCache()
         auth_topic = self.bus.topic("io.restorecommerce.authentication")
         self.hr_provider = HRScopeProvider(
             self.subject_cache,
@@ -387,9 +420,31 @@ class Worker:
         # policy load (reference: src/worker.ts:245)
         self.service.load_policies()
 
-        # multi-worker shared policy state (srv/store.PolicyReplicator)
-        # runs only over a broker bus, which is refused above
+        # multi-worker shared policy state: over a broker bus, the
+        # journaled CRUD topic logs ARE the shared durable policy store
+        # (the reference's shared-Arango role) — replay them at boot and
+        # apply live frames from other workers (srv/store.PolicyReplicator)
         self.replicator = None
+        if broker_address and cfg.get("replication:enabled", True):
+            from .store import PolicyReplicator
+
+            self.replicator = PolicyReplicator(
+                self.store, self.bus, logger=self.logger
+            )
+            # tenant-tagged journal frames route to the registry; tenancy
+            # is refused above, so they are dropped
+            self.replicator.tenancy = self.tenancy
+            self.replicator.start()
+            # boot-time catch-up gate: don't return (and so don't let the
+            # CLI open the serving port) until the journal tail observed
+            # at boot is reflected in the tree — a half-replayed replica
+            # would answer INDETERMINATE and the cluster router would
+            # happily route to it
+            self.replicator.wait_caught_up(
+                timeout_s=float(
+                    cfg.get("replication:catchup_timeout_s", 60.0)
+                )
+            )
 
         # Zanzibar-style relation tuples (srv/relations.py): host-side
         # tuple store behind the stage-B bit-reader's relation planes.
@@ -415,10 +470,19 @@ class Worker:
             self.relation_store.start_replication()
             self.evaluator.attach_relation_store(self.relation_store)
 
-        # shadow evaluation and the audit worker are refused above
+        # shadow evaluation is refused above
         self.shadow = None
         self.service.shadow = None
-        self.audit = None
+
+        # permission-lattice audit sweeps (srv/audit_sweep.py): None
+        # unless audit:enabled (the default) — no manager, no threads, no
+        # command surface, byte-identical serving path
+        from . import audit_sweep as audit_mod
+
+        self.audit = audit_mod.from_config(
+            cfg, worker=self,
+            telemetry=self.telemetry, logger=self.logger,
+        )
         return self
 
     def stop(self) -> None:

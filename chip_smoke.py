@@ -187,6 +187,37 @@ PyTorch version:
    site's error count, every ``hang-fallback-*`` count and every
    ``*-degraded`` count (the device path's refusals) 0.  Its first line:
    the ``grpc`` version the server runs on.
+23. hot policy updates at ``scoped_511`` (K1 on patched tables, the
+   prefilter threshold's fallback);
+24. the cluster tier: ``parallel.cluster.LocalCluster`` with a port
+   broker, two port replica processes on the card (``python -m
+   access_control_srv_tpu_torch --device cuda``) and a port router in
+   this process.  The journal is seeded once with ``serve-20k`` (phase
+   22's documents) and both replicas boot by replaying it in parallel,
+   loading the libraries phase 2 built (nothing under ``_build/``
+   changes); each replica's spawn to ready and to first answer.  8 warm
+   routed ``IsAllowedBatch`` calls of phase 22's rows, byte-equal to the
+   same rows sent to replica 0 and 32 sampled rows equal to the oracle,
+   both replicas serving, routed decisions/s beside phase 22's direct
+   rate; a 16-ACL-row batch (K4); then through the router a rule flip
+   and back (patches) and a combining-algorithm change and back
+   (fallbacks), each with its time to convergence (every replica on one
+   new ``table_fingerprint`` and a probe sent to each showing it) and
+   ``delta_stats`` moved alike on the replica that served the RPC and on
+   the other (its ``PolicyReplicator``); replica 1 stopped and restarted
+   (``restart_replica``), its time to serve again, its fingerprint and
+   answers equal to replica 0's; then 64 ``WhatIsAllowedBatch`` queries
+   (K5) and an ``audit_sweep`` Command of a 32 x 32 x 1 lattice through
+   the router (a replica's batcher), equal to a direct-mode sweep here
+   on phase 19's tree.  Each replica's launch counts (the Command
+   ``kernel_launches``) are set to 0 before the first answers and read
+   after the ACL batch, and again around the K5 traffic; its paths (the
+   Command ``metrics``) show the kernel path and no oracle, every error
+   count 0.  The whatIsAllowed traffic comes after the CRUD steps
+   because a reverse query interns its strings into the live compile's
+   interner, as in JAX, so a later patch on that replica alone would
+   lower on another vocabulary (another fingerprint, the same
+   decisions).
 
 After phase 18 the K3 / K4 report: each at (a), (b), (c) and explain on
 / off at phase 18's shapes, through its wrapper (as every kernel is
@@ -224,7 +255,8 @@ launches and times beside their own; ``decide_dense``, ``sig_decide``,
 ``decide_grouped``, ``set_chunk`` and ``shard_tail`` (and its ``pod``
 object) their ``explain`` variant's; ``decide_dense`` K6's;
 ``decide_dense``, ``sig_planes`` and ``sig_decide`` phase 19's launches
-(``wire``) and phase 22's (``grpc``); the
+(``wire``) and phase 22's (``grpc``); ``sig_planes`` to ``wia_planes``
+phase 24's, summed over the replicas (``cluster``); the
 redesigned kernels their packed-once and parent times, ``sig_planes``
 and ``wia_planes`` also their launch floor and blocks per SM); the last
 line is
@@ -237,12 +269,12 @@ printing any result.  Run from the repository root::
 from __future__ import annotations
 
 import atexit
-import copy
 import ctypes
 import gc
 import json
 import multiprocessing
 import os
+import pickle
 import random
 import re
 import shutil
@@ -407,6 +439,13 @@ OLD_MS = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def clone(obj):
+    """A deep copy of requests or documents: a pickle round trip, which
+    copies the model's plain dataclasses as ``copy.deepcopy`` does,
+    several times faster on large batches."""
+    return pickle.loads(pickle.dumps(obj, pickle.HIGHEST_PROTOCOL))
 
 
 # -------------------------------------------------------------- policy trees
@@ -1113,7 +1152,7 @@ def phase_end_to_end(device, n_rows: int, stats: dict):
     engine = engine_for("scoped_511")
     rng = random.Random(5)
     reqs = grid_requests(rng, n_rows - 5, stress=True) + odd_requests(rng, True)
-    oracle_reqs = copy.deepcopy(reqs)
+    oracle_reqs = clone(reqs)
     evaluator = HybridEvaluator(engine, device=device)
     reset_launches()
     responses = evaluator.is_allowed_batch(reqs)
@@ -1127,7 +1166,7 @@ def phase_end_to_end(device, n_rows: int, stats: dict):
                 f"end to end row {i}: {response_key(resp)} != "
                 f"{response_key(want)}")
     compiled = evaluator._compiled
-    probe = encode_requests(copy.deepcopy(reqs), compiled)
+    probe = encode_requests(clone(reqs), compiled)
     decisions = {}
     for resp in responses:
         decisions[resp.decision] = decisions.get(resp.decision, 0) + 1
@@ -1135,7 +1174,7 @@ def phase_end_to_end(device, n_rows: int, stats: dict):
         f"launches; {int((~probe.eligible).sum())} rows served by the oracle;"
         f" decisions {decisions}")
     # the kernel's shapes on this path: the floor-caps sub-batch
-    floor = [r for r in copy.deepcopy(reqs)
+    floor = [r for r in clone(reqs)
              if fits_floor(request_needs(r, compiled.urns))]
     batch = encode_requests(floor, compiled, caps=dict(_CAPS_FLOOR))
     c, b, r, flags = device_inputs(compiled, batch, device)
@@ -1159,7 +1198,7 @@ def phase_end_to_end(device, n_rows: int, stats: dict):
     # where that time goes: the host encode and the host-to-device copy of
     # the same two sub-batches, timed alone; the kernel from CUDA events;
     # the rest is decode, oracle rows and launch overhead
-    ext = [r for r in copy.deepcopy(reqs)
+    ext = [r for r in clone(reqs)
            if not fits_floor(request_needs(r, compiled.urns))]
     t0 = time.perf_counter()
     batches = [encode_requests(floor, compiled, caps=dict(_CAPS_FLOOR)),
@@ -1485,7 +1524,7 @@ def phase_sig_vs_plain(device, stats: dict) -> None:
                 kern.active = True
                 kern._dense = None
             before = {k: v["calls"] for k, v in stats.items()}
-            dec = kern.evaluate(encode_requests(copy.deepcopy(reqs), compiled))
+            dec = kern.evaluate(encode_requests(clone(reqs), compiled))
             ran = sorted(k for k, v in stats.items()
                          if v["calls"] > before.get(k, 0))
             aborts = int((dec[2] != 200).sum())
@@ -1503,29 +1542,41 @@ def phase_sig_vs_plain(device, stats: dict) -> None:
 # the oracle walks of the checks are pure host code: forked processes
 # walk them side by side (none touches the card)
 ORACLE_PROCS = 6
+# threads that hold no lock a forked walker takes, so they do not stop a
+# fork: a cluster's pipe readers (phase 24's broker lives from phase 2
+# on) and the idle workers of the transport's module-level serializer
+# pool (ThreadPoolExecutor re-initialises its own lock in a forked child)
+FORK_SAFE_THREADS = ("cluster-drain-", "acs-pb-ser")
 ORACLE_WALKS = {"forked": 0, "here": 0}
 _ORACLE = None  # (engine, requests, candidate index or None) for a walker
 
 
 def _oracle_walk(i: int):
-    engine, requests, cand = _ORACLE
-    req = copy.deepcopy(requests[i])
+    engine, requests, cand, reverse = _ORACLE
+    req = clone(requests[i])
+    if reverse:
+        return engine.what_is_allowed(req)
     if cand is None:
         return engine.is_allowed(req)
     return engine.is_allowed(
         req, candidate_rules=cand.candidates(req, engine.urns))
 
 
-def oracle_walks(engine, requests, idx, cand=None) -> list:
+def oracle_walks(engine, requests, idx, cand=None,
+                 reverse: bool = False) -> list:
     """``engine.is_allowed`` on a copy of ``requests[i]`` for each ``i``
-    of ``idx`` (over ``cand``'s candidate rules when given), in order.
+    of ``idx`` (over ``cand``'s candidate rules when given;
+    ``engine.what_is_allowed`` with ``reverse``), in order.
     With no other thread in this process (a fork would copy a held lock)
     the walks run in ``ORACLE_PROCS`` forked processes, else here."""
     global _ORACLE
     idx = list(idx)
-    _ORACLE = (engine, requests, cand)
+    _ORACLE = (engine, requests, cand, reverse)
     try:
-        if len(idx) < 2 * ORACLE_PROCS or threading.active_count() > 1:
+        others = [t for t in threading.enumerate()
+                  if t is not threading.current_thread()
+                  and not t.name.startswith(FORK_SAFE_THREADS)]
+        if len(idx) < 2 * ORACLE_PROCS or others:
             ORACLE_WALKS["here"] += len(idx)
             return [_oracle_walk(i) for i in idx]
         ORACLE_WALKS["forked"] += len(idx)
@@ -2350,7 +2401,7 @@ def phase_wia_main(device, stats: dict, card: str) -> dict:
     reset_launches()
     with WiaCheck(stats) as chk:
         t0 = time.perf_counter()
-        responses = evaluator.what_is_allowed_batch(copy.deepcopy(reqs))
+        responses = evaluator.what_is_allowed_batch(clone(reqs))
         cold_s = time.perf_counter() - t0
     launches = dict(kmod.LAUNCHES)
     if launches["wia_planes"] != 1:
@@ -2358,7 +2409,7 @@ def phase_wia_main(device, stats: dict, card: str) -> dict:
     args = chk.args[0]
     t0 = time.perf_counter()
     for i, req in enumerate(reqs):
-        want = engine.what_is_allowed(copy.deepcopy(req))
+        want = engine.what_is_allowed(clone(req))
         if rq_key(responses[i]) != rq_key(want):
             raise AssertionError(f"wia-large row {i} differs from the "
                                  f"oracle")
@@ -2371,7 +2422,7 @@ def phase_wia_main(device, stats: dict, card: str) -> dict:
 
     # warm batches: no kernel launch, mean of 3
     reset_launches()
-    batches = [copy.deepcopy(reqs) for _ in range(3)]
+    batches = [clone(reqs) for _ in range(3)]
     t0 = time.perf_counter()
     for b in batches:
         evaluator.what_is_allowed_batch(b)
@@ -2381,7 +2432,7 @@ def phase_wia_main(device, stats: dict, card: str) -> dict:
 
     # the stage split of one warm batch, each stage timed alone
     kern = evaluator._rq_kernel
-    b = copy.deepcopy(reqs)
+    b = clone(reqs)
     t = [time.perf_counter()]
     batch = wia_encode(b, compiled)
     t.append(time.perf_counter())
@@ -2405,7 +2456,7 @@ def phase_wia_main(device, stats: dict, card: str) -> dict:
 
     t0 = time.perf_counter()
     for req in reqs[:128]:
-        engine.what_is_allowed(copy.deepcopy(req))
+        engine.what_is_allowed(clone(req))
     oracle_qps = 128 / (time.perf_counter() - t0)
     out = {
         "launches": launches, "args": args,
@@ -2703,7 +2754,7 @@ def phase_rel_vs_plain(device, stats: dict) -> dict:
         for label, engine, store, reqs, kw in rel_fixture_cases():
             compiled = compile_policies(engine.policy_sets, engine.urns)
             tables = store.tables_for(compiled) if store else None
-            batch = encode_requests(copy.deepcopy(reqs), compiled,
+            batch = encode_requests(clone(reqs), compiled,
                                     relation_tables=tables, **kw)
             dense = kmod.DecisionKernel(compiled, device=device)
             forced = pfmod.PrefilteredKernel(compiled, device=device)
@@ -2731,7 +2782,7 @@ def phase_rel_vs_plain(device, stats: dict) -> dict:
         check: dict = {}
         for acl in (False, True):
             reqs = rel_stress_traffic(512, 17 + acl, scoped, acl)
-            batch = encode_requests(copy.deepcopy(reqs), compiled,
+            batch = encode_requests(clone(reqs), compiled,
                                     relation_tables=tables)
             reset_launches()
             with KernelCheck(check, dense=True) as chk:
@@ -2897,7 +2948,7 @@ def phase_rebac(device, stats: dict, card: str, pre: dict,
     check: dict = {}
     reset_launches()
     with KernelCheck(check, dense=True):
-        responses = evaluator.is_allowed_batch(copy.deepcopy(reqs))
+        responses = evaluator.is_allowed_batch(clone(reqs))
     launches = dict(kmod.LAUNCHES)
     if launches["decide_dense"] < 1:
         raise AssertionError("rebac-serve launched no decide_dense")
@@ -2926,15 +2977,15 @@ def phase_rebac(device, stats: dict, card: str, pre: dict,
         f"(every PERMIT relation-decided: the tree's only PERMIT rule is "
         f"the relation rule)")
 
-    warm = [copy.deepcopy(reqs) for _ in range(3)]
-    evaluator.is_allowed_batch(copy.deepcopy(reqs))
+    warm = [clone(reqs) for _ in range(3)]
+    evaluator.is_allowed_batch(clone(reqs))
     t0 = time.perf_counter()
     for b in warm:
         evaluator.is_allowed_batch(b)
     batch_s = (time.perf_counter() - t0) / len(warm)
 
     # the stage split of one warm batch, each stage timed alone
-    b = copy.deepcopy(reqs)
+    b = clone(reqs)
     t = [time.perf_counter()]
     tables = evaluator._relation_tables(compiled)
     t.append(time.perf_counter())
@@ -2959,7 +3010,7 @@ def phase_rebac(device, stats: dict, card: str, pre: dict,
     flags = (False, False, True)
     args = (kern._dense._c, r) + flags
     k1 = time_kernel("decide_dense", args, plain_iters=2)
-    skip = encode_requests(copy.deepcopy(reqs), compiled,
+    skip = encode_requests(clone(reqs), compiled,
                            skip_relation_bits=True)
     _, r_skip = batch_from_numpy(skip, device, keys=kmod.ROW_ARRAYS)
     got, want = kernel_vs_plain(kern._dense._c, r_skip, flags)
@@ -2988,10 +3039,10 @@ def phase_rebac(device, stats: dict, card: str, pre: dict,
         t0 = time.perf_counter()
         if op is not None:
             getattr(store, op)(grant)
-        resp = evaluator.is_allowed_batch([copy.deepcopy(probe)])[0]
+        resp = evaluator.is_allowed_batch([clone(probe)])[0]
         if op is not None:
             ttv_ms.append((time.perf_counter() - t0) * 1e3)
-        want = engine.is_allowed(copy.deepcopy(probe))
+        want = engine.is_allowed(clone(probe))
         if response_key(resp) != response_key(want):
             raise AssertionError(f"churn {op}: {response_key(resp)} != "
                                  f"{response_key(want)}")
@@ -3338,9 +3389,9 @@ def _victim_probe(engine):
                     "id": "u0",
                     "role_associations": [{"role": role, "attributes": []}],
                     "hierarchical_scopes": []}})
-            before = engine.is_allowed(copy.deepcopy(probe)).decision
+            before = engine.is_allowed(clone(probe)).decision
             rule.effect = "DENY" if rule.effect == "PERMIT" else "PERMIT"
-            after = engine.is_allowed(copy.deepcopy(probe)).decision
+            after = engine.is_allowed(clone(probe)).decision
             if after != before:
                 return rule, probe, before, after
             rule.effect = "DENY" if rule.effect == "PERMIT" else "PERMIT"
@@ -3407,10 +3458,10 @@ def pod_patch_check(engine, ev, device, reqs, rank: int) -> dict:
                 or sum(reused) != len(reused) - 1:
             raise AssertionError(f"pod patch re-sliced shards {changed}, "
                                  f"applied {applied}")
-        batch = copy.deepcopy(reqs) + [copy.deepcopy(probe)]
+        batch = clone(reqs) + [clone(probe)]
         single = HybridEvaluator(engine, device=device)
         want = [response_key(x) for x in
-                single.is_allowed_batch(copy.deepcopy(batch))]
+                single.is_allowed_batch(clone(batch))]
         del single
         check: dict = {}
         _reset_counts()
@@ -3468,7 +3519,7 @@ def phase15_rank(rank: int, world: int, out_dir: str) -> None:
     for key, (eng, reqs) in traffic.items():
         single = HybridEvaluator(eng, device=device)
         want[key] = [response_key(x) for x in
-                     single.is_allowed_batch(copy.deepcopy(reqs))]
+                     single.is_allowed_batch(clone(reqs))]
         del single
     # the explain layouts' yardstick: the single-device explain evaluator
     want_explain = {}
@@ -3476,7 +3527,7 @@ def phase15_rank(rank: int, world: int, out_dir: str) -> None:
         eng, reqs = traffic[key]
         single = HybridEvaluator(eng, device=device, explain=True)
         want_explain[key] = [explain_key(x) for x in
-                             single.is_allowed_batch(copy.deepcopy(reqs))]
+                             single.is_allowed_batch(clone(reqs))]
         del single
     configs = [
         ("K6 mesh (4,1)", "scoped_511", (4, 1), {}),
@@ -3507,7 +3558,7 @@ def phase15_rank(rank: int, world: int, out_dir: str) -> None:
         check: dict = {}
         _reset_counts()
         with KernelCheck(check, names=tuple(PLAIN)) as chk:
-            got = ev.is_allowed_batch(copy.deepcopy(reqs))
+            got = ev.is_allowed_batch(clone(reqs))
         launches = {k: v for k, v in kmod.LAUNCHES.items() if v}
         colls = dict(mmod.COLLECTIVES)
         # the plain versions' cached blocks go back to the card before the
@@ -3524,7 +3575,7 @@ def phase15_rank(rank: int, world: int, out_dir: str) -> None:
         sampled = sample_oracle(eng, reqs, got) if rank == 0 else 0
         # no timing before this process's other work of the run is done
         gate_wait_s += wait_for(os.path.join(out_dir, GATE))
-        ev.is_allowed_batch(copy.deepcopy(reqs))
+        ev.is_allowed_batch(clone(reqs))
         t0 = time.perf_counter()
         for _ in range(3):
             ev.is_allowed_batch(reqs)
@@ -3681,20 +3732,20 @@ def phase16_rank(rank: int, world: int, out_dir: str) -> None:
     engine = shard_scale_engine()
     reqs = shard_scale_traffic()
     want = [response_key(x) for x in HybridEvaluator(
-        engine, device=device).is_allowed_batch(copy.deepcopy(reqs))]
+        engine, device=device).is_allowed_batch(clone(reqs))]
     mesh = make_mesh2(1, 1, device=device)
     res = {"backend": mesh.backend}
     for label, kw in (("K7", {"model_axis": "model"}),
                       ("K8", {"model_axis": "model", "pod_shards": 1})):
         ev = HybridEvaluator(engine, mesh=mesh, **kw)
         reset_launches()
-        got = ev.is_allowed_batch(copy.deepcopy(reqs))
+        got = ev.is_allowed_batch(clone(reqs))
         if [response_key(g) for g in got] != want:
             raise AssertionError(f"phase 16 {label}: responses differ")
         res[label] = {"launches": {k: v for k, v in kmod.LAUNCHES.items()
                                    if v}}
     k = ev._kernel
-    batch = encode_requests(copy.deepcopy(reqs), ev._compiled,
+    batch = encode_requests(clone(reqs), ev._compiled,
                             caps=dict(_CAPS_FLOOR))
     _, r = row_slice(batch, device, kmod.ROW_ARRAYS, 1, 0)
     merge = kmod.set_chunk(k._c, r, k._own.s_lo, 1, 0,
@@ -3820,7 +3871,7 @@ def phase_explain_vs_plain(device, stats: dict) -> None:
                          + odd_requests(rng, stress),
                          grid_requests(rng, 128, stress, acl=False,
                                        props=False)):
-                batch = encode_requests(copy.deepcopy(reqs), compiled)
+                batch = encode_requests(clone(reqs), compiled)
                 out = dense.evaluate(batch)
                 same_eligible(out, forced.evaluate(batch), batch.eligible,
                               f"{name}: dense vs signature path")
@@ -3841,7 +3892,7 @@ def phase_explain_vs_plain(device, stats: dict) -> None:
                          grid_requests(rng, 128, stress=True)):
                 for r in reqs[::5]:  # no subject id: the conditions abort
                     r.context["subject"].pop("id", None)
-                batch = encode_requests(copy.deepcopy(reqs), compiled)
+                batch = encode_requests(clone(reqs), compiled)
                 out = kern.evaluate(batch)
                 kinds = sorted(set((out[3][batch.eligible] & 3).tolist()))
                 n_src += explain_sources(engine, kern.explain_strides, reqs,
@@ -3851,7 +3902,7 @@ def phase_explain_vs_plain(device, stats: dict) -> None:
         for label, engine, store, reqs, kw in rel_fixture_cases():
             compiled = compile_policies(engine.policy_sets, engine.urns)
             tables = store.tables_for(compiled) if store else None
-            batch = encode_requests(copy.deepcopy(reqs), compiled,
+            batch = encode_requests(clone(reqs), compiled,
                                     relation_tables=tables, **kw)
             dense = kmod.DecisionKernel(compiled, device=device,
                                         explain=True)
@@ -3869,7 +3920,7 @@ def phase_explain_vs_plain(device, stats: dict) -> None:
                                            explain=True)
             for acl in (False, True):
                 reqs = rel_stress_traffic(256, 31 + acl, scoped, acl)
-                kern.evaluate(encode_requests(copy.deepcopy(reqs), compiled,
+                kern.evaluate(encode_requests(clone(reqs), compiled,
                                               relation_tables=tables))
         log("  relation variants (phase 12's fixture cases, 720 relation "
             "tree): explain calls equal to their plain versions")
@@ -3955,7 +4006,7 @@ def phase_explain_main(device, stats: dict, card: str, pre: tuple) -> dict:
     check: dict = {}
     reset_launches()
     with KernelCheck(check) as chk:
-        first = evaluator.is_allowed_batch(copy.deepcopy(reqs))
+        first = evaluator.is_allowed_batch(clone(reqs))
     launches = dict(kmod.LAUNCHES)
     if not (launches["sig_planes"] and launches["sig_decide"]
             and check["sig_decide"].get("explain_calls")):
@@ -4031,7 +4082,7 @@ def phase_explain_main(device, stats: dict, card: str, pre: tuple) -> dict:
     check_c: dict = {}
     reset_launches()
     with KernelCheck(check_c) as chk_c:
-        got_c = evaluator.is_allowed_batch(copy.deepcopy(reqs_c))
+        got_c = evaluator.is_allowed_batch(clone(reqs_c))
     launches_c = dict(kmod.LAUNCHES)
     if not (launches_c["decide_grouped"]
             and check_c["decide_grouped"].get("explain_calls")):
@@ -4136,7 +4187,7 @@ def evaluator_batches(compiled, engine, requests) -> list:
     """The batches ``HybridEvaluator.is_allowed_batch`` encodes for
     ``requests``: the floor-fitting rows at the floor caps, then the rest
     at batch-max caps (one batch when either part is empty)."""
-    reqs = copy.deepcopy(requests)
+    reqs = clone(requests)
     wide = [not fits_floor(request_needs(r, compiled.urns)) for r in reqs]
     parts = [(reqs, None)]
     if len(reqs) >= 8 and 0 < sum(wide) < len(reqs):
@@ -4733,7 +4784,7 @@ def wire_check(label: str, evaluator, engine, requests, messages, expect,
     (batch, dec, cach, status), launches, _ = checked_call(
         label, lambda: evaluator.is_allowed_batch_wire(messages), expect,
         stats, dense=dense)
-    ref = evaluator.is_allowed_batch(copy.deepcopy(requests))
+    ref = evaluator.is_allowed_batch(clone(requests))
     eligible = np.flatnonzero(batch.eligible)
     for b in eligible:
         if _row_key(dec, cach, status, b) != _resp_key(ref[b]):
@@ -4969,7 +5020,7 @@ def phase_token_mix(device, stats: dict, card: str, pre: tuple) -> dict:
 
     engine, requests, identity, evaluator = pre
     rows, n_tokens = len(requests), TOKENS
-    fresh = copy.deepcopy(requests)
+    fresh = clone(requests)
     responses, launches, _ = checked_call(
         "token-mix", lambda: evaluator.is_allowed_batch(requests),
         ("sig_decide",), stats)
@@ -5078,7 +5129,7 @@ def phase_adapter_warm(device, stats: dict, card: str, pre: tuple) -> dict:
 
     engine, requests, cache, evaluator = pre
     rows = len(requests)
-    fresh = copy.deepcopy(requests)
+    fresh = clone(requests)
     cold, launches, _ = checked_call(
         "adapter-mixed-warm", lambda: evaluator.is_allowed_batch(requests),
         ("sig_decide",), stats)
@@ -5086,7 +5137,7 @@ def phase_adapter_warm(device, stats: dict, card: str, pre: tuple) -> dict:
     cacheable = [b for b, r in enumerate(cold)
                  if r.evaluation_cacheable is True]
     hits0 = cache.stats()["hits"]
-    warm = evaluator.is_allowed_batch(copy.deepcopy(fresh))
+    warm = evaluator.is_allowed_batch(clone(fresh))
     if cache.stats()["hits"] - hits0 != len(cacheable):
         raise AssertionError("warm pass: not every cacheable row hit")
     for b in cacheable:
@@ -5254,7 +5305,7 @@ def store_docs(doc) -> tuple[list, list, list]:
             policies.append({**{k: v for k, v in pol.items()
                                 if k != "rules"},
                              "rules": [r["id"] for r in pol["rules"]]})
-            rules.extend(copy.deepcopy(pol["rules"]))
+            rules.extend(clone(pol["rules"]))
     return sets, policies, rules
 
 
@@ -5427,7 +5478,7 @@ def phase_grpc(device, stats: dict, card: str, wire_rate: float) -> dict:
         if first_paths.get("native-wire", 0) != rows:
             raise AssertionError(f"phase 22: native-wire counted "
                                  f"{first_paths} for {rows} rows")
-        ref = ev.is_allowed_batch(copy.deepcopy(reqs))
+        ref = ev.is_allowed_batch(clone(reqs))
         for b in range(rows):
             want = _pb_key(tg.response_to_pb(ref[b]))
             if _pb_key(got[b]) != want:
@@ -5436,7 +5487,7 @@ def phase_grpc(device, stats: dict, card: str, wire_rate: float) -> dict:
                                      f"{want}")
         for b in sorted(random.Random(3).sample(range(rows), min(32, rows))):
             want = _pb_key(tg.response_to_pb(
-                engine.is_allowed(copy.deepcopy(reqs[b]))))
+                engine.is_allowed(clone(reqs[b]))))
             if _pb_key(got[b]) != want:
                 raise AssertionError(f"phase 22 row {b}: rpc "
                                      f"{_pb_key(got[b])} != oracle {want}")
@@ -5502,7 +5553,7 @@ def phase_grpc(device, stats: dict, card: str, wire_rate: float) -> dict:
         _add_launches(out["launches"])
         walk_s = 0.0
         for i, resp in enumerate(answers):
-            req = copy.deepcopy(ureqs[i])
+            req = clone(ureqs[i])
             t0 = time.perf_counter()
             want = ev._oracle_is_allowed(req)
             walk_s += time.perf_counter() - t0
@@ -5510,7 +5561,7 @@ def phase_grpc(device, stats: dict, card: str, wire_rate: float) -> dict:
                 raise AssertionError(f"phase 22 unary {i}: != the oracle")
         for i in random.Random(4).sample(range(GRPC_UNARY_CALLS), 32):
             want = tg.response_to_pb(engine.is_allowed(
-                copy.deepcopy(ureqs[i]))).SerializeToString()
+                clone(ureqs[i]))).SerializeToString()
             if answers[i] != want:
                 raise AssertionError(f"phase 22 unary {i}: != the "
                                      "unfiltered oracle")
@@ -5648,7 +5699,7 @@ def phase_hot_updates(device, stats: dict, card: str) -> dict:
     out: dict = {"caps": ev.delta_stats()["capacities"]}
 
     # the serving kernel warm before the mutation: its library loaded
-    ev.is_allowed_batch(copy.deepcopy(reqs))
+    ev.is_allowed_batch(clone(reqs))
     rules = store.get_resource_service("rule")
     doc = store.collections["rule"].get("r1")
     doc["effect"] = "DENY" if doc["effect"] == "PERMIT" else "PERMIT"
@@ -5661,7 +5712,7 @@ def phase_hot_updates(device, stats: dict, card: str) -> dict:
         raise AssertionError(f"phase 23: the rule edit moved {moved}")
     responses, launches, chk = checked_call(
         "K1 on patched tables", lambda: ev.is_allowed_batch(
-            copy.deepcopy(reqs)), ("decide_dense",), stats, dense=True)
+            clone(reqs)), ("decide_dense",), stats, dense=True)
     n = sample_oracle(engine, reqs, responses)
     if built != built_state():
         raise AssertionError("phase 23: the patch built or loaded a library")
@@ -5676,7 +5727,7 @@ def phase_hot_updates(device, stats: dict, card: str) -> dict:
 
     flat = HybridEvaluator(engine, device=device, delta_enabled=False)
     with captured("decide_dense", kmod) as calls:
-        flat.is_allowed_batch(copy.deepcopy(reqs))
+        flat.is_allowed_batch(clone(reqs))
     k1_off = max(calls, key=lambda a: a[1]["r_n_ra"].shape[0])
     del flat
     out["padding_k1"] = padding_cost("decide_dense", k1_off, k1_on, card,
@@ -5750,7 +5801,7 @@ def grpc_crud_segment(rpc, pb, worker, tg, card: str) -> dict:
     other_ca.combining_algorithm = FA
 
     def probe_for(role: str):
-        req = copy.deepcopy(stress_traffic(1, seed=31)[0])
+        req = clone(stress_traffic(1, seed=31)[0])
         req.target.subjects[0].value = role
         req.context["subject"]["role_associations"][0]["role"] = role
         req.target.resources[0].value = original.target.resources[0].value
@@ -5810,7 +5861,7 @@ def grpc_crud_segment(rpc, pb, worker, tg, card: str) -> dict:
         if moved != expect:
             raise AssertionError(f"phase 22 {label}: delta_stats moved "
                                  f"{moved}, expected {expect}")
-        oracle = tg.response_to_pb(engine.is_allowed(copy.deepcopy(probe)))
+        oracle = tg.response_to_pb(engine.is_allowed(clone(probe)))
         if any(_pb_key(r) != _pb_key(oracle) for r in got) \
                 or got[0].decision != want:
             raise AssertionError(f"phase 22 {label}: probe "
@@ -5918,7 +5969,7 @@ def grpc_patched_checks(rpc, pb, worker, tg, reqs, payload, stats: dict,
     wgot = pb.BatchReverseQuery.FromString(wraw).responses
     for i, r in enumerate(wreqs):
         want = tg.reverse_query_to_pb(
-            engine.what_is_allowed(copy.deepcopy(r))).SerializeToString()
+            engine.what_is_allowed(clone(r))).SerializeToString()
         if wgot[i].SerializeToString() != want or (
                 i < len(wunary) and wunary[i] != want):
             raise AssertionError(f"phase 22 whatIsAllowed {i}: != "
@@ -5997,6 +6048,531 @@ def padding_cost(name: str, unpadded: tuple, bucketed: tuple, card: str,
     return out
 
 
+# ------------------------------------------- phase 24: the cluster tier
+
+
+CLUSTER_REPLICAS = 2
+CLUSTER_CALLS = 8            # warm routed IsAllowedBatch calls
+CLUSTER_PROBE_ROWS = 64      # the CRUD probe batch, sent to each replica
+CLUSTER_TIMEOUT_S = 300.0    # a replica's boot, a convergence, a sweep
+# the audit sweep's lattice: 32 stress subjects x 32 stress resources x 1
+CLUSTER_LATTICE = {"subjects": 32, "resources": 32, "actions": ["read"]}
+CLUSTER_KERNELS = ("sig_planes", "sig_decide", "decide_grouped",
+                   "wia_planes")
+
+
+def cluster_seed(n_rules: int) -> dict:
+    """``serve-20k`` as the policy store keeps it, in the order its
+    journal takes it: the seed data's documents, then
+    ``stress_doc(n_rules)``'s (what phase 22's worker holds)."""
+    from access_control_srv_tpu_torch.srv.worker import _yaml_list
+
+    seed = os.path.join(REPO, "data", "seed_data")
+    sets, policies, rules = store_docs(stress_doc(n_rules))
+    return {
+        "rules": _yaml_list(os.path.join(seed, "rules.yaml")) + rules,
+        "policies": _yaml_list(os.path.join(seed, "policies.yaml"))
+        + policies,
+        "policy_sets": _yaml_list(os.path.join(seed, "policy_sets.yaml"))
+        + sets,
+    }
+
+
+def build_dir_state() -> dict:
+    """Every file under ``_build/`` with its size and modification time."""
+    d = cuda_build.BUILD_DIR
+    return {p.name: (p.stat().st_size, p.stat().st_mtime_ns)
+            for p in sorted(d.iterdir())} if d.is_dir() else {}
+
+
+class Replicas:
+    """Channels to a cluster's replicas and its router: raw unary calls
+    and Commands."""
+
+    def __init__(self, cluster):
+        import grpc
+
+        from access_control_srv_tpu_torch.srv.gen import (
+            access_control_pb2 as pb,
+        )
+        from access_control_srv_tpu_torch.srv.transport_grpc import (
+            _MESSAGE_SIZE_OPTIONS,
+        )
+
+        self.grpc, self.pb, self.opts = grpc, pb, _MESSAGE_SIZE_OPTIONS
+        self.cluster = cluster
+        self.channels: dict = {}
+
+    def channel(self, addr: str):
+        if addr not in self.channels:
+            self.channels[addr] = self.grpc.insecure_channel(
+                addr, options=self.opts)
+        return self.channels[addr]
+
+    @property
+    def addrs(self) -> list:
+        return [r.addr for r in self.cluster.replicas]
+
+    @property
+    def router(self) -> str:
+        return self.cluster.router.addr
+
+    def call(self, addr: str, method: str, payload: bytes,
+             prefix: str = AC_RPC) -> bytes:
+        return self.channel(addr).unary_unary(prefix + method)(
+            payload, timeout=CLUSTER_TIMEOUT_S)
+
+    def command(self, addr: str, name: str, payload=None) -> dict:
+        pb = self.pb
+        req = pb.CommandRequest(name=name)
+        if payload is not None:
+            req.payload = json.dumps(payload).encode()
+        raw = self.call(addr, "Command", req.SerializeToString(),
+                        prefix="/acstpu.CommandInterface/")
+        return json.loads(pb.CommandResponse.FromString(raw).payload
+                          or b"{}")
+
+    def each(self, name: str, payload=None) -> dict:
+        return {a: self.command(a, name, payload) for a in self.addrs}
+
+    def calls_by_replica(self) -> dict:
+        return {r["addr"]: r["calls"]
+                for r in self.cluster.router.status()["replicas"]}
+
+    def close(self) -> None:
+        for ch in self.channels.values():
+            ch.close()
+        self.channels = {}
+
+
+def cluster_convergence(rep: Replicas, label: str, path: str, msg,
+                        probe_batch: bytes, want: int, expect: dict,
+                        card: str) -> dict:
+    """One CRUD RPC through the router, then the time until every
+    replica reports one new ``table_fingerprint`` at one policy epoch
+    and the probe batch sent directly to each replica answers ``want``
+    on every row; ``delta_stats`` must have moved by ``expect`` on every
+    replica (locally on the one that served the RPC, through its
+    ``PolicyReplicator`` on the others)."""
+    pb = rep.pb
+    before_ids = rep.each("program_identity")
+    before_pu = {a: h["policy_update"]
+                 for a, h in rep.each("health_check").items()}
+    old_fp = {i["table_fingerprint"] for i in before_ids.values()}
+    calls = rep.calls_by_replica()
+    t0 = time.perf_counter()
+    method = path.rsplit("/", 1)[1]
+    status = pb.MutationResponse.FromString(rep.call(
+        rep.router, method, msg.SerializeToString(),
+        prefix=path.rsplit("/", 1)[0] + "/")).operation_status
+    rpc_ms = (time.perf_counter() - t0) * 1e3
+    if status.code != 200:
+        raise AssertionError(f"phase 24 {label}: {status}")
+    deadline = t0 + CLUSTER_TIMEOUT_S
+    polls = 0
+    while True:
+        polls += 1
+        ids = rep.each("program_identity")
+        fps = {i["table_fingerprint"] for i in ids.values()}
+        epochs = {i["policy_epoch"] for i in ids.values()}
+        if len(fps) == 1 and not fps & old_fp and len(epochs) == 1:
+            answers = {a: pb.BatchResponse.FromString(rep.call(
+                a, "IsAllowedBatch", probe_batch)).responses
+                for a in rep.addrs}
+            if all(r.decision == want for got in answers.values()
+                   for r in got):
+                break
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"phase 24 {label}: no convergence in "
+                                 f"{CLUSTER_TIMEOUT_S} s: {ids}")
+        time.sleep(0.005)
+    conv_ms = (time.perf_counter() - t0) * 1e3
+    after_pu = {a: h["policy_update"]
+                for a, h in rep.each("health_check").items()}
+    moved = {a: delta_moved(before_pu[a], after_pu[a]) for a in rep.addrs}
+    served = [a for a, n in rep.calls_by_replica().items()
+              if n != calls.get(a)]
+    if any(m != expect for m in moved.values()) or len(served) != 1:
+        raise AssertionError(f"phase 24 {label}: delta_stats moved {moved} "
+                             f"(expected {expect} on every replica), RPC "
+                             f"served by {served}")
+    out = {"rpc_ms": rpc_ms, "convergence_ms": conv_ms, "polls": polls,
+           "served_by": served[0], "moved": moved[served[0]],
+           "epoch": epochs.pop(), "fingerprint": fps.pop()}
+    log(f"  CRUD {label} through the router on {card}: the RPC "
+        f"{rpc_ms:.1f} ms, served by {served[0]}; every replica on one new "
+        f"table_fingerprint at epoch {out['epoch']} and the probe "
+        f"({CLUSTER_PROBE_ROWS} rows sent to each replica) "
+        f"{pb.Decision.Name(want)} after {conv_ms:.1f} ms (time to "
+        f"convergence); delta_stats moved {json.dumps(out['moved'])} on the "
+        f"replica that served it, the same through the PolicyReplicator on "
+        f"the other")
+    return out
+
+
+def cluster_window(rep: Replicas, paths0: dict, device, label: str) -> dict:
+    """The kernel launches of every replica since its counts were set to
+    0, and the rows each served by path since ``paths0`` (the Command
+    ``metrics``): every batch on the kernel path, none on the oracle, no
+    error count; on the card every replica launched a kernel."""
+    launches = rep.each("kernel_launches")
+    moved = {}
+    for a, m in rep.each("metrics").items():
+        before = paths0.get(a, {})
+        moved[a] = {k: v - before.get(k, 0) for k, v in m["paths"].items()
+                    if v != before.get(k, 0)}
+    for a, m in moved.items():
+        served = m.get("native-wire", 0) + m.get("kernel", 0) + m.get(
+            "kernel-wia", 0)
+        if m.get("oracle", 0) or m.get("oracle-wia", 0) or error_counts(m):
+            raise AssertionError(f"phase 24 ({label}): replica {a}'s paths "
+                                 f"{m}: not the kernel path")
+        if served and device.type == "cuda" and not any(
+                launches[a]["launches"].values()):
+            raise AssertionError(f"phase 24 ({label}): replica {a} served "
+                                 f"{served} rows and launched no kernel")
+    return {"paths": moved,
+            "launches_by_replica": {a: {k: v for k, v in
+                                        m["launches"].items() if v}
+                                    for a, m in launches.items()},
+            "launches": {k: sum(m["launches"][k] for m in launches.values())
+                         for k in kmod.LAUNCHES}}
+
+
+def cluster_tier(device, n_rules: int = SERVE_RULES) -> dict:
+    """Phase 24's ``LocalCluster`` with its broker started and its journal
+    seeded (no replica yet): host work the full run does while phase 2's
+    nvcc processes build.  The broker is stopped at exit if phase 24
+    never runs."""
+    from access_control_srv_tpu_torch.parallel.cluster import LocalCluster
+
+    work = tempfile.mkdtemp(prefix="acs-cluster-")
+    m0 = time.monotonic()
+    docs = cluster_seed(n_rules)
+    docs_s = time.monotonic() - m0
+    cluster = LocalCluster(
+        n_replicas=CLUSTER_REPLICAS, seed_cfg=docs,
+        base_dir=os.path.join(work, "tier"),
+        cfg_extra={
+            "replication": {"catchup_timeout_s": CLUSTER_TIMEOUT_S},
+            "audit": {"enabled": True, "chunk_size": 256,
+                      "out_dir": os.path.join(work, "audit")}},
+        router_cfg={"health_interval_s": 0.5, "max_retries": 1},
+        replica_timeout_s=CLUSTER_TIMEOUT_S, device=str(device))
+    atexit.register(shutil.rmtree, work, True)
+    atexit.register(cluster.stop)
+    cluster.start_broker()
+    return {"cluster": cluster, "work": work,
+            "frames": sum(len(v) for v in docs.values()),
+            "seeding_s": {"documents": docs_s,
+                          "broker": cluster.broker_ready_at - m0,
+                          "seeded": cluster.seeded_at - m0}}
+
+
+def phase_cluster(device, stats: dict, card: str, serve_pre,
+                  direct_rate: float, tier: dict | None = None,
+                  n_rules: int = SERVE_RULES,
+                  rows: int = SERVE_ROWS) -> dict:
+    """Phase 24: the cluster tier (the module docstring's item 24).
+    ``LocalCluster`` runs a port broker, ``CLUSTER_REPLICAS`` port replica
+    processes on ``device`` and a port router in this process; the
+    journal is seeded once with ``n_rules`` stress rules and the seed data
+    and the replicas boot by replaying it in parallel, loading the
+    libraries phase 2 built.  ``serve_pre`` is phase 19's (engine,
+    evaluator, seconds) on the same tree: the oracle of the checks and
+    the direct-mode sweep.  ``direct_rate`` is phase 22's wire-to-wire
+    decisions/s, printed beside the routed rate.  ``tier`` is
+    ``cluster_tier``'s (made here when None)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from access_control_srv_tpu_torch import native
+    from access_control_srv_tpu_torch.ops.lattice import diff_snapshots
+    from access_control_srv_tpu_torch.srv import transport_grpc as tg
+
+    engine, evaluator, _ = serve_pre
+    t_phase = time.perf_counter()
+    out: dict = {}
+    # the libraries this phase's replicas load: already built by phases
+    # 2 and 19 in the full run (no build here either)
+    if device.type == "cuda":
+        cuda_build.build(list(SOURCES))
+    native.load()
+    built = build_dir_state()
+    reqs = stress_traffic(rows, seed=11)
+    msgs = [wire_bytes(r) for r in reqs]
+    payload = batch_envelope(msgs)
+    if tier is None:
+        tier = cluster_tier(device, n_rules)
+    cluster, work, frames = tier["cluster"], tier["work"], tier["frames"]
+    out["seeding_s"] = tier["seeding_s"]
+    rep = Replicas(cluster)
+    try:
+        m0 = time.monotonic()
+        cluster.start()
+        out["timeline_s"] = {
+            "spawned": min(r.spawned_at for r in cluster.replicas) - m0,
+            "ready": max(r.ready_at for r in cluster.replicas) - m0,
+            "router": time.monotonic() - m0}
+        pb = rep.pb
+        ident = rep.each("program_identity")
+        if {i["policy_epoch"] for i in ident.values()} != {frames} or len(
+                {i["table_fingerprint"] for i in ident.values()}) != 1:
+            raise AssertionError(f"phase 24: the replicas did not replay "
+                                 f"the {frames}-frame journal: {ident}")
+        rep.each("kernel_launches", {"reset": True})
+        paths0 = {a: m["paths"] for a, m in rep.each("metrics").items()}
+
+        def first(replica) -> tuple:
+            raw = rep.call(replica.addr, "IsAllowedBatch", payload)
+            return raw, time.monotonic()
+
+        with ThreadPoolExecutor(CLUSTER_REPLICAS) as pool:
+            firsts = list(pool.map(first, cluster.replicas))
+        out["boot"] = [{
+            "spawn_to_ready_s": r.ready_at - r.spawned_at,
+            "spawn_to_first_answer_s": t - r.spawned_at}
+            for r, (_, t) in zip(cluster.replicas, firsts)]
+        if build_dir_state() != built:
+            raise AssertionError("phase 24: a replica built a library (the "
+                                 "files under _build/ changed)")
+        log(f"  {CLUSTER_REPLICAS} replicas on {device} (python -m "
+            f"access_control_srv_tpu_torch --device {device}), a broker and "
+            f"a router: the journal seeded with {frames} CRUD frames "
+            f"({n_rules} stress rules and the seed data; set-up "
+            + ", ".join(f"{k} {v:.1f}" for k, v in out["seeding_s"].items())
+            + " s: documents built, broker answering, journal seeded) and "
+            f"both replicas booted by replaying it, in parallel: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in out["timeline_s"].items())
+            + " s from the phase's start (spawned, ready, router up); per "
+            f"replica, spawn to its ready "
+            f"line / to its first answer ({rows} rows, K2's first planes) "
+            + ", ".join(f"{b['spawn_to_ready_s']:.2f} / "
+                        f"{b['spawn_to_first_answer_s']:.2f} s"
+                        for b in out["boot"])
+            + f"; no file under _build/ changed ({len(built)} files); "
+            f"every replica at epoch {frames}, one table_fingerprint")
+
+        # routed traffic
+        base = rep.calls_by_replica()
+        t0 = time.perf_counter()
+        routed = [rep.call(rep.router, "IsAllowedBatch", payload)
+                  for _ in range(CLUSTER_CALLS)]
+        dt = (time.perf_counter() - t0) / CLUSTER_CALLS
+        shares = {a: n - base.get(a, 0)
+                  for a, n in rep.calls_by_replica().items()}
+        direct = rep.call(rep.addrs[0], "IsAllowedBatch", payload)
+        if any(r != direct for r in routed) or any(
+                raw != direct for raw, _ in firsts):
+            raise AssertionError("phase 24: routed responses differ from "
+                                 "replica 0's direct answer")
+        if sorted(shares.values())[0] < 1:
+            raise AssertionError(f"phase 24: the router sent every call to "
+                                 f"one replica: {shares}")
+        got = pb.BatchResponse.FromString(direct).responses
+        if len(got) != rows:
+            raise AssertionError(f"phase 24: {len(got)} responses for "
+                                 f"{rows} rows")
+        out.update(rows=rows, calls=CLUSTER_CALLS, batch_ms=dt * 1e3,
+                   decisions_per_s=rows / dt, shares=shares)
+        log(f"  routed IsAllowedBatch on {card}: {rows / dt:.0f} "
+            f"decisions/s over {CLUSTER_CALLS} warm calls of {rows} rows "
+            f"({dt * 1e3:.3f} ms a call) against phase 22's direct "
+            f"{direct_rate:.0f}; calls per replica {json.dumps(shares)}; "
+            f"every response byte-equal to replica 0's direct answer")
+
+        acl = stress_traffic(1024, seed=37, n_acl=16)
+        acl_rows = [i for i, r in enumerate(acl)
+                    if any((res.get("meta") or {}).get("acls")
+                           for res in r.context.get("resources") or [])]
+        acl_raw = rep.call(rep.router, "IsAllowedBatch",
+                           batch_envelope([wire_bytes(r) for r in acl]))
+        windows = [cluster_window(rep, paths0, device, "IsAllowedBatch")]
+        log(f"  a {len(acl)}-row batch with {len(acl_rows)} ACL rows through "
+            f"the router; kernel launches per replica from the first answers "
+            f"on (the counts set to 0 before them) "
+            f"{json.dumps(windows[0]['launches_by_replica'])}; each "
+            f"replica's paths (Command metrics) "
+            f"{json.dumps(windows[0]['paths'])}")
+
+        # CRUD convergence: a patch each way, then a fallback each way, so
+        # the tree ends as serve-20k, fully compiled
+        rs, ps = "/acstpu.RuleService/", "/acstpu.PolicyService/"
+        original = pb.RuleListResponse.FromString(rep.call(
+            rep.router, "Read", pb.ReadRequest(
+                ids=[CRUD_RULE]).SerializeToString(), prefix=rs)).items[0]
+        policy = pb.PolicyListResponse.FromString(rep.call(
+            rep.router, "Read", pb.ReadRequest(
+                ids=[CRUD_POLICY]).SerializeToString(), prefix=ps)).items[0]
+        flipped = pb.Rule()
+        flipped.CopyFrom(original)
+        flipped.target.subjects[0].value = "probe-role"
+        other_ca = pb.Policy()
+        other_ca.CopyFrom(policy)
+        other_ca.combining_algorithm = FA
+        probe = clone(stress_traffic(1, seed=31)[0])
+        probe.target.subjects[0].value = "probe-role"
+        probe.context["subject"]["role_associations"][0]["role"] = \
+            "probe-role"
+        probe.target.resources[0].value = original.target.resources[0].value
+        probe.target.actions[0].value = original.target.actions[0].value
+        probe_batch = batch_envelope([wire_bytes(probe)]
+                                     * CLUSTER_PROBE_ROWS)
+        patch = {"patches": 1, "recompiles_avoided": 1}
+        fallback = {"fallbacks": 1, "full_compiles": 1,
+                    "reasons": {"combining-algorithm-changed": 1}}
+        out["crud"] = {}
+        for label, path, msg, want, expect in (
+                ("flip", rs + "Update", pb.RuleList(items=[flipped]),
+                 pb.PERMIT, patch),
+                ("flip-back", rs + "Update", pb.RuleList(items=[original]),
+                 pb.INDETERMINATE, patch),
+                ("ca-change", ps + "Update", pb.PolicyList(items=[other_ca]),
+                 pb.INDETERMINATE, fallback),
+                ("ca-restore", ps + "Update", pb.PolicyList(items=[policy]),
+                 pb.INDETERMINATE, fallback)):
+            out["crud"][label] = cluster_convergence(
+                rep, label, path, msg, probe_batch, want, expect, card)
+
+        # restart replica 1
+        errors = {a: error_counts(m["paths"])
+                  for a, m in rep.each("metrics").items()}
+        fp0 = rep.command(rep.addrs[0], "program_identity")
+        cluster.replicas[1].stop()
+        t0 = time.perf_counter()
+        restarted = cluster.restart_replica(1)
+        ready_s = time.perf_counter() - t0
+        again = rep.call(restarted.addr, "IsAllowedBatch", payload)
+        serve_s = time.perf_counter() - t0
+        fp1 = rep.command(restarted.addr, "program_identity")
+        ref = rep.call(rep.addrs[0], "IsAllowedBatch", payload)
+        if (fp1["table_fingerprint"], fp1["policy_epoch"]) != (
+                fp0["table_fingerprint"], fp0["policy_epoch"]) \
+                or again != ref or ref != direct:
+            raise AssertionError(f"phase 24: the restarted replica "
+                                 f"{fp1} differs from replica 0 {fp0}")
+        if build_dir_state() != built:
+            raise AssertionError("phase 24: the restart built a library")
+        out["restart"] = {"ready_s": ready_s, "serves_s": serve_s}
+        log(f"  replica 1 stopped and restarted (restart_replica): its "
+            f"ready line after {ready_s:.2f} s, serving {rows} rows after "
+            f"{serve_s:.2f} s; its table_fingerprint and epoch "
+            f"{fp1['policy_epoch']} equal to replica 0's, its answers to the "
+            f"routed rows byte-equal to replica 0's (and to the first "
+            f"ones: the tree is serve-20k again); _build/ unchanged")
+
+        # whatIsAllowed and the audit sweep through the router (K5), then
+        # the same sweep direct in this process
+        rep.each("kernel_launches", {"reset": True})
+        paths0 = {a: m["paths"] for a, m in rep.each("metrics").items()}
+        wreqs = stress_traffic(GRPC_WIA_QUERIES, seed=29)
+        wraw = rep.call(rep.router, "WhatIsAllowedBatch",
+                        batch_envelope([wire_bytes(r) for r in wreqs]))
+        t0 = time.perf_counter()
+        sweep = rep.command(rep.router, "audit_sweep", {
+            "action": "start", "lattice": CLUSTER_LATTICE, "wait": True,
+            "wait_timeout_s": CLUSTER_TIMEOUT_S})
+        sweep_s = time.perf_counter() - t0
+        if sweep.get("state") != "done":
+            raise AssertionError(f"phase 24: the audit sweep {sweep}")
+        windows.append(cluster_window(rep, paths0, device,
+                                      "WhatIsAllowedBatch and the sweep"))
+        manager = AuditSweepManager(evaluator, chunk_size=256,
+                                    out_dir=os.path.join(work, "direct"))
+        try:
+            t0 = time.perf_counter()
+            job = manager.start_sweep(lattice=CLUSTER_LATTICE, wait=True,
+                                      wait_timeout=CLUSTER_TIMEOUT_S)
+            direct_s = time.perf_counter() - t0
+        finally:
+            manager.stop()
+        diff = diff_snapshots(sweep["snapshot"], job.snapshot_path)
+        if job.state != "done" or diff["cells_changed"] != 0 \
+                or sweep["summary"] != job.status()["summary"]:
+            raise AssertionError(f"phase 24: the routed sweep differs from "
+                                 f"the direct sweep: {diff}")
+        out["launches"] = {k: sum(w["launches"][k] for w in windows)
+                           for k in kmod.LAUNCHES}
+        missing = [k for k in CLUSTER_KERNELS if out["launches"][k] < 1]
+        if device.type == "cuda" and missing:
+            raise AssertionError(f"phase 24: the cluster path launched no "
+                                 f"{missing}")
+        out["windows"] = windows
+        out["audit"] = {"cells": sweep["cells_total"], "sweep_s": sweep_s,
+                        "cells_per_s": sweep["cells_total"] / sweep_s,
+                        "direct_s": direct_s, "summary": sweep["summary"]}
+        log(f"  {GRPC_WIA_QUERIES} WhatIsAllowedBatch queries and an "
+            f"audit_sweep through the router on {card}: "
+            f"{sweep['cells_total']} cells in {sweep_s:.2f} s "
+            f"({out['audit']['cells_per_s']:.1f} cells/s, BULK-class "
+            f"through a replica's batcher), equal to the direct-mode sweep "
+            f"here ({direct_s:.2f} s): diff_snapshots empty, summary "
+            f"{json.dumps(sweep['summary'])}; launches per replica (counts "
+            f"set to 0 before the queries) "
+            f"{json.dumps(windows[1]['launches_by_replica'])}, paths "
+            f"{json.dumps(windows[1]['paths'])}; the cluster path's "
+            f"launches in all {json.dumps(out['launches'])}")
+
+        # the errors of the whole phase
+        errs = {a: error_counts(m["paths"])
+                for a, m in rep.each("metrics").items()}
+        errs.update({f"{a} (before the restart)": e
+                     for a, e in errors.items()})
+        status = cluster.router.status()
+        bad = {k: status[k] for k in ("retries", "unroutable") if status[k]}
+        bad.update({r["addr"]: {k: r[k] for k in ("failures", "sheds")
+                                if r[k]}
+                    for r in status["replicas"] if r["failures"]
+                    or r["sheds"]})
+        if any(errs.values()) or bad:
+            raise AssertionError(f"phase 24: error counts {errs}, router "
+                                 f"{bad}")
+        log(f"  every replica's error, hang-fallback and degraded count 0; "
+            f"the router retried, shed and failed nothing "
+            f"(router overhead {json.dumps(status['router_overhead'])})")
+    finally:
+        rep.close()
+        t0 = time.perf_counter()
+        cluster.stop()
+        out["stop_s"] = time.perf_counter() - t0
+        shutil.rmtree(work, ignore_errors=True)
+
+    # the oracle checks, after the cluster's threads are gone
+    threads = [t.name for t in threading.enumerate()
+               if t is not threading.current_thread()
+               and not t.name.startswith(FORK_SAFE_THREADS)]
+    t0 = time.perf_counter()
+    idx = sorted(random.Random(3).sample(range(rows), min(32, rows)))
+    for i, want in zip(idx, oracle_walks(engine, reqs, idx)):
+        if _pb_key(got[i]) != _pb_key(tg.response_to_pb(want)):
+            raise AssertionError(f"phase 24 row {i}: {_pb_key(got[i])} != "
+                                 f"the oracle")
+    acl_got = pb.BatchResponse.FromString(acl_raw).responses
+    aidx = sorted(set(random.Random(5).sample(range(len(acl)), 32))
+                  | set(acl_rows))
+    for i, want in zip(aidx, oracle_walks(engine, acl, aidx)):
+        if _pb_key(acl_got[i]) != _pb_key(tg.response_to_pb(want)):
+            raise AssertionError(f"phase 24 ACL row {i}: != the oracle")
+    wgot = pb.BatchReverseQuery.FromString(wraw).responses
+    widx = range(len(wreqs))
+    for i, want in zip(widx, oracle_walks(engine, wreqs, widx,
+                                          reverse=True)):
+        if wgot[i].SerializeToString() != tg.reverse_query_to_pb(
+                want).SerializeToString():
+            raise AssertionError(f"phase 24 whatIsAllowed {i}: != "
+                                 "engine.what_is_allowed")
+    out["checks_s"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  32 sampled rows of the routed batch and {len(aidx)} of the ACL "
+        f"batch (its ACL rows among them) equal to the oracle, every "
+        f"whatIsAllowed answer equal to engine.what_is_allowed "
+        f"({out['checks_s']:.1f} s; oracle walks so far "
+        f"{json.dumps(ORACLE_WALKS)}, other threads {threads}); the "
+        f"cluster stopped in "
+        f"{out['stop_s']:.1f} s; phase 24 took {out['phase_s']:.1f} s on "
+        f"{card}")
+    return out
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -6039,13 +6615,17 @@ def main(argv: list[str]) -> int:
     t0 = time.perf_counter()
     trees = {"a": sig_tree(device, False), "b": sig_tree(device, True)}
     rebac_pre = None if quick else rebac_tree(device)
+    # phase 24's broker and its seeded journal (no replica: they load
+    # the libraries being built)
+    tier = None if quick else cluster_tier(device)
     host_s = time.perf_counter() - t0
     builder.join()
     if "error" in built:
         raise built["error"]
+    also = "" if quick else (", the rebac-serve store and phase 24's "
+                             "seeded broker")
     log(f"  {', '.join(SOURCES)} built in {built['s']:.1f} s (one nvcc "
-        f"each, in parallel); meanwhile the 100k trees"
-        f"{'' if quick else ' and the rebac-serve store'} were built in "
+        f"each, in parallel); meanwhile the 100k trees{also} were built in "
         f"{host_s:.1f} s")
     parent_csrc = parent_dir = None
     if "--parent-csrc" in argv:
@@ -6192,8 +6772,8 @@ def main(argv: list[str]) -> int:
             + json.dumps(rel_rows[name]))
     stamp("phase 19: the wire main path (is_allowed_batch_wire: serve-20k, "
           "(a), scoped_511; deep HR through the ceiling)")
-    wire = phase_wire(device, sig_stats, card, sig.pop("wire_a"),
-                      later.pop("serve"))
+    serve = later.pop("serve")
+    wire = phase_wire(device, sig_stats, card, sig.pop("wire_a"), serve)
     stamp("phase 20: token-mix (prepare_batch, 10,000 rules, 8,192 rows "
           "over 512 tokens)")
     phase_token_mix(device, sig_stats, card, later.pop("token"))
@@ -6207,6 +6787,11 @@ def main(argv: list[str]) -> int:
     stamp("phase 23: hot policy updates at scoped_511 (K1 on patched "
           "tables, the prefilter threshold)")
     hot = phase_hot_updates(device, sig_stats, card)
+    stamp("phase 24: the cluster tier (LocalCluster: a broker, "
+          f"{CLUSTER_REPLICAS} replicas on the card, the router; serve-20k)")
+    clus = phase_cluster(device, sig_stats, card, serve,
+                         grpc_out["decisions_per_s"], tier)
+    del serve
     stats["max_abs_err"] = max(stats["max_abs_err"], sig_stats.get(
         "decide_dense", {}).get("max_abs_err", 0))
     log(f"  launches: wia-large first batch {wl['launches']['wia_planes']}, "
@@ -6312,6 +6897,9 @@ def main(argv: list[str]) -> int:
         if grpc_out["launches"].get(r["name"]):
             # phase 22's launches through the gRPC serving shell
             r["grpc"] = {"launches": grpc_out["launches"][r["name"]]}
+        if clus["launches"].get(r["name"]):
+            # phase 24's launches, summed over the replica processes
+            r["cluster"] = {"launches": clus["launches"][r["name"]]}
         if patched_launches.get(r["name"]):
             # launches on delta-patched tables (phases 15, 22, 23)
             r["patched"] = {"launches": patched_launches[r["name"]]}
@@ -6333,7 +6921,7 @@ def main(argv: list[str]) -> int:
            if k in r},
         **({"with_rel": r["with_rel"]} if "with_rel" in r else {}),
         **{k: r[k] for k in ("explain", "k6", "pod", "wire", "grpc",
-                             "patched") if k in r},
+                             "patched", "cluster") if k in r},
     } for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -2,7 +2,8 @@
 --device cpu`` serves the gRPC surface from the shipped ``cfg/`` and stops
 cleanly on SIGINT; its healthcheck module says ``SERVING``; without
 ``--device`` it serves on the CUDA device, and so fails at startup where
-there is none; the broker, router and cluster modes are refused."""
+there is none; the broker, router and cluster modes print their ready
+lines, serve and stop cleanly on SIGTERM."""
 
 import os
 import queue
@@ -113,10 +114,88 @@ def test_healthcheck_reports_a_dead_address():
     assert "health check failed" in rc.stderr
 
 
-@pytest.mark.parametrize("flag", ["--broker", "--router", "--cluster"])
-def test_broker_router_cluster_refused(flag):
-    with pytest.raises(NotImplementedError, match="broker and cluster"):
-        main([flag, "--addr", "127.0.0.1:0"])
+def _mode(args, ready: str):
+    """Start the entry point in one of its other modes; returns (process,
+    the address of its ready line, the output lines queue)."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", MODULE, *args], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, cwd=REPO)
+    lines: "queue.Queue[str]" = queue.Queue()
+
+    def pump():
+        for ln in proc.stdout:
+            lines.put(ln)
+        lines.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    seen = []
+    deadline = time.time() + 120
+    while time.time() < deadline:
+        try:
+            line = lines.get(timeout=1)
+        except queue.Empty:
+            continue
+        if line is None:
+            break
+        seen.append(line)
+        if line.startswith(ready):
+            return proc, line[len(ready):].strip(), lines
+    proc.kill()
+    proc.wait(timeout=15)
+    raise AssertionError(f"no {ready!r} line: {''.join(seen)!r}")
+
+
+@pytest.mark.parametrize("mode", ["--broker", "--router", "--cluster"])
+def test_broker_router_cluster_modes(mode, monkeypatch):
+    """Each mode prints its ready line, does its work (the broker journals
+    and answers, the router and the cluster route a batch to a port
+    replica on the CPU) and stops cleanly on SIGTERM."""
+    from access_control_srv_tpu_torch.srv.broker import SocketEventBus
+    from access_control_srv_tpu_torch.srv.transport_grpc import GrpcServer
+    from access_control_srv_tpu_torch.srv.worker import Worker
+
+    from .torch_serving import seed_cfg
+
+    worker = server = None
+    if mode == "--broker":
+        args = ["--broker", "--addr", "127.0.0.1:0"]
+        ready = "broker listening on "
+    elif mode == "--router":
+        worker = Worker().start(seed_cfg(), device="cpu")
+        server = GrpcServer(worker, "127.0.0.1:0").start()
+        args = ["--router", "--replica", server.addr, "--addr",
+                "127.0.0.1:0", "--config-dir", "cfg"]
+        ready = "routing on "
+    else:
+        args = ["--cluster", "--replicas", "2", "--device", "cpu",
+                "--config-dir", "cfg"]
+        ready = "routing on "
+        # the replica processes compute with one thread each
+        monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    try:
+        proc, addr, lines = _mode(args, ready)
+        try:
+            if mode == "--broker":
+                bus = SocketEventBus(addr)
+                assert bus.topic("t").emit("e", {"x": 1}) == 0
+                assert bus.topic("t").read(0) == [("e", {"x": 1})]
+                bus.close()
+            else:
+                client = GrpcClient(addr)
+                out = client.is_allowed_batch(pb.BatchRequest(
+                    requests=[seed_request()] * 2
+                    + [seed_request(role="nobody")]))
+                assert [r.decision for r in out.responses] == \
+                    [pb.PERMIT] * 2 + [pb.INDETERMINATE]
+                client.close()
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            proc.wait(timeout=60)
+        assert proc.returncode == 0, _drain(lines)
+    finally:
+        if server is not None:
+            server.stop(0)
+            worker.stop()
 
 
 @pytest.mark.parametrize("bad", ["localhost", "127.0.0.1:", "host:port"])

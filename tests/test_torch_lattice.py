@@ -334,10 +334,13 @@ def test_pause_freezes_and_cancel_finishes_early(tmp_path):
 def test_refusals(tmp_path):
     _, teng = stress_engines(48)
     tev = HybridEvaluator(teng, device="cpu")
+    # the worker mode's arguments are taken as they are (the worker mode
+    # itself: tests/test_torch_audit_worker.py)
     for kw in ({"batcher": object()}, {"worker": object()},
                {"telemetry": object()}):
-        with pytest.raises(NotImplementedError):
-            AuditSweepManager(tev, out_dir=str(tmp_path), **kw)
+        kept = AuditSweepManager(tev, out_dir=str(tmp_path), **kw)
+        (key, value), = kw.items()
+        assert getattr(kept, key) is value
     manager = AuditSweepManager(tev, out_dir=str(tmp_path))
     spec = tlat.LatticeSpec.stress(2, 2)
     with pytest.raises(NotImplementedError, match="shadow"):
@@ -376,8 +379,9 @@ def test_from_config_status_and_diff(tmp_path):
         assert a.status()["chunks_done"] == 4
     finally:
         manager.stop()
-    with pytest.raises(NotImplementedError):
-        taudit.from_config(cfg, evaluator=tev, batcher=object())
+    batcher = object()
+    assert taudit.from_config(cfg, evaluator=tev,
+                              batcher=batcher).batcher is batcher
 
 
 def test_sweep_rides_the_reverse_kernel(tmp_path, monkeypatch):

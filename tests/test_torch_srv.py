@@ -226,15 +226,12 @@ def test_admission_on_serves_the_same_bytes_as_off():
 
 
 @pytest.mark.parametrize("key,value,slice_name", [
-    ("events", {"broker": {"address": "127.0.0.1:1"}}, "broker"),
-    ("cluster", {"enabled": True}, "cluster"),
-    ("cluster", {"distributed": {"enabled": True}}, "cluster"),
+    ("cluster", {"distributed": {"enabled": True}}, "mesh-serving"),
     ("parallel", {"data_devices": 2}, "mesh-serving"),
     ("parallel", {"model_devices": 2}, "mesh-serving"),
     ("parallel", {"pod_shards": 2}, "mesh-serving"),
     ("tenancy", {"enabled": True}, "tenancy"),
     ("shadow", {"enabled": True, "candidate_paths": ["x.yml"]}, "tenancy"),
-    ("audit", {"enabled": True}, "tenancy"),
     ("profiling", {"xla_dump_dir": "/nonexistent"}, "torch.profiler"),
 ])
 def test_worker_refusals(key, value, slice_name):
@@ -242,6 +239,76 @@ def test_worker_refusals(key, value, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
         worker.start(seed_cfg(**{key: value}), device="cpu")
     assert worker.batcher is None and worker.evaluator is None
+
+
+@pytest.fixture(scope="module")
+def broker():
+    from access_control_srv_tpu_torch.srv.broker import BrokerServer
+
+    server = BrokerServer().start()
+    yield server
+    server.stop()
+
+
+@pytest.mark.parametrize("replication", [True, False])
+def test_worker_starts_over_a_broker(broker, replication):
+    """Over a broker the bus, offsets and subject cache are the socket
+    backends; with replication on (the default) the replicator has
+    caught up with the journal before ``start`` returns, so the policy
+    epoch counts every journaled CRUD frame."""
+    from access_control_srv_tpu_torch.srv import broker as tb
+    from access_control_srv_tpu_torch.srv.store import PolicyReplicator
+
+    bus = tb.SocketEventBus(broker.address)
+    journaled = sum(bus.topic(f"io.restorecommerce.{k}s.resource").offset
+                    for k in ("rule", "policy", "policy_set"))
+    bus.close()
+    cfg = seed_cfg(events={"broker": {"address": broker.address}})
+    if not replication:
+        cfg["replication"] = {"enabled": False}
+    worker = Worker().start(cfg, device="cpu")
+    try:
+        assert isinstance(worker.bus, tb.SocketEventBus)
+        assert isinstance(worker.offset_store, tb.SocketOffsetStore)
+        assert isinstance(worker.subject_cache, tb.SocketSubjectCache)
+        if replication:
+            assert isinstance(worker.replicator, PolicyReplicator)
+            assert worker.replicator.epoch >= journaled
+            assert worker.policy_epoch() == worker.replicator.epoch
+        else:
+            assert worker.replicator is None
+    finally:
+        worker.stop()
+
+
+def test_cluster_enabled_is_accepted():
+    """``cluster:enabled`` is read by nothing beyond its default (as in
+    JAX): the Worker starts and serves as without it."""
+    worker = Worker().start(seed_cfg(cluster={"enabled": True}),
+                            device="cpu")
+    try:
+        assert worker.replicator is None and worker.mesh is None
+        assert worker.command_interface.command(
+            "health_check", {})["status"] == "SERVING"
+    finally:
+        worker.stop()
+
+
+def test_audit_enabled_builds_a_manager(tmp_path):
+    from access_control_srv_tpu_torch.srv.audit_sweep import (
+        AuditSweepManager,
+    )
+
+    worker = Worker().start(seed_cfg(audit={
+        "enabled": True, "out_dir": str(tmp_path)}), device="cpu")
+    try:
+        assert isinstance(worker.audit, AuditSweepManager)
+        assert worker.audit.batcher is worker.batcher
+        assert worker.command_interface.command(
+            "audit_sweep", {"action": "status"})["enabled"] is True
+    finally:
+        worker.stop()
+    assert worker.audit is None
 
 
 def test_worker_defaults_to_cuda(monkeypatch):
