@@ -18,6 +18,13 @@ role of a multi-worker deployment; ``--router`` serves a ClusterRouter
 the whole local tier (broker + N replicas on ``--device`` + router,
 parallel/cluster.py) in one command.  Each prints its ready line
 (``broker listening on``, ``routing on``) and stops on SIGINT / SIGTERM.
+
+With ``cluster:distributed:enabled`` in the config, each process of an
+N-rank world is started alike, its rank in ``ACS_CLUSTER_PROCESS_ID``:
+rank 0 serves once every rank has compiled, and prints ``serving on``;
+every other rank prints ``following rank 0 as rank R``, runs the
+follower loop of the ``parallel:*`` mesh (srv/follower.py), binds no
+port, and ends when rank 0 stops.
 """
 
 from __future__ import annotations
@@ -163,6 +170,25 @@ def main(argv: list[str] | None = None) -> int:
     from .srv.worker import Worker
 
     cfg = Config.load(args.config_dir, env=args.env)
+    # a multi-process world (cluster:distributed): every rank joins the
+    # process group before any device work; rank 0 serves below, every
+    # other rank follows its kernel calls and binds no port
+    import torch.distributed as dist
+
+    from .parallel.cluster import maybe_initialize_distributed
+
+    try:
+        maybe_initialize_distributed(cfg, device=args.device)
+    except Exception as err:
+        print(f"startup error: {err}", file=sys.stderr, flush=True)
+        return 1
+    if dist.is_initialized() and dist.get_rank() != 0:
+        from .srv.follower import serve
+
+        # a follower ends with rank 0's stop, or at a signal's default
+        signal.signal(signal.SIGINT, signal.SIG_DFL)
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)
+        return serve(cfg, device=args.device)
     worker = Worker()
     try:
         worker.start(cfg, device=args.device)
@@ -180,6 +206,8 @@ def main(argv: list[str] | None = None) -> int:
     print("shutting down", flush=True)
     server.stop()
     worker.stop()
+    if dist.is_initialized():
+        dist.destroy_process_group()
     return 0
 
 

@@ -18,7 +18,11 @@ hold byte-identical compiled tables — the ``program_identity`` command
 ``maybe_initialize_distributed`` is the JAX package's hook behind the
 ``cluster:distributed`` config block, here ``torch.distributed.
 init_process_group`` with the coordinator address and process count from
-the same keys.
+the same keys, over NCCL only where every rank of the host has a card of
+its own, with a finite timeout.  ``python -m access_control_srv_tpu_torch``
+calls it before ``Worker.start``: rank 0 serves, every other rank runs
+the follower loop (``srv/follower.py``).  A replica of ``LocalCluster``
+that is itself a mesh is refused.
 
 ``launch_local`` starts an N-rank world on one machine: one Python
 process per rank, a file store for the rendezvous (no port to race for),
@@ -40,6 +44,7 @@ import tempfile
 import threading
 import time
 import traceback
+from datetime import timedelta
 from pathlib import Path
 from typing import Optional
 
@@ -51,7 +56,10 @@ import torch.distributed as dist
 ROOT = Path(__file__).resolve().parents[2]
 
 
-def _cfg_get(cfg: dict, path: str, default=None):
+def _cfg_get(cfg, path: str, default=None):
+    """``path`` ("a:b:c") of a dict or a ``srv/config.Config``."""
+    if not isinstance(cfg, dict):
+        return cfg.get(path, default)
     node = cfg
     for part in path.split(":"):
         if not isinstance(node, dict) or part not in node:
@@ -60,14 +68,28 @@ def _cfg_get(cfg: dict, path: str, default=None):
     return node
 
 
-def maybe_initialize_distributed(cfg, process_id: Optional[int] = None
-                                 ) -> bool:
+# the rendezvous and every collective of a process group started here
+# raise after this long instead of waiting for gloo's default (30 min):
+# a missing or stuck peer fails the world
+DIST_TIMEOUT_S = 120.0
+
+
+def maybe_initialize_distributed(cfg, process_id: Optional[int] = None,
+                                 device=None) -> bool:
     """``init_process_group`` behind the ``cluster:distributed`` config
-    block (``enabled``, ``coordinator`` host:port, ``num_processes``), over
-    NCCL when CUDA is available, else gloo.  The rank is ``process_id`` or
-    ``ACS_CLUSTER_PROCESS_ID``.  Returns True when it initialized the
-    group; False when the block is off or a group exists already.  A
-    failed rendezvous raises."""
+    block (``enabled``, ``coordinator`` host:port, ``num_processes``).
+    The rank is ``process_id`` or ``ACS_CLUSTER_PROCESS_ID``.  Returns
+    True when it initialized the group; False when the block is off or a
+    group exists already.  A failed rendezvous raises.
+
+    On CUDA (``device`` None or a CUDA device) the rank's card is
+    ``cuda:(local rank % device_count)``, made current; the backend is
+    NCCL only when each of this host's ranks (``LOCAL_WORLD_SIZE``, else
+    every rank of the world) has a card of its own, else gloo, whose
+    collectives the mesh stages through the host (``parallel/mesh.py``
+    ``_host_staged``): NCCL does not put two ranks of one communicator
+    on one card.  The CPU is gloo.  The rendezvous and the group's
+    collectives time out after ``DIST_TIMEOUT_S``."""
     if not _cfg_get(cfg, "cluster:distributed:enabled", False):
         return False
     if dist.is_initialized():
@@ -75,11 +97,21 @@ def maybe_initialize_distributed(cfg, process_id: Optional[int] = None
     coordinator = _cfg_get(cfg, "cluster:distributed:coordinator",
                            "127.0.0.1:8476")
     num_processes = int(_cfg_get(cfg, "cluster:distributed:num_processes", 1))
-    backend = "nccl" if torch.cuda.is_available() else "gloo"
     if process_id is None:
         process_id = int(os.environ.get("ACS_CLUSTER_PROCESS_ID", "0"))
+    on_cuda = torch.cuda.is_available() and (
+        device is None or torch.device(device).type == "cuda")
+    backend = "gloo"
+    if on_cuda:
+        cards = torch.cuda.device_count()
+        local_rank = int(os.environ.get("LOCAL_RANK", process_id))
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", num_processes))
+        torch.cuda.set_device(local_rank % cards)
+        if local_world <= cards:
+            backend = "nccl"
     dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
-                            world_size=num_processes, rank=process_id)
+                            world_size=num_processes, rank=process_id,
+                            timeout=timedelta(seconds=DIST_TIMEOUT_S))
     return True
 
 
@@ -122,6 +154,14 @@ def _await_ready(proc: subprocess.Popen, ready_prefix: str,
             f"{''.join(lines[-20:])!r}"
         )
 
+    _drain(proc)
+    return addr
+
+
+def _drain(proc: subprocess.Popen) -> None:
+    """Read ``proc``'s output to its end in a thread of its own, so the
+    pipe never backpressures the child."""
+
     def drain(stream=proc.stdout):
         try:
             for _ in stream:
@@ -132,7 +172,6 @@ def _await_ready(proc: subprocess.Popen, ready_prefix: str,
     # named: a thread that only reads this child's pipe
     threading.Thread(target=drain, daemon=True,
                      name=f"cluster-drain-{proc.pid}").start()
-    return addr
 
 
 def _spawn(args: list[str], ready_prefix: str, timeout_s: float,
@@ -147,10 +186,11 @@ class ReplicaProcess:
     """One worker replica as a child process: its own config dir (written
     here), its own gRPC port, booted through the ordinary CLI on
     ``device`` (None: the CUDA device) so the process is exactly what
-    production runs."""
+    production runs; ``env`` is its environment (None: this process's)."""
 
     def __init__(self, config: dict, base_dir: str, name: str,
-                 timeout_s: float = 120.0, device=None):
+                 timeout_s: float = 120.0, device=None,
+                 env: Optional[dict] = None):
         self.name = name
         self.config_dir = os.path.join(base_dir, name)
         os.makedirs(self.config_dir, exist_ok=True)
@@ -158,6 +198,7 @@ class ReplicaProcess:
             json.dump(config, fh, indent=1)
         self.timeout_s = timeout_s
         self.device = "cuda" if device is None else str(device)
+        self.env = env
         self.proc: Optional[subprocess.Popen] = None
         self.addr: Optional[str] = None
         # time.monotonic() at the spawn and when its ready line was read
@@ -167,13 +208,14 @@ class ReplicaProcess:
     def launch(self) -> "ReplicaProcess":
         """Spawn the process without waiting for it (``wait_ready``)."""
         self.spawned_at = time.monotonic()
-        self.proc = _popen(
-            [sys.executable, "-m", "access_control_srv_tpu_torch",
-             "--config-dir", self.config_dir, "--addr", "127.0.0.1:0",
-             "--device", self.device],
-            cwd=str(ROOT),
-        )
+        self.proc = _popen(self.argv, cwd=str(ROOT), env=self.env)
         return self
+
+    @property
+    def argv(self) -> list[str]:
+        return [sys.executable, "-m", "access_control_srv_tpu_torch",
+                "--config-dir", self.config_dir, "--addr", "127.0.0.1:0",
+                "--device", self.device]
 
     def wait_ready(self) -> "ReplicaProcess":
         """Wait for the ``serving on`` line: the replica has replayed the
@@ -226,6 +268,11 @@ class LocalCluster:
                  replica_timeout_s: float = 120.0,
                  broker_snapshot_every: int | None = None,
                  device=None):
+        if (cfg_extra or {}).get("parallel"):
+            raise NotImplementedError(
+                "LocalCluster cfg_extra 'parallel': replicas that are each "
+                "a mesh are not ported yet (the mesh-replica slice, A.6 "
+                "part 4)")
         self.n_replicas = int(n_replicas)
         self.seed_cfg = seed_cfg or {}
         self.cfg_extra = cfg_extra or {}
@@ -404,6 +451,84 @@ class LocalCluster:
                 self.broker_proc.wait(timeout=10)
         if self._own_base:
             shutil.rmtree(self.base_dir, ignore_errors=True)
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that nothing listens on just now."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class MeshWorld:
+    """One Worker on an N-rank world, every rank started through
+    ``python -m access_control_srv_tpu_torch --device D`` with
+    ``ACS_CLUSTER_PROCESS_ID``: ``config`` (its ``parallel`` block
+    choosing the layout) gains a ``cluster:distributed`` block on a free
+    127.0.0.1 port.  Rank 0 is a ``ReplicaProcess``: it serves at
+    ``addr`` once every rank has compiled.  The others follow
+    (srv/follower.py), bind no port, and share rank 0's config dir.
+    ``procs`` holds every rank's process, rank 0 first."""
+
+    def __init__(self, config: dict, n_ranks: int, base_dir: str,
+                 device=None, timeout_s: float = 120.0):
+        self.n_ranks = int(n_ranks)
+        config = dict(config)
+        config["cluster"] = {**(config.get("cluster") or {}), "distributed": {
+            "enabled": True, "coordinator": f"127.0.0.1:{free_port()}",
+            "num_processes": self.n_ranks}}
+        # one compute thread per rank: the ranks share the host's cores
+        env = {"OMP_NUM_THREADS": "1", **os.environ,
+               "ACS_CLUSTER_PROCESS_ID": "0"}
+        self.rank0 = ReplicaProcess(config, base_dir, "rank0", timeout_s,
+                                    device, env=env)
+        self.procs: list[subprocess.Popen] = []
+
+    addr = property(lambda self: self.rank0.addr)
+    spawned_at = property(lambda self: self.rank0.spawned_at)
+    ready_at = property(lambda self: self.rank0.ready_at)
+
+    def launch(self) -> "MeshWorld":
+        """Spawn every rank without waiting (``wait_ready``)."""
+        self.procs = [self.rank0.launch().proc]
+        for rank in range(1, self.n_ranks):
+            proc = _popen(self.rank0.argv, cwd=str(ROOT), env={
+                **self.rank0.env, "ACS_CLUSTER_PROCESS_ID": str(rank)})
+            _drain(proc)
+            self.procs.append(proc)
+        return self
+
+    def wait_ready(self) -> "MeshWorld":
+        """Wait for rank 0's ready line; a world whose rank 0 does not
+        report within the timeout is stopped and its last lines raised."""
+        try:
+            self.rank0.wait_ready()
+        except BaseException:
+            self.stop()
+            raise
+        return self
+
+    def start(self) -> "MeshWorld":
+        return self.launch().wait_ready()
+
+    def kill(self, rank: int) -> None:
+        """SIGKILL one rank: no goodbye to the others."""
+        self.procs[rank].kill()
+        self.procs[rank].wait(timeout=10)
+
+    def stop(self, timeout_s: float = 30.0) -> None:
+        """SIGTERM to rank 0 (it stops every follower), then every rank
+        awaited; whatever is left after ``timeout_s`` is killed."""
+        deadline = time.monotonic() + timeout_s
+        self.rank0.stop(timeout_s)
+        for proc in self.procs[1:]:
+            try:
+                proc.wait(timeout=max(0.1, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=10)
 
 
 def launch_local(world_size: int, target: str, args: tuple = (),

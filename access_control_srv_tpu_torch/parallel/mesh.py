@@ -66,6 +66,9 @@ class Mesh:
     groups: dict
     backend: Optional[str]
     device: torch.device
+    # False on a rank outside a layout smaller than the process group
+    # (``coords`` then empty): it runs no kernel of this mesh
+    member: bool = True
 
 
 def default_device(device=None) -> torch.device:
@@ -80,18 +83,22 @@ def default_device(device=None) -> torch.device:
     return torch.device("cuda", local % torch.cuda.device_count())
 
 
-def _grid_mesh(sizes: dict, device) -> Mesh:
+def _grid_mesh(sizes: dict, device, timeout=None) -> Mesh:
     names = tuple(sizes)
     need = math.prod(sizes.values())
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if world != need:
+    if world < need:
         raise ValueError(
             f"mesh {dict(sizes)} needs {need} ranks; the process group has "
             f"{world}"
         )
     rank = dist.get_rank() if dist.is_initialized() else 0
+    # a layout smaller than the world takes its first ranks, as a JAX
+    # mesh of n devices takes the first n
     grid = np.arange(need).reshape(tuple(sizes.values()))
-    coords = dict(zip(names, (int(c) for c in np.argwhere(grid == rank)[0])))
+    member = rank < need
+    coords = dict(zip(names, (int(c) for c in np.argwhere(grid == rank)[0]))
+                  ) if member else {}
     groups = {}
     for axis, name in enumerate(names):
         mine = None
@@ -100,33 +107,38 @@ def _grid_mesh(sizes: dict, device) -> Mesh:
         for line in lines:
             if sizes[name] == 1:
                 break
-            group = dist.new_group([int(x) for x in line])
+            group = dist.new_group([int(x) for x in line], timeout=timeout)
             if rank in line:
                 mine = group
         groups[name] = mine
     return Mesh(axis_names=names, shape=dict(sizes), coords=coords,
                 groups=groups,
                 backend=dist.get_backend() if dist.is_initialized() else None,
-                device=default_device(device))
+                device=default_device(device), member=member)
 
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = "data",
-              device=None) -> Mesh:
-    """One-axis mesh over the whole process group (``n_devices`` must
-    equal its size when given); a process without a process group is a
-    1-rank mesh."""
+              device=None, timeout=None) -> Mesh:
+    """One-axis mesh over the whole process group, or over its first
+    ``n_devices`` ranks (the others get a mesh with ``member`` False); a
+    process without a process group is a 1-rank mesh.  ``timeout`` (a
+    ``timedelta``) bounds each collective of the axis groups (None: the
+    backend's default)."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     return _grid_mesh({axis: world if n_devices is None else n_devices},
-                      device)
+                      device, timeout)
 
 
 def make_mesh2(n_data: int, n_model: int, data_axis: str = "data",
-               model_axis: str = "model", device=None) -> Mesh:
+               model_axis: str = "model", device=None,
+               timeout=None) -> Mesh:
     """Two-axis (data x model) mesh for the sharded kernels: requests
     shard over ``data_axis``, the compiled tables over ``model_axis``
     (parallel/rule_shard.py, parallel/pod_shard.py); adjacent ranks land
-    on the model axis."""
-    return _grid_mesh({data_axis: n_data, model_axis: n_model}, device)
+    on the model axis.  A grid smaller than the process group takes its
+    first ranks, as ``make_mesh`` does; ``timeout`` as there."""
+    return _grid_mesh({data_axis: n_data, model_axis: n_model}, device,
+                      timeout)
 
 
 def pad_batch(arrays: dict, B: int, multiple: int) -> tuple[dict, int]:

@@ -135,6 +135,13 @@ class CommandInterface:
                         }
                 if latency:
                     detail["latency"] = latency
+            followers = getattr(self.worker, "followers", None)
+            if followers is not None and followers.lost is not None:
+                # a mesh Worker whose follower channel is lost answers
+                # every kernel batch degraded (srv/follower.py): out of
+                # rotation until its world restarts
+                healthy = False
+                detail["follower_channel"] = f"lost: {followers.lost}"
             evaluator = self.service.evaluator
             if evaluator is not None:
                 detail["kernel_active"] = evaluator.kernel_active
@@ -399,6 +406,21 @@ class CommandInterface:
             out["kernel_active"] = evaluator.kernel_active
             out["quarantined"] = bool(getattr(evaluator, "quarantined",
                                               False))
+        mesh = getattr(self.worker, "mesh", None)
+        followers = getattr(self.worker, "followers", None)
+        if mesh is not None or followers is not None:
+            # the layout (srv/worker.mesh_layout) and every mesh rank's
+            # digest of the tables it serves: equal after every swap
+            import torch.distributed as dist
+
+            out["mesh"] = {
+                "shape": dict(mesh.shape) if mesh is not None else None,
+                "world": dist.get_world_size() if dist.is_initialized()
+                else 1,
+                "table_fingerprints": evaluator.rank_fingerprints(),
+            }
+            if followers is not None:
+                out["mesh"]["channel"] = dict(followers.stats)
         tenancy = getattr(self.worker, "tenancy", None)
         if tenancy is not None:
             # per-tenant convergence: replicas that applied the same
@@ -518,13 +540,29 @@ class CommandInterface:
         wrapper (``ops/kernel.LAUNCHES``: each wrapper counts where it
         launches its kernel, so a replica on the CPU reports zeros);
         ``{"reset": true}`` sets every count to 0 after reading it, so a
-        caller can read the launches of one window of traffic."""
+        caller can read the launches of one window of traffic.  On a mesh
+        the launches are summed over the ranks, and ``by_rank`` holds
+        each rank's launches and collectives (``parallel/mesh.
+        COLLECTIVES``)."""
         from ..ops import kernel
+        from ..parallel import mesh
 
+        reset = bool((payload or {}).get("reset"))
         out = {"launches": dict(kernel.LAUNCHES)}
-        if (payload or {}).get("reset"):
-            for name in kernel.LAUNCHES:
-                kernel.LAUNCHES[name] = 0
+        followers = getattr(self.worker, "followers", None)
+        if followers is not None:
+            # a mesh worker: every rank's counts, and the launches summed
+            # over ranks
+            ranks = [{"launches": out["launches"],
+                      "collectives": dict(mesh.COLLECTIVES)}]
+            ranks += followers.query("launches", reset=reset)
+            out = {"launches": {k: sum(r["launches"][k] for r in ranks)
+                                for k in kernel.LAUNCHES},
+                   "by_rank": ranks}
+        if reset:
+            for counts in (kernel.LAUNCHES, mesh.COLLECTIVES):
+                for name in counts:
+                    counts[name] = 0
         return out
 
     def set_api_key(self, payload: dict) -> dict:

@@ -27,7 +27,12 @@ evaluator's: ``pod_shards`` set -> ``PodShardedKernel`` (the set axis over
 ``model_axis``, default "model"); else ``model_axis`` set ->
 ``RuleShardedKernel``; else ``PrefilteredKernel`` with requests sharded
 over ``mesh_axis``.  Every rank of the mesh serves the same requests and
-gets the whole batch's responses.
+gets the whole batch's responses.  On rank 0 of a Worker's world,
+``followers`` (``srv/follower.Leader``) carries every full compile's tree
+snapshot, every patch's tables, every publish and every kernel batch to
+the other ranks, in the order this evaluator makes them (the batch under
+the dispatch lock), so all ranks call their kernels in step; a lost
+follower fails the batch, which answers the degraded envelope.
 
 Explain mode (``explain=True``) is the JAX evaluator's: every kernel
 the evaluator builds emits the provenance code as a fourth output, an
@@ -157,13 +162,6 @@ from .watchdog import DeviceTimeoutError
 CANDIDATE_MIN_RULES = 256
 
 
-def _snapshot(policy_sets):
-    """A deep copy of the policy tree, published with its compile: a
-    pickle round trip, which copies the model's plain dataclasses as
-    ``copy.deepcopy`` does, several times faster on large trees."""
-    return pickle.loads(pickle.dumps(policy_sets, pickle.HIGHEST_PROTOCOL))
-
-
 class HybridEvaluator:
     def __init__(self, engine: AccessController,
                  backend: str = "hybrid",  # oracle | kernel | hybrid
@@ -173,7 +171,7 @@ class HybridEvaluator:
                  pod_shards: Optional[int] = None, decision_cache=None,
                  delta_enabled: bool = True, observability=None,
                  shared_jits: Optional[dict] = None, fixed_caps=None,
-                 explain: bool = False, device=None):
+                 explain: bool = False, device=None, followers=None):
         self.engine = engine
         self.backend = backend
         self.logger = logger
@@ -222,6 +220,9 @@ class HybridEvaluator:
         # the prefilter's signature caches, the reverse kernel's plane
         # cache and the launch counts
         self._dispatch_lock = threading.Lock()
+        # srv/follower.Leader on rank 0 of a mesh: every build, swap and
+        # kernel batch goes to the other ranks in this process's order
+        self._followers = followers
         self._compile_thread: Optional[threading.Thread] = None
         # incremental updates (ops/delta.py): capacity-bucketed tables
         # and CRUD-event patching.  Off on the rule-sharded path
@@ -393,26 +394,25 @@ class HybridEvaluator:
             return True
 
         t_kernel = time.perf_counter()
-        shards_patched = 0
-        if getattr(kernel_prev, "supports_shard_patch", False):
-            # pod-sharded path: re-slice ONLY the shards owning the
-            # patched set slots; every other shard's host tables (and
-            # this rank's device tables, when its shard is not an owner)
-            # are reused
-            patched_slots = stats.get("patched_slots", [])
-            kernel = kernel_prev.patched(patched, patched_slots)
-            shards_patched = len({
-                min(int(s) // kernel_prev.s_local, kernel_prev.n_shards - 1)
-                for s in patched_slots
-            })
-        else:
-            kernel = PrefilteredKernel(
-                patched, device=self.device, mesh=self.mesh,
-                axis=self.mesh_axis, telemetry=self.telemetry,
-                dynamic_policies=True, shared_jits=self._shared_jits,
-                explain=self.explain,
-            )
-        self._sync_upload()
+        patched_slots = stats.get("patched_slots", [])
+        followers = self._followers
+        gen = None
+        if followers is not None:
+            # the followers build the same kernel meanwhile, from these
+            # very tables: this process's interner holds the strings its
+            # encodes met, so a patch lowered elsewhere could number a
+            # new string otherwise
+            gen = followers.build("patch", kernel_prev._follower_gen,
+                                  patched, [int(x) for x in patched_slots])
+            split["followers_ms"] = (time.perf_counter() - t_kernel) * 1e3
+        try:
+            kernel, shards_patched = self._patch_kernel(
+                kernel_prev, patched, patched_slots)
+            self._sync_upload()
+        except BaseException:
+            if followers is not None:
+                followers.drop(gen)
+            raise
         split["kernel_ms"] = (time.perf_counter() - t_kernel) * 1e3
         t_native = time.perf_counter()
         native_encoder = self._make_native_encoder(patched, kernel)
@@ -421,9 +421,17 @@ class HybridEvaluator:
         cand = self._build_candidate_index()
         split["candidate_index_ms"] = (time.perf_counter() - t_cand) * 1e3
         decoder = self._make_explain_decoder(patched, kernel, tree)
+        if followers is not None:
+            # publish only what every rank has built: a follower's loop
+            # never waits on a build (srv/follower.py)
+            followers.await_built(gen)
         with self._lock:
             if self._version != claimed:
+                if followers is not None:
+                    followers.drop(gen)
                 return False  # a newer refresh superseded this patch
+            if followers is not None:
+                followers.publish(gen, kernel)
             self._version += 1
             patched.version = self._version
             self._compiled = patched
@@ -456,6 +464,25 @@ class HybridEvaluator:
                 self.telemetry.delta.inc("shards_patched", shards_patched)
         return True
 
+    def _patch_kernel(self, kernel_prev, patched, patched_slots) -> tuple:
+        """(kernel over the patched tables, shards re-sliced): on the
+        pod-sharded path only the shards owning the patched set slots are
+        re-sliced, every other shard's host tables (and this rank's
+        device tables, when its shard is not an owner) reused; else a
+        new ``PrefilteredKernel`` on the runners of ``shared_jits``."""
+        if getattr(kernel_prev, "supports_shard_patch", False):
+            kernel = kernel_prev.patched(patched, patched_slots)
+            return kernel, len({
+                min(int(s) // kernel_prev.s_local, kernel_prev.n_shards - 1)
+                for s in patched_slots
+            })
+        return PrefilteredKernel(
+            patched, device=self.device, mesh=self.mesh,
+            axis=self.mesh_axis, telemetry=self.telemetry,
+            dynamic_policies=True, shared_jits=self._shared_jits,
+            explain=self.explain,
+        ), 0
+
     def _sync_upload(self) -> None:
         """Wait for the tables' upload: it must be complete before any
         serving thread can reach them through a swap."""
@@ -483,15 +510,14 @@ class HybridEvaluator:
                 if self.logger:
                     self.logger.exception("async policy compile failed")
 
-    def _compile_and_swap(self, version: int, t0: float) -> None:
-        # snapshot first, compile from the snapshot: the published
-        # (tree, arrays) pair is consistent by construction
-        tree_snapshot = _snapshot(self.engine.policy_sets)
-        caps = state = None
+    def _compile_tables(self, tree, version: int, prev_caps):
+        """(compiled, capacities, delta state) of a tree: bucketed on the
+        delta path (into ``fixed_caps`` where pinned, else buckets that
+        grow from ``prev_caps``), unpadded without it."""
         if self.delta_enabled and self.fixed_caps is not None:
             try:
-                compiled, caps, state = delta_mod.fixed_caps_compile(
-                    tree_snapshot, self.engine.urns, self.fixed_caps,
+                return delta_mod.fixed_caps_compile(
+                    tree, self.engine.urns, self.fixed_caps,
                     version=version,
                 )
             except delta_mod.DeltaIneligible as err:
@@ -503,29 +529,57 @@ class HybridEvaluator:
                         "back to its own capacity buckets",
                         extra={"reason": err.reason},
                     )
-                compiled, caps, state = delta_mod.full_bucketed_compile(
-                    tree_snapshot, self.engine.urns, version=version,
+                return delta_mod.full_bucketed_compile(
+                    tree, self.engine.urns, version=version,
                     prev_caps=None,
                 )
-        elif self.delta_enabled:
-            compiled, caps, state = delta_mod.full_bucketed_compile(
-                tree_snapshot, self.engine.urns, version=version,
-                prev_caps=self._caps,
+        if self.delta_enabled:
+            return delta_mod.full_bucketed_compile(
+                tree, self.engine.urns, version=version,
+                prev_caps=prev_caps,
             )
-        else:
-            compiled = compile_policies(
-                tree_snapshot, self.engine.urns, version=version
-            )
-        kernel = None
-        if compiled.supported and compiled.n_rules > 0:
-            kernel = self._make_kernel(compiled)
-            self._sync_upload()
-        native_encoder = self._make_native_encoder(compiled, kernel)
-        decoder = self._make_explain_decoder(compiled, kernel,
-                                             tree_snapshot)
-        cand = self._build_candidate_index()
+        return compile_policies(tree, self.engine.urns,
+                                version=version), None, None
+
+    def _compile_and_swap(self, version: int, t0: float) -> None:
+        # snapshot first, compile from the snapshot: the published
+        # (tree, arrays) pair is consistent by construction.  The
+        # snapshot is a pickle round trip, which copies the model's plain
+        # dataclasses as ``copy.deepcopy`` does, several times faster on
+        # large trees; its bytes are what the followers compile from
+        data = pickle.dumps(self.engine.policy_sets, pickle.HIGHEST_PROTOCOL)
+        tree_snapshot = pickle.loads(data)
+        prev_caps = self._caps
+        prev_t_cap = getattr(self._kernel, "t_cap", 0)
+        followers = self._followers
+        gen = None
+        if followers is not None:
+            # the followers compile the same tree meanwhile
+            gen = followers.build("tree", data, version, prev_caps,
+                                  prev_t_cap)
+        try:
+            compiled, caps, state = self._compile_tables(
+                tree_snapshot, version, prev_caps)
+            kernel = None
+            if compiled.supported and compiled.n_rules > 0:
+                kernel = self._make_kernel(compiled, prev_t_cap)
+                self._sync_upload()
+            native_encoder = self._make_native_encoder(compiled, kernel)
+            decoder = self._make_explain_decoder(compiled, kernel,
+                                                 tree_snapshot)
+            cand = self._build_candidate_index()
+        except BaseException:
+            if followers is not None:
+                followers.drop(gen)
+            raise
+        if followers is not None:
+            # the old kernel serves on every rank until each has built
+            # this one (srv/follower.py)
+            followers.await_built(gen)
         with self._lock:
             if version >= self._version:  # drop stale compiles
+                if followers is not None:
+                    followers.publish(gen, kernel)
                 self._compiled = compiled
                 self._kernel = kernel
                 self._rq_kernel = None  # lazy: built on first wia batch
@@ -535,6 +589,8 @@ class HybridEvaluator:
                 self._cand = cand
                 self._caps = caps
                 self._delta_state = state
+            elif followers is not None:
+                followers.drop(gen)
         self._delta_counts["full_compiles"] += 1
         self._count_delta("full-compile")
         self._last_visibility_ms = (time.perf_counter() - t0) * 1e3
@@ -596,6 +652,19 @@ class HybridEvaluator:
         CRUD sequence hold byte-identical tables, so their fingerprints
         match: the cluster tier's convergence check.  Equal to the JAX
         evaluator's on the same tree and CRUD sequence."""
+        return self._tables_digest(relations=True)
+
+    def rank_fingerprints(self) -> list:
+        """Each mesh rank's digest of the tables it serves, in rank order
+        (this rank's without the relation-tuple state, which only rank 0
+        holds and encodes): every rank that applied the same builds and
+        swaps gives the same.  One entry on one process."""
+        own = [self._tables_digest(relations=False)]
+        if self._followers is None:
+            return own
+        return own + self._followers.query("fingerprint")
+
+    def _tables_digest(self, relations: bool) -> Optional[str]:
         from hashlib import blake2b
 
         compiled = self._compiled
@@ -621,15 +690,16 @@ class HybridEvaluator:
             # replicas must agree on the sliced tables too
             h.update(sharding["pod_fingerprint"].encode())
         store = getattr(self.engine, "relation_store", None)
-        if store is not None:
+        if store is not None and relations:
             # the relation-tuple state decides relation-bearing rows
             h.update(store.fingerprint().encode())
         return h.hexdigest()
 
-    def _make_kernel(self, compiled):
+    def _make_kernel(self, compiled, prev_t_cap: int = 0):
         """The kernel for a supported compile: pod-sharded, rule-sharded
         or the signature prefilter (which delegates to the dense kernel
-        below MIN_RULES), by the mesh configuration."""
+        below MIN_RULES), by the mesh configuration.  ``prev_t_cap`` is
+        the serving pod kernel's sticky target-row bucket."""
         if self.pod_shards is not None and self.mesh is not None:
             # the SET axis partitions over the model axis with per-shard
             # compacted target subtables
@@ -639,7 +709,7 @@ class HybridEvaluator:
                 compiled, self.mesh, data_axis=self.mesh_axis,
                 model_axis=self.model_axis or "model",
                 shared_jits=self._shared_jits,
-                prev_t_cap=getattr(self._kernel, "t_cap", 0),
+                prev_t_cap=prev_t_cap,
                 explain=self.explain,
             )
         if self.model_axis is not None and self.mesh is not None:
@@ -750,6 +820,9 @@ class HybridEvaluator:
         the JAX package fires them."""
         _faults.fire("device.dispatch")
         with self._dispatch_lock:
+            if self._followers is not None:
+                # in the order the kernel sees it, on every rank
+                self._followers.batch(kernel, batch)
             materialize = kernel.evaluate_async(batch)
         if not _faults.enabled:
             return materialize

@@ -22,20 +22,30 @@ audit-sweep manager in its worker mode (BULK-class cells through the
 batcher).  ``cluster:enabled`` is read by nothing beyond its default,
 as in JAX.
 
+``parallel:data_devices`` / ``model_devices`` / ``pod_shards`` build
+the JAX worker's mesh layouts (the same parsing, validation texts and
+clamps; the devices counted are the ranks of the ``torch.distributed``
+world, which ``python -m access_control_srv_tpu_torch`` joins under
+``cluster:distributed`` before the worker starts, and a worker with a
+layout and no process group has a world of 1).  The worker is rank 0:
+it serves, and every batch, build and swap that reaches its kernel goes
+in one order to the follower loop of every other rank
+(``srv/follower.py``).  ``start`` returns once every rank has compiled
+the tree; ``stop`` stops every follower.
+
 Refused with ``NotImplementedError`` naming the slice that brings them:
-a multi-process world behind the Worker (``cluster:distributed:
-enabled``) and the mesh / model / pod layouts (``parallel:data_devices``
-/ ``model_devices`` / ``pod_shards``), which need the mesh-serving
-slice's follower loop; tenancy and shadow evaluation
-(``tenancy:enabled``, ``shadow:enabled``).  With each of them off, as in
-``cfg/config.json``, the worker holds None in its place, as the JAX
-worker does.
+tenancy and shadow evaluation (``tenancy:enabled``, ``shadow:enabled``).
+With each of them off, as in ``cfg/config.json``, the worker holds None
+in its place, as the JAX worker does.
 """
 
 from __future__ import annotations
 
 import threading
+from datetime import timedelta
 from typing import Optional
+
+import torch.distributed as dist
 
 from ..core.engine import AccessController
 from ..ops.kernel import load_libraries, resolve_device
@@ -70,22 +80,111 @@ def _yaml_list(path: str) -> list[dict]:
 
 
 # config switches whose subsystems this port does not carry yet, with the
-# slice that brings each (ROADMAP A.6-A.7)
+# slice that brings each (ROADMAP A.7)
 _UNPORTED = (
-    ("cluster:distributed:enabled", "a multi-process world behind the "
-     "Worker (the serving rank's follower loop)",
-     "the mesh-serving slice (A.6 part 3)"),
-    ("parallel:data_devices", "a data-parallel mesh through the Worker",
-     "the mesh-serving slice"),
-    ("parallel:model_devices", "a rule-sharded mesh through the Worker",
-     "the mesh-serving slice"),
-    ("parallel:pod_shards", "a pod-sharded mesh through the Worker",
-     "the mesh-serving slice"),
     ("tenancy:enabled", "multi-tenant serving (srv/tenancy.py)",
      "the shadow and tenancy slice (A.7)"),
     ("shadow:enabled", "shadow evaluation (srv/shadow.py)",
      "the shadow and tenancy slice (A.7)"),
 )
+
+
+def parse_devices(cfg: Config, key: str) -> Optional[int]:
+    """A ``parallel:*`` device count as the JAX worker reads it: None when
+    unset, -1 for ``"all"`` / ``-1``, else a positive integer."""
+    n_req = cfg.get(key)
+    if not n_req:
+        return None
+    if isinstance(n_req, str):
+        n_req = n_req.strip().lower()
+    if n_req in ("all", "-1", -1):
+        return -1
+    try:
+        n_req = int(n_req)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"{key} must be a positive integer, -1, or 'all'; "
+            f"got {n_req!r}"
+        ) from None
+    if n_req <= 0:
+        raise ValueError(
+            f"{key} must be a positive integer, -1, or 'all'; "
+            f"got {n_req!r}"
+        )
+    return n_req
+
+
+def mesh_layout(cfg: Config) -> Optional[dict]:
+    """The JAX worker's layout of ``parallel:*`` (its validations and
+    clamps, the device count being the world's ranks): None for one
+    device, else ``{"kind": "pod" | "rule" | "data", "n_data", "n_model"
+    (None on the data layout), "data_axis", "model_axis", "pod_shards",
+    "available"}``.  Raises the JAX worker's ``ValueError`` texts."""
+    n_data_req = parse_devices(cfg, "parallel:data_devices")
+    n_model_req = parse_devices(cfg, "parallel:model_devices")
+    n_pod_req = parse_devices(cfg, "parallel:pod_shards")
+    if n_model_req == -1:
+        raise ValueError(
+            "parallel:model_devices must be an explicit integer "
+            "(the rule-axis shard count is a layout choice, not "
+            "'all available')"
+        )
+    if n_pod_req == -1:
+        raise ValueError(
+            "parallel:pod_shards must be an explicit integer "
+            "(the set-axis shard count is a layout choice, not "
+            "'all available')"
+        )
+    if n_pod_req and n_model_req:
+        raise ValueError(
+            "parallel:pod_shards (set-axis) and "
+            "parallel:model_devices (rule-axis) are mutually "
+            "exclusive layouts for the model mesh axis"
+        )
+    avail = dist.get_world_size() if dist.is_initialized() else 1
+    data_axis = cfg.get("parallel:axis", "data")
+    model_axis = cfg.get("parallel:model_axis", "model")
+    layout = {"data_axis": data_axis, "model_axis": model_axis,
+              "pod_shards": None, "n_model": None, "available": avail}
+    n_shard = n_pod_req or (
+        n_model_req if n_model_req and n_model_req > 1 else None)
+    if n_shard:
+        # pod-sharded (the SET axis over the model axis; n_pod_req == 1
+        # still builds the mesh) or rule-sharded: a 2-axis mesh
+        if n_data_req in (None, -1):
+            n_data = max(1, avail // n_shard)
+        else:
+            # same clamp-to-available contract as the single-axis path
+            n_data = max(1, min(n_data_req, avail // n_shard))
+        layout.update(kind="pod" if n_pod_req else "rule", n_data=n_data,
+                      n_model=n_shard, pod_shards=n_pod_req)
+        return layout
+    if n_data_req:
+        n = avail if n_data_req == -1 else min(n_data_req, avail)
+        layout.update(kind="data", n_data=n)
+        return layout
+    return None
+
+
+_LAYOUT_ACTIVE = {"pod": "pod-sharded mesh active",
+                  "rule": "rule-sharded mesh active",
+                  "data": "data-parallel mesh active"}
+
+
+def build_mesh(layout: dict, device=None):
+    """This rank's ``parallel.Mesh`` of a ``mesh_layout``; its
+    collectives time out as the world's do (``DIST_TIMEOUT_S``)."""
+    from ..parallel import make_mesh, make_mesh2
+    from ..parallel.cluster import DIST_TIMEOUT_S
+
+    timeout = timedelta(seconds=DIST_TIMEOUT_S)
+    if layout["n_model"] is None:
+        return make_mesh(layout["n_data"], axis=layout["data_axis"],
+                         device=device, timeout=timeout)
+    return make_mesh2(layout["n_data"], layout["n_model"],
+                      data_axis=layout["data_axis"],
+                      model_axis=layout["model_axis"], device=device,
+                      timeout=timeout)
 
 
 def _refuse_unported(cfg: Config) -> None:
@@ -125,6 +224,9 @@ class Worker:
         self.offset_store: Optional[OffsetStore] = None
         self.logger = None
         self.mesh = None
+        # srv/follower.Leader: the other ranks' follower loops (None on
+        # one process)
+        self.followers = None
         self.obs = None  # srv/tracing.Observability (None = disabled)
         self.replicator = None
         self.relation_store = None  # srv/relations.RelationTupleStore
@@ -148,9 +250,15 @@ class Worker:
     ) -> "Worker":
         self.cfg = cfg if isinstance(cfg, Config) else Config(cfg or {})
         cfg = self.cfg
-        # the port's refusals come before any thread, socket or file is
-        # opened, so a refused start leaves nothing to stop
+        # the port's refusals and the layout's validation come before any
+        # thread, socket or file is opened, so a refused start leaves
+        # nothing to stop
         _refuse_unported(cfg)
+        layout = mesh_layout(cfg)
+        if dist.is_initialized() and dist.get_rank() != 0:
+            raise ValueError(
+                f"rank {dist.get_rank()} of a distributed world runs the "
+                "follower loop (srv/follower.serve), not a Worker")
         # None = the CUDA device; raises without one
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -285,15 +393,45 @@ class Worker:
             self.engine.create_resource_adapter(
                 adapter_cfg, breaker=self.admission.breaker("adapter")
             )
-        # one device: the mesh / model / pod layouts are refused above
+        # multi-device serving: `parallel:data_devices` (int, or "all")
+        # shards request batches over a data-parallel mesh;
+        # `parallel:model_devices` (int > 1) also shards the RULE axis
+        # of the compiled tables over a second mesh axis
+        # (parallel/rule_shard.py), `parallel:pod_shards` the SET axis
+        # (parallel/pod_shard.py, patched shard-locally).  The devices
+        # are the ranks of the process group; every other rank follows
+        # this one's kernel calls (srv/follower.py).  Unset keeps
+        # single-device dispatch.
         mesh = None
+        model_axis = pod_shards = None
+        if layout is not None:
+            mesh = build_mesh(layout, device)
+            self.device = mesh.device
+            model_axis = layout["model_axis"] if layout["n_model"] else None
+            pod_shards = layout["pod_shards"]
+            self.logger.info(
+                _LAYOUT_ACTIVE[layout["kind"]],
+                extra={"shape": dict(mesh.shape),
+                       "available": layout["available"]},
+            )
         self.mesh = mesh
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            # the other ranks' follower loops: built before the evaluator,
+            # whose first compile they follow
+            from .follower import Leader
+
+            self.followers = Leader(mesh, logger=self.logger)
         self.evaluator = HybridEvaluator(
             self.engine,
             backend=cfg.get("evaluator:backend", "hybrid"),
             logger=self.logger,
             async_compile=bool(cfg.get("evaluator:async_compile", False)),
             telemetry=self.telemetry,
+            mesh=mesh,
+            mesh_axis=layout["data_axis"] if layout else "data",
+            model_axis=model_axis,
+            pod_shards=pod_shards,
+            followers=self.followers,
             decision_cache=self.decision_cache,
             # incremental policy updates (ops/delta.py): in-capacity CRUD
             # deltas patch the bucketed tables; false = full recompiles
@@ -483,6 +621,10 @@ class Worker:
             cfg, worker=self,
             telemetry=self.telemetry, logger=self.logger,
         )
+        if self.followers is not None:
+            # every rank has built the published tables before the caller
+            # opens the serving port
+            self.followers.sync()
         return self
 
     def stop(self) -> None:
@@ -519,6 +661,9 @@ class Worker:
             # join the debounced async-compile worker instead of leaking a
             # thread mid-compile (srv/evaluator.shutdown)
             self.evaluator.shutdown()
+        if getattr(self, "followers", None) is not None:
+            # nothing reaches the kernel any more: every follower stops
+            self.followers.stop()
         if getattr(self, "tenancy", None) is not None:
             self.tenancy.shutdown()
         if getattr(self, "replicator", None) is not None:

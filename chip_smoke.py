@@ -199,7 +199,8 @@ PyTorch version:
    routed ``IsAllowedBatch`` calls of phase 22's rows, byte-equal to the
    same rows sent to replica 0 and 32 sampled rows equal to the oracle,
    both replicas serving, routed decisions/s beside phase 22's direct
-   rate; a 16-ACL-row batch (K4); then through the router a rule flip
+   rate; a 16-ACL-row batch (K4); then through the router (each step
+   sent once the router holds every replica eligible) a rule flip
    and back (patches) and a combining-algorithm change and back
    (fallbacks), each with its time to convergence (every replica on one
    new ``table_fingerprint`` and a probe sent to each showing it) and
@@ -217,7 +218,34 @@ PyTorch version:
    because a reverse query interns its strings into the live compile's
    interner, as in JAX, so a later patch on that replica alone would
    lower on another vocabulary (another fingerprint, the same
-   decisions).
+   decisions);
+25. the mesh layouts behind the Worker: three worlds of four ranks on
+   the card over gloo, every rank started through the entry point
+   (``parallel.cluster.MeshWorld``: ``python -m
+   access_control_srv_tpu_torch --device cuda`` with the
+   ``cluster:distributed`` block; rank 0 serves gRPC, ranks 1-3 run the
+   follower loop, ``srv/follower.py``), each loading its tree from the
+   store's JSON (``database:snapshot_dir``): ``pod_shards: 4`` on
+   ``serve-20k`` (K8), ``model_devices: 2, data_devices: 2`` on
+   ``shard-scale`` (K7), ``data_devices: 4`` on ``scoped_511`` (K6).
+   The worlds boot one after another, each stopped before the next
+   boots, so no other rank shares the card or the host while a world
+   is timed.  Per world: every rank's table
+   fingerprint equal at boot; the launch counts and stage histograms
+   set to 0, then the first ``IsAllowedBatch`` and warm calls (8 of
+   phase 22's 8,192 rows on ``serve-20k``, 3 of 2,048 on the others),
+   every answer byte-equal to the single-device port's (the same
+   transport framing over a single-device evaluator in this process);
+   decisions/s beside phase 22's direct rate, the stages, the launches
+   summed over the ranks and each rank's collectives per batch, the
+   follower channel's bytes and ms per batch.  On ``serve-20k`` also the
+   1,024-row batch with 16 ACL rows, ``CRUD_RULE`` flipped and back
+   through rank 0's ``RuleService`` (each a patch, its time until every
+   rank holds one new fingerprint and a probe shows it), then 64
+   ``WhatIsAllowedBatch`` queries (K5, rank 0 alone) equal to the
+   single device's.  No file under ``_build/`` changes, every error,
+   shed and degraded count is 0, every rank exits 0; 32 sampled rows of
+   each world's first batch (and the ACL rows) equal to the oracle.
 
 After phase 18 the K3 / K4 report: each at (a), (b), (c) and explain on
 / off at phase 18's shapes, through its wrapper (as every kernel is
@@ -256,7 +284,8 @@ launches and times beside their own; ``decide_dense``, ``sig_decide``,
 object) their ``explain`` variant's; ``decide_dense`` K6's;
 ``decide_dense``, ``sig_planes`` and ``sig_decide`` phase 19's launches
 (``wire``) and phase 22's (``grpc``); ``sig_planes`` to ``wia_planes``
-phase 24's, summed over the replicas (``cluster``); the
+phase 24's, summed over the replicas (``cluster``), and K5-K8 phase
+25's, summed over the ranks (``mesh_worker``); the
 redesigned kernels their packed-once and parent times, ``sig_planes``
 and ``wia_planes`` also their launch floor and blocks per SM); the last
 line is
@@ -6145,6 +6174,24 @@ class Replicas:
         self.channels = {}
 
 
+def wait_routable(rep: Replicas) -> float:
+    """Wait until the router holds every replica healthy, not draining
+    and with its breaker closed; returns the seconds waited.  Its health
+    probe times out after 0.5 s, which a replica busy with a full
+    recompile can miss, and a call routed before the next probe lands
+    would find no replica eligible."""
+    t0 = time.perf_counter()
+    while not all(r["healthy"] and not r["draining"]
+                  and r["breaker"] == "closed"
+                  for r in rep.cluster.router.status()["replicas"]):
+        if time.perf_counter() - t0 > CLUSTER_TIMEOUT_S:
+            raise AssertionError(f"phase 24: the router never held every "
+                                 f"replica eligible: "
+                                 f"{rep.cluster.router.status()}")
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
 def cluster_convergence(rep: Replicas, label: str, path: str, msg,
                         probe_batch: bytes, want: int, expect: dict,
                         card: str) -> dict:
@@ -6159,6 +6206,7 @@ def cluster_convergence(rep: Replicas, label: str, path: str, msg,
     before_pu = {a: h["policy_update"]
                  for a, h in rep.each("health_check").items()}
     old_fp = {i["table_fingerprint"] for i in before_ids.values()}
+    routable_s = wait_routable(rep)
     calls = rep.calls_by_replica()
     t0 = time.perf_counter()
     method = path.rsplit("/", 1)[1]
@@ -6197,9 +6245,12 @@ def cluster_convergence(rep: Replicas, label: str, path: str, msg,
                              f"(expected {expect} on every replica), RPC "
                              f"served by {served}")
     out = {"rpc_ms": rpc_ms, "convergence_ms": conv_ms, "polls": polls,
+           "routable_wait_s": routable_s,
            "served_by": served[0], "moved": moved[served[0]],
            "epoch": epochs.pop(), "fingerprint": fps.pop()}
-    log(f"  CRUD {label} through the router on {card}: the RPC "
+    log(f"  CRUD {label} through the router on {card} (sent once the "
+        f"router held every replica eligible, {routable_s:.2f} s after the "
+        f"last step): the RPC "
         f"{rpc_ms:.1f} ms, served by {served[0]}; every replica on one new "
         f"table_fingerprint at epoch {out['epoch']} and the probe "
         f"({CLUSTER_PROBE_ROWS} rows sent to each replica) "
@@ -6464,6 +6515,7 @@ def phase_cluster(device, stats: dict, card: str, serve_pre,
         # the same sweep direct in this process
         rep.each("kernel_launches", {"reset": True})
         paths0 = {a: m["paths"] for a, m in rep.each("metrics").items()}
+        wait_routable(rep)
         wreqs = stress_traffic(GRPC_WIA_QUERIES, seed=29)
         wraw = rep.call(rep.router, "WhatIsAllowedBatch",
                         batch_envelope([wire_bytes(r) for r in wreqs]))
@@ -6571,6 +6623,343 @@ def phase_cluster(device, stats: dict, card: str, serve_pre,
         f"{out['stop_s']:.1f} s; phase 24 took {out['phase_s']:.1f} s on "
         f"{card}")
     return out
+
+
+# phase 25: the mesh layouts behind the Worker, each a world of
+# MESH_RANKS ranks sharing the card over gloo, every rank started through
+# the entry point
+MESH_RANKS = 4
+MESH_TIMEOUT_S = 300.0      # a world's boot, a visibility, a stop
+MESH_WARM_CALLS = 3         # timed calls of worlds two and three
+# (label, parallel block, tree, the kernels its path must launch)
+MESH_WORLDS = (
+    ("pod_shards (1,4)", {"pod_shards": 4}, "serve-20k",
+     ("set_chunk", "shard_tail", "wia_planes")),
+    ("model_devices (2,2)", {"model_devices": 2, "data_devices": 2},
+     "shard-scale", ("rule_chunk", "shard_tail")),
+    ("data_devices (4,1)", {"data_devices": 4}, "scoped_511",
+     ("decide_dense",)),
+)
+
+
+def world_docs(tree: str, n_rules: int) -> dict:
+    """A world's tree as the policy store keeps it: ``serve-20k`` and
+    ``shard-scale`` the seed data's documents then ``stress_doc(n_rules)``'s
+    (what phases 22 / 24 and 15 hold), ``scoped_511`` the scoped stress
+    tree alone."""
+    if tree == "scoped_511":
+        sets, policies, rules = store_docs(stress_doc(n_rules, scoped=True))
+        return {"rules": rules, "policies": policies, "policy_sets": sets}
+    return cluster_seed(n_rules)
+
+
+def mesh_world(device, block: dict, docs: dict, base: str):
+    """A ``MeshWorld`` on ``docs`` (a ``database:snapshot_dir`` the store
+    loads at start) with the ``parallel`` block and phase 22's stage
+    histograms, started (rank 0 serves)."""
+    from access_control_srv_tpu_torch.parallel.cluster import MeshWorld
+
+    snap = os.path.join(base, "db")
+    os.makedirs(snap, exist_ok=True)
+    for kind, key in (("rule", "rules"), ("policy", "policies"),
+                      ("policy_set", "policy_sets")):
+        with open(os.path.join(snap, f"{kind}.json"), "w") as fh:
+            json.dump(docs[key], fh)
+    cfg = {"policies": {"type": "database"},
+           "database": {"snapshot_dir": snap}, "parallel": block,
+           "observability": {"enabled": True, "tracing": {
+               "enabled": True, "sample_rate": 0.0}}}
+    world = MeshWorld(cfg, MESH_RANKS, os.path.join(base, "cfg"),
+                      device=str(device), timeout_s=MESH_TIMEOUT_S)
+    atexit.register(world.stop)
+    return world.start()
+
+
+def single_device_bytes(ev, msgs: list[bytes]) -> bytes:
+    """The ``IsAllowedBatch`` bytes a single-device port Worker on
+    ``ev`` answers: the native wire rows, the rest through
+    ``is_allowed_batch``, framed by the transport's own functions."""
+    from access_control_srv_tpu_torch.srv import transport_grpc as tg
+
+    responses, rows, reqs = tg.decode_native_rows(
+        msgs, ev.is_allowed_batch_wire(msgs))
+    for b, resp in zip(rows, ev.is_allowed_batch(reqs)):
+        responses[b] = tg.response_to_pb(resp)
+    return tg.serialize_batch_response(responses)
+
+
+class WorldChannel(Replicas):
+    """Calls and Commands to a world's rank 0."""
+
+    def __init__(self, world):
+        super().__init__(None)
+        self.world = world
+
+    @property
+    def addrs(self) -> list:
+        return [self.world.addr]
+
+    def rank0(self, name: str, payload=None) -> dict:
+        return self.command(self.world.addr, name, payload)
+
+    def ac(self, method: str, payload: bytes) -> bytes:
+        return self.call(self.world.addr, method, payload)
+
+
+def mesh_window(ch: WorldChannel, batches: int) -> dict:
+    """The launches (summed over the ranks) and each rank's collectives
+    since the counts were set to 0, per kernel batch of the window."""
+    got = ch.rank0("kernel_launches")
+    colls = [r["collectives"] for r in got["by_rank"]]
+    return {"launches": got["launches"],
+            "launches_by_rank": [{k: v for k, v in r["launches"].items() if v}
+                                 for r in got["by_rank"]],
+            "collectives_per_batch": [
+                {k: v / max(1, batches) for k, v in c.items()}
+                for c in colls]}
+
+
+def mesh_visibility(ch: WorldChannel, label: str, msg, probe: bytes,
+                    want: int, card: str) -> dict:
+    """A rule ``Update`` through rank 0, then the time until every rank
+    reports one new table fingerprint and the probe batch answers
+    ``want`` on every row (every rank's kernel on the patched tables);
+    ``delta_stats`` counted one patch."""
+    pb = ch.pb
+    before = ch.rank0("health_check")["policy_update"]
+    old = set(ch.rank0("program_identity")["mesh"]["table_fingerprints"])
+    t0 = time.perf_counter()
+    status = pb.MutationResponse.FromString(ch.call(
+        ch.world.addr, "Update", pb.RuleList(items=[msg])
+        .SerializeToString(), prefix="/acstpu.RuleService/")
+    ).operation_status
+    rpc_ms = (time.perf_counter() - t0) * 1e3
+    if status.code != 200:
+        raise AssertionError(f"phase 25 {label}: {status}")
+    polls = 0
+    while True:
+        polls += 1
+        fps = ch.rank0("program_identity")["mesh"]["table_fingerprints"]
+        if len(set(fps)) == 1 and not set(fps) & old:
+            got = pb.BatchResponse.FromString(ch.ac("IsAllowedBatch", probe))
+            if all(r.decision == want for r in got.responses):
+                break
+        if time.perf_counter() - t0 > MESH_TIMEOUT_S:
+            raise AssertionError(f"phase 25 {label}: not visible on every "
+                                 f"rank in {MESH_TIMEOUT_S} s: {fps}")
+    vis_ms = (time.perf_counter() - t0) * 1e3
+    after = ch.rank0("health_check")["policy_update"]
+    moved = delta_moved(before, after)
+    if moved != {"patches": 1, "recompiles_avoided": 1}:
+        raise AssertionError(f"phase 25 {label}: delta_stats moved {moved}")
+    log(f"  rule {label} through rank 0's RuleService on {card}: the RPC "
+        f"{rpc_ms:.1f} ms, then every rank on one new table fingerprint "
+        f"({fps[0]}) and the probe {pb.Decision.Name(want)} after "
+        f"{vis_ms:.1f} ms (time to visibility on all ranks, {polls} polls); "
+        f"delta_stats moved {json.dumps(moved)}")
+    return {"rpc_ms": rpc_ms, "visibility_ms": vis_ms, "polls": polls,
+            "fingerprint": fps[0]}
+
+
+def phase_mesh_worker(device, card: str, serve_pre,
+                      direct_rate: float, n_rules: int = SERVE_RULES,
+                      rows: int = SERVE_ROWS,
+                      shard_rules: int = SHARD_RULES,
+                      shard_rows: int = SHARD_ROWS) -> dict:
+    """Phase 25 (the module docstring's item 25): the three worlds, one
+    after another, each booted after its single-device yardstick and
+    stopped before the next boots."""
+    from access_control_srv_tpu_torch import native
+    from access_control_srv_tpu_torch.srv import transport_grpc as tg
+
+    t_phase = time.perf_counter()
+    if device.type == "cuda":
+        cuda_build.build(list(SOURCES))
+    native.load()
+    built = build_dir_state()
+    work = tempfile.mkdtemp(prefix="acs-mesh-")
+    atexit.register(shutil.rmtree, work, True)
+    sizes = {"serve-20k": n_rules, "shard-scale": shard_rules,
+             "scoped_511": 511}
+    engine, evaluator, _ = serve_pre
+    out: dict = {"worlds": {}, "launches": {k: 0 for k in kmod.LAUNCHES}}
+    oracle_checks = []
+    for label, block, tree, kernels in MESH_WORLDS:
+        t_world = time.perf_counter()
+        # the world's rows and single-device yardstick
+        if tree == "serve-20k":
+            eng, ev = engine, evaluator
+            reqs = stress_traffic(rows, seed=11)
+        elif tree == "shard-scale":
+            eng = engine_for("seed_data")
+            for ps in load_policy_sets(stress_doc(shard_rules)):
+                eng.update_policy_set(ps)
+            ev = HybridEvaluator(eng, device=device)
+            reqs = stress_traffic(shard_rows, seed=SHARD_SEED)
+        else:
+            eng = engine_for("scoped_511")
+            ev = HybridEvaluator(eng, device=device)
+            reqs = grid_requests(random.Random(5), shard_rows, stress=True)
+        msgs = [wire_bytes(r) for r in reqs]
+        payload = batch_envelope(msgs)
+        want = single_device_bytes(ev, msgs)
+        world = mesh_world(device, block, world_docs(tree, sizes[tree]),
+                           os.path.join(work, tree))
+        ch = WorldChannel(world)
+        res: dict = {"tree": tree, "rows": len(reqs),
+                     "boot_s": world.ready_at - world.spawned_at}
+        try:
+            ident = ch.rank0("program_identity")
+            fps = ident["mesh"]["table_fingerprints"]
+            if len(fps) != MESH_RANKS or len(set(fps)) != 1:
+                raise AssertionError(f"phase 25 {label}: the ranks' table "
+                                     f"fingerprints at boot {fps}")
+            ch.rank0("kernel_launches", {"reset": True})
+            ch.rank0("stage_stats", {"clear": True})
+            first = ch.ac("IsAllowedBatch", payload)
+            if first != want:
+                raise AssertionError(f"phase 25 {label}: the first answer "
+                                     "differs from the single device's")
+            calls = MESH_WARM_CALLS if tree != "serve-20k" else WIRE_BATCHES
+            t0 = time.perf_counter()
+            warm = [ch.ac("IsAllowedBatch", payload) for _ in range(calls)]
+            dt = (time.perf_counter() - t0) / calls
+            if any(w != want for w in warm):
+                raise AssertionError(f"phase 25 {label}: a warm answer "
+                                     "differs from the single device's")
+            res.update(calls=calls, batch_ms=dt * 1e3,
+                       decisions_per_s=len(reqs) / dt,
+                       stages=ch.rank0("stage_stats")["stages"])
+            batches = 1 + calls
+            got = ch.pb.BatchResponse.FromString(first).responses
+            oracle_checks.append((label, eng, reqs, got, ()))
+            if tree == "serve-20k":
+                acl = stress_traffic(1024, seed=37, n_acl=16)
+                acl_msgs = [wire_bytes(r) for r in acl]
+                acl_rows = [i for i, r in enumerate(acl)
+                            if any((x.get("meta") or {}).get("acls")
+                                   for x in r.context.get("resources") or [])]
+                acl_raw = ch.ac("IsAllowedBatch", batch_envelope(acl_msgs))
+                if acl_raw != single_device_bytes(ev, acl_msgs):
+                    raise AssertionError(f"phase 25 {label}: the ACL batch "
+                                         "differs from the single device's")
+                batches += 1
+                oracle_checks.append((label + " ACL", eng, acl,
+                                      ch.pb.BatchResponse.FromString(
+                                          acl_raw).responses, acl_rows))
+            res.update(mesh_window(ch, batches))
+            if tree == "serve-20k":
+                res["crud"] = mesh_crud(ch, label, card)
+                wreqs = stress_traffic(GRPC_WIA_QUERIES, seed=29)
+                ch.rank0("kernel_launches", {"reset": True})
+                wraw = ch.ac("WhatIsAllowedBatch", batch_envelope(
+                    [wire_bytes(r) for r in wreqs]))
+                wgot = ch.pb.BatchReverseQuery.FromString(wraw).responses
+                wwant = ev.what_is_allowed_batch(clone(wreqs))
+                if [w.SerializeToString() for w in wgot] != [
+                        tg.reverse_query_to_pb(w).SerializeToString()
+                        for w in wwant]:
+                    raise AssertionError(f"phase 25 {label}: whatIsAllowed "
+                                         "differs from the single device's")
+                wia = ch.rank0("kernel_launches")["launches"]
+                res["wia_launches"] = {k: v for k, v in wia.items() if v}
+                for k, v in wia.items():
+                    res["launches"][k] += v
+            errs = error_counts(ch.rank0("metrics")["paths"])
+            if errs:
+                raise AssertionError(f"phase 25 {label}: error counts {errs}")
+            missing = [k for k in kernels if not res["launches"].get(k)]
+            if device.type == "cuda" and missing:
+                raise AssertionError(f"phase 25 {label}: the path launched "
+                                     f"no {missing}")
+            if build_dir_state() != built:
+                raise AssertionError(f"phase 25 {label}: a rank built a "
+                                     "library (the files under _build/ "
+                                     "changed)")
+            res["channel"] = ch.rank0("program_identity")["mesh"]["channel"]
+        finally:
+            ch.close()
+            t0 = time.perf_counter()
+            world.stop(timeout_s=MESH_TIMEOUT_S)
+            res["stop_s"] = time.perf_counter() - t0
+        if any(p.returncode != 0 for p in world.procs):
+            raise AssertionError(f"phase 25 {label}: exit codes "
+                                 f"{[p.returncode for p in world.procs]}")
+        for k, v in res["launches"].items():
+            out["launches"][k] += v
+        res["world_s"] = time.perf_counter() - t_world
+        out["worlds"][label] = res
+        ch_stats = res["channel"]
+        log(f"  {label} on {tree} ({len(reqs)} rows): {MESH_RANKS} ranks "
+            f"(python -m access_control_srv_tpu_torch --device {device}, "
+            f"gloo, one card, the only world up) ready "
+            f"{res['boot_s']:.1f} s after the spawn; "
+            f"every answer byte-equal to the single-device port's; "
+            f"{res['decisions_per_s']:.0f} decisions/s over {res['calls']} "
+            f"warm IsAllowedBatch calls ({res['batch_ms']:.3f} ms a call) "
+            f"against phase 22's direct {direct_rate:.0f} on {card}; "
+            f"launches summed over the ranks "
+            f"{json.dumps({k: v for k, v in res['launches'].items() if v})} "
+            f"(by rank {json.dumps(res['launches_by_rank'])}); collectives "
+            f"per kernel batch by rank "
+            f"{json.dumps(res['collectives_per_batch'])}; the follower "
+            f"channel: {ch_stats['batches']} batches, "
+            f"{ch_stats['batch_bytes'] / max(1, ch_stats['batches']):.0f} "
+            f"bytes and {ch_stats['batch_s'] * 1e3 / max(1, ch_stats['batches']):.3f} "
+            f"ms a batch, {ch_stats['messages']} messages in all; stopped in "
+            f"{res['stop_s']:.1f} s, every rank's exit code 0; no file under "
+            f"_build/ changed; error, shed and degraded counts 0")
+        log(f"    stages (rank 0, ms) on {card}: "
+            f"{json.dumps(stage_view(res['stages']))}")
+        if ev is not evaluator:
+            del ev
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    n_oracle = 0
+    for label, eng, reqs, got, always in oracle_checks:
+        idx = sorted(set(random.Random(3).sample(range(len(reqs)), 32))
+                     | set(always))
+        for i, want in zip(idx, oracle_walks(eng, reqs, idx)):
+            if _pb_key(got[i]) != _pb_key(tg.response_to_pb(want)):
+                raise AssertionError(f"phase 25 {label} row {i}: != the "
+                                     "oracle")
+        n_oracle += len(idx)
+    out["checks_s"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  {n_oracle} sampled rows of the worlds' first batches (the ACL "
+        f"rows among them) equal to the oracle ({out['checks_s']:.1f} s); "
+        f"phase 25 took {out['phase_s']:.1f} s on {card}")
+    return out
+
+
+def stage_view(stages: dict) -> dict:
+    """p50 ms per stage of a ``stage_stats`` snapshot."""
+    return {k: v.get("p50_s") and round(v["p50_s"] * 1e3, 4)
+            for k, v in sorted(stages.items()) if v.get("count")}
+
+
+def mesh_crud(ch: WorldChannel, label: str, card: str) -> dict:
+    """World one's patch: ``CRUD_RULE``'s subject flipped to a probe
+    role and back through rank 0, each visible on every rank."""
+    pb = ch.pb
+    rs = "/acstpu.RuleService/"
+    original = pb.RuleListResponse.FromString(ch.call(
+        ch.world.addr, "Read", pb.ReadRequest(ids=[CRUD_RULE])
+        .SerializeToString(), prefix=rs)).items[0]
+    flipped = pb.Rule()
+    flipped.CopyFrom(original)
+    flipped.target.subjects[0].value = "probe-role"
+    probe = clone(stress_traffic(1, seed=31)[0])
+    probe.target.subjects[0].value = "probe-role"
+    probe.context["subject"]["role_associations"][0]["role"] = "probe-role"
+    probe.target.resources[0].value = original.target.resources[0].value
+    probe.target.actions[0].value = original.target.actions[0].value
+    probe_batch = batch_envelope([wire_bytes(probe)] * CLUSTER_PROBE_ROWS)
+    return {step: mesh_visibility(ch, f"{CRUD_RULE} {step}", msg,
+                                  probe_batch, want, card)
+            for step, msg, want in (("flip", flipped, pb.PERMIT),
+                                    ("flip-back", original,
+                                     pb.INDETERMINATE))}
 
 
 def main(argv: list[str]) -> int:
@@ -6791,6 +7180,12 @@ def main(argv: list[str]) -> int:
           f"{CLUSTER_REPLICAS} replicas on the card, the router; serve-20k)")
     clus = phase_cluster(device, sig_stats, card, serve,
                          grpc_out["decisions_per_s"], tier)
+    stamp("phase 25: the mesh layouts behind the Worker (4 ranks on the "
+          "card through the entry point: pod_shards (1,4) on serve-20k, "
+          "model_devices (2,2) on shard-scale, data_devices (4,1) on "
+          "scoped_511)")
+    mesh = phase_mesh_worker(device, card, serve,
+                             grpc_out["decisions_per_s"])
     del serve
     stats["max_abs_err"] = max(stats["max_abs_err"], sig_stats.get(
         "decide_dense", {}).get("max_abs_err", 0))
@@ -6900,6 +7295,9 @@ def main(argv: list[str]) -> int:
         if clus["launches"].get(r["name"]):
             # phase 24's launches, summed over the replica processes
             r["cluster"] = {"launches": clus["launches"][r["name"]]}
+        if mesh["launches"].get(r["name"]):
+            # phase 25's launches, summed over the ranks of the worlds
+            r["mesh_worker"] = {"launches": mesh["launches"][r["name"]]}
         if patched_launches.get(r["name"]):
             # launches on delta-patched tables (phases 15, 22, 23)
             r["patched"] = {"launches": patched_launches[r["name"]]}
@@ -6921,7 +7319,8 @@ def main(argv: list[str]) -> int:
            if k in r},
         **({"with_rel": r["with_rel"]} if "with_rel" in r else {}),
         **{k: r[k] for k in ("explain", "k6", "pod", "wire", "grpc",
-                             "patched", "cluster") if k in r},
+                             "patched", "cluster", "mesh_worker")
+           if k in r},
     } for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

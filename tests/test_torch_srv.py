@@ -226,10 +226,6 @@ def test_admission_on_serves_the_same_bytes_as_off():
 
 
 @pytest.mark.parametrize("key,value,slice_name", [
-    ("cluster", {"distributed": {"enabled": True}}, "mesh-serving"),
-    ("parallel", {"data_devices": 2}, "mesh-serving"),
-    ("parallel", {"model_devices": 2}, "mesh-serving"),
-    ("parallel", {"pod_shards": 2}, "mesh-serving"),
     ("tenancy", {"enabled": True}, "tenancy"),
     ("shadow", {"enabled": True, "candidate_paths": ["x.yml"]}, "tenancy"),
     ("profiling", {"xla_dump_dir": "/nonexistent"}, "torch.profiler"),

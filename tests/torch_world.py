@@ -229,3 +229,67 @@ def run_world(tmp_dir, world: int, cases: list, timeout_s: float = 300.0
                 assert got["responses"] == want["responses"], (rank, key)
                 assert got["explain"] == want["explain"], (rank, key)
     return ranks
+
+
+# the slow follower's build, and its control group's timeout: the build
+# outlasts the timeout, which a blocking wait on it would trip
+SLOW_BUILD_S = 4.0
+SLOW_GROUP_TIMEOUT_S = 2.0
+
+
+def slow_follower_build(rank: int, world: int, out: str) -> None:
+    """Rank 0's ``Leader`` and rank 1's ``Follower`` over a 2-rank
+    ``data_devices`` mesh, the control group's timeout cut to
+    ``SLOW_GROUP_TIMEOUT_S`` and rank 1's tree build slowed past it.
+    Rank 0 sends the seed tree, waits until rank 1 has built it, publishes
+    it, reads rank 1's table fingerprint and stops it; it writes (JSON)
+    whether the wait succeeded, how long it took, the longest single
+    poll, the channel's state and both fingerprints."""
+    import json
+    import time
+
+    from access_control_srv_tpu_torch.srv import follower as fmod
+    from access_control_srv_tpu_torch.srv.config import Config
+    from access_control_srv_tpu_torch.srv.evaluator import HybridEvaluator
+    from access_control_srv_tpu_torch.srv.worker import build_mesh, mesh_layout
+
+    fmod.DIST_TIMEOUT_S = SLOW_GROUP_TIMEOUT_S
+    fmod.HEARTBEAT_S = SLOW_GROUP_TIMEOUT_S / 8
+    cfg = Config({"parallel": {"data_devices": 2}})
+    if rank == 1:
+        build = fmod.Follower._build_tree
+
+        def slow(self, *args):
+            time.sleep(SLOW_BUILD_S)
+            return build(self, *args)
+
+        fmod.Follower._build_tree = slow
+        fmod.Follower(cfg, "cpu").run()
+        return
+    leader = fmod.Leader(build_mesh(mesh_layout(cfg), "cpu"))
+    engine = port_engine({"fixture": "seed_data"})
+    polls = []
+    query = leader.query
+
+    def timed_query(name, **args):
+        t0 = time.monotonic()
+        try:
+            return query(name, **args)
+        finally:
+            polls.append(time.monotonic() - t0)
+
+    leader.query = timed_query
+    t0 = time.monotonic()
+    gen = leader.build("tree", pickle.dumps(engine.policy_sets), 1, None, 0)
+    built = leader.await_built(gen)
+    waited = time.monotonic() - t0
+    leader.publish(gen, None)
+    theirs = leader.query("fingerprint")
+    lost = repr(leader.lost)
+    leader.stop()
+    own = HybridEvaluator(engine, device="cpu")._tables_digest(
+        relations=False)
+    with open(out, "w") as fh:
+        json.dump({"built": built, "waited_s": waited,
+                   "longest_poll_s": max(polls), "lost": lost,
+                   "theirs": theirs, "own": own}, fh)
